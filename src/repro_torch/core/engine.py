@@ -1,0 +1,252 @@
+"""PDES engine (port of ``repro.core.engine``): one API over the backends.
+
+The engine owns the init / chunk / rebase / Kahan / stats logic once and
+dispatches each K-step chunk to a backend.  Every backend consumes the same
+counter event stream keyed on ``(seed, step, trial, pe)`` and rebases on the
+same per-chunk schedule, so trajectories agree bit for bit across backends.
+
+Backends of the port::
+
+    backend            window modes   chunk advance
+    -----------------  -------------  -----------------------------------
+    reference          exact, stale   plain PyTorch, one step at a time
+    pallas_multistep   exact only     CUDA kernel (kernels/pdes_multistep)
+    pallas             -              not ported yet (ROADMAP, queue B, B2)
+    sharded            -              not ported yet (ROADMAP, queue A, A10)
+
+The name ``pallas_multistep`` is the wire name of the fused path in specs,
+``CompatKey`` and responses; in the port the CUDA kernel serves it (on CPU
+tensors its plain PyTorch version).
+
+Window sweeps lay the Δ grid on the ensemble axis (``init_sweep``): one
+pass advances ``n_windows * replicas`` rows, each with its own Δ (the
+``deltas=`` column) and, for the service, its own trial index (a vector
+``trial_base=``).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..device import resolve_device
+from . import horizon
+from .events import counter_bits_block
+from .horizon import PDESConfig, SimState, StepStats
+
+BACKENDS = ("reference", "pallas", "pallas_multistep", "sharded")
+WINDOWS = ("exact", "stale")
+
+_NOT_PORTED = {
+    "pallas": "the one-step kernel pdes_step is not ported yet "
+              "(ROADMAP, queue B, item B2)",
+    "sharded": "the sharded backend is not ported yet "
+               "(ROADMAP, queue A, item A10)",
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    """Static engine parameters.
+
+    Attributes:
+      backend: one of ``BACKENDS``.
+      window: "exact" (per-step GVT) or "stale" (per-chunk GVT base).
+      k_fuse: steps per chunk — the fuse depth and the rebase cadence.
+    """
+
+    backend: str = "reference"
+    window: str = "exact"
+    k_fuse: int = 16
+
+    def __post_init__(self):
+        if self.backend not in BACKENDS:
+            raise ValueError(f"backend must be one of {BACKENDS}, "
+                             f"got {self.backend!r}")
+        if self.window not in WINDOWS:
+            raise ValueError(f"window must be one of {WINDOWS}, "
+                             f"got {self.window!r}")
+        if self.k_fuse < 1:
+            raise ValueError("k_fuse must be >= 1")
+        if self.backend == "pallas_multistep" and self.window == "stale":
+            raise ValueError(
+                "pallas_multistep computes the exact GVT in the kernel each "
+                "step; use backend='reference' for window='stale'")
+
+
+def _make_advance(cfg: PDESConfig, ecfg: EngineConfig, B: int, L: int):
+    """Backend chunk advance ``(tau, step0, seed, k, delta_col, b0)``.
+
+    Returns ``(tau_k, moments)`` with each moment ``(k, B)``.  ``delta_col``
+    is None (static ``cfg.delta``) or a ``(B, 1)`` column; ``b0`` is a Python
+    int (row ``r`` uses trial ``b0 + r``) or a ``(B,)`` tensor of per-row
+    trial indices.  No rebasing inside: the chunk loop owns it.
+    """
+    if ecfg.backend == "reference":
+        stale = ecfg.window == "stale"
+
+        def advance(tau, step0, seed, k, delta_col, b0):
+            gvt0 = torch.amin(tau, dim=-1, keepdim=True)
+            planes = []
+            for s in range(step0, step0 + k):
+                bits = counter_bits_block(seed, s, b0, 0, B, L,
+                                          device=tau.device)
+                is_l, is_r, eta = horizon.decode_events(bits, cfg)
+                tau, update, _ = horizon.step_core(
+                    tau, is_l, is_r, eta, cfg,
+                    gvt_for_window=gvt0 if stale else None,
+                    delta_override=delta_col)
+                planes.append(horizon.ring_moments(tau, update))
+            return tau, {key: torch.stack([m[key] for m in planes])
+                         for key in horizon.MOMENT_KEYS}
+
+    elif ecfg.backend == "pallas_multistep":
+        from ..kernels.pdes_multistep import pdes_multistep_counter
+
+        def advance(tau, step0, seed, k, delta_col, b0):
+            # a (B,) b0 becomes the per-row trial column; ctr's scalar slot
+            # is then unused (zeroed) — the kernel reads the column instead.
+            vec = isinstance(b0, torch.Tensor)
+            ctr = torch.tensor([[seed, step0 & 0xFFFFFFFF,
+                                 0 if vec else b0 & 0xFFFFFFFF, 0]],
+                               dtype=torch.int64)
+            return pdes_multistep_counter(
+                tau, ctr, delta_col, b0[:, None] if vec else None,
+                k_steps=k, n_v=cfg.n_v, delta=cfg.delta,
+                rd_mode=cfg.rd_mode, border_both=cfg.border_both)
+
+    else:
+        raise NotImplementedError(_NOT_PORTED[ecfg.backend])
+
+    return advance
+
+
+def _run_single(state: SimState, seed: int, cfg: PDESConfig,
+                ecfg: EngineConfig, n_steps: int, mode: str, deltas=None,
+                trial_base=0):
+    """The chunk loop: ``record`` | ``mean`` | ``burn`` (see ``repro``)."""
+    B, L = state.tau.shape
+    K = max(1, min(ecfg.k_fuse, n_steps))
+    n_chunks, rem = divmod(n_steps, K)
+    advance = _make_advance(cfg, ecfg, B, L)
+    dtype = state.tau.dtype
+    delta_col = None if deltas is None else deltas.to(dtype)[:, None]
+    tau, off, comp, step = state
+    pieces, acc = [], None
+    for k in [K] * n_chunks + ([rem] if rem else []):
+        tau, moments = advance(tau, step, seed, k, delta_col, trial_base)
+        if mode != "burn":
+            st = horizon.stats_from_moments(moments, off[None, :], L)
+            if mode == "record":
+                pieces.append(st)
+            else:
+                sums = [x.sum(dim=0) for x in st]
+                acc = sums if acc is None else [a + x for a, x in
+                                                zip(acc, sums)]
+        # rebase once per chunk: identical schedule on every backend, so
+        # trajectories stay bitwise comparable
+        shift = torch.amin(tau, dim=-1)
+        tau = tau - shift[:, None]
+        off, comp = horizon._kahan_add(off, comp, shift)
+        step += k
+    out_state = SimState(tau, off, comp, step)
+    if mode == "burn":
+        return out_state, None
+    if mode == "record":
+        return out_state, StepStats(*(torch.cat(xs, dim=0)
+                                      for xs in zip(*pieces)))
+    return out_state, StepStats(*(a / n_steps for a in acc))
+
+
+class PDESEngine:
+    """One entry point for the port's PDES execution paths.
+
+    Args:
+      cfg: the physics (``PDESConfig``).
+      backend: one of ``BACKENDS``; ``pallas`` and ``sharded`` raise
+        ``NotImplementedError`` until their ROADMAP items land.
+      window: "exact" | "stale".
+      k_fuse: chunk depth (fuse and rebase cadence).
+      device: where state lives and the work runs; ``None`` is the GPU
+        (raises without CUDA), ``"cpu"`` the plain PyTorch path.
+    """
+
+    def __init__(self, cfg: PDESConfig, backend: str = "reference", *,
+                 window: str = "exact", k_fuse: int = 16, device=None):
+        self.cfg = cfg
+        self.ecfg = EngineConfig(backend=backend, window=window,
+                                 k_fuse=k_fuse)
+        if backend in _NOT_PORTED:
+            raise NotImplementedError(_NOT_PORTED[backend])
+        self.device = resolve_device(device)
+
+    # -- state ------------------------------------------------------------
+
+    def init(self, n_trials: int) -> SimState:
+        """Fully synchronized initial condition (all clocks equal)."""
+        return horizon.init_state(self.cfg, n_trials, self.device)
+
+    def init_sweep(self, deltas, replicas: int):
+        """Per-Δ rows of a batched window sweep: ``(state, deltas_rows)``.
+
+        Window ``w`` owns rows ``[w*replicas, (w+1)*replicas)``; ``inf``
+        rows run unconstrained.
+        """
+        d = torch.as_tensor([float(x) for x in deltas], dtype=self.cfg.dtype,
+                            device=self.device).repeat_interleave(replicas)
+        return self.init(int(d.shape[0])), d
+
+    # -- runs -------------------------------------------------------------
+
+    def run(self, state: SimState, seed, n_steps: int, *, deltas=None,
+            trial_base=0):
+        """Advance ``n_steps``, recording StepStats per step (n_steps, B).
+
+        ``deltas``: optional (B,) per-row window widths.  ``trial_base``:
+        the counter-stream trial index of row 0, or a (B,) vector of
+        per-row indices (negative entries wrap mod ``2**32``).
+        """
+        return self._dispatch(state, seed, n_steps, "record",
+                              deltas=deltas, trial_base=trial_base)
+
+    def run_mean(self, state: SimState, seed, n_steps: int, *, deltas=None,
+                 trial_base=0):
+        """Advance ``n_steps``; return only time-averaged StepStats (B,)."""
+        return self._dispatch(state, seed, n_steps, "mean",
+                              deltas=deltas, trial_base=trial_base)
+
+    def burn_in(self, state: SimState, seed, n_steps: int, *, deltas=None,
+                trial_base=0) -> SimState:
+        """Advance without recording (reach the steady state)."""
+        return self._dispatch(state, seed, n_steps, "burn",
+                              deltas=deltas, trial_base=trial_base)[0]
+
+    def _dispatch(self, state, seed, n_steps, mode, deltas=None,
+                  trial_base=0):
+        if n_steps < 1:
+            raise ValueError(f"n_steps must be >= 1, got {n_steps}")
+        B = state.tau.shape[0]
+        if state.tau.device != self.device:
+            raise ValueError(f"state lives on {state.tau.device}, engine on "
+                             f"{self.device}")
+        seed = int(seed) & 0xFFFFFFFF
+        if deltas is not None:
+            deltas = torch.as_tensor(deltas, dtype=state.tau.dtype,
+                                     device=self.device)
+            if tuple(deltas.shape) != (B,):
+                raise ValueError(
+                    f"deltas must have shape ({B},) — one window width per "
+                    f"ensemble row — got {tuple(deltas.shape)}")
+        tb = torch.as_tensor(trial_base)
+        if tb.dtype.is_floating_point or tb.ndim not in (0, 1) or (
+                tb.ndim == 1 and tuple(tb.shape) != (B,)):
+            raise ValueError(
+                f"trial_base must be an integer scalar or have shape ({B},) "
+                f"— one stream index per ensemble row — got "
+                f"{tuple(tb.shape)} {tb.dtype}")
+        trial_base = int(tb) if tb.ndim == 0 else \
+            tb.to(device=self.device, dtype=torch.int64)
+        state = SimState(state.tau, state.offset, state.offset_comp,
+                         int(state.step))
+        return _run_single(state, seed, self.cfg, self.ecfg, n_steps, mode,
+                           deltas, trial_base)
