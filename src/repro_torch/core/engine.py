@@ -10,13 +10,16 @@ Backends of the port::
     backend            window modes   chunk advance
     -----------------  -------------  -----------------------------------
     reference          exact, stale   plain PyTorch, one step at a time
-    pallas_multistep   exact only     CUDA kernel (kernels/pdes_multistep)
-    pallas             -              not ported yet (ROADMAP, queue B, B2)
+    pallas             exact, stale   one CUDA kernel per step
+                                      (kernels/pdes_step), bits from the
+                                      plain counter_bits_block
+    pallas_multistep   exact only     one CUDA kernel per K-step chunk
+                                      (kernels/pdes_multistep)
     sharded            -              not ported yet (ROADMAP, queue A, A10)
 
-The name ``pallas_multistep`` is the wire name of the fused path in specs,
-``CompatKey`` and responses; in the port the CUDA kernel serves it (on CPU
-tensors its plain PyTorch version).
+The names ``pallas`` and ``pallas_multistep`` are the wire names of the
+fused paths in specs, ``CompatKey`` and responses; in the port CUDA kernels
+serve them (on CPU tensors their plain PyTorch versions).
 
 Window sweeps lay the Δ grid on the ensemble axis (``init_sweep``): one
 pass advances ``n_windows * replicas`` rows, each with its own Δ (the
@@ -38,8 +41,6 @@ BACKENDS = ("reference", "pallas", "pallas_multistep", "sharded")
 WINDOWS = ("exact", "stale")
 
 _NOT_PORTED = {
-    "pallas": "the one-step kernel pdes_step is not ported yet "
-              "(ROADMAP, queue B, item B2)",
     "sharded": "the sharded backend is not ported yet "
                "(ROADMAP, queue A, item A10)",
 }
@@ -71,7 +72,8 @@ class EngineConfig:
         if self.backend == "pallas_multistep" and self.window == "stale":
             raise ValueError(
                 "pallas_multistep computes the exact GVT in the kernel each "
-                "step; use backend='reference' for window='stale'")
+                "step; use backend='pallas' or 'reference' for "
+                "window='stale'")
 
 
 def _make_advance(cfg: PDESConfig, ecfg: EngineConfig, B: int, L: int):
@@ -82,25 +84,52 @@ def _make_advance(cfg: PDESConfig, ecfg: EngineConfig, B: int, L: int):
     int (row ``r`` uses trial ``b0 + r``) or a ``(B,)`` tensor of per-row
     trial indices.  No rebasing inside: the chunk loop owns it.
     """
+    stale = ecfg.window == "stale"
+
     if ecfg.backend == "reference":
-        stale = ecfg.window == "stale"
+
+        def one(tau, bits, gvt0, delta_col):
+            is_l, is_r, eta = horizon.decode_events(bits, cfg)
+            tau, update, _ = horizon.step_core(
+                tau, is_l, is_r, eta, cfg,
+                gvt_for_window=gvt0 if stale else None,
+                delta_override=delta_col)
+            return tau, horizon.ring_moments(tau, update)
+
+    elif ecfg.backend == "pallas":
+        from ..kernels.ops import ring_halo
+        from ..kernels.pdes_step import pdes_step
+
+        def one(tau, bits, gvt0, delta_col):
+            gvt = gvt0 if stale else torch.amin(tau, dim=-1, keepdim=True)
+            # the per-row Δ folds into the window base: the kernel's rule
+            # is ``tau <= delta + gvt``, so ``gvt + delta_col`` with a static
+            # delta of 0 applies each row's own window, with the same fp32
+            # add as the static-delta path
+            if delta_col is None:
+                gvt_eff, d = gvt, cfg.delta
+            else:
+                gvt_eff, d = gvt + delta_col, 0.0
+            return pdes_step(ring_halo(tau), bits, gvt_eff, n_v=cfg.n_v,
+                             delta=d, rd_mode=cfg.rd_mode,
+                             border_both=cfg.border_both)
+
+    if ecfg.backend in ("reference", "pallas"):
 
         def advance(tau, step0, seed, k, delta_col, b0):
-            gvt0 = torch.amin(tau, dim=-1, keepdim=True)
+            gvt0 = torch.amin(tau, dim=-1, keepdim=True)   # the stale base
             planes = []
             for s in range(step0, step0 + k):
                 bits = counter_bits_block(seed, s, b0, 0, B, L,
                                           device=tau.device)
-                is_l, is_r, eta = horizon.decode_events(bits, cfg)
-                tau, update, _ = horizon.step_core(
-                    tau, is_l, is_r, eta, cfg,
-                    gvt_for_window=gvt0 if stale else None,
-                    delta_override=delta_col)
-                planes.append(horizon.ring_moments(tau, update))
+                tau, m = one(tau, bits, gvt0, delta_col)
+                planes.append(m)
             return tau, {key: torch.stack([m[key] for m in planes])
                          for key in horizon.MOMENT_KEYS}
 
-    elif ecfg.backend == "pallas_multistep":
+        return advance
+
+    if ecfg.backend == "pallas_multistep":
         from ..kernels.pdes_multistep import pdes_multistep_counter
 
         def advance(tau, step0, seed, k, delta_col, b0):
@@ -115,10 +144,9 @@ def _make_advance(cfg: PDESConfig, ecfg: EngineConfig, B: int, L: int):
                 k_steps=k, n_v=cfg.n_v, delta=cfg.delta,
                 rd_mode=cfg.rd_mode, border_both=cfg.border_both)
 
-    else:
-        raise NotImplementedError(_NOT_PORTED[ecfg.backend])
+        return advance
 
-    return advance
+    raise NotImplementedError(_NOT_PORTED[ecfg.backend])
 
 
 def _run_single(state: SimState, seed: int, cfg: PDESConfig,
@@ -163,8 +191,8 @@ class PDESEngine:
 
     Args:
       cfg: the physics (``PDESConfig``).
-      backend: one of ``BACKENDS``; ``pallas`` and ``sharded`` raise
-        ``NotImplementedError`` until their ROADMAP items land.
+      backend: one of ``BACKENDS``; ``sharded`` raises
+        ``NotImplementedError`` until its ROADMAP item lands.
       window: "exact" | "stale".
       k_fuse: chunk depth (fuse and rebase cadence).
       device: where state lives and the work runs; ``None`` is the GPU

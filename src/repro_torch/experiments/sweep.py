@@ -20,24 +20,13 @@ import pathlib
 from typing import Sequence
 
 import numpy as np
-import torch
 
 from ..core import measurement
 from ..core.engine import PDESEngine
-from ..core.ensemble import default_burn_in
+from ..core.ensemble import default_burn_in, sync_if_traced
 from ..core.horizon import PDESConfig
 from ..device import resolve_device
 from ..obs.trace import span as _span
-
-
-def _sync_if_traced(sp, device: torch.device) -> None:
-    """Wait for launched GPU work, but only inside a live span.
-
-    Tracing wants honest phase attribution; untraced runs stay
-    asynchronous.  Values are never affected either way.
-    """
-    if sp is not None and device.type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -232,12 +221,12 @@ def run_window_sweep(spec: WindowSweep, *, device=None,
                 with _span("burn", args=dict(point, steps=burn)) as sp:
                     state = eng.burn_in(state, spec.seed, burn,
                                         deltas=drows, trial_base=grid_base)
-                    _sync_if_traced(sp, dev)
+                    sync_if_traced(sp, dev)
             with _span("measure", args=dict(point,
                                             steps=spec.n_steps)) as sp:
                 _, stats = eng.run(state, spec.seed, spec.n_steps,
                                    deltas=drows, trial_base=grid_base)
-                _sync_if_traced(sp, dev)
+                sync_if_traced(sp, dev)
             with _span("reduce", args=point):
                 red = measurement.sweep_reduce(
                     stats, spec.n_windows, spec.replicas,

@@ -2,11 +2,14 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and compiles on its own
 into ``build/repro_torch/lib<name>-<hash>.so`` at the root of the checkout
-(listed in ``.gitignore``).  The hash covers the source and the flags, so a
-changed source rebuilds and an unchanged one loads the library already
-built.  A build failure raises with the compiler's output; the compiler's
-log (``-Xptxas -v``: registers, shared memory, spills) is kept beside the
-library.
+(listed in ``.gitignore``).  The hash covers the source, every header in
+``csrc/`` (the sources share ``pdes_common.cuh``) and the flags, so a
+changed source or header rebuilds and an unchanged one loads the library
+already built.  A build failure raises with the compiler's output; the
+compiler's log (``-Xptxas -v``: registers, shared memory, spills) is kept
+beside the library.
+
+The launch helpers at the end are shared by the kernel wrappers.
 """
 from __future__ import annotations
 
@@ -17,6 +20,8 @@ import os
 import pathlib
 import shutil
 import subprocess
+
+import torch
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -38,10 +43,11 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> pathlib.Path:
     """Where the shared library of ``csrc/<name>.cu`` is (to be) built."""
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> pathlib.Path:
@@ -65,3 +71,20 @@ def build(name: str) -> pathlib.Path:
 def load(name: str) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>.cu``; one handle per process."""
     return ctypes.CDLL(str(build(name)))
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a launch function returned a CUDA error code."""
+    if err:
+        raise RuntimeError(f"{what}: CUDA error {err}")
+
+
+def stream(dev: torch.device) -> ctypes.c_void_p:
+    """PyTorch's current stream on ``dev``, as the kernels' stream argument."""
+    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+
+
+def u32_bits(x: torch.Tensor) -> torch.Tensor:
+    """Integers wrapped mod 2**32, flattened, as the kernels' uint32 bits."""
+    t = x.to(torch.int64).reshape(-1) & 0xFFFFFFFF
+    return torch.where(t >= 1 << 31, t - (1 << 32), t).to(torch.int32)

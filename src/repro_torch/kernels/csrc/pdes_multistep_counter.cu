@@ -52,56 +52,12 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "pdes_common.cuh"  // hash, site pick, decode, causality, reductions
+
 namespace {
 
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
-constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ uint32_t mix32(uint32_t h) {
-  h ^= h >> 16;
-  h *= 0x85EBCA6Bu;
-  h ^= h >> 13;
-  h *= 0xC2B2AE35u;
-  h ^= h >> 16;
-  return h;
-}
-
-// The first three absorb rounds of counter_words: constant along a row.
-__device__ __forceinline__ uint32_t row_hash(uint32_t seed, uint32_t step,
-                                             uint32_t trial) {
-  uint32_t h = mix32(seed ^ 0x9E3779B9u);
-  h = mix32(h ^ (step * 0x27D4EB2Fu));
-  return mix32(h ^ (trial * 0x165667B1u));
-}
-
-// The port's decode rule (core/horizon.py).  The _rn intrinsics keep the
-// compiler from contracting the multiply and add into one rounding.
-__device__ __forceinline__ float eta_from_w1(uint32_t w1) {
-  const float u = __fmul_rn(__uint2float_rn(w1 >> 8), 5.9604644775390625e-08f);
-  const float x = __fadd_rn(u, 2.98023223876953125e-08f);
-  return __double2float_rn(-log((double)x));
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
-}
-
-__device__ __forceinline__ unsigned warp_sum_u(unsigned v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_min(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fminf(v, __shfl_xor_sync(kFull, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
-  return v;
-}
 
 __global__ void __launch_bounds__(kThreads)
 multistep_counter_kernel(const float* __restrict__ tau_in,
@@ -158,18 +114,14 @@ multistep_counter_kernel(const float* __restrict__ tau_in,
     for (int i = tid; i < L; i += kThreads) {
       const uint32_t h = mix32(hrow ^ ((l0 + (uint32_t)i) * 0xD3A2646Cu));
       const uint32_t w0 = mix32(h ^ 0x68E31DA4u);
-      const uint32_t site = w0 % n_v;
-      const bool is_left = site == 0;
-      const bool is_right = site == n_v - 1;
+      bool is_left, is_right;
+      site_pick(w0, n_v, is_left, is_right);
       const float t = cur[i];
       bool ok = true;
       if (!rd_mode) {
         const float lft = cur[i == 0 ? L - 1 : i - 1];
         const float rgt = cur[i == L - 1 ? 0 : i + 1];
-        if (border_both)
-          ok = !(is_left || is_right) || (t <= lft && t <= rgt);
-        else
-          ok = (!is_left || t <= lft) && (!is_right || t <= rgt);
+        ok = causal_ok(t, lft, rgt, is_left, is_right, border_both);
       }
       const bool upd = ok && (window_off || t <= bound);
       float tn = t;

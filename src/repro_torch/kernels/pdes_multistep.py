@@ -44,21 +44,6 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check(err: int, what: str) -> None:
-    if err:
-        raise RuntimeError(f"{what}: CUDA error {err}")
-
-
-def _stream(dev: torch.device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-
-
-def _u32_bits(x: torch.Tensor) -> torch.Tensor:
-    """Integers wrapped mod 2**32, flattened, as the kernel's uint32 bits."""
-    t = x.to(torch.int64).reshape(-1) & 0xFFFFFFFF
-    return torch.where(t >= 1 << 31, t - (1 << 32), t).to(torch.int32)
-
-
 def pdes_multistep_counter(tau, ctr, delta_col=None, trial_col=None, *,
                            k_steps: int, n_v: int, delta: float,
                            rd_mode: bool = False, border_both: bool = False):
@@ -108,7 +93,7 @@ def pdes_multistep_counter(tau, ctr, delta_col=None, trial_col=None, *,
     dcol = None if delta_col is None else \
         delta_col.to(device=dev, dtype=torch.float32).contiguous()
     tcol = None if trial_col is None else \
-        _u32_bits(trial_col.to(dev)).contiguous()
+        _build.u32_bits(trial_col.to(dev)).contiguous()
     tau_out = torch.empty_like(tau_in)
     stats = torch.empty((len(MOMENT_KEYS), k_steps, B), dtype=torch.float32,
                         device=dev)
@@ -119,8 +104,8 @@ def pdes_multistep_counter(tau, ctr, delta_col=None, trial_col=None, *,
             None if tcol is None else tcol.data_ptr(),
             B, L, k_steps, seed, step0, b0, l0, n_v,
             float(delta),
-            int(rd_mode), int(border_both), _stream(dev))
-    _check(err, "pdes_multistep_counter launch")
+            int(rd_mode), int(border_both), _build.stream(dev))
+    _build.check(err, "pdes_multistep_counter launch")
     launches += 1
     return tau_out, dict(zip(MOMENT_KEYS, stats.unbind(0)))
 
@@ -134,10 +119,11 @@ def decode_eta_cuda(w1: torch.Tensor) -> torch.Tensor:
     """
     if w1.device.type != "cuda" or w1.ndim != 1:
         raise ValueError("decode_eta_cuda takes a 1-d CUDA tensor")
-    words = _u32_bits(w1).contiguous()
+    words = _build.u32_bits(w1).contiguous()
     out = torch.empty(words.shape, dtype=torch.float32, device=w1.device)
     with torch.cuda.device(w1.device):
         err = _lib().decode_eta_launch(words.data_ptr(), out.data_ptr(),
-                                       words.numel(), _stream(w1.device))
-    _check(err, "decode_eta launch")
+                                       words.numel(),
+                                       _build.stream(w1.device))
+    _build.check(err, "decode_eta launch")
     return out

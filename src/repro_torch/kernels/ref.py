@@ -1,8 +1,10 @@
-"""Plain PyTorch oracle for the multistep kernel (port of ``repro.kernels.ref``).
+"""Plain PyTorch oracles for the CUDA kernels (port of ``repro.kernels.ref``).
 
-``pdes_multistep_counter_ref`` repeats the CUDA kernel's arithmetic with
-the shared update core of ``core.horizon``; the kernel wrapper runs it for
-CPU tensors, and ``chip_smoke.py`` holds the kernel against it on the GPU.
+``pdes_step_ref`` (one step on a haloed chunk) and
+``pdes_multistep_counter_ref`` (K exact-GVT steps with the counter stream)
+repeat the kernels' arithmetic with the shared update core of
+``core.horizon``; the kernel wrappers run them for CPU tensors, and
+``chip_smoke.py`` holds each kernel against its oracle on the GPU.
 """
 from __future__ import annotations
 
@@ -10,6 +12,33 @@ import torch
 
 from ..core.events import as_u32, counter_words
 from ..core.horizon import conservative_update, decode_words, ring_moments
+
+
+def decode(bits: torch.Tensor, n_v: int, dtype=torch.float32):
+    """bits ``(..., 2)`` -> (is_left, is_right, eta).  Mirrors the kernels."""
+    return decode_words(bits[..., 0], bits[..., 1], n_v, dtype)
+
+
+def pdes_step_ref(tau_haloed, bits, gvt, *, n_v: int, delta,
+                  rd_mode: bool = False, border_both: bool = False):
+    """Oracle for :func:`repro_torch.kernels.pdes_step.pdes_step`.
+
+    Args:
+      tau_haloed: (B, Lc + 2) with halo columns at ``[:, 0]`` and ``[:, -1]``.
+      bits: (B, Lc, 2) event words for the interior.
+      gvt: (B, 1) window base (exact or stale global virtual time).
+      n_v, delta, rd_mode, border_both: PDES parameters (delta may be inf).
+
+    Returns:
+      (tau_next (B, Lc), update (B, Lc) bool, moments dict of (B,) tensors
+      in ``MOMENT_KEYS`` order).
+    """
+    tau = tau_haloed[:, 1:-1]
+    is_left, is_right, eta = decode(bits, n_v, tau_haloed.dtype)
+    tau_next, update = conservative_update(
+        tau, tau_haloed[:, :-2], tau_haloed[:, 2:], is_left, is_right, eta,
+        gvt, delta=delta, rd_mode=rd_mode, border_both=border_both)
+    return tau_next, update, ring_moments(tau_next, update)
 
 
 def ctr_values(ctr) -> list[int]:
