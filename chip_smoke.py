@@ -28,7 +28,24 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` with
    drain, every response equal to a direct run, stale ``u`` at most exact
    ``u`` + 0.01; (c) ``refine_optimal_window`` through one service; B2's
    launch count read over the phase;
-6. the last lines: one JSON object per kernel (times, bound, launches),
+6. the threefry generator (``kernels/threefry.py``, no TPU counterpart)
+   against its plain version over one K = 16 chunk at B = 448,
+   L = 10,000, bitwise; the plain cipher on the card on the Random123
+   known-answer vectors; the words against JAX's own, committed below;
+   timed;
+7. B3 against its plain version: ``pdes_multistep`` on generator words at
+   B = 448, L = 10,000, K = 16 and a K = 5 remainder chunk over N_V, Δ,
+   ``rd_mode`` and ``border_both``; τ/ucount/min/max bitwise, the sums to
+   tolerance; timed;
+8. B3's path: (a) ``ops.simulate`` for 1024 steps with the kernels against
+   the same call with the plain versions on the card, bitwise; (b)
+   ``simulate`` against ``horizon.run`` at the JAX test's shape and
+   tolerances, and at full width over 64 steps (reported, not bitwise);
+   (c) ``ensemble.steady_state(backend=None)`` against the
+   ``pallas_multistep`` engine at the same depth; B3's and the
+   generator's launch counts on (a), the generator's on (c); a profiler
+   split of three chunks;
+9. the last lines: one JSON object per kernel (times, bound, launches),
    then ``{"ok": true, "device": {...}}``.
 
 Every phase asserts; any failure exits non-zero with no result line.
@@ -85,6 +102,50 @@ STEP_OPS_PER_UPDATE = 6
 BURN_SLICE = 1024
 STEPS_SLICE = 1024
 STEPS_EXACT = 256
+#: Operations of the generator (see the note in its source): 73 integer
+#: operations a word (threefry2x32 and the final xor).
+GEN_OPS_PER_WORD = 73
+#: Operations of B3 (see the note in its source): as B2's, per PE-step and
+#: per PE that updates.
+B3_OPS_PER_PE_STEP = 14
+B3_OPS_PER_UPDATE = 6
+#: Phase 8: the window of B3's path, its simulated steps, the steps of the
+#: full-width simulate/horizon.run comparison, and the cut depth of the
+#: threefry steady state (default_burn_in asks for 23,036 at Δ = 16).
+DELTA_SIM = 16.0
+STEPS_SIM = 1024
+STEPS_CMP = 64
+BURN_THREEFRY = 1024
+STEPS_THREEFRY = 1024
+#: Chunks in the profiled ``simulate`` call of phase 8: the kernel counts
+#: show whether the profiler dropped a launch.
+PROFILE_CHUNKS = 3
+#: JAX's own words: (step, b, l, word 0, word 1) of
+#: repro.core.horizon.event_bits(jax.random.key(7), step, (448, 10000)),
+#: made on the CPU with jax 0.9.0 by
+#:   w = np.asarray(horizon.event_bits(jax.random.key(7), jnp.uint32(step),
+#:                                     (448, 10000)))
+#: and read at w[b, l, 0] and w[b, l, 1].
+JAX_WORDS = [
+    (3, 0, 0, 0x3B38B794, 0x5108BA83),
+    (3, 0, 1, 0xCAA8A765, 0x88E2AE98),
+    (3, 223, 5000, 0x96A28762, 0xB9F3F838),
+    (3, 447, 9998, 0x8DC79F7C, 0x166EC9EF),
+    (3, 447, 9999, 0x60421E03, 0xCA883E06),
+    (2147483647, 0, 0, 0x7BF73FCE, 0x9784C588),
+    (2147483647, 0, 1, 0xC09C994F, 0x25AD6E62),
+    (2147483647, 223, 5000, 0x702F800B, 0xABF74FAC),
+    (2147483647, 447, 9998, 0x014826ED, 0x1D12F2E9),
+    (2147483647, 447, 9999, 0x82F29DDC, 0xB97A3D6B),
+]
+#: Random123's known-answer vectors of threefry2x32: (k0, k1, x0, x1) ->
+#: (y0, y1).
+THREEFRY_KAT = [
+    ((0, 0, 0, 0), (0x6B200159, 0x99BA4EFE)),
+    ((0xFFFFFFFF,) * 4, (0x1CB996FC, 0xBB002BE7)),
+    ((0x13198A2E, 0x03707344, 0x243F6A88, 0x85A308D3),
+     (0xC4923A9C, 0x483DF7A0)),
+]
 
 
 def fail(msg: str) -> int:
@@ -568,6 +629,321 @@ def phase_slice(torch, ps, sweep, api, opt, engine_mod, dev, step_ms):
 
 
 
+def _bound(n_bytes, n_ops):
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = n_ops / SCALAR_OPS_PER_S * 1e3
+    return bytes_ms, ops_ms, dict(
+        bound_ms=max(bytes_ms, ops_ms),
+        bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def phase_generator(torch, tf, prng, dev, timer=cuda_ms):
+    """The generator against its plain version, the KATs and JAX's words."""
+    cols = torch.tensor([k for k, _ in THREEFRY_KAT], device=dev).T
+    y0, y1 = prng.threefry2x32(*cols)
+    got = list(zip(y0.tolist(), y1.tolist()))
+    check(got == [w for _, w in THREEFRY_KAT],
+          f"threefry2x32 fails the known-answer vectors: {got}")
+    key = prng.key(7, dev)
+    shape = (B_MAIN, L_MAIN)
+    step0 = 2**31 - 8                 # the chunk crosses the int32 boundary
+    got = tf.threefry_bits(key, step0, K_MAIN, shape)
+    want = tf.threefry_bits_plain(key, step0, K_MAIN, shape)
+    n_bad = int((got != want).sum())
+    check(n_bad == 0, f"generator differs from the plain version on "
+                      f"{n_bad} words")
+    max_err = float((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+    del want
+    for step in sorted({w[0] for w in JAX_WORDS}):
+        words = tf.threefry_bits(key, step, 1, shape)[0]
+        words = words.to(torch.int64).cpu() & 0xFFFFFFFF
+        for s, b, l, w0, w1 in JAX_WORDS:
+            if s == step:
+                pair = (int(words[b, l, 0]), int(words[b, l, 1]))
+                check(pair == (w0, w1),
+                      f"generator word ({s}, {b}, {l}) {pair} is not JAX's")
+    print(f"[gen] threefry2x32 on the card gives the {len(THREEFRY_KAT)} "
+          f"known-answer vectors; a K={K_MAIN} chunk at B={B_MAIN} "
+          f"L={L_MAIN} (steps {step0}..{step0 + K_MAIN - 1}) equals the "
+          f"plain version on all {got.numel()} words; the {len(JAX_WORDS)} "
+          f"committed JAX words match")
+    del got
+    buf = torch.empty((K_MAIN, B_MAIN, L_MAIN, 2), dtype=torch.int32,
+                      device=dev)
+
+    def kern():
+        return tf.threefry_bits(key, 0, K_MAIN, shape, out=buf)
+
+    def plain():
+        return tf.threefry_bits_plain(key, 0, K_MAIN, shape, out=buf)
+
+    p1 = timer(plain, 2)
+    k1 = timer(kern, 20)
+    k2 = timer(kern, 20)
+    p2 = timer(plain, 2)
+    k_ms, p_ms = min(k1, k2), min(p1, p2)
+    n_words = 2 * K_MAIN * B_MAIN * L_MAIN
+    n_bytes, n_ops = 4 * n_words + 16, GEN_OPS_PER_WORD * n_words
+    bytes_ms, ops_ms, bound = _bound(n_bytes, n_ops)
+    print(f"[gen] K={K_MAIN} chunk at B={B_MAIN} L={L_MAIN}: kernel "
+          f"{k1:.5f} / {k2:.5f} ms, plain {p1:.4f} / {p2:.4f} ms (order "
+          f"plain, kernel, kernel, plain); {n_words / (k_ms * 1e-3):.4g} "
+          f"words/s")
+    print(f"[gen] bound: {n_bytes} bytes -> {bytes_ms:.4g} ms, {n_ops:.4g} "
+          f"operations -> {ops_ms:.4g} ms at 67 T/s; kernel at "
+          f"{bound['bound_ms'] / k_ms:.3f} of the bound")
+    return dict(max_abs_err=max_err, ms=k_ms, plain_ms=p_ms, **bound)
+
+
+def phase_bits_kernel(torch, pm, tf, prng, ref, dev, timer=cuda_ms):
+    """B3 against its plain version on generator words, then timed."""
+    import numpy as np
+    rng = np.random.default_rng(2)
+    tau0 = torch.as_tensor(
+        rng.exponential(4.0, size=(B_MAIN, L_MAIN)).astype(np.float32),
+        device=dev)
+    key = prng.key(7, dev)
+    shape = (B_MAIN, L_MAIN)
+    buf = torch.empty((K_MAIN, *shape, 2), dtype=torch.int32, device=dev)
+    # (n_v, Δ, rd_mode, border_both)
+    cases = [(1, 16.0, False, False), (10, 16.0, False, False),
+             (10, math.inf, False, False), (10, 16.0, True, False),
+             (10, 16.0, False, True)]
+    max_err = 0.0
+    for n_v, delta, rd_mode, border_both in cases:
+        kw = dict(n_v=n_v, delta=delta, rd_mode=rd_mode,
+                  border_both=border_both)
+        tau, step = tau0, 0
+        for k in (K_MAIN, 5):
+            bits = tf.threefry_bits(key, step, k, shape, out=buf[:k])
+            t_k, m_k = pm.pdes_multistep(tau, bits, **kw)
+            t_p, m_p = ref.pdes_multistep_ref(tau, bits, **kw)
+            what = f"{kw} K={k}"
+            check(torch.equal(t_k, t_p), f"tau differs: {what}")
+            for name in m_p:
+                a, b = m_k[name], m_p[name]
+                if name in EXACT_KEYS:
+                    check(torch.equal(a, b), f"{name} differs: {what}")
+                else:
+                    check(torch.allclose(a, b, rtol=SUM_RTOL, atol=SUM_ATOL),
+                          f"{name} beyond tolerance: {what}")
+                max_err = max(max_err, float((a - b).abs().max()))
+            tau, step = t_k, step + k
+    print(f"[b3] tau/ucount/min/max bitwise equal to the plain version over "
+          f"{len(cases)} cases x chunks K={K_MAIN} and K=5 at B={B_MAIN} "
+          f"L={L_MAIN}; max |err| of the sums {max_err:.3g}")
+
+    bits = tf.threefry_bits(key, 0, K_MAIN, shape, out=buf)
+    kw = dict(n_v=N_V_MAIN, delta=DELTA_SIM)
+
+    def kern():
+        return pm.pdes_multistep(tau0, bits, **kw)
+
+    def plain():
+        return ref.pdes_multistep_ref(tau0, bits, **kw)
+
+    p1 = timer(plain, 3)
+    k1 = timer(kern, 20)
+    k2 = timer(kern, 20)
+    p2 = timer(plain, 3)
+    k_ms, p_ms = min(k1, k2), min(p1, p2)
+    pe_steps = B_MAIN * L_MAIN * K_MAIN
+    print(f"[b3] K={K_MAIN} chunk at B={B_MAIN} L={L_MAIN} N_V={N_V_MAIN} "
+          f"delta={DELTA_SIM:g}: kernel {k1:.5f} / {k2:.5f} ms, plain "
+          f"{p1:.4f} / {p2:.4f} ms (order plain, kernel, kernel, plain); "
+          f"{pe_steps / (k_ms * 1e-3):.4g} PE-steps/s")
+    ucount = float(kern()[1]["ucount"].sum())
+    n_bytes = 8 * pe_steps + 8 * B_MAIN * L_MAIN + 4 * 6 * K_MAIN * B_MAIN
+    n_ops = B3_OPS_PER_PE_STEP * pe_steps + B3_OPS_PER_UPDATE * ucount
+    bytes_ms, ops_ms, bound = _bound(n_bytes, n_ops)
+    print(f"[b3] bound: {n_bytes} bytes -> {bytes_ms:.4g} ms, {n_ops:.4g} "
+          f"operations (utilization {ucount / pe_steps:.4f}) -> "
+          f"{ops_ms:.4g} ms; kernel at {bytes_ms / k_ms:.3f} of the bytes "
+          f"bound, {n_bytes / (k_ms * 1e-3) / 1e12:.3f} TB/s")
+    return dict(max_abs_err=max_err, ms=k_ms, plain_ms=p_ms, **bound)
+
+
+def _profile_chunks(torch, ops, state, key, cfg, dev):
+    """Device time by kernel over ``PROFILE_CHUNKS`` K-step ``simulate``
+    chunks, from torch.profiler; None where it gives no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    n_steps = PROFILE_CHUNKS * K_MAIN
+    ops.simulate(state, key, cfg, n_steps, k_fuse=K_MAIN)
+    sync(torch, dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        ops.simulate(state, key, cfg, n_steps, k_fuse=K_MAIN)
+        sync(torch, dev)
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = []
+    for ev in prof.key_averages():
+        if not str(ev.device_type).endswith("CUDA"):
+            continue
+        us = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0.0))
+        if us > 0:
+            rows.append((us, ev.key, ev.count))
+    if not rows:
+        return None
+    rows.sort(reverse=True)
+    return dict(wall_us=wall_us, busy_us=sum(r[0] for r in rows), rows=rows)
+
+
+class plain_simulate:
+    """Within the block, ``ops.simulate`` runs the plain versions of B3 and
+    of the generator on the card, with the same chunking: what the kernels
+    are held against."""
+
+    def __init__(self, ops, ref, tf):
+        self.ops, self.saved = ops, (ops.pdes_multistep, ops.threefry_bits)
+        self.plain = (ref.pdes_multistep_ref, tf.threefry_bits_plain)
+
+    def __enter__(self):
+        self.ops.pdes_multistep, self.ops.threefry_bits = self.plain
+
+    def __exit__(self, *exc):
+        self.ops.pdes_multistep, self.ops.threefry_bits = self.saved
+
+
+def phase_threefry_path(torch, ops, pm, tf, ref, horizon, prng, ensemble,
+                        dev):
+    """B3's path: ``simulate``, ``horizon.run`` and the threefry ensemble."""
+    cfg = horizon.PDESConfig(L=L_MAIN, n_v=N_V_MAIN, delta=DELTA_SIM)
+    key = prng.key(0, dev)
+    st0 = horizon.init_state(cfg, B_MAIN, dev)
+    times = {}
+    sync(torch, dev)
+    pm.bits_launches = tf.launches = 0
+    # (a) simulate with the kernels == with the plain versions, bitwise
+    t0 = time.perf_counter()
+    st_k, out_k = ops.simulate(st0, key, cfg, STEPS_SIM, k_fuse=K_MAIN)
+    sync(torch, dev)
+    times["a_kernels"] = time.perf_counter() - t0
+    a_launches = (pm.bits_launches, tf.launches)
+    check(a_launches == (STEPS_SIM // K_MAIN,) * 2,
+          f"simulate launched B3 and the generator {a_launches} times")
+    with plain_simulate(ops, ref, tf):
+        t0 = time.perf_counter()
+        st_p, out_p = ops.simulate(st0, key, cfg, STEPS_SIM, k_fuse=K_MAIN)
+        sync(torch, dev)
+        times["a_plain"] = time.perf_counter() - t0
+    check((pm.bits_launches, tf.launches) == a_launches,
+          "the plain simulate launched a kernel")
+    for f in ("tau", "offset", "offset_comp"):
+        check(torch.equal(getattr(st_k, f), getattr(st_p, f)),
+              f"simulate {f} differs from the plain versions")
+    for name in ("u", "gvt"):
+        check(torch.equal(out_k[name], out_p[name]),
+              f"simulate {name} differs from the plain versions")
+    check(torch.allclose(out_k["w2"], out_p["w2"], rtol=SUM_RTOL,
+                         atol=SUM_ATOL), "simulate w2 beyond tolerance")
+    u_last = float(out_k["u"][-K_MAIN:].mean())
+    check(0.0 < u_last <= 1.0, u_last)
+    pe_steps = STEPS_SIM * B_MAIN * L_MAIN
+    print(f"[path a] simulate {STEPS_SIM} steps at B={B_MAIN} L={L_MAIN} "
+          f"N_V={N_V_MAIN} delta={DELTA_SIM:g}: kernels "
+          f"{times['a_kernels']:.3f} s ({times['a_kernels'] * 1e3 * K_MAIN / STEPS_SIM:.4f} "
+          f"ms a chunk, {pe_steps / times['a_kernels']:.4g} PE-steps/s), "
+          f"plain {times['a_plain']:.3f} s; tau, offsets, u and gvt "
+          f"bitwise equal, w2 to tolerance; u over the last chunk "
+          f"{u_last:.6f}; launches B3 {a_launches[0]}, generator "
+          f"{a_launches[1]}")
+
+    # (b) simulate against horizon.run: the JAX test's shape and bounds ...
+    small = horizon.PDESConfig(L=64, n_v=4, delta=8.0)
+    for n_steps, k_fuse in ((5, 8), (16, 8), (37, 8), (24, 6)):
+        s0 = horizon.init_state(small, 8, dev)
+        sa, stats_a = horizon.run(s0, prng.key(3, dev), small, n_steps)
+        sb, out_b = ops.simulate(s0, prng.key(3, dev), small, n_steps,
+                                 k_fuse=k_fuse)
+        check(torch.allclose(stats_a.utilization, out_b["u"], rtol=1e-6,
+                             atol=0), f"u: simulate != run ({n_steps})")
+        check(torch.allclose(stats_a.w2, out_b["w2"], rtol=1e-4, atol=1e-4),
+              f"w2: simulate != run ({n_steps})")
+        check(torch.allclose(sa.tau + sa.offset[:, None],
+                             sb.tau + sb.offset[:, None], rtol=1e-5,
+                             atol=1e-4), f"tau: simulate != run ({n_steps})")
+    # ... and at full width from (a)'s burned state: reported, not bitwise
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    sr, stats_r = horizon.run(st_k, key, cfg, STEPS_CMP)
+    sync(torch, dev)
+    times["b_run"] = time.perf_counter() - t0
+    ss, out_s = ops.simulate(st_k, key, cfg, STEPS_CMP, k_fuse=K_MAIN)
+    du = (stats_r.utilization.mean(1) - out_s["u"].mean(1)).abs().max()
+    du = float(du)
+    check(du <= 1e-4, f"ensemble-mean u per step differs by {du}")
+    abs_r = sr.tau.double() + sr.offset.double()[:, None]
+    abs_s = ss.tau.double() + ss.offset.double()[:, None]
+    outside = float(((abs_r - abs_s).abs() > 1e-5 * abs_s.abs()).double()
+                    .mean())
+    spread = (stats_r.max_dev + stats_r.min_dev).max()
+    check(float(spread) <= DELTA_SIM + ETA_MAX, f"spread {float(spread)}")
+    print(f"[path b] simulate == horizon.run at L=64 N_V=4 delta=8 B=8 for "
+          f"(n_steps, k_fuse) in (5, 8), (16, 8), (37, 8), (24, 6) to the "
+          f"JAX test's bounds; at full width over {STEPS_CMP} steps after "
+          f"{STEPS_SIM}: max |ensemble-mean u per step| difference {du:.3g}, "
+          f"share of PEs outside rtol 1e-5 {outside:.6g}; horizon.run "
+          f"{times['b_run'] * 1e3 / STEPS_CMP:.4f} ms a step; largest spread "
+          f"{float(spread):.5g} <= delta + 17.4")
+
+    # (c) the threefry ensemble (backend=None) against pallas_multistep
+    common = dict(n_trials=B_MAIN, seed=0, burn_in_steps=BURN_THREEFRY,
+                  measure_steps=STEPS_THREEFRY, device=dev)
+    steps = BURN_THREEFRY + STEPS_THREEFRY
+    sync(torch, dev)
+    pm.bits_launches = tf.launches = 0
+    t0 = time.perf_counter()
+    tfry = ensemble.steady_state(cfg, backend=None, **common)
+    sync(torch, dev)
+    times["c_threefry"] = time.perf_counter() - t0
+    c_launches = (pm.bits_launches, tf.launches)
+    check(c_launches == (0, steps), f"steady_state(backend=None) launched "
+                                    f"B3 and the generator {c_launches} "
+                                    f"times, not (0, {steps})")
+    t0 = time.perf_counter()
+    ctr = ensemble.steady_state(cfg, backend="pallas_multistep",
+                                engine_opts={"k_fuse": K_MAIN}, **common)
+    sync(torch, dev)
+    times["c_counter"] = time.perf_counter() - t0
+    for rec in (tfry, ctr):
+        check(0.0 < rec.utilization <= 1.0, rec)
+        check(math.isfinite(rec.w2) and math.isfinite(rec.rate), rec)
+    tol = max(0.01, 6 * math.hypot(tfry.utilization_err,
+                                   ctr.utilization_err))
+    diff = abs(tfry.utilization - ctr.utilization)
+    check(diff <= tol, f"threefry u {tfry.utilization} vs counter u "
+                       f"{ctr.utilization}: {diff} > {tol}")
+    print(f"[path c] steady_state at B={B_MAIN} L={L_MAIN} N_V={N_V_MAIN} "
+          f"delta={DELTA_SIM:g}, burn {BURN_THREEFRY} + measure "
+          f"{STEPS_THREEFRY} (default_burn_in {ensemble.default_burn_in(cfg)}"
+          f"): threefry u={tfry.utilization:.6f}+-"
+          f"{tfry.utilization_err:.2g} w={tfry.w:.5g} "
+          f"rate={tfry.rate:.6f} in {times['c_threefry']:.3f} s "
+          f"({times['c_threefry'] * 1e3 / steps:.4f} ms a step); counter "
+          f"stream (pallas_multistep) u={ctr.utilization:.6f}+-"
+          f"{ctr.utilization_err:.2g} w={ctr.w:.5g} rate={ctr.rate:.6f} in "
+          f"{times['c_counter']:.3f} s; |du| {diff:.3g} <= {tol:.3g}; "
+          f"generator launches {c_launches[1]}, one a step")
+    print(f"[path] launches on the simulate path (a): B3 {a_launches[0]}, "
+          f"generator {a_launches[1]}; wall "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in times.items()))
+    prof = _profile_chunks(torch, ops, st_k, key, cfg, dev)
+    if prof is None:
+        print("[path] torch.profiler gave no device time: idle share "
+              "not measured")
+    else:
+        print(f"[path] profiler, {PROFILE_CHUNKS} {K_MAIN}-step simulate "
+              f"chunks at B={B_MAIN}: wall {prof['wall_us'] / 1e3:.3f} ms, "
+              f"device busy {prof['busy_us'] / 1e3:.3f} ms (idle share "
+              f"{1 - prof['busy_us'] / prof['wall_us']:.3f})")
+        for us, name, count in prof["rows"][:8]:
+            print(f"[path] profiler {us / 1e3:9.3f} ms {count:6d}x  "
+                  f"{name[:90]}")
+    return a_launches
+
+
 def main() -> int:
     try:
         import torch
@@ -581,12 +957,13 @@ def main() -> int:
                     f"checkout of the repository")
     sys.path.insert(0, str(root / "src"))
     from repro_torch.core import engine as engine_mod
-    from repro_torch.core import events, horizon
+    from repro_torch.core import ensemble, events, horizon, prng
     from repro_torch.experiments import optimal_window as opt
     from repro_torch.experiments import sweep
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels import pdes_multistep as pm
     from repro_torch.kernels import pdes_step as ps
+    from repro_torch.kernels import threefry as tf
     from repro_torch.obs import trace
     from repro_torch.service import api
 
@@ -596,7 +973,8 @@ def main() -> int:
           f" CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)} x "
           f"{torch.cuda.device_count()}")
     t0 = time.perf_counter()
-    names = ("pdes_multistep_counter", "pdes_step")
+    names = ("pdes_multistep_counter", "pdes_step", "pdes_multistep",
+             "threefry_bits")
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         libs = list(pool.map(_build.build, names))   # one nvcc each, at once
     print(f"[setup] built {', '.join(lib.name for lib in libs)} in "
@@ -618,6 +996,13 @@ def main() -> int:
     b2_launches = phase_slice(torch, ps, sweep, api, opt, engine_mod,
                               "cuda", sstats["ms"])
     t["5 B2 path"] = time.perf_counter() - t0 - sum(t.values())
+    gstats = phase_generator(torch, tf, prng, "cuda")
+    t["6 generator"] = time.perf_counter() - t0 - sum(t.values())
+    b3stats = phase_bits_kernel(torch, pm, tf, prng, ref, "cuda")
+    t["7 B3"] = time.perf_counter() - t0 - sum(t.values())
+    b3_launches, gen_launches = phase_threefry_path(
+        torch, ops, pm, tf, ref, horizon, prng, ensemble, "cuda")
+    t["8 B3 path"] = time.perf_counter() - t0 - sum(t.values())
     print("[setup] phase wall: "
           + ", ".join(f"{k} {v:.2f} s" for k, v in t.items()))
 
@@ -629,7 +1014,15 @@ def main() -> int:
         dict(name="pdes_step", route="cuda",
              source="src/repro_torch/kernels/csrc/pdes_step.cu",
              replaces="src/repro/kernels/pdes_step.py:69",
-             launches=b2_launches, library_ms=None, **sstats)]
+             launches=b2_launches, library_ms=None, **sstats),
+        dict(name="pdes_multistep", route="cuda",
+             source="src/repro_torch/kernels/csrc/pdes_multistep.cu",
+             replaces="src/repro/kernels/pdes_multistep.py:129",
+             launches=b3_launches, library_ms=None, **b3stats),
+        dict(name="threefry_bits", route="cuda",
+             source="src/repro_torch/kernels/csrc/threefry_bits.cu",
+             replaces="jax.random.bits (XLA, outside Pallas)",
+             launches=gen_launches, library_ms=None, **gstats)]
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,1 +1,31 @@
-"""Core PDES dynamics of the port: events, horizon, engine, measurement."""
+"""Core PDES dynamics of the port: events, horizon, engine, measurement.
+
+Exports what ``repro.core`` does, except the ``sharded`` engine (ROADMAP,
+queue A, A10), plus the threefry stream ``prng``.
+"""
+from .horizon import (  # noqa: F401
+    PDESConfig,
+    SimState,
+    StepStats,
+    burn_in,
+    decode_events,
+    event_bits,
+    init_state,
+    measure,
+    run,
+    run_mean,
+    step_core,
+)
+from .measurement import (  # noqa: F401
+    GroupStats,
+    extreme_fluctuations,
+    group_decomposition,
+    progress_rate,
+    recombine_w2,
+    recombine_wa,
+    spread,
+    width,
+    width_abs,
+)
+from . import ensemble, prng, scaling, theory  # noqa: F401
+from .engine import EngineConfig, PDESEngine  # noqa: F401

@@ -1,10 +1,11 @@
 """Ensemble orchestration (port of ``repro.core.ensemble``).
 
-Host-side drivers around ``PDESEngine``: steady states over (L, N_V, Δ)
-and width evolutions, what the paper calls "simulations of the
-simulations".  Only the engine backends are ported: ``backend=None``, the
-``jax.random`` threefry stream of ``repro``, raises until that stream is
-ported (ROADMAP, queue A, item A11).  Every driver takes ``device=``
+Host-side drivers: steady states over (L, N_V, Δ) and width evolutions,
+what the paper calls "simulations of the simulations".  ``backend=None``
+runs ``repro``'s legacy path, the step-by-step ``horizon`` drivers on
+``jax.random``'s threefry stream (``core/prng.py``; on the GPU its words
+come from the generator kernel); an engine backend name routes through
+``PDESEngine`` on the counter stream.  Every driver takes ``device=``
 (``None`` is the GPU, ``"cpu"`` the plain PyTorch path).
 """
 from __future__ import annotations
@@ -16,13 +17,11 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..obs.trace import span as _span
+from . import horizon, prng
 from .horizon import PDESConfig
 from .measurement import to_numpy as _np
-
-_THREEFRY = ("backend=None is repro's jax.random threefry stream, which is "
-             "not ported yet (ROADMAP, queue A, item A11); pass an engine "
-             "backend such as 'pallas_multistep'")
 
 
 def sync_if_traced(sp, device) -> None:
@@ -65,8 +64,6 @@ def default_burn_in(cfg: PDESConfig) -> int:
 
 
 def _engine(cfg, backend, engine_opts, device):
-    if backend is None:
-        raise NotImplementedError(_THREEFRY)
     from .engine import PDESEngine
     return PDESEngine(cfg, backend=backend, device=device,
                       **(engine_opts or {}))
@@ -79,22 +76,38 @@ def steady_state(cfg: PDESConfig, *, n_trials: int = 64, seed: int = 0,
                  device=None) -> SteadyState:
     """Burn in, then time-average StepStats over ``measure_steps``.
 
-    ``backend`` names an engine backend; ``engine_opts`` goes to the
-    ``PDESEngine`` constructor (``window``, ``k_fuse``).
+    ``backend=None`` is the threefry path (``repro``'s trajectories, keyed
+    on ``jax.random.key(seed)`` split into burn and measure keys); an
+    engine backend name routes through ``PDESEngine`` on the counter
+    stream, with ``engine_opts`` for its constructor (``window``,
+    ``k_fuse``).
     """
     if burn_in_steps is None:
         burn_in_steps = default_burn_in(cfg)
     if measure_steps is None:
         measure_steps = max(200, burn_in_steps // 4)
-    eng = _engine(cfg, backend, engine_opts, device)
     point = {"L": cfg.L, "n_v": cfg.n_v, "rows": n_trials}
-    with _span("burn", args=dict(point, steps=burn_in_steps)) as sp:
-        state = eng.burn_in(eng.init(n_trials), seed, burn_in_steps)
-        sync_if_traced(sp, eng.device)
-    g0 = _np(state.offset) + _np(state.tau).min(axis=-1)
-    with _span("measure", args=dict(point, steps=measure_steps)) as sp:
-        state, stats = eng.run_mean(state, seed, measure_steps)
-        sync_if_traced(sp, eng.device)
+    if backend is None:
+        dev = resolve_device(device)
+        k_burn, k_meas = prng.split(prng.key(seed, dev))
+        state = horizon.init_state(cfg, n_trials, dev)
+        with _span("burn", args=dict(point, steps=burn_in_steps)) as sp:
+            state = horizon.burn_in(state, k_burn, cfg, burn_in_steps)
+            sync_if_traced(sp, dev)
+        g0 = _np(state.offset)   # GVT at measurement start (tau rebased)
+        with _span("measure", args=dict(point, steps=measure_steps)) as sp:
+            state, stats = horizon.run_mean(state, k_meas, cfg,
+                                            measure_steps)
+            sync_if_traced(sp, dev)
+    else:
+        eng = _engine(cfg, backend, engine_opts, device)
+        with _span("burn", args=dict(point, steps=burn_in_steps)) as sp:
+            state = eng.burn_in(eng.init(n_trials), seed, burn_in_steps)
+            sync_if_traced(sp, eng.device)
+        g0 = _np(state.offset) + _np(state.tau).min(axis=-1)
+        with _span("measure", args=dict(point, steps=measure_steps)) as sp:
+            state, stats = eng.run_mean(state, seed, measure_steps)
+            sync_if_traced(sp, eng.device)
     with _span("reduce", args=point):
         u = _np(stats.utilization)
         w2 = _np(stats.w2)
@@ -188,13 +201,20 @@ def width_evolution(cfg: PDESConfig, *, n_steps: int, n_trials: int = 64,
                     engine_opts: dict | None = None, device=None):
     """Full <w(t)>, <w_a(t)>, <u(t)> series (Figs. 2, 4, 8).
 
-    Returns a dict of numpy arrays with a leading time axis.
+    Returns a dict of numpy arrays with a leading time axis.  ``backend``
+    is chosen as in :func:`steady_state`.
     """
-    eng = _engine(cfg, backend, engine_opts, device)
     with _span("measure", args={"L": cfg.L, "n_v": cfg.n_v,
                                 "rows": n_trials, "steps": n_steps}) as sp:
-        _, stats = eng.run(eng.init(n_trials), seed, n_steps)
-        sync_if_traced(sp, eng.device)
+        if backend is None:
+            dev = resolve_device(device)
+            _, stats = horizon.run(horizon.init_state(cfg, n_trials, dev),
+                                   prng.key(seed, dev), cfg, n_steps)
+        else:
+            eng = _engine(cfg, backend, engine_opts, device)
+            dev = eng.device
+            _, stats = eng.run(eng.init(n_trials), seed, n_steps)
+        sync_if_traced(sp, dev)
     w2 = _np(stats.w2)
     return {
         "t": np.arange(1, n_steps + 1),

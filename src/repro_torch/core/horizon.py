@@ -6,6 +6,13 @@ conservative causality rule, Eq. (1), the moving-window constraint
 random-deposition limit.  State is dense: ``tau`` is ``(B, L)`` for an
 ensemble of ``B`` rings of ``L`` processing elements.
 
+**The threefry drivers.**  :func:`run`, :func:`run_mean` and
+:func:`burn_in` advance one step at a time on ``jax.random``'s threefry
+stream (:func:`event_bits`, ``core/prng.py``), rebasing every step, as
+``repro.core.horizon`` does; they are the path of the ``backend=None``
+ensemble drivers.  On the GPU the words come from the generator kernel
+(``kernels/threefry.py``) and the rest is plain PyTorch.
+
 **The decode rule.**  The reference takes ``eta = -log(u + 2**-25)`` in
 fp32, and fp32 ``log`` differs by an ulp between frameworks and devices.
 The port fixes one rule, used by its PyTorch code and its CUDA kernel
@@ -29,6 +36,8 @@ import math
 from typing import Any, NamedTuple
 
 import torch
+
+from .events import MASK32
 
 # ---------------------------------------------------------------------------
 # configuration
@@ -195,11 +204,16 @@ def step_core(tau, is_left, is_right, eta, cfg: PDESConfig, *,
 
 
 def measure(tau, update, offset) -> StepStats:
-    """Paper observables from one post-update state (Eqs. 4-5)."""
+    """Paper observables from one post-update state (Eqs. 4-5).
+
+    Utilization is the update count times the fp32 reciprocal of ``L``, as
+    the reference's compiled ``jnp.mean`` computes it, so it matches bit for
+    bit; the other means divide and agree to rounding.
+    """
     mean = tau.mean(dim=-1, keepdim=True)
     dev = tau - mean
     return StepStats(
-        utilization=update.to(tau.dtype).mean(dim=-1),
+        utilization=update.to(tau.dtype).sum(dim=-1) * (1.0 / tau.shape[-1]),
         w2=(dev * dev).mean(dim=-1),
         wa=dev.abs().mean(dim=-1),
         gvt=tau.amin(dim=-1) + offset,
@@ -259,3 +273,68 @@ def _kahan_add(total, comp, x):
     t = total + y
     comp = (t - total) - y
     return t, comp
+
+
+# ---------------------------------------------------------------------------
+# the threefry stream and its step-by-step drivers
+# ---------------------------------------------------------------------------
+
+
+def event_bits(key: torch.Tensor, step: int, shape) -> torch.Tensor:
+    """Event words of one parallel step, ``shape + (2,)``, int64-carried.
+
+    Keyed on ``(key, step)`` as ``repro``'s: ``jax.random.bits(fold_in(key,
+    step), shape + (2,))``.  For a key on the GPU the generator kernel
+    writes the words and they are widened to the int64 carrier the plain
+    decode reads; for a key on the CPU ``prng.random_bits`` computes them.
+    """
+    from ..kernels.threefry import threefry_bits   # kernels import core
+    words = threefry_bits(key, step, 1, tuple(shape))[0]
+    return words.to(torch.int64) & MASK32
+
+
+def _one_step(state: SimState, key: torch.Tensor, cfg: PDESConfig):
+    bits = event_bits(key, state.step, state.tau.shape)
+    is_left, is_right, eta = decode_events(bits, cfg)
+    tau, update, _ = step_core(state.tau, is_left, is_right, eta, cfg)
+    stats = measure(tau, update, state.offset)
+    # rebase so the minimum returns to zero; dynamics are shift-invariant
+    shift = torch.amin(tau, dim=-1, keepdim=True)
+    tau = tau - shift
+    offset, comp = _kahan_add(state.offset, state.offset_comp, shift[..., 0])
+    return SimState(tau, offset, comp, state.step + 1), stats
+
+
+def run(state: SimState, key: torch.Tensor, cfg: PDESConfig, n_steps: int):
+    """Advance ``n_steps`` steps on the threefry stream, recording each.
+
+    Returns ``(final_state, StepStats)`` with each field ``(n_steps, B)``.
+    """
+    key = key.to(state.tau.device)
+    steps = []
+    for _ in range(n_steps):
+        state, stats = _one_step(state, key, cfg)
+        steps.append(stats)
+    return state, StepStats(*(torch.stack(xs) for xs in zip(*steps)))
+
+
+def run_mean(state: SimState, key: torch.Tensor, cfg: PDESConfig,
+             n_steps: int):
+    """Advance ``n_steps`` steps; return the time-averaged StepStats (B,)."""
+    key = key.to(state.tau.device)
+    acc = None
+    for _ in range(n_steps):
+        state, stats = _one_step(state, key, cfg)
+        acc = list(stats) if acc is None else [a + s for a, s in
+                                               zip(acc, stats)]
+    # the reference's compiled mean: a multiply by the fp32 reciprocal
+    return state, StepStats(*(a * (1.0 / n_steps) for a in acc))
+
+
+def burn_in(state: SimState, key: torch.Tensor, cfg: PDESConfig,
+            n_steps: int) -> SimState:
+    """Advance ``n_steps`` steps on the threefry stream without recording."""
+    key = key.to(state.tau.device)
+    for _ in range(n_steps):
+        state, _ = _one_step(state, key, cfg)
+    return state

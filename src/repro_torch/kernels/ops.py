@@ -1,18 +1,22 @@
-"""Ring-level wrappers around the one-step kernel (port of ``repro.kernels.ops``).
+"""Ring-level wrappers around the kernels (port of ``repro.kernels.ops``).
 
 ``ring_halo`` turns full periodic rings into the haloed layout
-``pdes_step`` takes; ``step_ring`` is one exact-GVT step on full rings.
-``simulate`` (the threefry stream over ``pdes_multistep``) waits for the
-port of ``jax.random``'s threefry (ROADMAP, queue A, A11).  The TPU tile
-helpers ``vmem_bytes`` and ``pick_block_b`` have no Hopper counterpart:
-the kernel runs one block per row whatever the row length.
+``pdes_step`` takes; ``step_ring`` is one exact-GVT step on full rings;
+``simulate`` runs ``horizon.run``'s threefry stream in K-fused chunks
+through B3 (``pdes_multistep``), the words of each chunk made by the
+generator kernel (``threefry.threefry_bits``).  The TPU tile helpers
+``vmem_bytes`` and ``pick_block_b`` have no Hopper counterpart: the kernels
+run one block per row whatever the row length.
 """
 from __future__ import annotations
 
 import torch
 
-from ..core.horizon import PDESConfig
+from ..core import horizon
+from ..core.horizon import PDESConfig, SimState
+from .pdes_multistep import pdes_multistep, pdes_multistep_counter  # noqa: F401  (re-export)
 from .pdes_step import pdes_step
+from .threefry import threefry_bits
 
 
 def ring_halo(tau: torch.Tensor) -> torch.Tensor:
@@ -31,3 +35,45 @@ def step_ring(tau: torch.Tensor, bits: torch.Tensor, cfg: PDESConfig):
     gvt = torch.amin(tau, dim=-1, keepdim=True)
     return pdes_step(ring_halo(tau), bits, gvt, n_v=cfg.n_v, delta=cfg.delta,
                      rd_mode=cfg.rd_mode, border_both=cfg.border_both)
+
+
+def simulate(state: SimState, key: torch.Tensor, cfg: PDESConfig,
+             n_steps: int, *, k_fuse: int = 16):
+    """Kernel-path counterpart of ``horizon.run`` (exact algorithm).
+
+    Runs ``n_steps`` in chunks of ``k_fuse`` steps and a remainder chunk:
+    the chunk's words (``threefry_bits``, keyed as ``horizon.event_bits``,
+    into one buffer reused by every chunk), K fused steps of B3, the
+    per-step (utilization, w2, gvt) through ``horizon.stats_from_moments``,
+    and one rebase per chunk with the Kahan offset.  Unlike ``repro``'s, it
+    honours ``cfg.border_both``.  ``horizon.run`` rebases every step, so
+    the two agree only to rounding.
+
+    Returns ``(final SimState, dict of (n_steps, B) tensors: u, w2, gvt)``.
+    """
+    if n_steps < 1 or k_fuse < 1:
+        raise ValueError(f"need n_steps >= 1 and k_fuse >= 1, got "
+                         f"{n_steps} and {k_fuse}")
+    tau, off, comp, step = state
+    B, L = tau.shape
+    key = key.to(tau.device)
+    n_chunks, rem = divmod(n_steps, k_fuse)
+    buf = torch.empty((min(k_fuse, n_steps), B, L, 2), dtype=torch.int32,
+                      device=tau.device)
+    outs = {"u": [], "w2": [], "gvt": []}
+    for k in [k_fuse] * n_chunks + ([rem] if rem else []):
+        bits = threefry_bits(key, step, k, (B, L), out=buf[:k])
+        tau, moments = pdes_multistep(
+            tau, bits, n_v=cfg.n_v, delta=cfg.delta, rd_mode=cfg.rd_mode,
+            border_both=cfg.border_both)
+        st = horizon.stats_from_moments(moments, off[None, :], L)
+        outs["u"].append(st.utilization)
+        outs["w2"].append(st.w2)
+        outs["gvt"].append(st.gvt)
+        # rebase once per chunk (fp32 hygiene; see horizon.SimState)
+        shift = torch.amin(tau, dim=-1)
+        tau = tau - shift[:, None]
+        off, comp = horizon._kahan_add(off, comp, shift)
+        step += k
+    return SimState(tau, off, comp, step), \
+        {name: torch.cat(xs, dim=0) for name, xs in outs.items()}

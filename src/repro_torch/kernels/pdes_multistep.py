@@ -1,15 +1,22 @@
-"""K-step PDES kernel with the event stream generated in-kernel (Hopper).
+"""K-step exact-GVT PDES kernels on full rings (Hopper).
 
-Port of ``repro.kernels.pdes_multistep.pdes_multistep_counter``, the
-engine's fast path (backend ``"pallas_multistep"``).  On a CUDA tensor the
-wrapper launches the hand-written kernel in
-``csrc/pdes_multistep_counter.cu`` (one block per ring, the ring
-double-buffered in shared memory for all K steps; see the note there for
-its bound) or raises; on a CPU tensor it runs the plain PyTorch version,
-``ref.pdes_multistep_counter_ref``.  There is no other path.
+Ports of ``repro.kernels.pdes_multistep``:
 
-``launches`` counts kernel launches, so a run can show that its main path
-went through the kernel.
+* :func:`pdes_multistep_counter` (B1), the engine's fast path (backend
+  ``"pallas_multistep"``), with the counter stream hashed in the kernel
+  (``csrc/pdes_multistep_counter.cu``);
+* :func:`pdes_multistep` (B3), the path of ``ops.simulate``, with the
+  event words read from device memory one step at a time
+  (``csrc/pdes_multistep.cu``).
+
+Both kernels run one block per ring, the ring double-buffered in shared
+memory for all K steps (``csrc/pdes_ring.cuh``; see the notes in the
+sources for their bounds).  On a CUDA tensor a wrapper launches its kernel
+or raises; on a CPU tensor it runs the plain PyTorch version in ``ref``.
+There is no other path.
+
+``launches`` (B1) and ``bits_launches`` (B3) count kernel launches, so a
+run can show that its main path went through the kernel.
 """
 from __future__ import annotations
 
@@ -20,13 +27,16 @@ import torch
 from ..core import horizon
 from ..core.horizon import MOMENT_KEYS
 from . import _build
-from .ref import ctr_values, pdes_multistep_counter_ref
+from .ref import ctr_values, pdes_multistep_counter_ref, pdes_multistep_ref
 from .tiling import check_ring_fits
 
 #: Kernel launches made by :func:`pdes_multistep_counter` in this process.
 launches = 0
+#: Kernel launches made by :func:`pdes_multistep` in this process.
+bits_launches = 0
 
 _LIB = "pdes_multistep_counter"
+_BITS_LIB = "pdes_multistep"
 
 
 def _lib() -> ctypes.CDLL:
@@ -42,6 +52,85 @@ def _lib() -> ctypes.CDLL:
                       ctypes.c_void_p]
         g.restype = ctypes.c_int
     return lib
+
+
+def _bits_lib() -> ctypes.CDLL:
+    lib = _build.load(_BITS_LIB)
+    f = lib.pdes_multistep_launch
+    if f.argtypes is None:
+        f.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+                      + [ctypes.c_uint32, ctypes.c_float]
+                      + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+        f.restype = ctypes.c_int
+    return lib
+
+
+def _check_tau(tau) -> None:
+    if tau.ndim != 2 or tau.dtype != torch.float32:
+        raise ValueError(f"tau must be (B, L) float32, got "
+                         f"{tuple(tau.shape)} {tau.dtype}")
+
+
+def _refuse_eta_override() -> None:
+    if horizon.eta_override_active():
+        raise RuntimeError("the CUDA kernel decodes eta itself and cannot "
+                           "honour horizon.eta_override")
+
+
+def pdes_multistep(tau, bits, *, n_v: int, delta: float,
+                   rd_mode: bool = False, border_both: bool = False):
+    """K fused exact-GVT steps on full rings, the words read from memory.
+
+    Args:
+      tau: (B, L) float32 full rings (periodic).
+      bits: (K, B, L, 2) event words of the K steps as int32 uint32 bit
+        patterns, as ``threefry.threefry_bits`` makes them; the plain
+        version on CPU tensors also takes int64-carried uint32 values.
+      n_v: sites per PE.
+      delta: static window width; ``inf`` turns the window rule off.
+
+    Returns:
+      (tau (B, L), dict of six (K, B) moment planes in ``MOMENT_KEYS``
+      order), each step's moments measured after its update.
+    """
+    global bits_launches
+    _check_tau(tau)
+    B, L = tau.shape
+    if bits.ndim != 4 or tuple(bits.shape[1:]) != (B, L, 2) or \
+            bits.shape[0] < 1 or bits.dtype not in (torch.int32,
+                                                    torch.int64):
+        raise ValueError(f"bits must be (K, {B}, {L}, 2) int32 or int64 "
+                         f"with K >= 1, got {tuple(bits.shape)} {bits.dtype}")
+    if n_v < 1:
+        raise ValueError(f"n_v must be >= 1, got {n_v}")
+    if bits.device != tau.device:
+        raise ValueError(f"tau and bits must share a device, got "
+                         f"{tau.device} and {bits.device}")
+    kw = dict(n_v=n_v, delta=delta, rd_mode=rd_mode, border_both=border_both)
+    if tau.device.type == "cpu":
+        return pdes_multistep_ref(tau, bits, **kw)
+    if tau.device.type != "cuda":
+        raise ValueError(f"unsupported device {tau.device}")
+    _refuse_eta_override()
+    check_ring_fits(L)
+    K = bits.shape[0]
+    dev = tau.device
+    if bits.dtype != torch.int32:
+        raise ValueError(f"on the GPU, bits must be int32 bit patterns, got "
+                         f"{bits.dtype}")
+    words = bits.contiguous()
+    tau_in = tau.contiguous()
+    tau_out = torch.empty_like(tau_in)
+    stats = torch.empty((len(MOMENT_KEYS), K, B), dtype=torch.float32,
+                        device=dev)
+    with torch.cuda.device(dev):
+        err = _bits_lib().pdes_multistep_launch(
+            tau_in.data_ptr(), words.data_ptr(), tau_out.data_ptr(),
+            stats.data_ptr(), B, L, K, n_v, float(delta), int(rd_mode),
+            int(border_both), _build.stream(dev))
+    _build.check(err, "pdes_multistep launch")
+    bits_launches += 1
+    return tau_out, dict(zip(MOMENT_KEYS, stats.unbind(0)))
 
 
 def pdes_multistep_counter(tau, ctr, delta_col=None, trial_col=None, *,
@@ -65,9 +154,7 @@ def pdes_multistep_counter(tau, ctr, delta_col=None, trial_col=None, *,
       order), each step's moments measured after its update.
     """
     global launches
-    if tau.ndim != 2 or tau.dtype != torch.float32:
-        raise ValueError(f"tau must be (B, L) float32, got "
-                         f"{tuple(tau.shape)} {tau.dtype}")
+    _check_tau(tau)
     B, L = tau.shape
     if k_steps < 1:
         raise ValueError(f"k_steps must be >= 1, got {k_steps}")
@@ -83,9 +170,7 @@ def pdes_multistep_counter(tau, ctr, delta_col=None, trial_col=None, *,
             delta=delta, rd_mode=rd_mode, border_both=border_both)
     if tau.device.type != "cuda":
         raise ValueError(f"unsupported device {tau.device}")
-    if horizon.eta_override_active():
-        raise RuntimeError("the CUDA kernel decodes eta itself and cannot "
-                           "honour horizon.eta_override")
+    _refuse_eta_override()
     check_ring_fits(L)
     seed, step0, b0, l0 = ctr_values(ctr)
     dev = tau.device

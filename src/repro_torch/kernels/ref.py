@@ -1,6 +1,7 @@
 """Plain PyTorch oracles for the CUDA kernels (port of ``repro.kernels.ref``).
 
-``pdes_step_ref`` (one step on a haloed chunk) and
+``pdes_step_ref`` (one step on a haloed chunk), ``pdes_multistep_ref`` (K
+exact-GVT steps on bits read from memory) and
 ``pdes_multistep_counter_ref`` (K exact-GVT steps with the counter stream)
 repeat the kernels' arithmetic with the shared update core of
 ``core.horizon``; the kernel wrappers run them for CPU tensors, and
@@ -10,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from ..core.events import as_u32, counter_words
+from ..core.events import MASK32, as_u32, counter_words
 from ..core.horizon import conservative_update, decode_words, ring_moments
 
 
@@ -64,6 +65,34 @@ def _multistep_body(n_v, delta, rd_mode, border_both, dtype):
     return body
 
 
+def _stack_planes(planes: list) -> dict:
+    return {key: torch.stack([m[key] for m in planes]) for key in planes[0]}
+
+
+def pdes_multistep_ref(tau, bits, *, n_v: int, delta, rd_mode: bool = False,
+                       border_both: bool = False):
+    """Oracle for :func:`repro_torch.kernels.pdes_multistep.pdes_multistep`.
+
+    Args:
+      tau: (B, L) full rings (periodic).
+      bits: (K, B, L, 2) event words of the K steps, int64-carried uint32 or
+        int32 uint32 bit patterns (as ``threefry.threefry_bits`` makes them).
+      n_v, delta, rd_mode, border_both: PDES parameters (static ``delta``;
+        ``inf`` turns the window rule off).
+
+    Returns:
+      (tau (B, L), dict of six (K, B) moments in ``MOMENT_KEYS`` order),
+      each step's moments measured after its update.
+    """
+    body = _multistep_body(n_v, delta, rd_mode, border_both, tau.dtype)
+    planes = []
+    for words in bits.unbind(0):
+        words = words.to(torch.int64) & MASK32
+        tau, m = body(tau, words[..., 0], words[..., 1])
+        planes.append(m)
+    return tau, _stack_planes(planes)
+
+
 def pdes_multistep_counter_ref(tau, ctr, delta_col=None, trial_col=None, *,
                                k_steps: int, n_v: int, delta: float,
                                rd_mode: bool = False,
@@ -89,5 +118,4 @@ def pdes_multistep_counter_ref(tau, ctr, delta_col=None, trial_col=None, *,
         w0, w1 = counter_words(seed, (step0 + k) & 0xFFFFFFFF, bi, li)
         tau, m = body(tau, w0, w1)
         planes.append(m)
-    return tau, {key: torch.stack([m[key] for m in planes])
-                 for key in planes[0]}
+    return tau, _stack_planes(planes)

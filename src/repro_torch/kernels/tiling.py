@@ -1,10 +1,10 @@
 """Block sizing for the Hopper kernels (port of ``repro.kernels.tiling``).
 
 The TPU kernels budget 8 MiB of VMEM per tile; on Hopper the scarce
-resource is a block's shared memory.  The multistep kernel runs one block
-per ring and keeps the ring double-buffered in shared memory (``tau`` and
-``tau'``, 8 bytes per PE), so the ring length is bounded by what one block
-may hold.  Rings longer than :data:`MAX_RING_L` would need a split across a
+resource is a block's shared memory.  The multistep kernels (B1, B3) run
+one block per ring and keep the ring double-buffered in shared memory
+(``tau`` and ``tau'``, 8 bytes per PE), so the ring length is bounded by
+what one block may hold.  Rings longer than :data:`MAX_RING_L` would need a split across a
 thread-block cluster (ROADMAP, later work).
 """
 from __future__ import annotations

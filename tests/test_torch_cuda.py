@@ -11,11 +11,11 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import horizon
+from repro_torch.core import ensemble, horizon, prng
 from repro_torch.core.engine import PDESEngine
 from repro_torch.core.horizon import PDESConfig
 from repro_torch.core.events import counter_bits_block
-from repro_torch.kernels import ops, ref, tiling
+from repro_torch.kernels import ops, ref, threefry, tiling
 from repro_torch.kernels import pdes_multistep as pm
 from repro_torch.kernels import pdes_step as ps
 
@@ -169,3 +169,132 @@ def test_pallas_backend_agrees_on_the_gpu(dev, window, other):
     assert torch.equal(sa.tau, sb.tau) and torch.equal(sa.offset, sb.offset)
     assert torch.equal(a.utilization, b.utilization)
     assert torch.equal(a.gvt, b.gvt)
+
+
+#: JAX's own words: (step, b, l, word 0, word 1) of
+#: ``repro.core.horizon.event_bits(jax.random.key(7), step, (448, 10000))``
+#: (made on the CPU with jax 0.9.0; the same table is in chip_smoke.py).
+JAX_WORDS = [
+    (3, 0, 0, 0x3B38B794, 0x5108BA83),
+    (3, 0, 1, 0xCAA8A765, 0x88E2AE98),
+    (3, 223, 5000, 0x96A28762, 0xB9F3F838),
+    (3, 447, 9998, 0x8DC79F7C, 0x166EC9EF),
+    (3, 447, 9999, 0x60421E03, 0xCA883E06),
+    (2147483647, 0, 0, 0x7BF73FCE, 0x9784C588),
+    (2147483647, 223, 5000, 0x702F800B, 0xABF74FAC),
+    (2147483647, 447, 9999, 0x82F29DDC, 0xB97A3D6B),
+]
+
+
+@pytest.mark.parametrize("B,L,K,step0", [(16, 1000, 4, 2**31 - 2),
+                                         (3, 37, 5, 0), (1, 1, 1, 7)])
+def test_generator_matches_plain_version(dev, B, L, K, step0):
+    key = prng.key(-3, dev)
+    before = threefry.launches
+    got = threefry.threefry_bits(key, step0, K, (B, L))
+    assert threefry.launches == before + 1
+    want = threefry.threefry_bits_plain(key, step0, K, (B, L))
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+
+
+def test_generator_matches_jax_words(dev):
+    key = prng.key(7, dev)
+    for step in sorted({w[0] for w in JAX_WORDS}):
+        words = threefry.threefry_bits(key, step, 1, (448, 10000))[0]
+        words = words.to(torch.int64).cpu() & 0xFFFFFFFF
+        for s, b, l, w0, w1 in JAX_WORDS:
+            if s == step:
+                assert (int(words[b, l, 0]), int(words[b, l, 1])) == \
+                    (w0, w1), (s, b, l)
+
+
+def test_event_bits_on_the_gpu_equal_the_cpu(dev):
+    before = threefry.launches
+    got = horizon.event_bits(prng.key(11, dev), 2**31 - 1, (5, 33))
+    assert threefry.launches == before + 1
+    want = horizon.event_bits(prng.key(11), 2**31 - 1, (5, 33))
+    assert got.dtype == torch.int64 and torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("n_v,rd_mode,border_both,delta", [
+    (1, False, False, 16.0), (10, False, False, 16.0),
+    (10, False, False, math.inf), (10, True, False, 4.0),
+    (3, False, True, 2.0)])
+@pytest.mark.parametrize("B,L,K", [(16, 1000, 6), (3, 37, 5),
+                                   (2, tiling.MAX_RING_L, 3)])
+def test_bits_kernel_matches_plain_version(dev, n_v, rd_mode, border_both,
+                                           delta, B, L, K):
+    tau, _, _ = _inputs(dev, B, L)
+    bits = threefry.threefry_bits(prng.key(5, dev), 2**32 - 2, K, (B, L))
+    kw = dict(n_v=n_v, delta=delta, rd_mode=rd_mode, border_both=border_both)
+    before = pm.bits_launches
+    got = pm.pdes_multistep(tau, bits, **kw)
+    assert pm.bits_launches == before + 1
+    want = ref.pdes_multistep_ref(tau, bits, **kw)
+    torch.cuda.synchronize()
+    _assert_step_equal(got, want)
+
+
+def test_bits_kernel_refuses_eta_override_and_long_rings(dev):
+    tau = torch.zeros(2, 8, device=dev)
+    bits = torch.zeros(1, 2, 8, 2, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="int32"):     # no int64 carrier
+        pm.pdes_multistep(tau, bits.to(torch.int64), n_v=1, delta=1.0)
+    with horizon.eta_override(np.zeros(1 << 24, np.float32)):
+        with pytest.raises(RuntimeError, match="eta_override"):
+            pm.pdes_multistep(tau, bits, n_v=1, delta=1.0)
+        with pytest.raises(RuntimeError, match="eta_override"):
+            ops.simulate(horizon.init_state(PDESConfig(L=8), 2, dev),
+                         prng.key(0, dev), PDESConfig(L=8), 4)
+    L = tiling.MAX_RING_L + 1
+    with pytest.raises(ValueError, match="shared memory"):
+        pm.pdes_multistep(torch.zeros(1, L, device=dev),
+                          torch.zeros(1, 1, L, 2, dtype=torch.int32,
+                                      device=dev), n_v=1, delta=1.0)
+
+
+def test_bits_kernel_launch_failure_raises(dev, monkeypatch):
+    """A refused launch raises; nothing falls back to the plain version."""
+    monkeypatch.setattr(pm, "check_ring_fits", lambda L: None)
+    L = tiling.MAX_RING_L + 1000          # more shared memory than a block has
+    before = pm.bits_launches
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        pm.pdes_multistep(torch.zeros(1, L, device=dev),
+                          torch.zeros(1, 1, L, 2, dtype=torch.int32,
+                                      device=dev), n_v=1, delta=1.0)
+    assert pm.bits_launches == before
+
+
+def test_simulate_kernels_equal_plain_version(dev, monkeypatch):
+    cfg = PDESConfig(L=512, n_v=4, delta=16.0)
+    st0 = horizon.init_state(cfg, 8, dev)
+    key = prng.key(3, dev)
+    b3, gen = pm.bits_launches, threefry.launches
+    sk, ok = ops.simulate(st0, key, cfg, 37, k_fuse=8)
+    assert (pm.bits_launches - b3, threefry.launches - gen) == (5, 5)
+    monkeypatch.setattr(ops, "pdes_multistep", ref.pdes_multistep_ref)
+    monkeypatch.setattr(ops, "threefry_bits", threefry.threefry_bits_plain)
+    sp, op = ops.simulate(st0, key, cfg, 37, k_fuse=8)
+    assert (pm.bits_launches - b3, threefry.launches - gen) == (5, 5)
+    for f in ("tau", "offset", "offset_comp"):
+        assert torch.equal(getattr(sk, f), getattr(sp, f)), f
+    assert torch.equal(ok["u"], op["u"]) and torch.equal(ok["gvt"], op["gvt"])
+    torch.testing.assert_close(ok["w2"], op["w2"], rtol=1e-5, atol=1e-4)
+
+
+def test_threefry_drivers_agree_across_devices(dev):
+    """The GPU path (generator kernel + plain decode on the card) meets the
+    same events as the CPU: update counts and GVT are equal."""
+    cfg = PDESConfig(L=64, n_v=3, delta=4.0)
+    before = threefry.launches
+    gpu = ensemble.width_evolution(cfg, n_steps=30, n_trials=6, seed=2,
+                                   device=dev)
+    assert threefry.launches == before + 30
+    cpu = ensemble.width_evolution(cfg, n_steps=30, n_trials=6, seed=2,
+                                   device="cpu")
+    for k in ("t", "u", "gvt"):
+        np.testing.assert_array_equal(gpu[k], cpu[k], err_msg=k)
+    for k in gpu.keys() - {"t", "u", "gvt"}:
+        np.testing.assert_allclose(gpu[k], cpu[k], rtol=1e-5, atol=1e-5,
+                                   err_msg=k)

@@ -9,8 +9,11 @@
 3. ``refine_optimal_window`` probes the same Δ sequence and finds the same
    Δ* as ``repro``'s; the efficiencies agree to ``RTOL``.  The port alone
    repeats ``tests/test_service.py``'s refiner checks on ``pallas`` + stale.
-4. The ``ensemble`` drivers on ``backend="pallas"`` against ``repro``'s;
-   ``backend=None`` (the threefry stream) raises.
+4. The ``ensemble`` drivers on ``backend="pallas"`` against ``repro``'s,
+   and on ``backend=None`` (the threefry stream): ``width_evolution``'s
+   ``u`` and ``gvt`` and ``steady_state``'s ``rate`` bitwise, the rest to
+   ``RTOL`` (ROADMAP C3: the reference's time average may fuse into an
+   FMA).
 """
 import dataclasses
 import json
@@ -213,13 +216,43 @@ def test_ensemble_drivers_match_repro(window):
         _close(t, j, STEADY)
 
 
+@pytest.mark.parametrize("delta", [4.0, math.inf])
+def test_ensemble_threefry_path_matches_repro(delta):
+    kw = dict(n_trials=4, seed=5, burn_in_steps=20, measure_steps=24)
+    cfg, jcfg = PDESConfig(L=24, n_v=3, delta=delta), \
+        JConfig(L=24, n_v=3, delta=delta)
+    with th.eta_override(jax_eta_table()):
+        t_ss = tens.steady_state(cfg, device="cpu", **kw)
+        t_we = tens.width_evolution(cfg, n_steps=20, n_trials=4, seed=5,
+                                    device="cpu")
+        t_ul = tens.utilization_vs_L((16, 20), n_v=3, delta=delta,
+                                     device="cpu", **kw)
+    j_ss = jens.steady_state(jcfg, **kw)
+    assert t_ss.rate == j_ss.rate
+    _close(t_ss, j_ss, STEADY)
+    j_we = jens.width_evolution(jcfg, n_steps=20, n_trials=4, seed=5)
+    assert t_we.keys() == j_we.keys()
+    for k in ("t", "u", "gvt"):
+        np.testing.assert_array_equal(t_we[k], np.asarray(j_we[k]),
+                                      err_msg=k)
+    for k in t_we.keys() - {"t", "u", "gvt"}:
+        np.testing.assert_allclose(t_we[k], np.asarray(j_we[k]), rtol=RTOL,
+                                   atol=1e-5, err_msg=k)
+    j_ul = jens.utilization_vs_L((16, 20), n_v=3, delta=delta, **kw)
+    for t, j in zip(t_ul, j_ul):
+        assert t.cfg.L == j.cfg.L and t.rate == j.rate
+        _close(t, j, STEADY)
+
+
 def test_ensemble_threefry_path_is_not_ported():
+    """What of ``ensemble`` is still refused, and its burn-in heuristic.
+
+    The threefry path (``backend=None``) this test once held as unported
+    is ported now and held against ``repro`` by
+    ``test_ensemble_threefry_path_matches_repro``; the sharded engine
+    (A10) and options a batched sweep does not take still raise.
+    """
     cfg = PDESConfig(L=16)
-    for call in (lambda: tens.steady_state(cfg, device="cpu"),
-                 lambda: tens.width_evolution(cfg, n_steps=4, device="cpu"),
-                 lambda: tens.utilization_vs_L((16,), device="cpu")):
-        with pytest.raises(NotImplementedError, match="A11"):
-            call()
     with pytest.raises(NotImplementedError, match="A10"):
         tens.steady_state_sweep(cfg, (1.0,), burn_in_steps=4,
                                 measure_steps=4, device="cpu",
