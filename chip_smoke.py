@@ -8,13 +8,16 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` with
 
 0. setup: the card's name and power limit, versions, both kernels' builds
    (one ``nvcc`` per source, started together);
-1. decode: B1's η decode against the plain rule on the card over all
-   ``2**24`` inputs (bitwise), and the count that differ from numpy's fp64
-   ``log`` on the host;
+1. decode: the kernels' table-driven η decode against the plain rule on
+   the card over all ``2**24`` inputs (bitwise), and the count that differ
+   from numpy's fp64 ``log`` on the host; the kernels' division-free site
+   pick against ``w0 % n_v`` on the card over ``2**24`` words for each
+   n_v of ``SITE_N_VS``;
 2. B1 against its plain version: ``pdes_multistep_counter`` at the main
    path's shape (L = 10,000 PEs, B = 448 rings, K = 16 and a K = 5
    remainder chunk), τ/ucount/min/max bitwise, the sums to a stated
-   tolerance; then both timed with CUDA events;
+   tolerance; then both timed with CUDA events, and the kernel also at
+   the paper-figure L = 1000 (``L_PAPER``);
 3. B1's path: an in-process ``SweepService`` drain of three requests at
    L = 10,000, N_V = 10 on the ``pallas_multistep`` backend, every
    response bit-identical to a direct ``run_window_sweep``, physics bounds
@@ -36,7 +39,7 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` with
 7. B3 against its plain version: ``pdes_multistep`` on generator words at
    B = 448, L = 10,000, K = 16 and a K = 5 remainder chunk over N_V, Δ,
    ``rd_mode`` and ``border_both``; τ/ucount/min/max bitwise, the sums to
-   tolerance; timed;
+   tolerance; timed, and the kernel also at L = 1000;
 8. B3's path: (a) ``ops.simulate`` for 1024 steps with the kernels against
    the same call with the plain versions on the card, bitwise; (b)
    ``simulate`` against ``horizon.run`` at the JAX test's shape and
@@ -65,6 +68,12 @@ import time
 #: paper-figure benchmarks).
 L_MAIN = 10_000
 N_V_MAIN = 10
+#: The ring length of the paper-figure benchmarks (benchmarks/run.py), at
+#: which phases 2 and 7 also time B1 and B3.
+L_PAPER = 1000
+#: The n_v values at which phase 1 checks the site pick: every shape of its
+#: multiply-high constants, up to the largest uint32.
+SITE_N_VS = (1, 2, 3, 10, 1000, 2**31 + 1, 2**32 - 1)
 #: Rings in the main path's coalesced pass: alice's 4 x 64 + bob's 3 x 64.
 REPLICAS = 64
 B_MAIN = 7 * REPLICAS
@@ -188,22 +197,41 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 def phase_decode(torch, horizon, pm, dev):
-    """Kernel decode == plain rule on the card; count against the host."""
+    """Kernel decode == plain rule on the card; count against the host.
+    Kernel site pick == ``%`` on the card."""
     import numpy as np
     w1 = torch.arange(1 << 24, device=dev, dtype=torch.int64) << 8
-    kern = pm.decode_eta_cuda(w1)
     plain = horizon.decode_eta(w1)
-    n_bad = int((kern.view(torch.int32) != plain.view(torch.int32)).sum())
-    check(n_bad == 0, f"kernel decode differs from the plain rule on "
-                      f"{n_bad} of 2**24 inputs")
+    for table in (False, True):     # B2's library log, B1's and B3's table
+        kern = pm.decode_eta_cuda(w1, table=table)
+        n_bad = int((kern.view(torch.int32) != plain.view(torch.int32)).sum())
+        check(n_bad == 0, f"kernel decode (table={table}) differs from the "
+                          f"plain rule on {n_bad} of 2**24 inputs")
     kh = np.arange(1 << 24, dtype=np.uint32)
     x = kh.astype(np.float32) * np.float32(2.0**-24) + np.float32(2.0**-25)
     host = (-np.log(x.astype(np.float64))).astype(np.float32)
     got = kern.cpu().numpy()
     diff = np.flatnonzero(got.view(np.int32) != host.view(np.int32))
-    print(f"[decode] kernel == plain rule on the card on all 2**24 inputs; "
+    print(f"[decode] kernel decodes (library log, table) == plain rule on the "
+          f"card on all 2**24 inputs; table decode "
           f"differs from numpy fp64 log on the host on {diff.size} inputs"
           + (f" (first k: {diff[:8].tolist()})" if diff.size else ""))
+    gen = torch.Generator(device=dev).manual_seed(1)
+    for n_v in SITE_N_VS:
+        edges = [0, 1, n_v - 1, n_v, n_v + 1, 2**32 - 2, 2**32 - 1]
+        for m in (2, 3, (2**32 - 1) // n_v):
+            edges += [m * n_v - 1, m * n_v, m * n_v + 1]
+        edges = torch.tensor([e for e in edges if 0 <= e < 2**32],
+                             dtype=torch.int64, device=dev)
+        words = torch.randint(0, 2**32, ((1 << 24) - edges.numel(),),
+                              generator=gen, device=dev, dtype=torch.int64)
+        words = torch.cat([edges, words])
+        sites = pm.site_pick_cuda(words, n_v)
+        n_bad = int((sites != words % n_v).sum())
+        check(n_bad == 0, f"kernel site pick differs from % {n_v} on "
+                          f"{n_bad} of {words.numel()} words")
+    print(f"[decode] kernel site pick == w0 % n_v on the card over 2**24 "
+          f"words (edges and random) for n_v in {SITE_N_VS}")
     return int(diff.size)
 
 
@@ -219,7 +247,7 @@ def _kernel_inputs(torch, rng, B: int, L: int, dev):
             torch.as_tensor(trials[:, None], device=dev))
 
 
-def phase_kernel(torch, pm, ref, dev, timer=cuda_ms):
+def phase_kernel(torch, pm, ref, build, dev, timer=cuda_ms):
     """Kernel against its plain version at the main path's shape."""
     import numpy as np
     rng = np.random.default_rng(0)
@@ -270,6 +298,21 @@ def phase_kernel(torch, pm, ref, dev, timer=cuda_ms):
     k2 = timer(kern, 20)
     p2 = timer(plain, 3)
     k_ms, p_ms = min(k1, k2), min(p1, p2)
+    # the kernel alone, without the wrapper's host work, at both L
+    raw = {}
+    for L in (L_MAIN, L_PAPER):
+        tau_l, dcol_l, tcol_l = ((tau0, dcol, tcol) if L == L_MAIN else
+                                 _kernel_inputs(torch, rng, B_MAIN, L, dev))
+        tcol_l = build.u32_bits(tcol_l).reshape(B_MAIN, 1).contiguous()
+        out = torch.empty_like(tau_l)
+        stats = torch.empty((6, K_MAIN, B_MAIN), device=dev)
+        raw[L] = min(timer(lambda: pm.counter_launch(
+            tau_l, out, stats, dcol_l, tcol_l, (0, 0, 0, 0), n_v=N_V_MAIN,
+            delta=math.inf, rd_mode=False, border_both=False), 20)
+            for _ in range(2))
+    print(f"[kernel] the kernel alone (raw launch): K={K_MAIN} chunk at "
+          f"B={B_MAIN} L={L_MAIN} {raw[L_MAIN]:.5f} ms, L={L_PAPER} "
+          f"{raw[L_PAPER]:.5f} ms")
     pe_steps = B_MAIN * L_MAIN * K_MAIN
     print(f"[kernel] K={K_MAIN} chunk at B={B_MAIN} L={L_MAIN} N_V={N_V_MAIN}:"
           f" kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms "
@@ -285,6 +328,8 @@ def phase_kernel(torch, pm, ref, dev, timer=cuda_ms):
     print(f"[kernel] bound: {n_bytes} bytes -> {bytes_ms:.4g} ms, "
           f"{n_ops:.4g} operations (utilization {ucount / pe_steps:.4f}) -> "
           f"{ops_ms:.4g} ms")
+    print(f"[kernel] kernel at {max(bytes_ms, ops_ms) / k_ms:.3f} of the "
+          f"bound")
     return dict(max_abs_err=max_err, ms=k_ms, plain_ms=p_ms,
                 bound_ms=max(bytes_ms, ops_ms),
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations")
@@ -747,6 +792,22 @@ def phase_bits_kernel(torch, pm, tf, prng, ref, dev, timer=cuda_ms):
     k2 = timer(kern, 20)
     p2 = timer(plain, 3)
     k_ms, p_ms = min(k1, k2), min(p1, p2)
+    # the kernel alone, without the wrapper's host work, at both L
+    raw = {}
+    for L in (L_MAIN, L_PAPER):
+        tau_l = tau0 if L == L_MAIN else torch.as_tensor(
+            rng.exponential(4.0, size=(B_MAIN, L)).astype(np.float32),
+            device=dev)
+        bits_l = bits if L == L_MAIN else \
+            tf.threefry_bits(key, 0, K_MAIN, (B_MAIN, L))
+        out = torch.empty_like(tau_l)
+        stats = torch.empty((6, K_MAIN, B_MAIN), device=dev)
+        raw[L] = min(timer(lambda: pm.bits_launch(
+            tau_l, bits_l, out, stats, rd_mode=False, border_both=False,
+            **kw), 20) for _ in range(2))
+    print(f"[b3] the kernel alone (raw launch): K={K_MAIN} chunk at "
+          f"B={B_MAIN} L={L_MAIN} {raw[L_MAIN]:.5f} ms, L={L_PAPER} "
+          f"{raw[L_PAPER]:.5f} ms")
     pe_steps = B_MAIN * L_MAIN * K_MAIN
     print(f"[b3] K={K_MAIN} chunk at B={B_MAIN} L={L_MAIN} N_V={N_V_MAIN} "
           f"delta={DELTA_SIM:g}: kernel {k1:.5f} / {k2:.5f} ms, plain "
@@ -986,7 +1047,7 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_decode(torch, horizon, pm, "cuda")
     t["1 decode"] = time.perf_counter() - t0
-    kstats = phase_kernel(torch, pm, ref, "cuda")
+    kstats = phase_kernel(torch, pm, ref, _build, "cuda")
     t["2 B1"] = time.perf_counter() - t0 - sum(t.values())
     b1_launches = phase_main_path(torch, pm, sweep, api, trace, "cuda",
                                   kstats["ms"])

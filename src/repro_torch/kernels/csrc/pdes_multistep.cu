@@ -15,7 +15,7 @@
 // (K, B, L, 2) uint32 tensor (kernels/threefry.py writes them in this
 // layout).  The window is a static delta (inf turns it off), as the TPU
 // kernel takes it.  The step itself -- decode, GVT, Eq. (1) and Eq. (3),
-// the moments, the ring double-buffered in shared memory (L <= 28,928; the
+// the moments, the ring held once in shared memory (L <= 57,344; the
 // wrapper raises above it) -- is the loop of pdes_ring.cuh, which B1
 // shares, so the two kernels cannot drift apart.
 //
@@ -25,12 +25,16 @@
 //               and written once (8 * B * L) and the six (K, B) moment
 //               planes: 609.5 MB, 0.182 ms at 3.35 TB/s.
 //   operations  per PE-step 14 (site pick, border compares, the rules, the
-//               five moments, the sumabs pass); per PE that updates 6 more
-//               (the decode, the fp64 log counted as one, the add): about
-//               1.3e9, 0.02 ms at 67 T/s.
-// So bytes bound it, by about nine times.  This first version is simple:
-// the words are not prefetched, so each step's loads wait behind the
-// previous step's barriers.
+//               five moments, sumabs); per PE that updates 6 more (the
+//               decode, the log counted as one, the add): about 1.3e9,
+//               0.02 ms at 67 T/s.
+// So bytes bound it, by about nine times.  The words stream while the block
+// computes and waits: each warp keeps the next group of kAhead rows' words
+// in flight (a load issued a group ahead, across the step's barrier into
+// the next step's first rows), 32 KB an SM at 32 warps, with the streaming
+// hint, since each word is read once.  The step's own instructions (the
+// table decode, the rules, the moments) then take about as long as the
+// words (PERF.md).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -40,49 +44,53 @@
 
 namespace {
 
+// The words of step k, row r are the (L, 2) uint32 block at
+// bits[k, r]; a lane fetches its PE's 8-byte uint2 kAhead rows ahead, with
+// the streaming hint (each word is read once).
 struct MemoryEvents {
+  static constexpr int kAhead = 4;
+  using Word = uint2;
   struct Event {
     uint32_t w0, y;
     __device__ uint32_t w1() const { return y; }
   };
-  struct Step {
-    const uint2* words;  // this step's row
-    __device__ Event at(int i) const {
-      const uint2 w = words[i];
-      return {w.x, w.y};
-    }
-  };
+  struct Step {};
   const uint2* bits;
   int B, L, row;
-  __device__ Step step(int k) const {
-    return {bits + ((size_t)k * B + row) * L};
+  __device__ Word fetch(int k, int i) const {
+    return __ldcs(bits + ((size_t)k * B + row) * L + i);
+  }
+  __device__ Step step(int) const { return {}; }
+  __device__ Event at(const Step&, const Word& w, int) const {
+    return {w.x, w.y};
   }
 };
 
-__global__ void __launch_bounds__(kRingThreads)
+template <bool kRd, bool kBoth>
+__global__ void __launch_bounds__(32 * kRingMaxWarps, kRingMinBlocks)
 multistep_kernel(const float* __restrict__ tau_in,
                  const uint2* __restrict__ bits, float* __restrict__ tau_out,
                  float* __restrict__ stats, int B, int L, int K, uint32_t n_v,
-                 float delta, int rd_mode, int border_both) {
+                 float delta) {
   const int row = blockIdx.x;
-  ring_steps(tau_in, tau_out, stats, row, B, L, K, n_v, delta, isinf(delta),
-             rd_mode, border_both, MemoryEvents{bits, B, L, row});
+  ring_steps<kRd, kBoth>(tau_in, tau_out, stats, row, B, L, K, n_v, delta,
+                         MemoryEvents{bits, B, L, row});
 }
 
 }  // namespace
 
 extern "C" int pdes_multistep_launch(const float* tau_in, const void* bits,
                                      float* tau_out, float* stats, int B,
-                                     int L, int K, unsigned n_v, float delta,
-                                     int rd_mode, int border_both,
-                                     void* stream) {
-  if (B < 1 || L < 1 || K < 1) return (int)cudaErrorInvalidValue;
-  const int smem = 2 * L * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      multistep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  multistep_kernel<<<B, kRingThreads, smem, (cudaStream_t)stream>>>(
-      tau_in, (const uint2*)bits, tau_out, stats, B, L, K, n_v, delta,
-      rd_mode, border_both);
+                                     int L, int K, int warps, unsigned n_v,
+                                     float delta, int rd_mode,
+                                     int border_both, void* stream) {
+  const auto kernel = ring_kernel(rd_mode, border_both,
+                                  multistep_kernel<true, false>,
+                                  multistep_kernel<false, true>,
+                                  multistep_kernel<false, false>);
+  const int smem = ring_launch_check(kernel, B, L, K, warps);
+  if (smem < 0) return -smem;
+  kernel<<<B, 32 * warps, smem, (cudaStream_t)stream>>>(
+      tau_in, (const uint2*)bits, tau_out, stats, B, L, K, n_v, delta);
   return (int)cudaGetLastError();
 }

@@ -12,8 +12,11 @@
 // For every PE i of row r (tau_h is (B, Lc + 2), PE i at column i + 1):
 //   words  w0, w1 = bits[r, i] (one 8-byte uint2, from counter_bits_block on
 //          the host)
-//   decode site = w0 % n_v (borders 0 and n_v - 1),
+//   decode site = w0 % n_v (borders 0 and n_v - 1), by a multiply-high
+//          with the block's reciprocal of n_v (pdes_common.cuh),
 //          eta  = fp32(-log(fp64(fp32(fp32(w1 >> 8) * 2^-24) + 2^-25)))
+//          by the library log (the multistep kernels' table decode would
+//          take this kernel past the 32 registers its occupancy needs)
 //   update Eq. (1) causality against tau_h[r, i] and tau_h[r, i + 2]
 //          (unless rd_mode) and Eq. (3) window t <= (delta + gvt[r]), one
 //          fp32 add; a static delta of inf turns the window rule off.  The
@@ -72,13 +75,14 @@ pdes_step_kernel(const float* __restrict__ tau_h,
   float* dst = tau_out + (size_t)row * Lc;
   const bool window_off = isinf(delta);
   const float bound = __fadd_rn(delta, gvt[row]);
+  const SiteDivisor div = site_divisor(n_v);
 
   unsigned cnt = 0;
   float lmn = INFINITY, lmx = -INFINITY, s = 0.f, ss = 0.f;
   for (int i = tid; i < Lc; i += kThreads) {
     const uint2 w = words[i];
     bool is_left, is_right;
-    site_pick(w.x, n_v, is_left, is_right);
+    site_pick(w.x, div, is_left, is_right);
     const float t = src[i + 1];
     bool ok = true;
     if (!rd_mode) ok = causal_ok(t, src[i], src[i + 2], is_left, is_right,

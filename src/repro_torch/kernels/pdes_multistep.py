@@ -9,11 +9,12 @@ Ports of ``repro.kernels.pdes_multistep``:
   event words read from device memory one step at a time
   (``csrc/pdes_multistep.cu``).
 
-Both kernels run one block per ring, the ring double-buffered in shared
-memory for all K steps (``csrc/pdes_ring.cuh``; see the notes in the
-sources for their bounds).  On a CUDA tensor a wrapper launches its kernel
-or raises; on a CPU tensor it runs the plain PyTorch version in ``ref``.
-There is no other path.
+Both kernels run one block per ring, the ring held once in shared memory
+for all K steps and updated in place, with one block barrier a step and
+``tiling.ring_warps(L)`` warps (``csrc/pdes_ring.cuh``; see the notes in
+the sources for their bounds).  On a CUDA tensor a wrapper launches its
+kernel or raises; on a CPU tensor it runs the plain PyTorch version in
+``ref``.  There is no other path.
 
 ``launches`` (B1) and ``bits_launches`` (B3) count kernel launches, so a
 run can show that its main path went through the kernel.
@@ -28,7 +29,7 @@ from ..core import horizon
 from ..core.horizon import MOMENT_KEYS
 from . import _build
 from .ref import ctr_values, pdes_multistep_counter_ref, pdes_multistep_ref
-from .tiling import check_ring_fits
+from .tiling import check_ring_fits, ring_warps
 
 #: Kernel launches made by :func:`pdes_multistep_counter` in this process.
 launches = 0
@@ -43,14 +44,18 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load(_LIB)
     f = lib.pdes_multistep_counter_launch
     if f.argtypes is None:
-        f.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+        f.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
                       + [ctypes.c_uint32] * 5 + [ctypes.c_float]
                       + [ctypes.c_int] * 2 + [ctypes.c_void_p])
         f.restype = ctypes.c_int
         g = lib.decode_eta_launch
         g.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                      ctypes.c_void_p]
+                      ctypes.c_int, ctypes.c_void_p]
         g.restype = ctypes.c_int
+        h = lib.site_pick_launch
+        h.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                      ctypes.c_uint32, ctypes.c_void_p]
+        h.restype = ctypes.c_int
     return lib
 
 
@@ -58,7 +63,7 @@ def _bits_lib() -> ctypes.CDLL:
     lib = _build.load(_BITS_LIB)
     f = lib.pdes_multistep_launch
     if f.argtypes is None:
-        f.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+        f.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
                       + [ctypes.c_uint32, ctypes.c_float]
                       + [ctypes.c_int] * 2 + [ctypes.c_void_p])
         f.restype = ctypes.c_int
@@ -75,6 +80,45 @@ def _refuse_eta_override() -> None:
     if horizon.eta_override_active():
         raise RuntimeError("the CUDA kernel decodes eta itself and cannot "
                            "honour horizon.eta_override")
+
+
+def bits_launch(tau_in, words, tau_out, stats, *, n_v: int, delta: float,
+                rd_mode: bool, border_both: bool) -> None:
+    """Launch B3 on buffers :func:`pdes_multistep` has checked and made.
+
+    ``words`` is the (K, B, L, 2) int32 tensor of uint32 bit patterns,
+    ``tau_out`` (B, L) and ``stats`` (6, K, B) float32 outputs, all
+    contiguous on one CUDA device.  Counts nothing: timing scripts call it
+    to see the kernel alone.
+    """
+    K, (B, L) = words.shape[0], tau_in.shape
+    dev = tau_in.device
+    with torch.cuda.device(dev):
+        err = _bits_lib().pdes_multistep_launch(
+            tau_in.data_ptr(), words.data_ptr(), tau_out.data_ptr(),
+            stats.data_ptr(), B, L, K, ring_warps(L), n_v, float(delta),
+            int(rd_mode), int(border_both), _build.stream(dev))
+    _build.check(err, "pdes_multistep launch")
+
+
+def counter_launch(tau_in, tau_out, stats, dcol, tcol, ctr, *, n_v: int,
+                   delta: float, rd_mode: bool, border_both: bool) -> None:
+    """Launch B1 on buffers :func:`pdes_multistep_counter` has checked and
+    made: ``dcol`` (B, 1) float32 or None, ``tcol`` (B, 1) int32 uint32
+    bits or None, ``ctr`` the four uint32 ``(seed, step0, b0, l0)``, and
+    ``stats`` (6, K, B).  Counts nothing: timing scripts call it to see the
+    kernel alone.
+    """
+    K, (B, L) = stats.shape[1], tau_in.shape
+    dev = tau_in.device
+    with torch.cuda.device(dev):
+        err = _lib().pdes_multistep_counter_launch(
+            tau_in.data_ptr(), tau_out.data_ptr(), stats.data_ptr(),
+            None if dcol is None else dcol.data_ptr(),
+            None if tcol is None else tcol.data_ptr(),
+            B, L, K, ring_warps(L), *ctr, n_v, float(delta), int(rd_mode),
+            int(border_both), _build.stream(dev))
+    _build.check(err, "pdes_multistep_counter launch")
 
 
 def pdes_multistep(tau, bits, *, n_v: int, delta: float,
@@ -123,12 +167,7 @@ def pdes_multistep(tau, bits, *, n_v: int, delta: float,
     tau_out = torch.empty_like(tau_in)
     stats = torch.empty((len(MOMENT_KEYS), K, B), dtype=torch.float32,
                         device=dev)
-    with torch.cuda.device(dev):
-        err = _bits_lib().pdes_multistep_launch(
-            tau_in.data_ptr(), words.data_ptr(), tau_out.data_ptr(),
-            stats.data_ptr(), B, L, K, n_v, float(delta), int(rd_mode),
-            int(border_both), _build.stream(dev))
-    _build.check(err, "pdes_multistep launch")
+    bits_launch(tau_in, words, tau_out, stats, **kw)
     bits_launches += 1
     return tau_out, dict(zip(MOMENT_KEYS, stats.unbind(0)))
 
@@ -182,25 +221,20 @@ def pdes_multistep_counter(tau, ctr, delta_col=None, trial_col=None, *,
     tau_out = torch.empty_like(tau_in)
     stats = torch.empty((len(MOMENT_KEYS), k_steps, B), dtype=torch.float32,
                         device=dev)
-    with torch.cuda.device(dev):
-        err = _lib().pdes_multistep_counter_launch(
-            tau_in.data_ptr(), tau_out.data_ptr(), stats.data_ptr(),
-            None if dcol is None else dcol.data_ptr(),
-            None if tcol is None else tcol.data_ptr(),
-            B, L, k_steps, seed, step0, b0, l0, n_v,
-            float(delta),
-            int(rd_mode), int(border_both), _build.stream(dev))
-    _build.check(err, "pdes_multistep_counter launch")
+    counter_launch(tau_in, tau_out, stats, dcol, tcol, (seed, step0, b0, l0),
+                   n_v=n_v, delta=delta, rd_mode=rd_mode,
+                   border_both=border_both)
     launches += 1
     return tau_out, dict(zip(MOMENT_KEYS, stats.unbind(0)))
 
 
-def decode_eta_cuda(w1: torch.Tensor) -> torch.Tensor:
-    """η of every word in ``w1`` by the kernel's own device decode.
+def decode_eta_cuda(w1: torch.Tensor, *, table: bool = True) -> torch.Tensor:
+    """η of every word in ``w1`` by the kernels' own device decode.
 
-    ``w1`` is a 1-d CUDA tensor of uint32 values (int32 or int64 carrying
-    them); a check of the decode over all ``2**24`` inputs, not a path of
-    the engine.
+    ``table`` picks the table decode of B1 and B3 (``neg_log_rn``); else the
+    library fp64 ``log`` that B2 takes.  ``w1`` is a 1-d CUDA tensor of
+    uint32 values (int32 or int64 carrying them); a check of the decode
+    over all ``2**24`` inputs, not a path of the engine.
     """
     if w1.device.type != "cuda" or w1.ndim != 1:
         raise ValueError("decode_eta_cuda takes a 1-d CUDA tensor")
@@ -208,7 +242,28 @@ def decode_eta_cuda(w1: torch.Tensor) -> torch.Tensor:
     out = torch.empty(words.shape, dtype=torch.float32, device=w1.device)
     with torch.cuda.device(w1.device):
         err = _lib().decode_eta_launch(words.data_ptr(), out.data_ptr(),
-                                       words.numel(),
+                                       words.numel(), int(table),
                                        _build.stream(w1.device))
     _build.check(err, "decode_eta launch")
     return out
+
+
+def site_pick_cuda(w0: torch.Tensor, n_v: int) -> torch.Tensor:
+    """The site ``w0 % n_v`` of every word by the kernels' own division-free
+    pick (``csrc/pdes_common.cuh::site_of``), as int64.
+
+    ``w0`` is a 1-d CUDA tensor of uint32 values (int32 or int64 carrying
+    them); a check of the pick over many words, not a path of the engine.
+    """
+    if w0.device.type != "cuda" or w0.ndim != 1:
+        raise ValueError("site_pick_cuda takes a 1-d CUDA tensor")
+    if not 1 <= n_v < 1 << 32:
+        raise ValueError(f"n_v must be in [1, 2**32), got {n_v}")
+    words = _build.u32_bits(w0).contiguous()
+    out = torch.empty(words.shape, dtype=torch.int32, device=w0.device)
+    with torch.cuda.device(w0.device):
+        err = _lib().site_pick_launch(words.data_ptr(), out.data_ptr(),
+                                      words.numel(), n_v,
+                                      _build.stream(w0.device))
+    _build.check(err, "site_pick launch")
+    return out.to(torch.int64) & 0xFFFFFFFF

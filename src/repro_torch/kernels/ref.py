@@ -9,6 +9,10 @@ repeat the kernels' arithmetic with the shared update core of
 """
 from __future__ import annotations
 
+import math
+from decimal import Decimal, localcontext
+
+import numpy as np
 import torch
 
 from ..core.events import MASK32, as_u32, counter_words
@@ -119,3 +123,85 @@ def pdes_multistep_counter_ref(tau, ctr, delta_col=None, trial_col=None, *,
         tau, m = body(tau, w0, w1)
         planes.append(m)
     return tau, _stack_planes(planes)
+
+
+# --- The kernels' exact shortcuts, in Python: what the CPU tests hold
+# --- against `%` and against the plain decode rule.
+
+def site_divisor(n_v: int) -> tuple[int, int, int]:
+    """``(m, sh1, sh2)``: the multiply-high reciprocal of ``n_v`` that the
+    kernels compute once per block (``csrc/pdes_common.cuh::site_divisor``;
+    Granlund & Montgomery 1994, Fig. 4.1), for ``1 <= n_v < 2**32``."""
+    if not 1 <= n_v < 1 << 32:
+        raise ValueError(f"n_v must be in [1, 2**32), got {n_v}")
+    lg = (n_v - 1).bit_length()                 # ceil(log2 n_v)
+    m = ((((1 << lg) - n_v) << 32) // n_v + 1) & 0xFFFFFFFF
+    return m, min(lg, 1), max(lg - 1, 0)
+
+
+def site_of(w0, n_v: int):
+    """``w0 % n_v`` as the kernels take it, without a division.
+
+    ``w0`` is an int or a numpy array of uint32 words; returns the same."""
+    m, sh1, sh2 = site_divisor(n_v)
+    w = np.asarray(w0, dtype=np.uint64)
+    hi = (w * np.uint64(m)) >> np.uint64(32)
+    q = (hi + ((w - hi) >> np.uint64(sh1))) >> np.uint64(sh2)
+    site = (w - q * np.uint64(n_v)).astype(np.uint64)
+    return int(site) if np.ndim(w0) == 0 else site
+
+
+#: Buckets of the kernels' log table: the top 7 bits of a float's mantissa.
+LOG_TABLE_BITS = 7
+
+
+def neg_log_table() -> list[tuple[float, float]]:
+    """``(c_j, -ln c_j)`` for the 128 buckets of the kernels' decode.
+
+    Bucket ``j`` holds the mantissas ``m`` in ``[1 + j/128, 1 + (j+1)/128)``;
+    the kernels reduce ``m`` to ``z = m`` (``j < 64``) or ``z = m / 2``
+    (``j >= 64``, exponent + 1), so ``z`` lies in ``[0.75, 1.5)``.  ``c_j``
+    is ``1 / z`` at the bucket's centre rounded to a multiple of ``2**-9``
+    (so ``z * c_j`` is exact in fp64), and exactly 1 for the two buckets
+    around ``z = 1``; ``-ln c_j`` is rounded once from 40 digits.
+    ``csrc/pdes_common.cuh`` carries these values as literals.
+    """
+    n = 1 << LOG_TABLE_BITS
+    out = []
+    with localcontext() as ctx:
+        ctx.prec = 40
+        for j in range(n):
+            if j in (0, n - 1):
+                out.append((1.0, 0.0))
+                continue
+            zc = (1.0 + (j + 0.5) / n) / (2.0 if j >= n // 2 else 1.0)
+            c = round(512.0 / zc) / 512.0
+            out.append((c, float(-Decimal(c).ln())))
+    return out
+
+
+def neg_log_emulated(x):
+    """``fp32(-ln(x))`` for fp32 ``x`` in ``[2**-25, 1]`` by the kernels'
+    table-driven fp64 algorithm (``csrc/pdes_common.cuh::neg_log_rn``), in
+    numpy.
+
+    numpy has no fused multiply-add, so its intermediate roundings differ
+    from the card's by an fp64 ulp here and there; the tests hold this to
+    the plain decode rule on all ``2**24`` inputs, as ``chip_smoke.py``
+    holds the card's.
+    """
+    x = np.asarray(x, dtype=np.float32)
+    table = np.array(neg_log_table())
+    bits = x.view(np.uint32)
+    j = (bits >> 16) & 127
+    # 2**e' with e' = e, or e + 1 where the mantissa's top bit is set
+    p2 = (bits + np.uint32(0x400000)) & np.uint32(0xFF800000)
+    e = (p2 >> 23).astype(np.int64) - 127
+    z = (bits - p2 + np.uint32(0x3F800000)).view(np.float32).astype(np.float64)
+    c, lc = table[j, 0], table[j, 1]
+    r = z * c - 1.0
+    q = r * (1.0 / 7.0) - 1.0 / 6.0
+    for coef in (1.0 / 5.0, -1.0 / 4.0, 1.0 / 3.0, -1.0 / 2.0):
+        q = q * r + coef
+    p = (r * r) * q + r
+    return (-(e * math.log(2.0) + (lc + p))).astype(np.float32)

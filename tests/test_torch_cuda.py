@@ -71,6 +71,88 @@ def test_decode_matches_plain_rule_on_all_inputs(dev):
     assert torch.equal(pm.decode_eta_cuda(w1), horizon.decode_eta(w1))
 
 
+def test_library_decode_matches_plain_rule_on_all_inputs(dev):
+    """B2's decode (the fp64 library log) gives the table decode's floats."""
+    w1 = torch.arange(1 << 24, device=dev, dtype=torch.int64) << 8
+    assert torch.equal(pm.decode_eta_cuda(w1, table=False),
+                       horizon.decode_eta(w1))
+
+
+#: The ring lengths at the new loop's edges: one PE, a partial row, one
+#: warp's row, a row and one PE, the paper's L, the service's L, the longest.
+EDGE_LS = (1, 31, 32, 33, 1000, 10_000, tiling.MAX_RING_L)
+#: n_v values over every shape of the site pick's multiply-high constants.
+EDGE_N_VS = (1, 2, 3, 10, 1000, 2**31 + 1, 2**32 - 1)
+
+
+@pytest.mark.parametrize("n_v", EDGE_N_VS)
+@pytest.mark.parametrize("L", EDGE_LS)
+def test_ring_kernels_at_the_loops_edges(dev, L, n_v):
+    """B1 and B3 against their plain versions where rows are partial, a
+    ring is one warp, and PE L-1 wraps to PE 0 across a warp's edge."""
+    B, K = 3, 5
+    tau, dcol, tcol = _inputs(dev, B, L, seed=L % 97)
+    args = (tau, torch.tensor([[9, 2**32 - 3, 0, 5]]), dcol, tcol)
+    kw = dict(k_steps=K, n_v=n_v, delta=math.inf)
+    _assert_step_equal(pm.pdes_multistep_counter(*args, **kw),
+                       ref.pdes_multistep_counter_ref(*args, **kw))
+    bits = threefry.threefry_bits(prng.key(L, dev), 17, K, (B, L))
+    kw = dict(n_v=n_v, delta=4.0)
+    _assert_step_equal(pm.pdes_multistep(tau, bits, **kw),
+                       ref.pdes_multistep_ref(tau, bits, **kw))
+
+
+def _assert_same_ring(got, want, row):
+    assert torch.equal(got[0][0], want[0][row])
+    for key in horizon.MOMENT_KEYS:
+        assert torch.equal(got[1][key][:, 0], want[1][key][:, row]), key
+
+
+@pytest.mark.parametrize("L", (1000, 10_000))
+def test_ring_result_does_not_depend_on_its_batch(dev, L):
+    """A ring's tau and all six moments, bit for bit, whatever batch it runs
+    in and at whatever row: what lets a coalesced service pass answer each
+    requester as a direct run would."""
+    K = 7
+    tau, _, _ = _inputs(dev, 448, L, seed=4)
+    dcol = torch.full((448, 1), 16.0, device=dev)
+    tcol = torch.arange(448, device=dev)[:, None] * 7 - 100
+    bits = threefry.threefry_bits(prng.key(8, dev), 3, K, (448, L))
+    ctr = torch.tensor([[3, 11, 0, 0]])
+    kw1 = dict(k_steps=K, n_v=10, delta=math.inf)
+    kw3 = dict(n_v=10, delta=16.0)
+    full1 = pm.pdes_multistep_counter(tau, ctr, dcol, tcol, **kw1)
+    full3 = pm.pdes_multistep(tau, bits, **kw3)
+    for r in (0, 6, 447):
+        rows = slice(r, r + 1)
+        _assert_same_ring(pm.pdes_multistep_counter(
+            tau[rows], ctr, dcol[rows], tcol[rows], **kw1), full1, r)
+        _assert_same_ring(pm.pdes_multistep(
+            tau[rows], bits[:, rows].contiguous(), **kw3), full3, r)
+    seven = slice(440, 447)                  # ring 446 as row 6 of 7
+    got1 = pm.pdes_multistep_counter(tau[seven], ctr, dcol[seven],
+                                     tcol[seven], **kw1)
+    got3 = pm.pdes_multistep(tau[seven], bits[:, seven].contiguous(), **kw3)
+    for r in range(7):
+        _assert_same_ring((got1[0][r:r + 1],
+                           {k: v[:, r:r + 1] for k, v in got1[1].items()}),
+                          full1, 440 + r)
+        _assert_same_ring((got3[0][r:r + 1],
+                           {k: v[:, r:r + 1] for k, v in got3[1].items()}),
+                          full3, 440 + r)
+
+
+@pytest.mark.parametrize("n_v", EDGE_N_VS)
+def test_site_pick_matches_mod_on_the_gpu(dev, n_v):
+    gen = torch.Generator(device=dev).manual_seed(n_v % 1000)
+    edges = [0, 1, n_v - 1, n_v, n_v + 1, 2**32 - 1,
+             (2**32 - 1) // n_v * n_v, (2**32 - 1) // n_v * n_v - 1]
+    words = torch.cat([
+        torch.tensor([e for e in edges if 0 <= e < 2**32], device=dev),
+        torch.randint(0, 2**32, (1 << 20,), generator=gen, device=dev)])
+    assert torch.equal(pm.site_pick_cuda(words, n_v), words % n_v)
+
+
 def test_kernel_refuses_eta_override_and_long_rings(dev):
     tau = torch.zeros(2, 8, device=dev)
     ctr = torch.zeros(1, 4, dtype=torch.int64)
@@ -258,6 +340,7 @@ def test_bits_kernel_launch_failure_raises(dev, monkeypatch):
     """A refused launch raises; nothing falls back to the plain version."""
     monkeypatch.setattr(pm, "check_ring_fits", lambda L: None)
     L = tiling.MAX_RING_L + 1000          # more shared memory than a block has
+    assert tiling.ring_smem_bytes(L) > tiling.SMEM_PER_BLOCK
     before = pm.bits_launches
     with pytest.raises(RuntimeError, match="CUDA error"):
         pm.pdes_multistep(torch.zeros(1, L, device=dev),
