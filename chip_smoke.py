@@ -48,7 +48,17 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` with
    ``pallas_multistep`` engine at the same depth; B3's and the
    generator's launch counts on (a), the generator's on (c); a profiler
    split of three chunks;
-9. the last lines: one JSON object per kernel (times, bound, launches),
+9. the sharded backend (``core/distributed.py``) in this process as the
+   one rank of an NCCL process group: (a) the exact mode over 256 steps
+   at Δ = 16 and (b) the commavoid mode (K = 16), each bitwise in τ, the
+   offsets, ``u`` and ``gvt`` against the ``pallas_multistep`` (exact)
+   or stale ``pallas`` engine and held to ``run_reference``, also at the
+   JAX test's shape; (c) a ``SweepService(mesh=)`` drain of phase 3's
+   requests at phase 5's cut depth, each response bitwise a direct
+   ``run_window_sweep(mesh=)`` and equal in ``u`` and GVT rate to
+   ``pallas_multistep``; (d) wall per chunk beside the ``pallas``
+   backend's, B2's launches, a profile with the NCCL calls' share;
+10. the last lines: one JSON object per kernel (times, bound, launches),
    then ``{"ok": true, "device": {...}}``.
 
 Every phase asserts; any failure exits non-zero with no result line.
@@ -129,6 +139,14 @@ STEPS_THREEFRY = 1024
 #: Chunks in the profiled ``simulate`` call of phase 8: the kernel counts
 #: show whether the profiler dropped a launch.
 PROFILE_CHUNKS = 3
+#: Phase 9: the window and steps of the sharded runs held against the
+#: engines, the chunks of each timed call and the rounds of timed calls
+#: (host-bound walls: each round runs every path, in turns).  The service
+#: drain runs at phase 5's cut depth (``BURN_SLICE``, ``STEPS_SLICE``).
+DELTA_SHARDED = 16.0
+STEPS_SHARDED = 256
+TIMED_CHUNKS = 8
+TIMED_ROUNDS = 5
 #: JAX's own words: (step, b, l, word 0, word 1) of
 #: repro.core.horizon.event_bits(jax.random.key(7), step, (448, 10000)),
 #: made on the CPU with jax 0.9.0 by
@@ -488,25 +506,25 @@ def phase_step(torch, ps, ref, ops, events, build, dev, timer=cuda_ms):
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations")
 
 
-def _profile_steps(torch, engine_cls, cfg, dev, deltas, trials):
-    """Device time by kernel over one 16-step chunk of the stale `pallas`
-    path, from torch.profiler; None where the profiler gives no device
-    time (the profiler is untried on this machine)."""
+def _profile(torch, dev, fn):
+    """Device time by kernel over one call of ``fn`` (run once before,
+    unprofiled), from torch.profiler; None where the profiler gives no
+    device time.  ``comm_host_us`` is the host time of the collectives'
+    ``c10d::`` operators in the call."""
     from torch.profiler import ProfilerActivity, profile
-    eng = engine_cls(cfg, backend="pallas", window="stale", k_fuse=K_MAIN,
-                     device=dev)
-    st = eng.init(B_MAIN)
-    eng.run(st, 0, K_MAIN, deltas=deltas, trial_base=trials)
+    fn()
     sync(torch, dev)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eng.run(st, 0, K_MAIN, deltas=deltas, trial_base=trials)
+        fn()
         sync(torch, dev)
         wall_us = (time.perf_counter() - t0) * 1e6
-    rows = []
+    rows, comm_host_us = [], 0.0
     for ev in prof.key_averages():
         if not str(ev.device_type).endswith("CUDA"):
+            if ev.key.startswith("c10d::"):
+                comm_host_us += ev.cpu_time_total
             continue                  # host ops: their kernels are listed
         us = getattr(ev, "self_device_time_total",
                      getattr(ev, "self_cuda_time_total", 0.0))
@@ -515,8 +533,17 @@ def _profile_steps(torch, engine_cls, cfg, dev, deltas, trials):
     if not rows:
         return None
     rows.sort(reverse=True)
-    busy = sum(r[0] for r in rows)
-    return dict(wall_us=wall_us, busy_us=busy, rows=rows)
+    return dict(wall_us=wall_us, busy_us=sum(r[0] for r in rows), rows=rows,
+                comm_host_us=comm_host_us)
+
+
+def _profile_steps(torch, engine_cls, cfg, dev, deltas, trials):
+    """The profiler over one 16-step chunk of the stale `pallas` path."""
+    eng = engine_cls(cfg, backend="pallas", window="stale", k_fuse=K_MAIN,
+                     device=dev)
+    st = eng.init(B_MAIN)
+    return _profile(torch, dev, lambda: eng.run(st, 0, K_MAIN, deltas=deltas,
+                                                trial_base=trials))
 
 
 def phase_slice(torch, ps, sweep, api, opt, engine_mod, dev, step_ms):
@@ -825,30 +852,10 @@ def phase_bits_kernel(torch, pm, tf, prng, ref, dev, timer=cuda_ms):
 
 
 def _profile_chunks(torch, ops, state, key, cfg, dev):
-    """Device time by kernel over ``PROFILE_CHUNKS`` K-step ``simulate``
-    chunks, from torch.profiler; None where it gives no device time."""
-    from torch.profiler import ProfilerActivity, profile
+    """The profiler over ``PROFILE_CHUNKS`` K-step ``simulate`` chunks."""
     n_steps = PROFILE_CHUNKS * K_MAIN
-    ops.simulate(state, key, cfg, n_steps, k_fuse=K_MAIN)
-    sync(torch, dev)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        ops.simulate(state, key, cfg, n_steps, k_fuse=K_MAIN)
-        sync(torch, dev)
-        wall_us = (time.perf_counter() - t0) * 1e6
-    rows = []
-    for ev in prof.key_averages():
-        if not str(ev.device_type).endswith("CUDA"):
-            continue
-        us = getattr(ev, "self_device_time_total",
-                     getattr(ev, "self_cuda_time_total", 0.0))
-        if us > 0:
-            rows.append((us, ev.key, ev.count))
-    if not rows:
-        return None
-    rows.sort(reverse=True)
-    return dict(wall_us=wall_us, busy_us=sum(r[0] for r in rows), rows=rows)
+    return _profile(torch, dev, lambda: ops.simulate(state, key, cfg, n_steps,
+                                                     k_fuse=K_MAIN))
 
 
 class plain_simulate:
@@ -1005,6 +1012,227 @@ def phase_threefry_path(torch, ops, pm, tf, ref, horizon, prng, ensemble,
     return a_launches
 
 
+def phase_sharded(torch, ps, engine_mod, D, mesh_mod, sweep, api, dev):
+    """The sharded backend on the card: one rank of a process group of
+    one (NCCL on the card), B2 as each shard's step.  Returns B2's
+    launches on the sharded service drain."""
+    import datetime
+    import torch.distributed as dist
+    backend = "nccl" if torch.device(dev).type == "cuda" else "gloo"
+    dist.init_process_group(backend, store=dist.HashStore(), rank=0,
+                            world_size=1,
+                            timeout=datetime.timedelta(seconds=60))
+    try:
+        mesh = mesh_mod.make_mesh((1, 1), ("data", "model"), device=dev)
+        print(f"[sharded] {backend} process group of one rank, {mesh}")
+        return _sharded_runs(torch, ps, engine_mod, D, mesh, sweep, api, dev)
+    finally:
+        dist.destroy_process_group()
+
+
+def _sharded_runs(torch, ps, engine_mod, D, mesh, sweep, api, dev):
+    cfg = engine_mod.PDESConfig(L=L_MAIN, n_v=N_V_MAIN, delta=DELTA_SHARDED)
+    z = torch.zeros(B_MAIN, device=dev)
+    tau0 = torch.zeros((B_MAIN, L_MAIN), device=dev)
+    phase_launches = 0
+    # (a) exact and (b) commavoid against the engines with their rebase
+    # schedule (bitwise), and against the unsharded oracle, which never
+    # rebases, so its times round differently after the first chunk
+    for part, mode, window, backend in (("a", "exact", "exact",
+                                         "pallas_multistep"),
+                                        ("b", "commavoid", "stale",
+                                         "pallas")):
+        dc = D.DistConfig(mode=mode, k_chunk=K_MAIN)
+        sync(torch, dev)
+        ps.launches = 0
+        t0 = time.perf_counter()
+        tau, off, comp, st = D.run_sharded_state(
+            cfg, mesh, n_steps=STEPS_SHARDED, seed=0, dist=dc, tau0=tau0,
+            off0=z, comp0=z)
+        sync(torch, dev)
+        wall = time.perf_counter() - t0
+        launches = ps.launches
+        phase_launches += launches
+        per_step = 1 if mode == "exact" else 3
+        check(launches == per_step * STEPS_SHARDED,
+              f"sharded {mode} launched B2 {launches} times")
+        eng = engine_mod.PDESEngine(cfg, backend=backend, window=window,
+                                    k_fuse=K_MAIN, device=dev)
+        s_e, st_e = eng.run(eng.init(B_MAIN), 0, STEPS_SHARDED)
+        for name, a, b in (("tau", tau, s_e.tau), ("offset", off, s_e.offset),
+                           ("offset_comp", comp, s_e.offset_comp),
+                           ("u", st["u"], st_e.utilization),
+                           ("gvt", st["gvt"], st_e.gvt)):
+            check(torch.equal(a, b),
+                  f"sharded {mode} {name} differs from {backend}")
+        for name in ("w2", "mean_tau", "max_dev", "min_dev"):
+            check(torch.allclose(st[name], getattr(st_e, name),
+                                 rtol=SUM_RTOL, atol=SUM_ATOL),
+                  f"sharded {mode} {name} beyond tolerance of {backend}")
+        tau_r, st_r = D.run_reference(
+            cfg, n_trials=B_MAIN, n_steps=STEPS_SHARDED, seed=0,
+            stale_every=None if mode == "exact" else K_MAIN, device=dev)
+        u_s, u_r = st["u"].mean(0), st_r["u"].mean(0)   # per-row time means
+        du = abs(float(u_s.mean() - u_r.mean()))
+        tol = max(0.01, 6 * math.hypot(float(u_s.std()), float(u_r.std()))
+                  / math.sqrt(B_MAIN))
+        check(du <= tol, f"sharded {mode} u differs from run_reference by "
+                         f"{du} > {tol}")
+        same = float((tau + off[:, None] == tau_r).double().mean())
+        spread = float((st["max_dev"] + st["min_dev"]).max())
+        check(spread <= DELTA_SHARDED + ETA_MAX, f"spread {spread}")
+        print(f"[sharded {part}] {mode}: {STEPS_SHARDED} steps at B={B_MAIN}"
+              f" L={L_MAIN} N_V={N_V_MAIN} delta={DELTA_SHARDED:g} in "
+              f"{wall:.3f} s, {launches} B2 launches; tau, offsets, u and gvt"
+              f" bitwise equal to the {backend} engine ({window} window), "
+              f"w2/mean/max_dev/min_dev to tolerance; against run_reference "
+              f"(no rebase): mean u {float(u_s.mean()):.6f} vs "
+              f"{float(u_r.mean()):.6f}, |du| {du:.3g} <= {tol:.3g}, share of"
+              f" tau bitwise equal {same:.4f}; largest spread {spread:.5g}")
+    # the JAX test's shape against the oracle, to its tolerances
+    for delta, n_v, mode, k in ((5.0, 1, "exact", 8), (math.inf, 1, "exact",
+                                                      8),
+                                (5.0, 10, "commavoid", 4),
+                                (10.0, 3, "commavoid", 8)):
+        small = engine_mod.PDESConfig(L=32, n_v=n_v, delta=delta)
+        t_s, s_s = D.run_sharded(small, mesh, n_trials=6, n_steps=24, seed=7,
+                                 dist=D.DistConfig(mode=mode, k_chunk=k))
+        t_r, s_r = D.run_reference(small, n_trials=6, n_steps=24, seed=7,
+                                   stale_every=None if mode == "exact"
+                                   else k, device=dev)
+        e_tau = float((t_s - t_r).abs().max())
+        e_u = float((s_s["u"] - s_r["u"]).abs().max())
+        check(e_tau < 1e-4 and e_u < 1e-6,
+              f"{mode} delta={delta} n_v={n_v}: tau {e_tau}, u {e_u}")
+    print("[sharded] run_sharded == run_reference at L=32, 6 trials, 24 "
+          "steps (tests/test_distributed_pdes.py's cases and bounds)")
+
+    # (c) the service drain of phase 3's requests on the sharded backend
+    common = dict(Ls=(L_MAIN,), n_vs=(N_V_MAIN,), replicas=REPLICAS,
+                  n_steps=STEPS_SLICE, burn_in=BURN_SLICE, backend="sharded",
+                  k_fuse=K_MAIN, seed=0)
+    specs = {
+        "alice": sweep.WindowSweep(deltas=(1.0, 4.0, 16.0, 64.0), **common),
+        "bob": sweep.WindowSweep(deltas=(4.0, 16.0, math.inf), **common),
+        "carol": sweep.WindowSweep(deltas=(1.0, 4.0, 16.0, 64.0), **common),
+    }
+    svc = api.SweepService(mesh=mesh)
+    for who, spec in specs.items():
+        svc.submit(spec, requester=who)
+    sync(torch, dev)
+    ps.launches = 0
+    t0 = time.perf_counter()
+    responses = svc.drain()
+    sync(torch, dev)
+    wall = time.perf_counter() - t0
+    drain_launches = ps.launches
+    phase_launches += drain_launches
+    st = svc.stats
+    for resp in responses:
+        check(resp.error is None, (resp.requester, resp.error))
+    check(drain_launches > 0, "the sharded drain launched no B2")
+    check(st.n_deduped == 1 and st.n_passes == 1, st)
+    check(st.rows_computed == B_MAIN, st)
+    pe_steps = st.engine_row_steps * L_MAIN
+    print(f"[sharded c] drain of {len(responses)} requests: {wall:.3f} s "
+          f"wall, {st.n_passes} coalesced pass, {st.rows_computed} rows, "
+          f"{pe_steps:.4g} PE-steps, {pe_steps / wall:.4g} PE-steps/s, "
+          f"{drain_launches} B2 launches")
+    direct, fused = {}, {}
+    t0 = time.perf_counter()
+    for resp in responses:
+        spec = resp.spec
+        if spec not in direct:
+            direct[spec] = sweep.run_window_sweep(spec, mesh=mesh)
+            fused[spec] = sweep.run_window_sweep(
+                sweep.WindowSweep(**{**common, "deltas": spec.deltas,
+                                     "backend": "pallas_multistep"}),
+                device=dev)
+        # JSON spells the NaN wa of the sharded backend alike on both sides
+        check(json.dumps(resp.result.as_dict())
+              == json.dumps(direct[spec].as_dict()),
+              f"{resp.requester}: response differs from a direct run")
+        for rec, ref in zip(resp.result.records, fused[spec].records):
+            check((rec.u, rec.u_err, rec.rate, rec.rate_err)
+                  == (ref.u, ref.u_err, ref.rate, ref.rate_err),
+                  f"{resp.requester}: {rec} vs pallas_multistep {ref}")
+            check(math.isclose(rec.w2, ref.w2, rel_tol=SUM_RTOL),
+                  f"{resp.requester}: w2 {rec.w2} vs {ref.w2}")
+            check(0.0 < rec.u <= 1.0, rec)
+            check(math.isfinite(rec.w2) and math.isfinite(rec.rate), rec)
+            if math.isfinite(rec.delta):
+                check(rec.spread <= rec.delta + ETA_MAX, rec)
+            print(f"[sharded c] {resp.requester:5s} delta={rec.delta:<5g} "
+                  f"u={rec.u:.6f}+-{rec.u_err:.2g} w2={rec.w2:.5g} "
+                  f"spread={rec.spread:.5g} rate={rec.rate:.6f}")
+    sync(torch, dev)
+    print(f"[sharded c] every response equals a direct run_window_sweep("
+          f"mesh=) bit for bit; u, u_err, rate, rate_err equal to "
+          f"pallas_multistep at the same depth, w2 within {SUM_RTOL:g}; "
+          f"u in (0, 1]; spread <= delta + 17.4 (direct runs "
+          f"{time.perf_counter() - t0:.3f} s)")
+
+    # (d) wall per chunk, beside the pallas backend's, and a profile
+    n_steps = TIMED_CHUNKS * K_MAIN
+    walls = {}
+    runs = {
+        "sharded exact": lambda: D.run_sharded_state(
+            cfg, mesh, n_steps=n_steps, seed=0, tau0=tau0, off0=z, comp0=z,
+            dist=D.DistConfig(mode="exact", k_chunk=K_MAIN)),
+        "sharded commavoid": lambda: D.run_sharded_state(
+            cfg, mesh, n_steps=n_steps, seed=0, tau0=tau0, off0=z, comp0=z,
+            dist=D.DistConfig(mode="commavoid", k_chunk=K_MAIN))}
+    for window in ("exact", "stale"):
+        eng = engine_mod.PDESEngine(cfg, backend="pallas", window=window,
+                                    k_fuse=K_MAIN, device=dev)
+        runs[f"pallas {window}"] = (
+            lambda eng=eng: eng.run(eng.init(B_MAIN), 0, n_steps))
+    for fn in runs.values():
+        fn()
+    for r in range(TIMED_ROUNDS):             # in turns, the order flipped
+        for name in (list(runs) if r % 2 == 0 else list(runs)[::-1]):
+            sync(torch, dev)
+            t0 = time.perf_counter()
+            runs[name]()
+            sync(torch, dev)
+            walls.setdefault(name, []).append(
+                (time.perf_counter() - t0) * 1e3 / TIMED_CHUNKS)
+    med = {k: sorted(v)[len(v) // 2] for k, v in walls.items()}
+    for name, v in walls.items():
+        print(f"[sharded d] wall per {K_MAIN}-step chunk at B={B_MAIN} "
+              f"L={L_MAIN}, {name}: median {med[name]:.3f} ms of "
+              f"{TIMED_ROUNDS} calls of {TIMED_CHUNKS} chunks ("
+              + ", ".join(f"{x:.3f}" for x in v) + ")")
+    print(f"[sharded d] medians: sharded exact / pallas exact "
+          f"{med['sharded exact'] / med['pallas exact']:.3f}, sharded "
+          f"commavoid / pallas stale "
+          f"{med['sharded commavoid'] / med['pallas stale']:.3f}")
+    print(f"[sharded] B2 launches in the phase (sharded runs a, b, c): "
+          f"{phase_launches}")
+    one = D.DistConfig(mode="exact", k_chunk=K_MAIN)
+    prof = _profile(torch, dev, lambda: D.run_sharded_state(
+        cfg, mesh, n_steps=K_MAIN, seed=0, dist=one, tau0=tau0, off0=z,
+        comp0=z))
+    if prof is None:
+        print("[sharded] torch.profiler gave no device time: idle share "
+              "not measured")
+    else:
+        nccl_us = sum(us for us, key, _ in prof["rows"]
+                      if "nccl" in key.lower())
+        print(f"[sharded] profiler, one {K_MAIN}-step exact chunk at "
+              f"B={B_MAIN}: wall {prof['wall_us'] / 1e3:.3f} ms, device busy "
+              f"{prof['busy_us'] / 1e3:.3f} ms (idle share "
+              f"{1 - prof['busy_us'] / prof['wall_us']:.3f}); NCCL kernels "
+              f"{nccl_us / 1e3:.4f} ms of device time "
+              f"({nccl_us / prof['busy_us']:.4f} of busy), c10d operators "
+              f"{prof['comm_host_us'] / 1e3:.3f} ms of host time "
+              f"({prof['comm_host_us'] / prof['wall_us']:.4f} of wall)")
+        for us, key, count in prof["rows"][:10]:
+            print(f"[sharded] profiler {us / 1e3:9.3f} ms {count:6d}x  "
+                  f"{key[:90]}")
+    return drain_launches
+
+
 def main() -> int:
     try:
         import torch
@@ -1017,8 +1245,10 @@ def main() -> int:
         return fail(f"no src/repro_torch beside {__file__}: run it from a "
                     f"checkout of the repository")
     sys.path.insert(0, str(root / "src"))
+    from repro_torch.core import distributed as D
     from repro_torch.core import engine as engine_mod
     from repro_torch.core import ensemble, events, horizon, prng
+    from repro_torch.core import mesh as mesh_mod
     from repro_torch.experiments import optimal_window as opt
     from repro_torch.experiments import sweep
     from repro_torch.kernels import _build, ops, ref
@@ -1064,6 +1294,9 @@ def main() -> int:
     b3_launches, gen_launches = phase_threefry_path(
         torch, ops, pm, tf, ref, horizon, prng, ensemble, "cuda")
     t["8 B3 path"] = time.perf_counter() - t0 - sum(t.values())
+    b2_sharded = phase_sharded(torch, ps, engine_mod, D, mesh_mod, sweep, api,
+                               "cuda")
+    t["9 sharded"] = time.perf_counter() - t0 - sum(t.values())
     print("[setup] phase wall: "
           + ", ".join(f"{k} {v:.2f} s" for k, v in t.items()))
 
@@ -1075,7 +1308,7 @@ def main() -> int:
         dict(name="pdes_step", route="cuda",
              source="src/repro_torch/kernels/csrc/pdes_step.cu",
              replaces="src/repro/kernels/pdes_step.py:69",
-             launches=b2_launches, library_ms=None, **sstats),
+             launches=b2_launches + b2_sharded, library_ms=None, **sstats),
         dict(name="pdes_multistep", route="cuda",
              source="src/repro_torch/kernels/csrc/pdes_multistep.cu",
              replaces="src/repro/kernels/pdes_multistep.py:129",

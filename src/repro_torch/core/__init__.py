@@ -1,7 +1,8 @@
 """Core PDES dynamics of the port: events, horizon, engine, measurement.
 
-Exports what ``repro.core`` does, except the ``sharded`` engine (ROADMAP,
-queue A, A10), plus the threefry stream ``prng``.
+Exports what ``repro.core`` does, plus the threefry stream ``prng``.  The
+sharded runtime is ``core.distributed`` on a ``core.mesh.ProcessMesh``,
+reached through ``PDESEngine(backend="sharded", mesh=...)``.
 """
 from .horizon import (  # noqa: F401
     PDESConfig,

@@ -15,7 +15,10 @@ Backends of the port::
                                       plain counter_bits_block
     pallas_multistep   exact only     one CUDA kernel per K-step chunk
                                       (kernels/pdes_multistep)
-    sharded            -              not ported yet (ROADMAP, queue A, A10)
+    sharded            exact, stale   core.distributed on a process mesh
+                                      (core/mesh.py): exact -> mode
+                                      "exact", stale -> "commavoid"; each
+                                      shard's step through kernels/pdes_step
 
 The names ``pallas`` and ``pallas_multistep`` are the wire names of the
 fused paths in specs, ``CompatKey`` and responses; in the port CUDA kernels
@@ -25,10 +28,17 @@ Window sweeps lay the Δ grid on the ensemble axis (``init_sweep``): one
 pass advances ``n_windows * replicas`` rows, each with its own Δ (the
 ``deltas=`` column) and, for the service, its own trial index (a vector
 ``trial_base=``).
+
+The ``sharded`` backend advances whole ``k_chunk``-step chunks only and
+reports ``wa`` as NaN: the absolute width needs the ring mean before the
+deviation reduction, a second all-reduce per step that the
+one-collective-per-chunk layout avoids.  ``gvt`` and ``mean_tau`` come
+back absolute, on the same rebase schedule as the other backends.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
@@ -39,12 +49,6 @@ from .horizon import PDESConfig, SimState, StepStats
 
 BACKENDS = ("reference", "pallas", "pallas_multistep", "sharded")
 WINDOWS = ("exact", "stale")
-
-_NOT_PORTED = {
-    "sharded": "the sharded backend is not ported yet "
-               "(ROADMAP, queue A, item A10)",
-}
-
 
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
@@ -97,22 +101,11 @@ def _make_advance(cfg: PDESConfig, ecfg: EngineConfig, B: int, L: int):
             return tau, horizon.ring_moments(tau, update)
 
     elif ecfg.backend == "pallas":
-        from ..kernels.ops import ring_halo
-        from ..kernels.pdes_step import pdes_step
+        from ..kernels.ops import ring_halo, step_haloed
 
         def one(tau, bits, gvt0, delta_col):
             gvt = gvt0 if stale else torch.amin(tau, dim=-1, keepdim=True)
-            # the per-row Δ folds into the window base: the kernel's rule
-            # is ``tau <= delta + gvt``, so ``gvt + delta_col`` with a static
-            # delta of 0 applies each row's own window, with the same fp32
-            # add as the static-delta path
-            if delta_col is None:
-                gvt_eff, d = gvt, cfg.delta
-            else:
-                gvt_eff, d = gvt + delta_col, 0.0
-            return pdes_step(ring_halo(tau), bits, gvt_eff, n_v=cfg.n_v,
-                             delta=d, rd_mode=cfg.rd_mode,
-                             border_both=cfg.border_both)
+            return step_haloed(ring_halo(tau), bits, gvt, cfg, delta_col)
 
     if ecfg.backend in ("reference", "pallas"):
 
@@ -146,7 +139,7 @@ def _make_advance(cfg: PDESConfig, ecfg: EngineConfig, B: int, L: int):
 
         return advance
 
-    raise NotImplementedError(_NOT_PORTED[ecfg.backend])
+    raise ValueError(f"no single-device chunk advance for {ecfg.backend!r}")
 
 
 def _run_single(state: SimState, seed: int, cfg: PDESConfig,
@@ -191,22 +184,38 @@ class PDESEngine:
 
     Args:
       cfg: the physics (``PDESConfig``).
-      backend: one of ``BACKENDS``; ``sharded`` raises
-        ``NotImplementedError`` until its ROADMAP item lands.
+      backend: one of ``BACKENDS``.
       window: "exact" | "stale".
       k_fuse: chunk depth (fuse and rebase cadence).
       device: where state lives and the work runs; ``None`` is the GPU
-        (raises without CUDA), ``"cpu"`` the plain PyTorch path.
+        (raises without CUDA) or the mesh's device, ``"cpu"`` the plain
+        PyTorch path.
+      mesh / dist: required / optional for ``backend="sharded"``: the
+        process mesh (``core.mesh.make_mesh``) and ``DistConfig``.  When
+        ``dist`` is omitted it is derived from ``window`` (exact ->
+        "exact", stale -> "commavoid" with ``k_chunk=k_fuse``).
     """
 
     def __init__(self, cfg: PDESConfig, backend: str = "reference", *,
-                 window: str = "exact", k_fuse: int = 16, device=None):
+                 window: str = "exact", k_fuse: int = 16, device=None,
+                 mesh=None, dist=None):
         self.cfg = cfg
         self.ecfg = EngineConfig(backend=backend, window=window,
                                  k_fuse=k_fuse)
-        if backend in _NOT_PORTED:
-            raise NotImplementedError(_NOT_PORTED[backend])
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.dist = dist
+        if backend == "sharded":
+            if mesh is None:
+                raise ValueError("backend='sharded' requires a mesh")
+            if dist is None:
+                from .distributed import DistConfig
+                self.dist = DistConfig(
+                    mode="exact" if window == "exact" else "commavoid",
+                    k_chunk=k_fuse)
+            elif (dist.mode == "exact") != (window == "exact"):
+                raise ValueError(f"window={window!r} conflicts with "
+                                 f"dist.mode={dist.mode!r}")
+        self.device = resolve_device(device, mesh)
 
     # -- state ------------------------------------------------------------
 
@@ -276,5 +285,31 @@ class PDESEngine:
             tb.to(device=self.device, dtype=torch.int64)
         state = SimState(state.tau, state.offset, state.offset_comp,
                          int(state.step))
+        if self.ecfg.backend == "sharded":
+            return self._run_sharded(state, seed, n_steps, mode, deltas,
+                                     trial_base)
         return _run_single(state, seed, self.cfg, self.ecfg, n_steps, mode,
                            deltas, trial_base)
+
+    def _run_sharded(self, state, seed, n_steps, mode, deltas, trial_base):
+        from . import distributed as D
+        K = self.dist.k_chunk
+        if n_steps % K:
+            raise ValueError(
+                f"sharded backend advances whole chunks: n_steps={n_steps} "
+                f"must be a multiple of k_chunk={K}")
+        tau, off, comp, st = D.run_sharded_state(
+            self.cfg, self.mesh, n_steps=n_steps, seed=seed, dist=self.dist,
+            tau0=state.tau, off0=state.offset, comp0=state.offset_comp,
+            step_base=state.step, deltas=deltas, trial_base=trial_base)
+        out_state = SimState(tau, off, comp, state.step + n_steps)
+        if mode == "burn":
+            return out_state, None
+        stats = StepStats(
+            utilization=st["u"], w2=st["w2"],
+            wa=torch.full_like(st["u"], math.nan), gvt=st["gvt"],
+            mean_tau=st["mean_tau"], max_dev=st["max_dev"],
+            min_dev=st["min_dev"])
+        if mode == "mean":
+            stats = StepStats(*(a.mean(dim=0) for a in stats))
+        return out_state, stats

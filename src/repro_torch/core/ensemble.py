@@ -80,7 +80,7 @@ def steady_state(cfg: PDESConfig, *, n_trials: int = 64, seed: int = 0,
     on ``jax.random.key(seed)`` split into burn and measure keys); an
     engine backend name routes through ``PDESEngine`` on the counter
     stream, with ``engine_opts`` for its constructor (``window``,
-    ``k_fuse``).
+    ``k_fuse``, and ``mesh``/``dist`` for ``backend="sharded"``).
     """
     if burn_in_steps is None:
         burn_in_steps = default_burn_in(cfg)
@@ -138,8 +138,9 @@ def steady_state_sweep(cfg: PDESConfig, deltas: Sequence[float], *,
     A ``SteadyState`` adapter over ``experiments.run_window_sweep``:
     ``cfg.delta`` is ignored and each result carries its row's Δ; the whole
     recorded span is averaged (``steady_frac=1.0``) and ``rate`` is the
-    least-squares GVT slope.  ``engine_opts`` takes ``window`` and
-    ``k_fuse``; ``mesh`` raises until the sharded backend is ported.
+    least-squares GVT slope.  ``engine_opts`` takes ``window``, ``k_fuse``
+    and, for ``backend="sharded"``, ``mesh`` and ``dist``, which route to
+    ``run_window_sweep``'s mesh path.
     """
     from ..experiments.sweep import WindowSweep, run_window_sweep
     if burn_in_steps is None:
@@ -150,17 +151,18 @@ def steady_state_sweep(cfg: PDESConfig, deltas: Sequence[float], *,
         measure_steps = max(200, burn_in_steps // 4)
     opts = dict(engine_opts or {})
     mesh = opts.pop("mesh", None)
+    dist = opts.pop("dist", None)
     unsupported = sorted(set(opts) - {"window", "k_fuse"})
     if unsupported:
         raise ValueError(
-            f"steady_state_sweep supports engine_opts 'window', 'k_fuse' "
-            f"and 'mesh' only; got {unsupported}")
+            f"steady_state_sweep supports engine_opts 'window', 'k_fuse', "
+            f"'mesh' and 'dist' only; got {unsupported}")
     spec = WindowSweep(
         Ls=(cfg.L,), n_vs=(cfg.n_v,), deltas=tuple(float(d) for d in deltas),
         replicas=n_trials, n_steps=measure_steps, burn_in=burn_in_steps,
         backend=backend, rd_mode=cfg.rd_mode,
         border_both=cfg.border_both, steady_frac=1.0, seed=seed, **opts)
-    result = run_window_sweep(spec, device=device, mesh=mesh)
+    result = run_window_sweep(spec, device=device, mesh=mesh, dist=dist)
     out = []
     for d in deltas:
         (rec,) = result.select(delta=float(d))

@@ -10,9 +10,8 @@ scored by utilization per unit width-bounded cost::
 ``find_optimal_window`` takes the grid argmax of one (L, N_V) point of a
 sweep; ``refine_optimal_window`` refines it by golden-section search with
 every probe a single-Δ request to a :class:`~repro_torch.service.
-SweepService`.  The ``as_dict`` encodings are ``repro``'s.  Single device:
-``mesh=`` raises until the sharded backend is ported (ROADMAP, queue A,
-item A10).
+SweepService`.  The ``as_dict`` encodings are ``repro``'s.  A sharded
+spec probes through a service on a process mesh (``mesh=``/``dist=``).
 """
 from __future__ import annotations
 
@@ -22,7 +21,7 @@ import math
 import numpy as np
 
 from ..core.horizon import PDESConfig
-from .sweep import SweepResult, WindowSweep, _check_mesh, run_window_sweep
+from .sweep import SweepResult, WindowSweep, run_window_sweep
 
 
 def efficiency(u, w):
@@ -125,13 +124,14 @@ class RefinedWindow:
 
 def refine_optimal_window(spec: WindowSweep, *, L=None, n_v=None,
                           rounds: int = 4, polish_steps: int | None = None,
-                          service=None, device=None,
-                          mesh=None) -> RefinedWindow:
+                          service=None, device=None, mesh=None,
+                          dist=None) -> RefinedWindow:
     """Golden-section search for Δ*, issuing probes through the sweep service.
 
     ``spec.deltas`` is the coarse bracketing grid.  Every probe is a
     single-Δ ``WindowSweep`` submitted to a ``SweepService`` (``service=``
-    to share one across calls; else a private one on ``device``), so the
+    to share one across calls; else a private one on ``device``, with
+    ``mesh``/``dist`` for sharded probes), so the
     probes of a round coalesce into one pass, a re-probed Δ deduplicates,
     and the final polish (the winner re-measured with ``polish_steps``,
     default ``2 * spec.n_steps``) reuses the burned-in rows from the
@@ -139,7 +139,6 @@ def refine_optimal_window(spec: WindowSweep, *, L=None, n_v=None,
     interior; a boundary argmax is returned as it is with
     ``interior=False``.
     """
-    _check_mesh(mesh)
     from ..service import SweepService
     L = int(L if L is not None else spec.Ls[0])
     n_v = int(n_v if n_v is not None else spec.n_vs[0])
@@ -147,7 +146,7 @@ def refine_optimal_window(spec: WindowSweep, *, L=None, n_v=None,
                      border_both=spec.border_both)
     burn = int(spec.burn_in_for(cfg))
     if service is None:
-        service = SweepService(device=device)
+        service = SweepService(device=device, mesh=mesh, dist=dist)
     memo: dict[float, tuple[float, float, float]] = {}   # Δ -> (u, w, eff)
     evaluations: list[tuple[float, float]] = []
 

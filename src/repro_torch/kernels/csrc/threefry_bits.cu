@@ -22,10 +22,13 @@
 //               at 3.35 TB/s (the key and step are a few bytes).
 //   operations  73 integer operations a word (two key adds, 20 rounds of
 //               add, rotate and xor, ten injection adds, the final xor):
-//               1.05e10, 0.156 ms at 67 T/s (the guide's only 32-bit
-//               non-tensor rate).
-// So bytes bound it. Measured on an H100 80GB HBM3 at 700 W (chip_smoke.py
-// phase 6), it runs at about 0.35 of that bound.
+//               1.05e10 lane-instructions, 0.31 ms at the issue limit of
+//               128 lanes a clock on each of 132 SMs at 1.98 GHz
+//               (3.3e13 a second).  The guide's 67 T/s counts the two
+//               FLOPs of an fp32 FMA; an integer operation is one issue.
+// So instruction issue bounds it, not bytes. Measured on an H100 80GB HBM3
+// at 700 W (chip_smoke.py phase 6), it runs at about 0.35 of the bytes
+// bound and about 0.64 of the issue limit.
 
 #include <cuda_runtime.h>
 #include <stdint.h>

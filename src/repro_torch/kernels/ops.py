@@ -1,7 +1,10 @@
 """Ring-level wrappers around the kernels (port of ``repro.kernels.ops``).
 
 ``ring_halo`` turns full periodic rings into the haloed layout
-``pdes_step`` takes; ``step_ring`` is one exact-GVT step on full rings;
+``pdes_step`` takes; ``step_haloed`` is one step on a haloed strip with a
+per-row Δ column folded into the window base (the engine's ``pallas``
+backend and each shard of the sharded one); ``step_ring`` is one
+exact-GVT step on full rings;
 ``simulate`` runs ``horizon.run``'s threefry stream in K-fused chunks
 through B3 (``pdes_multistep``), the words of each chunk made by the
 generator kernel (``threefry.threefry_bits``).  The TPU tile helpers
@@ -22,6 +25,23 @@ from .threefry import threefry_bits
 def ring_halo(tau: torch.Tensor) -> torch.Tensor:
     """(B, L) -> (B, L + 2) with periodic wrap columns."""
     return torch.cat([tau[:, -1:], tau, tau[:, :1]], dim=1)
+
+
+def step_haloed(tau_h: torch.Tensor, bits: torch.Tensor, gvt: torch.Tensor,
+                cfg: PDESConfig, delta_col=None):
+    """One step of B2 on a haloed strip with window base ``gvt``.
+
+    ``delta_col`` None applies ``cfg.delta``; a ``(B, 1)`` per-row Δ column
+    folds into the base: the kernel's rule is ``tau <= delta + base``, so
+    ``gvt + delta_col`` with a static delta of 0 applies each row's own
+    window with the same fp32 add.  Returns ``(tau_next, moments)``.
+    """
+    if delta_col is None:
+        base, delta = gvt, cfg.delta
+    else:
+        base, delta = gvt + delta_col, 0.0
+    return pdes_step(tau_h, bits, base, n_v=cfg.n_v, delta=delta,
+                     rd_mode=cfg.rd_mode, border_both=cfg.border_both)
 
 
 def step_ring(tau: torch.Tensor, bits: torch.Tensor, cfg: PDESConfig):

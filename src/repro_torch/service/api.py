@@ -15,9 +15,14 @@ engine passes:
 * burned-in states are cached row by row (:class:`~.state_cache.
   StateCache`) and reused across requests.
 
-Single device: the pass runs on the service's ``device`` (``None`` is the
-GPU).  Telemetry instruments and the sharded backend come with later
-slices (ROADMAP, queue A, items A9 and A10).
+A pass runs on the service's ``device`` (``None`` is the GPU, or the
+mesh's device).  ``backend="sharded"`` requests need a service built with
+``mesh=`` (every rank of the mesh runs the same service on the same
+queue): they are planned by ``plan_mesh_sweep``, and a pass whose rows do
+not fill the ensemble extent is padded with ``Δ = inf`` rows on trial
+indices ``-1 - i`` (wrapping mod ``2**32``), sliced off before any
+reduction.  Telemetry instruments come with a later slice (ROADMAP, queue
+A, item A9).
 """
 from __future__ import annotations
 
@@ -34,7 +39,8 @@ from ..core import measurement
 from ..core.engine import PDESEngine
 from ..core.horizon import PDESConfig, SimState, StepStats
 from ..device import resolve_device
-from ..experiments.sweep import (SweepResult, WindowSweep,
+from ..experiments.sweep import (SweepResult, WindowSweep, _derive_dist,
+                                 _round_up, ens_extent, plan_mesh_sweep,
                                  records_from_reduction, spec_to_dict)
 from .scheduler import BatchScheduler, CompatKey, GridJob, PackedPass
 from .state_cache import StateCache
@@ -125,7 +131,9 @@ class SweepService:
 
     Args:
       device: where every pass runs; ``None`` is the GPU (raises without
-        CUDA), ``"cpu"`` the plain PyTorch path.
+        CUDA) or the mesh's device, ``"cpu"`` the plain PyTorch path.
+      mesh / dist: the process mesh (and optional ``DistConfig``) of
+        ``backend="sharded"`` requests.
       max_batch_rows / max_wait_rounds / fairness_rows / quota_rows:
         admission control, see :class:`~.scheduler.BatchScheduler`.
       state_cache_rows: LRU bound of the burned-state cache, in rows.
@@ -139,12 +147,15 @@ class SweepService:
     through the callback as soon as it is ready.
     """
 
-    def __init__(self, *, device=None, max_batch_rows: int = 4096,
+    def __init__(self, *, device=None, mesh=None, dist=None,
+                 max_batch_rows: int = 4096,
                  max_wait_rounds: int = 0, fairness_rows: float = math.inf,
                  quota_rows: float = math.inf, state_cache_rows: int = 65536,
                  engine_retries: int = 0, retry_base_s: float = 0.05,
                  retry_cap_s: float = 2.0):
-        self.device = resolve_device(device)
+        self.device = resolve_device(device, mesh)
+        self.mesh = mesh
+        self.dist = dist
         self.scheduler = BatchScheduler(max_batch_rows=max_batch_rows,
                                         max_wait_rounds=max_wait_rounds,
                                         fairness_rows=fairness_rows,
@@ -171,10 +182,10 @@ class SweepService:
                ) -> SweepRequest:
         """Register a sweep request; returns its deterministic id."""
         spec = canonicalize_spec(spec)
-        if spec.backend == "sharded":
-            raise NotImplementedError(
-                "backend='sharded' requests need the sharded backend, which "
-                "is not ported yet (ROADMAP, queue A, item A10)")
+        if spec.backend == "sharded" and self.mesh is None:
+            raise ValueError(
+                "backend='sharded' requests need a service mesh: "
+                "construct SweepService(mesh=...)")
         fp = spec_fingerprint(spec)
         rid = hashlib.sha256(f"{requester}\n{fp}".encode()).hexdigest()[:16]
         req = SweepRequest(request_id=rid, requester=requester, spec=spec,
@@ -199,15 +210,19 @@ class SweepService:
         spec = req.spec
         self._fp_specs[req.fingerprint] = spec
         self._fp_records[req.fingerprint] = {}
-        points, base = [], 0
-        for L in spec.Ls:
-            for n_v in spec.n_vs:
-                cfg = PDESConfig(L=int(L), n_v=int(n_v), delta=math.inf,
-                                 rd_mode=spec.rd_mode,
-                                 border_both=spec.border_both)
-                points.append((int(L), int(n_v), base,
-                               spec.burn_in_for(cfg)))
-                base += spec.n_trajectories
+        if spec.backend == "sharded":
+            points = [(p.L, p.n_v, p.trial_base, p.burn_in)
+                      for p in plan_mesh_sweep(spec, self.mesh, self.dist)]
+        else:
+            points, base = [], 0
+            for L in spec.Ls:
+                for n_v in spec.n_vs:
+                    cfg = PDESConfig(L=int(L), n_v=int(n_v), delta=math.inf,
+                                     rd_mode=spec.rd_mode,
+                                     border_both=spec.border_both)
+                    points.append((int(L), int(n_v), base,
+                                   spec.burn_in_for(cfg)))
+                    base += spec.n_trajectories
         self._fp_jobs_left[req.fingerprint] = len(points)
         R = spec.replicas
         for L, n_v, base, burn in points:
@@ -339,8 +354,29 @@ class SweepService:
     def _engine(self, key: CompatKey) -> PDESEngine:
         cfg = PDESConfig(L=key.L, n_v=key.n_v, delta=math.inf,
                          rd_mode=key.rd_mode, border_both=key.border_both)
+        sharded = key.backend == "sharded"
         return PDESEngine(cfg, backend=key.backend, window=key.window,
-                          k_fuse=key.k_fuse, device=self.device)
+                          k_fuse=key.k_fuse, device=self.device,
+                          mesh=self.mesh if sharded else None,
+                          dist=self.dist if sharded else None)
+
+    def _ens_extent(self, key: CompatKey) -> int:
+        if key.backend != "sharded":
+            return 1
+        dist = self.dist
+        if dist is None:
+            dist = _derive_dist(WindowSweep(window=key.window,
+                                            k_fuse=key.k_fuse))
+        return ens_extent(self.mesh, dist)
+
+    def _pad_rows(self, key: CompatKey, trials, deltas):
+        """Pad to the ensemble extent: ``Δ = inf`` rows on trials
+        ``-1 - i``, out of band of every real row's stream."""
+        n_pad = _round_up(len(trials), self._ens_extent(key)) - len(trials)
+        trials = np.concatenate([trials, -1 - np.arange(n_pad)])
+        deltas = np.concatenate([deltas, np.full(n_pad, np.inf, np.float32)])
+        return (torch.as_tensor(trials, dtype=torch.int64, device=self.device),
+                torch.as_tensor(deltas, device=self.device), n_pad)
 
     def _execute(self, p: PackedPass) -> None:
         key = p.key
@@ -348,16 +384,15 @@ class SweepService:
         B = p.n_rows
         trials = np.fromiter((t for t, _ in p.rows), np.int64, B)
         deltas = np.fromiter((d for _, d in p.rows), np.float32, B)
-        drows = torch.as_tensor(deltas, device=self.device)
-        tvec = torch.as_tensor(trials, device=self.device)
-        state = self._burned_state(eng, key, p.rows, drows, tvec)
+        tvec, drows, n_pad = self._pad_rows(key, trials, deltas)
+        state = self._burned_state(eng, key, p.rows, n_pad, trials, deltas)
         _, stats = eng.run(state, key.seed, key.n_steps, deltas=drows,
                            trial_base=tvec)
         self.stats.n_passes += 1
         self.stats.n_engine_calls += 1
         self.stats.rows_computed += B
-        self.stats.engine_row_steps += B * key.n_steps
-        arrs = StepStats(*(measurement.to_numpy(a) for a in stats))
+        self.stats.engine_row_steps += (B + n_pad) * key.n_steps
+        arrs = StepStats(*(measurement.to_numpy(a)[:, :B] for a in stats))
         for job, cols in zip(p.jobs, p.cols):
             idx = np.asarray(cols, np.intp)
             # fancy indexing yields F-ordered columns; numpy's axis-0 mean
@@ -372,37 +407,42 @@ class SweepService:
                 self._served_rows.get(job.requester, 0) + len(job.rows))
             self._finish_job(job, red)
 
-    def _burned_state(self, eng: PDESEngine, key: CompatKey, rows, drows,
-                      tvec) -> SimState:
+    def _burned_state(self, eng: PDESEngine, key: CompatKey, rows,
+                      n_pad: int, trials, deltas) -> SimState:
         """Assemble the post-burn-in state, reusing cached rows.
 
         Rows are independent rings, so cache-missing rows are burned in
-        their own sub-pass and spliced next to cached rows — bit-identical
-        to burning the whole batch.
+        their own sub-pass (padded to the ensemble extent) and spliced next
+        to cached rows — bit-identical to burning the whole batch.  The
+        ``n_pad`` pad rows of the pass start from zero.
         """
         B = len(rows)
         if not key.burn:
-            return eng.init(B)
+            return eng.init(B + n_pad)
         skey = key.stream_key
         cached = [self.state_cache.get(skey + r) for r in rows]
         missing = [i for i, c in enumerate(cached) if c is None]
         self.stats.rows_from_state_cache += B - len(missing)
         if missing:
-            m_idx = torch.as_tensor(missing, device=self.device)
-            sub = eng.burn_in(eng.init(len(missing)), key.seed, key.burn,
-                              deltas=drows[m_idx], trial_base=tvec[m_idx])
+            m_tvec, m_drows, m_pad = self._pad_rows(key, trials[missing],
+                                                    deltas[missing])
+            sub = eng.burn_in(eng.init(len(missing) + m_pad), key.seed,
+                              key.burn, deltas=m_drows, trial_base=m_tvec)
             self.stats.n_engine_calls += 1
             self.stats.rows_burned += len(missing)
-            self.stats.engine_row_steps += len(missing) * key.burn
-            tau_m, off_m, comp_m = (measurement.to_numpy(a) for a in
-                                    (sub.tau, sub.offset, sub.offset_comp))
+            self.stats.engine_row_steps += (len(missing) + m_pad) * key.burn
+            tau_m, off_m, comp_m = (measurement.to_numpy(a)[:len(missing)]
+                                    for a in (sub.tau, sub.offset,
+                                              sub.offset_comp))
             self.state_cache.put_batch([skey + rows[i] for i in missing],
                                        tau_m, off_m, comp_m)
             for j, i in enumerate(missing):
                 cached[i] = (tau_m[j], off_m[j], comp_m[j])
-        tau = np.stack([c[0] for c in cached]).astype(np.float32, copy=False)
-        off = np.asarray([c[1] for c in cached], np.float32)
-        comp = np.asarray([c[2] for c in cached], np.float32)
+        tau = np.zeros((B + n_pad, eng.cfg.L), np.float32)
+        off = np.zeros((B + n_pad,), np.float32)
+        comp = np.zeros((B + n_pad,), np.float32)
+        for i, (t, o, c) in enumerate(cached):
+            tau[i], off[i], comp[i] = t, o, c
         return SimState(*(torch.as_tensor(a, device=self.device)
                           for a in (tau, off, comp)), key.burn)
 

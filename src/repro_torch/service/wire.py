@@ -61,7 +61,7 @@ class WireError(Exception):
     ``code`` is machine-readable: ``parse`` (not JSON), ``schema`` (JSON but
     not a well-formed request), ``version`` (unsupported schema version),
     ``oversize`` (line above the intake byte cap), ``reject`` (well-formed
-    but refused by the service, e.g. a sharded spec, not ported yet),
+    but refused by the service, e.g. a sharded spec without a mesh),
     ``engine`` (the request was accepted but its device pass failed after
     retries).
     """
@@ -247,7 +247,7 @@ def serve_queue(queue_path, out_fh, *, service=None,
                     service.submit(item.spec, requester=item.requester)
                     .request_id)
                 continue
-            except Exception as e:     # e.g. a sharded spec (not ported)
+            except Exception as e:     # e.g. sharded spec, no service mesh
                 err = WireError("reject", f"{type(e).__name__}: {e}",
                                 lineno=item.lineno, requester=item.requester)
         service.stats.n_errors += 1

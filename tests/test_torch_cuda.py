@@ -381,3 +381,95 @@ def test_threefry_drivers_agree_across_devices(dev):
     for k in gpu.keys() - {"t", "u", "gvt"}:
         np.testing.assert_allclose(gpu[k], cpu[k], rtol=1e-5, atol=1e-5,
                                    err_msg=k)
+
+
+# ---------------------------------------------------------------------------
+# the sharded backend on the card: one rank of an NCCL process group
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def nccl_mesh():
+    """A (1, 1) process mesh over NCCL in this process (world size 1)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    import datetime
+    import torch.distributed as dist
+    from repro_torch.core.mesh import make_mesh
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1,
+                            timeout=datetime.timedelta(seconds=60))
+    try:
+        yield make_mesh((1, 1), ("data", "model"))
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("mode,window,backend", [
+    ("exact", "exact", "pallas_multistep"), ("commavoid", "stale", "pallas")])
+def test_sharded_on_nccl_matches_engine(nccl_mesh, mode, window, backend):
+    """Each shard's step through B2: τ, the offsets, u and gvt bitwise
+    equal to the engine with the same rebase schedule."""
+    from repro_torch.core import distributed as D
+    dev = nccl_mesh.device
+    B, n_steps, K = 16, 64, 16
+    cfg = PDESConfig(L=1000, n_v=10)
+    deltas = torch.tensor([1.0, 4.0, math.inf, 16.0] * 4, device=dev)
+    trials = torch.arange(B, device=dev) - 3          # negatives wrap
+    z = torch.zeros(B, device=dev)
+    before = ps.launches
+    tau, off, comp, st = D.run_sharded_state(
+        cfg, nccl_mesh, n_steps=n_steps, seed=3,
+        dist=D.DistConfig(mode=mode, k_chunk=K),
+        tau0=torch.zeros((B, cfg.L), device=dev), off0=z, comp0=z,
+        step_base=5, deltas=deltas, trial_base=trials)
+    per_step = 1 if mode == "exact" else 3
+    assert ps.launches == before + per_step * n_steps
+    eng = PDESEngine(cfg, backend=backend, window=window, k_fuse=K,
+                     device=dev)
+    st0 = eng.init(B)
+    s_e, st_e = eng.run(st0._replace(step=5), 3, n_steps, deltas=deltas,
+                        trial_base=trials)
+    for a, b in ((tau, s_e.tau), (off, s_e.offset), (comp, s_e.offset_comp),
+                 (st["u"], st_e.utilization), (st["gvt"], st_e.gvt)):
+        assert torch.equal(a, b)
+    for k in ("w2", "mean_tau", "max_dev", "min_dev"):
+        torch.testing.assert_close(st[k], getattr(st_e, k), rtol=1e-5,
+                                   atol=1e-2)
+
+
+@pytest.mark.parametrize("delta,n_v,mode,k", [
+    (5.0, 1, "exact", 8), (math.inf, 1, "exact", 8),
+    (5.0, 10, "commavoid", 4), (10.0, 3, "commavoid", 8)])
+def test_sharded_on_nccl_matches_run_reference(nccl_mesh, delta, n_v, mode,
+                                               k):
+    """``tests/test_distributed_pdes.py``'s cases and bounds on the card."""
+    from repro_torch.core import distributed as D
+    cfg = PDESConfig(L=32, n_v=n_v, delta=delta)
+    tau_s, st_s = D.run_sharded(cfg, nccl_mesh, n_trials=6, n_steps=24,
+                                seed=7, dist=D.DistConfig(mode=mode,
+                                                          k_chunk=k))
+    tau_r, st_r = D.run_reference(cfg, n_trials=6, n_steps=24, seed=7,
+                                  stale_every=None if mode == "exact" else k,
+                                  device=nccl_mesh.device)
+    assert float((tau_s - tau_r).abs().max()) < 1e-4
+    assert float((st_s["u"] - st_r["u"]).abs().max()) < 1e-6
+
+
+def test_sharded_service_on_nccl(nccl_mesh):
+    """A sharded service pass on the card equals direct mesh sweeps."""
+    import json
+    from repro_torch.experiments.sweep import WindowSweep, run_window_sweep
+    from repro_torch.service import SweepService
+    common = dict(Ls=(256,), n_vs=(4,), replicas=3, n_steps=32, burn_in=16,
+                  backend="sharded", k_fuse=16)
+    specs = [WindowSweep(deltas=(2.0, 4.0, math.inf), **common),
+             WindowSweep(deltas=(4.0, 8.0), **common)]
+    svc = SweepService(mesh=nccl_mesh)
+    for i, spec in enumerate(specs):
+        svc.submit(spec, requester=f"r{i}")
+    for resp in svc.drain():
+        direct = run_window_sweep(resp.spec, mesh=nccl_mesh)
+        assert json.dumps(resp.result.as_dict()) == \
+            json.dumps(direct.as_dict())
+    assert svc.stats.n_passes == 1

@@ -163,8 +163,19 @@ def test_engine_validation():
     with pytest.raises(ValueError):
         PDESEngine(cfg, backend="pallas_multistep", window="stale",
                    device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="requires a mesh"):
         PDESEngine(cfg, backend="sharded", device="cpu")
+    from repro_torch.core.distributed import DistConfig
+    from repro_torch.core.mesh import ProcessMesh
+    mesh = ProcessMesh.abstract((1, 1), ("data", "model"))
+    with pytest.raises(ValueError, match="conflicts"):
+        PDESEngine(cfg, backend="sharded", window="stale", device="cpu",
+                   mesh=mesh, dist=DistConfig(mode="exact"))
+    eng = PDESEngine(cfg, backend="sharded", window="stale", k_fuse=4,
+                     device="cpu", mesh=mesh)
+    assert (eng.dist.mode, eng.dist.k_chunk) == ("commavoid", 4)
+    with pytest.raises(ValueError, match="whole chunks"):
+        eng.run(eng.init(2), 0, 6)
     with pytest.raises(ValueError, match="'pallas'"):
         PDESEngine(cfg, backend="pallas_multistep", window="stale",
                    device="cpu")

@@ -31,7 +31,11 @@ def test_no_jax_or_repro_import(path):
 def test_walk_covers_the_port_and_both_import_forms():
     names = {p.relative_to(ROOT).as_posix() for p in FILES}
     assert {"src/repro_torch/kernels/pdes_multistep.py",
-            "src/repro_torch/service/api.py", "chip_smoke.py"} <= names
+            "src/repro_torch/service/api.py",
+            "src/repro_torch/core/distributed.py",
+            "src/repro_torch/core/mesh.py",
+            "src/repro_torch/distributed/delta_sync.py",
+            "chip_smoke.py"} <= names
     probe = ("import jax.numpy as jnp\n"
              "def f():\n    from repro.core import horizon\n"
              "from . import sibling\nfrom repro_torch import bridge\n")

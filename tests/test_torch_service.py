@@ -190,7 +190,8 @@ def test_batched_sweep_equals_serial_and_json_matches_repro():
     assert back == batched
     for rec in batched.records:
         assert 0.0 < rec.u <= 1.0
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="only meaningful for "
+                                         "backend='sharded'"):
         run_window_sweep(spec, device="cpu", mesh=object())
 
 
@@ -206,7 +207,7 @@ def test_sharded_spec_is_rejected_per_line(tmp_path):
         stats = serve_queue(queue, fh, service=SweepService(device="cpu"))
     docs = [json.loads(li) for li in out.read_text().splitlines()]
     assert "result" in docs[0] and docs[1]["error"]["code"] == "reject"
-    assert "not ported" in docs[1]["error"]["message"]
+    assert "need a service mesh" in docs[1]["error"]["message"]
     assert stats.n_errors == 1
 
 

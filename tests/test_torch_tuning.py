@@ -168,8 +168,9 @@ def test_refiner_matches_dense_grid_with_fewer_engine_steps():
     opt = optimal_windows(svc2.drain()[0].result)[0]
     assert abs(ref.delta_star - opt.delta_star) <= 1.5 * (dense[1] - dense[0])
     assert svc.stats.engine_row_steps < svc2.stats.engine_row_steps
-    with pytest.raises(NotImplementedError, match="A10"):
-        refine_optimal_window(coarse, service=svc, mesh=object())
+    with pytest.raises(ValueError, match="service mesh"):
+        refine_optimal_window(dataclasses.replace(coarse, backend="sharded"),
+                              service=svc)
 
 
 def _close(port, ref, fields):
@@ -249,11 +250,15 @@ def test_ensemble_threefry_path_is_not_ported():
 
     The threefry path (``backend=None``) this test once held as unported
     is ported now and held against ``repro`` by
-    ``test_ensemble_threefry_path_matches_repro``; the sharded engine
-    (A10) and options a batched sweep does not take still raise.
+    ``test_ensemble_threefry_path_matches_repro``, and the sharded engine
+    is reached through ``engine_opts={"mesh": ...}``
+    (``tests/test_torch_sharded_sweep.py``).  A mesh for a non-sharded
+    backend and options a batched sweep does not take raise, as in
+    ``repro``.
     """
     cfg = PDESConfig(L=16)
-    with pytest.raises(NotImplementedError, match="A10"):
+    with pytest.raises(ValueError, match="only meaningful for "
+                                         "backend='sharded'"):
         tens.steady_state_sweep(cfg, (1.0,), burn_in_steps=4,
                                 measure_steps=4, device="cpu",
                                 engine_opts={"mesh": object()})

@@ -4,9 +4,16 @@ Imported by ``tests/test_torch_*.py`` (pytest puts this directory on the
 path); not a test module itself.
 """
 import functools
+import os
+import pathlib
+import subprocess
+import sys
+import time
 
 import numpy as np
 import torch
+
+SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
 
 #: moments (and the StepStats built from them) that must agree bit for bit;
 #: the sums agree only to rounding, because the reduction order differs.
@@ -59,3 +66,48 @@ def assert_stats(port, ref, msg="") -> None:
         else:
             np.testing.assert_allclose(a, b, rtol=RTOL, atol=1e-5,
                                        err_msg=f"{msg}{f}")
+
+
+def run_ranks(script: str, world: int, workdir, *, env=None,
+              timeout: float = 240.0) -> None:
+    """Run ``script`` as ``world`` ranks of one gloo group, and wait.
+
+    Each rank is ``python -c script`` with ``RANK``, ``WORLD_SIZE`` and
+    ``STORE`` (a ``file://`` rendezvous path in ``workdir``) set, one thread
+    of torch each, output in ``workdir/rank<r>.log``.  Every rank gets the
+    same ``timeout``-second deadline: past it, all are killed and the call
+    fails, so a hang fails the test instead of the suite's time limit.
+    """
+    workdir = pathlib.Path(workdir)
+    base = dict(os.environ, PYTHONPATH=str(SRC), WORLD_SIZE=str(world),
+                STORE=str(workdir / "store"), OMP_NUM_THREADS="1",
+                **(env or {}))
+    procs, logs = [], []
+    try:
+        for r in range(world):
+            log = open(workdir / f"rank{r}.log", "w")
+            logs.append(log)
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", script], env=dict(base, RANK=str(r)),
+                stdout=log, stderr=subprocess.STDOUT, cwd=workdir))
+        deadline = time.monotonic() + timeout
+        for p in procs:
+            try:
+                p.wait(timeout=max(0.1, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                break
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+    bad = [(r, p.returncode) for r, p in enumerate(procs) if p.returncode]
+    if bad:
+        tails = "\n".join(
+            f"--- rank {r} (exit {rc}):\n"
+            + (workdir / f"rank{r}.log").read_text()[-2000:]
+            for r, rc in bad[:2])
+        raise AssertionError(f"ranks failed or passed the {timeout:.0f} s "
+                             f"deadline: {bad}\n{tails}")
