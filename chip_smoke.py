@@ -58,7 +58,21 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` with
    ``run_window_sweep(mesh=)`` and equal in ``u`` and GVT rate to
    ``pallas_multistep``; (d) wall per chunk beside the ``pallas``
    backend's, B2's launches, a profile with the NCCL calls' share;
-10. the last lines: one JSON object per kernel (times, bound, launches),
+10. the serve daemon, telemetry and ``--mesh``: (a) an in-process
+   ``serve_daemon`` (telemetry off) on two intake files, one a round:
+   phase 3's three requests, then dave (alice's spec at 2048 steps, her
+   burn-in from the state cache), every response equal to a direct run,
+   B1's launches read; (b) ``python -m repro_torch.service serve`` with
+   the state cache, metrics and trace, crashed by fault injection after
+   its first pass and restarted: every response equal to (a)'s bit for
+   bit, dave's 256 rows all from the cache, the time to recover split;
+   (c) ``python -m repro_torch.obs summarize --check`` on (b)'s files;
+   (d) phase 9(c)'s requests through ``python -m repro_torch.service
+   --mesh data=1,model=1`` (one NCCL rank), equal to phase 9(c)'s
+   responses bit for bit, B2's launches read in the rank, and a mesh
+   larger than the GPUs refused with exit 2; (e) (a)'s wall with
+   telemetry on against off, five drains each in turns;
+11. the last lines: one JSON object per kernel (times, bound, launches),
    then ``{"ok": true, "device": {...}}``.
 
 Every phase asserts; any failure exits non-zero with no result line.
@@ -67,11 +81,16 @@ Without CUDA, or outside a checkout of the repository, it exits 1.
 from __future__ import annotations
 
 import concurrent.futures
+import dataclasses
 import json
 import math
+import os
 import pathlib
+import shutil
 import subprocess
 import sys
+import tempfile
+import textwrap
 import time
 
 #: Ring length and volume load of the main path (10x the L = 1000 of the
@@ -147,6 +166,63 @@ DELTA_SHARDED = 16.0
 STEPS_SHARDED = 256
 TIMED_CHUNKS = 8
 TIMED_ROUNDS = 5
+#: Phase 10: dave's measured steps (alice's spec, longer: her stream prefix
+#: and burn-in), the rounds of timed drains of (e), each run in turns with
+#: telemetry off and on, and the seconds each subprocess is allowed.
+STEPS_DAVE = 2048
+SERVE_ROUNDS = 5
+SUBPROCESS_S = 300
+#: Phase 10(b)'s restart: the CLI's own ``main`` with the clock read
+#: (CLOCK_MONOTONIC, shared with the parent) after the torch import and
+#: CUDA init, after loading B1's library and around the state cache's
+#: load, written to ``STAMPS`` at exit.
+RESTART = textwrap.dedent("""
+    import json, os, sys, time
+    stamps = {}
+    import torch
+    if os.environ["DEVICE"] == "cuda":
+        torch.zeros(1, device="cuda")
+        torch.cuda.synchronize()
+    stamps["cuda"] = time.perf_counter()
+    from repro_torch.kernels import _build
+    if os.environ["DEVICE"] == "cuda":
+        _build.load("pdes_multistep_counter")
+    stamps["library"] = time.perf_counter()
+    from repro_torch.service import state_cache
+    from repro_torch.service.__main__ import main
+    load = state_cache.StateCache.load
+
+    def timed_load(self, path):
+        t0 = time.perf_counter()
+        n = load(self, path)
+        stamps["cache"] = [t0, time.perf_counter()]
+        return n
+
+    state_cache.StateCache.load = timed_load
+    try:
+        rc = main()
+    finally:
+        with open(os.environ["STAMPS"], "w") as fh:
+            json.dump(stamps, fh)
+    sys.exit(rc)
+""")
+#: Phase 10(d)'s ``--mesh`` drain: the CLI's own ``main``; every rank (the
+#: launcher starts copies of this command line) writes B2's launch count
+#: to ``COUNTS/rank<r>`` at exit.
+COUNTED = textwrap.dedent("""
+    import atexit, os, sys
+    from repro_torch.kernels import pdes_step
+    from repro_torch.service.__main__ import main
+
+    def count():
+        path = os.path.join(os.environ["COUNTS"], "rank" + os.environ["RANK"])
+        with open(path, "w") as fh:
+            fh.write(str(pdes_step.launches))
+
+    if "RANK" in os.environ:
+        atexit.register(count)
+    sys.exit(main())
+""")
 #: JAX's own words: (step, b, l, word 0, word 1) of
 #: repro.core.horizon.event_bits(jax.random.key(7), step, (448, 10000)),
 #: made on the CPU with jax 0.9.0 by
@@ -1124,7 +1200,7 @@ def _sharded_runs(torch, ps, engine_mod, D, mesh, sweep, api, dev):
     t0 = time.perf_counter()
     responses = svc.drain()
     sync(torch, dev)
-    wall = time.perf_counter() - t0
+    wall = drain_wall = time.perf_counter() - t0
     drain_launches = ps.launches
     phase_launches += drain_launches
     st = svc.stats
@@ -1230,7 +1306,300 @@ def _sharded_runs(torch, ps, engine_mod, D, mesh, sweep, api, dev):
         for us, key, count in prof["rows"][:10]:
             print(f"[sharded] profiler {us / 1e3:9.3f} ms {count:6d}x  "
                   f"{key[:90]}")
-    return drain_launches
+    return drain_launches, {
+        "wall": drain_wall,
+        "results": {resp.requester: json.dumps(resp.result.as_dict())
+                    for resp in responses}}
+
+
+def _write_queue(path, wire, specs) -> None:
+    path.write_text("".join(json.dumps(wire.encode_request(spec, who)) + "\n"
+                            for who, spec in specs.items()))
+
+
+def _lines(path) -> dict:
+    """Response lines of a JSONL file by requester (errors fail)."""
+    out = {}
+    for line in path.read_text().strip().splitlines():
+        obj = json.loads(line)
+        check("error" not in obj, obj)
+        out[obj["requester"]] = obj
+    return out
+
+
+def _run(cmd, env, what, ok=(0,)):
+    proc = subprocess.run(cmd, env=env, cwd=env["ROOT"], capture_output=True,
+                          text=True, timeout=SUBPROCESS_S)
+    check(proc.returncode in ok, f"{what} exited {proc.returncode}:\n"
+          f"{proc.stderr[-3000:]}")
+    return proc
+
+
+def _series(metrics_dir) -> dict:
+    snap = json.loads((metrics_dir / "metrics.json").read_text())
+    return {s["name"]: s for s in snap["series"] if not s["labels"]}
+
+
+def phase_service(torch, pm, ps, sweep, wire, daemon, api, trace, dev, root,
+                  sharded):
+    """The serve daemon, telemetry and ``--mesh`` on the card.
+
+    ``sharded`` is phase 9's: its service drain's wall and results.
+    Returns B1's launches on the reference drain (a) and B2's in the
+    ``--mesh`` CLI drain (d).
+    """
+    common = dict(Ls=(L_MAIN,), n_vs=(N_V_MAIN,), replicas=REPLICAS,
+                  n_steps=STEPS_MAIN, burn_in=BURN_MAIN,
+                  backend="pallas_multistep", k_fuse=K_MAIN, seed=0)
+    alice = sweep.WindowSweep(deltas=(1.0, 4.0, 16.0, 64.0), **common)
+    q1 = {"alice": alice,
+          "bob": sweep.WindowSweep(deltas=(4.0, 16.0, math.inf), **common),
+          "carol": alice}
+    q2 = {"dave": dataclasses.replace(alice, n_steps=STEPS_DAVE)}
+    specs = {**q1, **q2}
+    work = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_serve_"))
+    env = dict(os.environ, PYTHONPATH=str(root / "src"), ROOT=str(root))
+    env.pop("RANK", None)
+    on_cpu = torch.device(dev).type == "cpu"
+    device_args = ["--device", "cpu"] if on_cpu else []
+
+    def intake(name):
+        d = work / name / "intake"
+        d.mkdir(parents=True)
+        _write_queue(d / "q1.jsonl", wire, q1)
+        _write_queue(d / "q2.jsonl", wire, q2)
+        return d
+
+    def serve(name, telemetry):
+        """An in-process daemon over both files; (wall, stats, lines)."""
+        d = intake(name)
+        cfg = daemon.DaemonConfig(
+            intake_dir=str(d), out_path=str(d.parent / "responses.jsonl"),
+            poll_interval_s=0.01, idle_exit_rounds=1, max_files_per_round=1,
+            metrics_dir=str(d.parent / "metrics") if telemetry else None,
+            trace_path=str(d.parent / "trace.json") if telemetry else None)
+        log = []
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        stats = daemon.serve_daemon(cfg, service=api.SweepService(device=dev),
+                                    log=log.append)
+        sync(torch, dev)
+        wall = time.perf_counter() - t0
+        check(sorted(os.listdir(d)) == ["q1.jsonl.done", "q2.jsonl.done"],
+              os.listdir(d))
+        return wall, stats, _lines(d.parent / "responses.jsonl"), log
+
+    try:
+        # (a) the reference drain, telemetry off, B1's launches read
+        pm.launches = 0
+        wall_a, st, ref, log = serve("a", telemetry=False)
+        b1_launches = pm.launches
+        check(b1_launches > 0, "the daemon's drain launched no B1")
+        check(set(ref) == set(specs), sorted(ref))
+        check(st.n_passes == 2 and st.n_deduped == 1, st)
+        check(st.rows_from_state_cache == 4 * REPLICAS, st)
+        check(st.rows_burned == B_MAIN, st)
+        for line in log:
+            print(f"[serve a] {line}")
+        direct = {}
+        for who, spec in specs.items():
+            if spec not in direct:
+                direct[spec] = json.dumps(
+                    sweep.run_window_sweep(spec, device=dev).as_dict())
+            check(json.dumps(ref[who]["result"]) == direct[spec],
+                  f"{who}: daemon response differs from a direct run")
+            for rec in ref[who]["result"]["records"]:
+                check(0.0 < rec["u"] <= 1.0, rec)
+        print(f"[serve a] in-process daemon, 2 intake files one a round: "
+              f"{wall_a:.3f} s wall, {st.n_passes} passes ({st.rows_burned}"
+              f" rows burned, {st.rows_from_state_cache} from the state "
+              f"cache), {b1_launches} B1 launches; every response equals a "
+              f"direct run_window_sweep bit for bit")
+
+        # (b) crash after the first pass, restart from the state cache
+        d = intake("b")
+        out, cache = d.parent / "responses.jsonl", d.parent / "cache.npz"
+        mdir, tpath = d.parent / "metrics", d.parent / "trace.json"
+        args = ["serve", "--intake", str(d), "--out", str(out),
+                "--state-cache", str(cache), "--metrics-dir", str(mdir),
+                "--trace", str(tpath), "--max-files-per-round", "1",
+                "--poll", "0.05", *device_args]
+        t0 = time.perf_counter()
+        crash = _run([sys.executable, "-m", "repro_torch.service", *args,
+                      "--crash-after-passes", "1"], env, "the crash run",
+                     ok=(70,))
+        wall_crash = time.perf_counter() - t0
+        check("fault injection" in crash.stderr, crash.stderr[-2000:])
+        check(sorted(os.listdir(d)) == ["q1.jsonl.done", "q2.jsonl"],
+              os.listdir(d))
+        check(len(_lines(out)) == 3 and cache.exists() and tpath.exists(),
+              "the crash run left no responses, cache or trace")
+        stamps_path = work / "stamps.json"
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-c", RESTART, *args, "--idle-exit-rounds", "1"],
+            env=dict(env, STAMPS=str(stamps_path), DEVICE=dev), cwd=root,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        try:
+            while len(out.read_text().splitlines()) < 4:
+                check(proc.poll() is None, "the restart exited before dave")
+                check(time.perf_counter() - t0 < SUBPROCESS_S,
+                      "the restart never answered dave")
+                time.sleep(0.002)
+            t_dave = time.perf_counter()
+            _, err = proc.communicate(timeout=SUBPROCESS_S)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        check(proc.returncode == 0, f"the restart exited {proc.returncode}:"
+              f"\n{err[-3000:]}")
+        check(f"restored {B_MAIN} burned row(s)" in err, err[-2000:])
+        check(f"{4 * REPLICAS} rows from state cache" in err, err[-2000:])
+        got = _lines(out)
+        check(got == ref, "crash and restart (telemetry on) differ from the "
+                          "uninterrupted drain (telemetry off)")
+        series = _series(mdir)
+        check(series["repro_service_rows_burned"]["value"] == 0, series)
+        check(series["repro_service_rows_from_state_cache"]["value"]
+              == 4 * REPLICAS, series)
+        stamps = json.loads(stamps_path.read_text())
+        events = json.loads(tpath.read_text())["traceEvents"]
+        (dave_pass,) = [e for e in events if e["name"] == "pass"]
+        check(dave_pass["args"]["rows_from_cache"] == 4 * REPLICAS
+              and dave_pass["args"]["rows_burned"] == 0, dave_pass)
+        split = {
+            "process start, torch import, CUDA init": stamps["cuda"] - t0,
+            "library load": stamps["library"] - stamps["cuda"],
+            "cache load": stamps["cache"][1] - stamps["cache"][0],
+            "dave's pass": dave_pass["dur"] / 1e6}
+        recover = t_dave - t0
+        split["the rest"] = recover - sum(split.values())
+        print(f"[serve b] crash run (pass 1, then os._exit(70)) "
+              f"{wall_crash:.3f} s; restart restored {B_MAIN} rows, dave's "
+              f"{4 * REPLICAS} rows all from the state cache, 0 burned "
+              f"(metrics snapshot); responses equal (a)'s bit for bit")
+        print(f"[serve b] time to recover, process start to dave's response "
+              f"on disk: {recover:.3f} s = "
+              + ", ".join(f"{k} {v:.3f} s" for k, v in split.items()))
+
+        # (c) the summaries of (b)'s files
+        summ = _run([sys.executable, "-m", "repro_torch.obs", "summarize",
+                     "--check", str(mdir), str(tpath)], env, "summarize")
+        check(summ.stdout.count("check ok") == 2, summ.stdout[-2000:])
+        for name in ("repro_pass_u", "repro_pass_w2", "repro_pass_gvt_rate",
+                     "repro_pass_window_occupancy"):
+            check(series[name]["count"] >= 1, f"{name} never observed")
+        print("[serve c] summarize --check: metrics and trace ok; <u>, "
+              "<w2>, GVT rate and window occupancy observed")
+
+        # (d) --mesh data=1,model=1: phase 9(c)'s requests through the CLI
+        mcommon = dict(common, n_steps=STEPS_SLICE, burn_in=BURN_SLICE,
+                       backend="sharded")
+        mspecs = {
+            "alice": sweep.WindowSweep(deltas=(1.0, 4.0, 16.0, 64.0),
+                                       **mcommon),
+            "bob": sweep.WindowSweep(deltas=(4.0, 16.0, math.inf), **mcommon),
+            "carol": sweep.WindowSweep(deltas=(1.0, 4.0, 16.0, 64.0),
+                                       **mcommon)}
+        # alice's and bob's specs at seed 1: a second pass of the same
+        # shapes in the same rank, to part a fresh process's first-use cost
+        # from the pass itself
+        warm = {"erin": dataclasses.replace(mspecs["alice"], seed=1),
+                "frank": dataclasses.replace(mspecs["bob"], seed=1)}
+        queue = work / "mesh.jsonl"
+        _write_queue(queue, wire, {**mspecs, **warm})
+        counts = work / "counts"
+        counts.mkdir()
+        mout, mmet, mtr = (work / "mesh_out.jsonl", work / "mesh_metrics",
+                           work / "mesh_trace.json")
+        t0 = time.perf_counter()
+        _run([sys.executable, "-c", COUNTED, str(queue), "--mesh",
+              "data=1,model=1", "--out", str(mout), "--metrics-dir",
+              str(mmet), "--trace", str(mtr), *device_args],
+             dict(env, COUNTS=str(counts)), "the --mesh drain")
+        wall_mesh = time.perf_counter() - t0
+        b2_launches = int((counts / "rank0").read_text())
+        check(sorted(p.name for p in counts.iterdir()) == ["rank0"],
+              "one rank")
+        check(b2_launches > 0, "the --mesh drain launched no B2")
+        mgot = _lines(mout)
+        check(set(mgot) == set(mspecs) | set(warm), sorted(mgot))
+        for who in mspecs:
+            check(json.dumps(mgot[who]["result"])
+                  == sharded["results"][who],
+                  f"{who}: --mesh response differs from phase 9(c)'s")
+        for who in warm:
+            for rec in mgot[who]["result"]["records"]:
+                check(0.0 < rec["u"] <= 1.0, rec)
+                check(rec["delta"] == "inf"
+                      or rec["spread"] <= rec["delta"] + ETA_MAX, rec)
+        passes = [e for e in json.loads(mtr.read_text())["traceEvents"]
+                  if e["name"] == "pass"]
+        check([e["args"]["seed"] for e in passes] == [0, 1], passes)
+        cold, hot = (e["dur"] / 1e6 for e in passes)
+        _run([sys.executable, "-m", "repro_torch.obs", "summarize",
+              "--check", str(mmet), str(mtr)], env, "summarize (mesh)")
+        print(f"[serve d] python -m repro_torch.service --mesh "
+              f"data=1,model=1: {wall_mesh:.3f} s wall (launcher and one "
+              f"rank, imports and process group included); its seed-0 pass "
+              f"(phase 9(c)'s requests, the rank's first) {cold:.3f} s, the "
+              f"seed-1 pass of the same shapes {hot:.3f} s; phase 9(c)'s "
+              f"in-process drain {sharded['wall']:.3f} s; {b2_launches} B2 "
+              f"launches; every seed-0 response equals phase 9(c)'s bit for "
+              f"bit")
+        if not on_cpu:
+            n = torch.cuda.device_count()
+            big = _run([sys.executable, "-m", "repro_torch.service",
+                        str(queue), "--mesh", f"data={n + 1},model=1"], env,
+                       "the oversized mesh", ok=(2,))
+            check(f"needs {n + 1} GPU(s)" in big.stderr
+                  and "does not fall back" in big.stderr, big.stderr)
+            print(f"[serve d] --mesh data={n + 1},model=1 on {n} GPU(s): "
+                  f"exit 2, {big.stderr.strip().splitlines()[-1]}")
+
+        # (e) telemetry on against off, in turns
+        walls, writes = {"off": [], "on": []}, []
+        # the snapshot and trace writes (tmp, fsync, rename) timed apart
+        write_snapshot, save = daemon.write_snapshot, trace.TraceRecorder.save
+
+        def timed(fn):
+            def run(*a, **k):
+                t = time.perf_counter()
+                try:
+                    return fn(*a, **k)
+                finally:
+                    writes[-1] += time.perf_counter() - t
+            return run
+
+        daemon.write_snapshot = timed(write_snapshot)
+        trace.TraceRecorder.save = timed(save)
+        try:
+            for r in range(SERVE_ROUNDS):
+                for mode in (("off", "on") if r % 2 == 0 else ("on", "off")):
+                    writes.append(0.0)
+                    wall, _, lines, _ = serve(f"e{r}{mode}", mode == "on")
+                    check(lines == ref, f"telemetry {mode}: responses differ")
+                    walls[mode].append(wall)
+        finally:
+            daemon.write_snapshot, trace.TraceRecorder.save = \
+                write_snapshot, save
+        writes = [w for w in writes if w]
+        med = {k: sorted(v)[len(v) // 2] for k, v in walls.items()}
+        for mode, v in walls.items():
+            print(f"[serve e] in-process daemon drain, telemetry {mode}: "
+                  f"median {med[mode]:.4f} s of {SERVE_ROUNDS} ("
+                  + ", ".join(f"{x:.4f}" for x in v) + ")")
+        check(len(writes) == SERVE_ROUNDS, writes)
+        print(f"[serve e] telemetry on / off: {med['on'] / med['off']:.4f}; "
+              f"of each drain with telemetry on, the 3 metrics snapshots and "
+              f"the trace save (tmp, fsync, rename) took median "
+              f"{sorted(writes)[len(writes) // 2] * 1e3:.2f} ms ("
+              + ", ".join(f"{w * 1e3:.2f}" for w in writes)
+              + "); responses bitwise equal in every drain")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return b1_launches, b2_launches
 
 
 def main() -> int:
@@ -1256,7 +1625,7 @@ def main() -> int:
     from repro_torch.kernels import pdes_step as ps
     from repro_torch.kernels import threefry as tf
     from repro_torch.obs import trace
-    from repro_torch.service import api
+    from repro_torch.service import api, daemon, wire
 
     card = card_line()
     print(card)
@@ -1294,9 +1663,12 @@ def main() -> int:
     b3_launches, gen_launches = phase_threefry_path(
         torch, ops, pm, tf, ref, horizon, prng, ensemble, "cuda")
     t["8 B3 path"] = time.perf_counter() - t0 - sum(t.values())
-    b2_sharded = phase_sharded(torch, ps, engine_mod, D, mesh_mod, sweep, api,
-                               "cuda")
+    b2_sharded, sharded = phase_sharded(torch, ps, engine_mod, D, mesh_mod,
+                                        sweep, api, "cuda")
     t["9 sharded"] = time.perf_counter() - t0 - sum(t.values())
+    b1_serve, b2_serve = phase_service(torch, pm, ps, sweep, wire, daemon, api,
+                                       trace, "cuda", root, sharded)
+    t["10 serve"] = time.perf_counter() - t0 - sum(t.values())
     print("[setup] phase wall: "
           + ", ".join(f"{k} {v:.2f} s" for k, v in t.items()))
 
@@ -1304,11 +1676,12 @@ def main() -> int:
         dict(name="pdes_multistep_counter", route="cuda",
              source="src/repro_torch/kernels/csrc/pdes_multistep_counter.cu",
              replaces="src/repro/kernels/pdes_multistep.py:169",
-             launches=b1_launches, library_ms=None, **kstats),
+             launches=b1_launches + b1_serve, library_ms=None, **kstats),
         dict(name="pdes_step", route="cuda",
              source="src/repro_torch/kernels/csrc/pdes_step.cu",
              replaces="src/repro/kernels/pdes_step.py:69",
-             launches=b2_launches + b2_sharded, library_ms=None, **sstats),
+             launches=b2_launches + b2_sharded + b2_serve, library_ms=None,
+             **sstats),
         dict(name="pdes_multistep", route="cuda",
              source="src/repro_torch/kernels/csrc/pdes_multistep.cu",
              replaces="src/repro/kernels/pdes_multistep.py:129",
@@ -1317,6 +1690,9 @@ def main() -> int:
              source="src/repro_torch/kernels/csrc/threefry_bits.cu",
              replaces="jax.random.bits (XLA, outside Pallas)",
              launches=gen_launches, library_ms=None, **gstats)]
+    print(f"[launches] B1: phase 3 {b1_launches}, phase 10(a) {b1_serve}; "
+          f"B2: phase 5 {b2_launches}, phase 9(c) {b2_sharded}, phase 10(d) "
+          f"{b2_serve}")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -21,8 +21,17 @@ mesh's device).  ``backend="sharded"`` requests need a service built with
 queue): they are planned by ``plan_mesh_sweep``, and a pass whose rows do
 not fill the ensemble extent is padded with ``Δ = inf`` rows on trial
 indices ``-1 - i`` (wrapping mod ``2**32``), sliced off before any
-reduction.  Telemetry instruments come with a later slice (ROADMAP, queue
-A, item A9).
+reduction.
+
+With a ``telemetry=`` bundle (:class:`repro_torch.obs.Telemetry`) the
+service mirrors its stats into live metrics under ``repro.service``'s
+names, observes the paper's observables (⟨u⟩, ⟨w²⟩, GVT rate, window
+occupancy) per pass, and, with a tracer, emits one ``pass`` span per
+:class:`~.scheduler.PackedPass`.  Strictly off-path: the instruments read
+only host values a pass has already made (its numpy stats block,
+``ServiceStats``, the scheduler's ledgers), and post no collective, so
+responses are bit-identical with or without it, on one device and on
+every rank of a mesh.
 """
 from __future__ import annotations
 
@@ -31,12 +40,14 @@ import hashlib
 import json
 import math
 import time
+from contextlib import nullcontext
 
 import numpy as np
 import torch
 
 from ..core import measurement
 from ..core.engine import PDESEngine
+from ..core.ensemble import sync_if_traced
 from ..core.horizon import PDESConfig, SimState, StepStats
 from ..device import resolve_device
 from ..experiments.sweep import (SweepResult, WindowSweep, _derive_dist,
@@ -119,11 +130,124 @@ class ServiceStats:
     def as_dict(self) -> dict:
         return dataclasses.asdict(self)
 
+    def snapshot(self) -> "ServiceStats":
+        """A copy of the current totals.
+
+        Take one at a round boundary, then ``diff`` against it after: the
+        daemon's round log reports per-round rates this way instead of
+        ever-growing lifetime totals.
+        """
+        return dataclasses.replace(self)
+
+    def diff(self, prev: "ServiceStats") -> "ServiceStats":
+        """Field-wise ``self - prev``: the work done since ``prev``."""
+        return ServiceStats(**{
+            f.name: getattr(self, f.name) - getattr(prev, f.name)
+            for f in dataclasses.fields(self)})
+
 
 @dataclasses.dataclass
 class _PendingRequest:
     request: SweepRequest
     cached: bool                  # True -> served from the result cache
+
+
+# paper observables live in known ranges: u / rate are fractions of a step,
+# occupancy is Δτ/Δ in [0, ~1]; w2 spans decades with L, so octave buckets
+_FRACTION_BUCKETS = (0.05, 0.1, 0.15, 0.2, 0.25, 0.3, 0.4, 0.5,
+                     0.6, 0.7, 0.8, 0.9, 1.0)
+_W2_BUCKETS = (0.25, 0.5, 1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0,
+               128.0, 256.0)
+
+
+class _ServiceInstruments:
+    """The service's metric handles, bound to one registry.
+
+    Names, kinds, units, buckets and help texts are ``repro.service``'s,
+    so either package's snapshot reads the same to a scraper.
+    """
+
+    def __init__(self, registry):
+        h, c, g = registry.histogram, registry.counter, registry.gauge
+        # -- the paper's own observables, live per coalesced pass
+        self.pass_u = h("repro_pass_u",
+                        "per-pass mean utilization <u> (fraction of PEs "
+                        "advancing; Figs. 2/5/6)", unit="fraction",
+                        buckets=_FRACTION_BUCKETS)
+        self.pass_w2 = h("repro_pass_w2",
+                         "per-pass mean horizon width <w^2> (Eq. 4, "
+                         "Fig. 9)", unit="tau^2", buckets=_W2_BUCKETS)
+        self.pass_rate = h("repro_pass_gvt_rate",
+                           "per-pass mean GVT progress rate (Sec. V)",
+                           unit="tau_per_step", buckets=_FRACTION_BUCKETS)
+        self.pass_occupancy = h(
+            "repro_pass_window_occupancy",
+            "per-pass mean horizon spread over window width, "
+            "<max tau - min tau>/Delta (Eq. 3 slack)", unit="fraction",
+            buckets=_FRACTION_BUCKETS)
+        self.pass_rows = h("repro_pass_rows",
+                           "union rows per coalesced pass", unit="rows",
+                           buckets=(1, 2, 4, 8, 16, 32, 64, 128, 256,
+                                    512, 1024, 2048, 4096))
+        # -- service health: ServiceStats mirrored as counters
+        self.totals = {
+            "n_requests": c("repro_service_requests",
+                            "requests accepted (post-idempotence)"),
+            "n_deduped": c("repro_service_dedup_hits",
+                           "requests served without new jobs"),
+            "n_passes": c("repro_service_passes",
+                          "coalesced measurement passes executed"),
+            "n_engine_calls": c("repro_service_engine_calls",
+                                "engine invocations (burn + measure)"),
+            "n_errors": c("repro_service_errors",
+                          "requests answered with an error response"),
+            "n_retries": c("repro_service_engine_retries",
+                           "engine-pass retries (capped backoff)"),
+            "rows_requested": c("repro_service_rows_requested",
+                                "request row counts, pre-dedup",
+                                unit="rows"),
+            "rows_computed": c("repro_service_rows_computed",
+                               "union rows measured on-device",
+                               unit="rows"),
+            "rows_burned": c("repro_service_rows_burned",
+                             "rows burned on-device (cache misses)",
+                             unit="rows"),
+            "rows_from_state_cache": c(
+                "repro_service_rows_from_state_cache",
+                "measurement rows whose burn-in was reused", unit="rows"),
+            "engine_row_steps": c("repro_service_engine_row_steps",
+                                  "rows x steps over every engine call "
+                                  "(the honest compute unit)",
+                                  unit="row_steps"),
+            "state_cache_hits": c("repro_service_state_cache_hits",
+                                  "burned-state cache row hits"),
+            "state_cache_misses": c("repro_service_state_cache_misses",
+                                    "burned-state cache row misses"),
+            "state_cache_evictions": c(
+                "repro_service_state_cache_evictions",
+                "burned-state cache rows evicted (max_rows pressure)"),
+        }
+        self.fairness_throttles = c(
+            "repro_service_fairness_throttles",
+            "jobs deferred by the Eq. (3) fairness window")
+        self.quota_throttles = c(
+            "repro_service_quota_throttles",
+            "jobs deferred by the per-round requester quota")
+        self.served_rows = c("repro_service_served_rows",
+                             "rows served, per requester", unit="rows")
+        self.queue_depth = g("repro_service_queue_depth",
+                             "grid jobs pending in the scheduler",
+                             unit="jobs")
+        self.coalescing_ratio = g(
+            "repro_service_coalescing_ratio",
+            "rows_requested / rows_computed — dedup + row-sharing win",
+            unit="ratio")
+        self.state_cache_rows = g("repro_service_state_cache_rows",
+                                  "burned rows currently cached",
+                                  unit="rows")
+        self.phase_seconds = h("repro_service_phase_seconds",
+                               "service step phases: schedule (take) and "
+                               "engine (pass execution)", unit="s")
 
 
 class SweepService:
@@ -140,6 +264,9 @@ class SweepService:
       engine_retries / retry_base_s / retry_cap_s: a failing pass is
         retried with capped exponential backoff; one that still fails is
         answered per request with a structured ``engine`` error.
+      telemetry: an optional :class:`repro_torch.obs.Telemetry` bundle
+        (live metrics, and a ``pass`` span per pass when it carries a
+        tracer); responses are bit-identical with or without it.
 
     ``submit`` registers a request; ``step`` runs one scheduling round;
     ``drain`` forces everything through and returns responses in
@@ -152,7 +279,7 @@ class SweepService:
                  max_wait_rounds: int = 0, fairness_rows: float = math.inf,
                  quota_rows: float = math.inf, state_cache_rows: int = 65536,
                  engine_retries: int = 0, retry_base_s: float = 0.05,
-                 retry_cap_s: float = 2.0):
+                 retry_cap_s: float = 2.0, telemetry=None):
         self.device = resolve_device(device, mesh)
         self.mesh = mesh
         self.dist = dist
@@ -165,6 +292,7 @@ class SweepService:
         self.engine_retries = engine_retries
         self.retry_base_s = retry_base_s
         self.retry_cap_s = retry_cap_s
+        self.attach_telemetry(telemetry)
         self.on_response = None                           # streaming sink
         self._seq = 0
         self._pending: dict[str, _PendingRequest] = {}   # rid -> request
@@ -175,6 +303,12 @@ class SweepService:
         self._fp_records: dict[str, dict] = {}            # fp -> {(L,nv): recs}
         self._fp_errors: dict[str, dict] = {}             # fp -> error body
         self._served_rows: dict[str, int] = {}            # requester -> rows
+
+    def attach_telemetry(self, telemetry) -> None:
+        """Attach (or detach, with None) a ``repro_torch.obs.Telemetry``."""
+        self.telemetry = telemetry
+        self._ins = (None if telemetry is None
+                     else _ServiceInstruments(telemetry.registry))
 
     # -- request intake ----------------------------------------------------
 
@@ -247,12 +381,22 @@ class SweepService:
 
         Fairness sees only requesters with pending work.
         """
+        ins = self._ins
+        t0 = time.perf_counter() if ins is not None else 0.0
         active = self.scheduler.pending_requesters
         served = {r: n for r, n in self._served_rows.items() if r in active}
         passes = self.scheduler.take(served, force=force)
+        if ins is not None:
+            ins.phase_seconds.observe(time.perf_counter() - t0,
+                                      phase="schedule")
+            t0 = time.perf_counter()
         for p in passes:
             self._run_pass(p)
+        if ins is not None and passes:
+            ins.phase_seconds.observe(time.perf_counter() - t0,
+                                      phase="engine")
         self._sync_cache_stats()
+        self._sync_metrics()
         return len(passes)
 
     def _run_pass(self, p: PackedPass) -> None:
@@ -342,12 +486,35 @@ class SweepService:
         self._pending.clear()
         self._order.clear()
         self._sync_cache_stats()
+        self._sync_metrics()
         return out
 
     def _sync_cache_stats(self) -> None:
         self.stats.state_cache_hits = self.state_cache.hits
         self.stats.state_cache_misses = self.state_cache.misses
         self.stats.state_cache_evictions = self.state_cache.evictions
+
+    def _sync_metrics(self) -> None:
+        """Mirror the stats ledgers into the attached metrics registry.
+
+        ``set_total`` (not ``inc``): ``ServiceStats`` and the scheduler
+        already accumulate; the registry is a read-out, never a second
+        ledger that could drift.
+        """
+        ins = self._ins
+        if ins is None:
+            return
+        stats = self.stats.as_dict()
+        for field, counter in ins.totals.items():
+            counter.set_total(stats[field])
+        ins.fairness_throttles.set_total(self.scheduler.fairness_deferrals)
+        ins.quota_throttles.set_total(self.scheduler.quota_deferrals)
+        for requester, rows in self._served_rows.items():
+            ins.served_rows.set_total(rows, requester=requester)
+        ins.queue_depth.set(self.scheduler.n_pending)
+        ins.coalescing_ratio.set(
+            self.stats.rows_requested / max(self.stats.rows_computed, 1))
+        ins.state_cache_rows.set(len(self.state_cache))
 
     # -- one coalesced pass -----------------------------------------------
 
@@ -385,27 +552,67 @@ class SweepService:
         trials = np.fromiter((t for t, _ in p.rows), np.int64, B)
         deltas = np.fromiter((d for _, d in p.rows), np.float32, B)
         tvec, drows, n_pad = self._pad_rows(key, trials, deltas)
-        state = self._burned_state(eng, key, p.rows, n_pad, trials, deltas)
-        _, stats = eng.run(state, key.seed, key.n_steps, deltas=drows,
-                           trial_base=tvec)
-        self.stats.n_passes += 1
-        self.stats.n_engine_calls += 1
-        self.stats.rows_computed += B
-        self.stats.engine_row_steps += (B + n_pad) * key.n_steps
-        arrs = StepStats(*(measurement.to_numpy(a)[:, :B] for a in stats))
-        for job, cols in zip(p.jobs, p.cols):
-            idx = np.asarray(cols, np.intp)
-            # fancy indexing yields F-ordered columns; numpy's axis-0 mean
-            # sums in a layout-dependent order, so restore C order to keep
-            # the reduction bit-identical to a direct (T, B) run
-            sliced = StepStats(*(np.ascontiguousarray(a[:, idx])
-                                 for a in arrs))
-            red = measurement.sweep_reduce(
-                sliced, len(job.deltas), job.replicas,
-                steady_frac=job.steady_frac)
-            self._served_rows[job.requester] = (
-                self._served_rows.get(job.requester, 0) + len(job.rows))
-            self._finish_job(job, red)
+        ctx = nullcontext() if self.telemetry is None else \
+            self.telemetry.spans("pass", cat="service", args=dict(
+                dataclasses.asdict(key), n_rows=B, n_pad=n_pad,
+                n_jobs=len(p.jobs),
+                requesters=sorted({j.requester for j in p.jobs})))
+        with ctx as sp:
+            pre_cached = self.stats.rows_from_state_cache
+            pre_burned = self.stats.rows_burned
+            state = self._burned_state(eng, key, p.rows, n_pad, trials,
+                                       deltas)
+            _, stats = eng.run(state, key.seed, key.n_steps, deltas=drows,
+                               trial_base=tvec)
+            sync_if_traced(sp, self.device)
+            self.stats.n_passes += 1
+            self.stats.n_engine_calls += 1
+            self.stats.rows_computed += B
+            self.stats.engine_row_steps += (B + n_pad) * key.n_steps
+            arrs = StepStats(*(measurement.to_numpy(a)[:, :B] for a in stats))
+            if sp is not None:
+                sp.args.update(
+                    rows_from_cache=(self.stats.rows_from_state_cache
+                                     - pre_cached),
+                    rows_burned=self.stats.rows_burned - pre_burned)
+            if self._ins is not None:
+                self._observe_pass(p, arrs, deltas)
+            for job, cols in zip(p.jobs, p.cols):
+                idx = np.asarray(cols, np.intp)
+                # fancy indexing yields F-ordered columns; numpy's axis-0
+                # mean sums in a layout-dependent order, so restore C order
+                # to keep the reduction bit-identical to a direct (T, B) run
+                sliced = StepStats(*(np.ascontiguousarray(a[:, idx])
+                                     for a in arrs))
+                red = measurement.sweep_reduce(
+                    sliced, len(job.deltas), job.replicas,
+                    steady_frac=job.steady_frac)
+                self._served_rows[job.requester] = (
+                    self._served_rows.get(job.requester, 0) + len(job.rows))
+                self._finish_job(job, red)
+
+    def _observe_pass(self, p: PackedPass, arrs: StepStats,
+                      deltas: np.ndarray) -> None:
+        """Observe the paper observables from an already-made pass.
+
+        Pure numpy over the (T, B) host stats block ``_execute`` built
+        anyway — no GPU work, no effect on what any requester receives.
+        """
+        ins = self._ins
+        ins.pass_u.observe(float(arrs.utilization.mean()))
+        ins.pass_w2.observe(float(arrs.w2.mean()))
+        ins.pass_rows.observe(float(p.n_rows))
+        T = arrs.gvt.shape[0]
+        if T > 1:
+            rate = (arrs.gvt[-1] - arrs.gvt[0]) / (T - 1)
+            ins.pass_rate.observe(float(rate.mean()))
+        finite = np.isfinite(deltas)
+        if finite.any():
+            # horizon extent per row (spread = max_dev + min_dev, as in
+            # measurement.sweep_reduce), over the width Δ that bounds it
+            occ = (arrs.max_dev + arrs.min_dev).mean(axis=0)[finite] \
+                / deltas[finite]
+            ins.pass_occupancy.observe(float(occ.mean()))
 
     def _burned_state(self, eng: PDESEngine, key: CompatKey, rows,
                       n_pad: int, trials, deltas) -> SimState:

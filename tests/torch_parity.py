@@ -4,6 +4,8 @@ Imported by ``tests/test_torch_*.py`` (pytest puts this directory on the
 path); not a test module itself.
 """
 import functools
+import json
+import math
 import os
 import pathlib
 import subprocess
@@ -20,6 +22,8 @@ SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
 EXACT_MOMENTS = ("ucount", "min", "max")
 EXACT_STATS = ("utilization", "gvt")
 RTOL = 1e-5
+#: wall-clock metric series: never compared between runs
+WALL_SERIES = {"repro_service_phase_seconds", "repro_daemon_phase_seconds"}
 
 
 @functools.cache
@@ -111,3 +115,37 @@ def run_ranks(script: str, world: int, workdir, *, env=None,
             for r, rc in bad[:2])
         raise AssertionError(f"ranks failed or passed the {timeout:.0f} s "
                              f"deadline: {bad}\n{tails}")
+
+
+def _series(snap) -> dict:
+    """Metric series of a snapshot by (name, labels)."""
+    return {(s["name"], json.dumps(s["labels"], sort_keys=True)): s
+            for s in snap["series"]}
+
+
+def assert_service_snapshot_matches(port_snap, ref_snap) -> None:
+    """Hold the port's service metrics snapshot to ``repro``'s.
+
+    Names, kinds, help, units and labels equal; counters and gauges equal;
+    histogram buckets and counts equal; the sums of ``repro_pass_u``,
+    ``repro_pass_gvt_rate`` and ``repro_pass_rows`` bitwise (utilization and
+    GVT are), of ``repro_pass_w2`` and ``repro_pass_window_occupancy`` to
+    ``RTOL``; wall-clock series left out.
+    """
+    port, ref = _series(port_snap), _series(ref_snap)
+    assert port.keys() == ref.keys()
+    for key, r in ref.items():
+        p = port[key]
+        assert {k: p[k] for k in ("type", "help", "unit", "labels")} == \
+            {k: r[k] for k in ("type", "help", "unit", "labels")}, key
+        name = key[0]
+        if name in WALL_SERIES:
+            continue
+        if r["type"] != "histogram":
+            assert p["value"] == r["value"], key
+            continue
+        assert (p["buckets"], p["count"]) == (r["buckets"], r["count"]), key
+        if name in ("repro_pass_w2", "repro_pass_window_occupancy"):
+            assert math.isclose(p["sum"], r["sum"], rel_tol=RTOL), key
+        else:       # u, the GVT rate and the row counts: bitwise
+            assert (p["counts"], p["sum"]) == (r["counts"], r["sum"]), key
