@@ -72,7 +72,21 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` with
    responses bit for bit, B2's launches read in the rank, and a mesh
    larger than the GPUs refused with exit 2; (e) (a)'s wall with
    telemetry on against off, five drains each in turns;
-11. the last lines: one JSON object per kernel (times, bound, launches),
+11. the language-model serve path (``repro_torch.models``,
+   ``repro_torch.serve``; no TPU kernel lies on it, so it adds none): (a)
+   llama3.2-1b at full width (16 layers, d 2048, vocab 128,256; fp32
+   parameters, bf16 compute), drawn on the card from generator seed 0,
+   serving 16 requests through ``ServeEngine`` (8 lanes, Δ = 16): every
+   result present and in range; each batch's prefill and every decode
+   step timed with CUDA events, tokens/s, peak memory, the idle share of 8
+   profiled decode steps, lane utilization beside ``u_RD(Δ)``, and the
+   bounds; (b) the same widths cut to 2 layers in fp32 (TF32 off): 64
+   tokens fed one by one through ``decode_step`` give ``prefill``'s
+   logits to 2e-3; (c) reduced llama3.2-1b, gemma2-2b and mixtral-8x7b in
+   fp32 on the card against the same parameters on the CPU: prefill
+   logits, the cache and 8 decode steps to rtol 1e-4, and a 4-request
+   ``ServeEngine`` drain token for token;
+12. the last lines: one JSON object per kernel (times, bound, launches),
    then ``{"ok": true, "device": {...}}``.
 
 Every phase asserts; any failure exits non-zero with no result line.
@@ -172,6 +186,33 @@ TIMED_ROUNDS = 5
 STEPS_DAVE = 2048
 SERVE_ROUNDS = 5
 SUBPROCESS_S = 300
+#: Phase 11(a): the model served at full width, the engine's lanes, cache
+#: length and window, the requests (prompt lengths and new tokens drawn
+#: uniformly from these ranges; every batch's padded length stays within
+#: the config's q_block of 512) and the decode steps profiled.
+LM_ARCH = "llama3.2-1b"
+LM_LANES = 8
+LM_MAX_LEN = 1024
+LM_DELTA = 16.0
+LM_REQUESTS = 16
+LM_PROMPT = (64, 512)
+LM_NEW = (16, 64)
+LM_PROFILE_STEPS = 8
+#: The H100 SXM's dense bf16 tensor-core peak (data sheet), for the
+#: prefill bound.
+BF16_FLOPS_PER_S = 989e12
+#: Phase 11(b): layers kept of the full widths, and tokens fed one by one;
+#: phase 11(c): the reduced archs held card against CPU, the decode steps
+#: compared and the requests drained on both.
+LM_CHECK_LAYERS = 2
+LM_CHECK_TOKENS = 64
+LM_CPU_ARCHS = ("llama3.2-1b", "gemma2-2b", "mixtral-8x7b")
+LM_CPU_STEPS = 8
+LM_CPU_REQUESTS = 4
+#: Tolerances: (b) ``tests/test_models.py``'s decode-against-prefill one;
+#: (c) the CPU parity tests' (fp32 sums in another order).
+LM_DECODE_TOL = 2e-3
+LM_RTOL, LM_ATOL = 1e-4, 1e-5
 #: Phase 10(b)'s restart: the CLI's own ``main`` with the clock read
 #: (CLOCK_MONOTONIC, shared with the parent) after the torch import and
 #: CUDA init, after loading B1's library and around the state cache's
@@ -1602,6 +1643,231 @@ def phase_service(torch, pm, ps, sweep, wire, daemon, api, trace, dev, root,
     return b1_launches, b2_launches
 
 
+def _lm_requests(serve, vocab, n, prompt, new, seed=0):
+    """``n`` requests from ``default_rng(seed)``: prompt length, prompt
+    tokens and new tokens drawn in turn for each."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    reqs = []
+    for uid in range(n):
+        length = int(rng.integers(prompt[0], prompt[1] + 1))
+        reqs.append(serve.Request(
+            uid, rng.integers(0, vocab, length).astype(np.int32),
+            int(rng.integers(new[0], new[1] + 1))))
+    return reqs
+
+
+def _timed_calls(torch, model, name, store):
+    """Record a CUDA event pair and the host clock around every call of
+    ``model.<name>`` (an instance attribute over the method; ``del`` it to
+    restore)."""
+    fn = getattr(model, name)
+
+    def run(*args, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        out = fn(*args, **kw)
+        end.record()
+        store.append((start, end, t0, args))
+        return out
+    setattr(model, name, run)
+
+
+def _lm_bounds(cfg, B, S):
+    """Least ms of a decode step (the bf16 weights read once) and of a
+    prefill of B x S tokens (2 FLOP a parameter a token for the layers, the
+    output table for the last token only, causal attention's half of the
+    QK and PV products), at the H100's published rates."""
+    n = cfg.n_params()
+    decode_ms = n * 2 / HBM_BYTES_PER_S * 1e3
+    table = cfg.vocab_size * cfg.d_model
+    layers = n - table
+    attn = 2 * B * S * S * cfg.n_heads * cfg.head_dim * cfg.n_layers
+    flops = 2 * layers * B * S + 2 * table * B + attn
+    return decode_ms, flops / BF16_FLOPS_PER_S * 1e3
+
+
+def phase_lm_serve(torch, configs, models, serve, theory, dev):
+    """Phase 11(a): the LM serve path at full width on the card."""
+    import numpy as np
+    cfg = configs.get_config(LM_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = models.build_model(cfg, device=dev, seed=0)
+    model.compute_params()
+    sync(torch, dev)
+    init_s = time.perf_counter() - t0
+    print(f"[lm] {LM_ARCH}: {cfg.n_layers} layers, d {cfg.d_model}, "
+          f"{cfg.n_heads} heads / {cfg.n_kv_heads} kv, hd {cfg.head_dim}, "
+          f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.n_params():,} "
+          f"params ({cfg.param_dtype}, compute {cfg.compute_dtype}); drawn "
+          f"and cast on the card in {init_s:.3f} s; memory "
+          f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB")
+    # warm-up outside the timed drain: the first use of every operator
+    warm = model.prefill({"tokens": torch.zeros((LM_LANES, 64),
+                                                dtype=torch.long, device=dev)})
+    model.decode_step(warm[1], torch.zeros((LM_LANES, 1), dtype=torch.long,
+                                           device=dev), 64)
+    del warm
+    sync(torch, dev)
+    eng = serve.ServeEngine(model, batch_lanes=LM_LANES, max_len=LM_MAX_LEN,
+                            delta=LM_DELTA, seed=0, device=dev)
+    reqs = _lm_requests(serve, cfg.vocab_size, LM_REQUESTS, LM_PROMPT, LM_NEW)
+    for r in reqs:
+        eng.submit(r)
+    prefills, decodes = [], []
+    _timed_calls(torch, model, "prefill", prefills)
+    _timed_calls(torch, model, "decode_step", decodes)
+    try:
+        t0 = time.perf_counter()
+        results = eng.run()
+        sync(torch, dev)
+        wall = time.perf_counter() - t0
+    finally:
+        del model.prefill, model.decode_step
+    peak = torch.cuda.max_memory_allocated()
+    check(sorted(results) == [r.uid for r in reqs],
+          f"results for {sorted(results)}, not all {LM_REQUESTS} requests")
+    for r in reqs:
+        toks = results[r.uid].tokens
+        check(1 <= len(toks) <= r.max_new_tokens,
+              f"request {r.uid}: {len(toks)} tokens of {r.max_new_tokens}")
+        check(all(0 <= t < cfg.vocab_size for t in toks),
+              f"request {r.uid}: a token outside the vocabulary")
+    util = eng.lane_utilization
+    check(0.0 < util <= 1.0, f"lane utilization {util}")
+    n_tokens = sum(len(res.tokens) for res in results.values())
+    for start, end, _, args in prefills:
+        B, S = args[0]["tokens"].shape
+        bound = _lm_bounds(cfg, B, S)[1]
+        print(f"[lm] prefill {B} x {S}: {start.elapsed_time(end):.3f} ms "
+              f"(CUDA events; bound {bound:.3f} ms)")
+    step_ms = np.array([s.elapsed_time(e) for s, e, _, _ in decodes])
+    host_ms = np.diff([t for _, _, t, _ in decodes]) * 1e3
+    decode_bound, prefill_bound = _lm_bounds(cfg, LM_LANES, LM_PROMPT[1])
+    print(f"[lm] decode: {len(step_ms)} steps, {np.median(step_ms):.3f} ms a "
+          f"step median (CUDA events; min {step_ms.min():.3f}, p90 "
+          f"{np.percentile(step_ms, 90):.3f}, max {step_ms.max():.3f}); host "
+          f"clock between step starts median {np.median(host_ms):.3f} ms; "
+          f"bound {decode_bound:.4f} ms (bf16 weights read once: "
+          f"{cfg.n_params():,} x 2 B / {HBM_BYTES_PER_S / 1e12:.2f} TB/s)")
+    dense_ms = 2 * cfg.n_params() * LM_LANES * LM_PROMPT[1] \
+        / BF16_FLOPS_PER_S * 1e3
+    print(f"[lm] drain: {LM_REQUESTS} requests, {n_tokens} tokens generated "
+          f"in {wall:.3f} s wall: {n_tokens / wall:.1f} tokens/s; peak "
+          f"memory {peak / 2**30:.3f} GiB (max_memory_allocated); prefill "
+          f"bound of {LM_LANES} x {LM_PROMPT[1]} tokens {prefill_bound:.3f} ms"
+          f" (2 x params x tokens {dense_ms:.3f} ms less the output table "
+          f"for all but the last token, plus causal attention)")
+    print(f"[lm] lane utilization {util:.4f} beside u_RD({LM_DELTA:g}) = "
+          f"{float(theory.u_rd(LM_DELTA)):.4f}")
+    logits, cache = model.prefill({"tokens": torch.randint(
+        0, cfg.vocab_size, (LM_LANES, LM_PROMPT[1]), device=dev)})
+    tok = torch.argmax(logits, -1)[:, None]
+
+    def steps():
+        for i in range(LM_PROFILE_STEPS):
+            model.decode_step(cache, tok, LM_PROMPT[1] + i)
+    prof = _profile(torch, dev, steps)
+    if prof is None:
+        print("[lm] torch.profiler gave no device time: idle share not "
+              "measured")
+    else:
+        launches = sum(count for _, _, count in prof["rows"])
+        print(f"[lm] profiler, {LM_PROFILE_STEPS} decode steps at B="
+              f"{LM_LANES}, cache {LM_PROMPT[1]}: wall "
+              f"{prof['wall_us'] / 1e3:.3f} ms, device busy "
+              f"{prof['busy_us'] / 1e3:.3f} ms (idle share "
+              f"{1 - prof['busy_us'] / prof['wall_us']:.3f}), "
+              f"{launches / LM_PROFILE_STEPS:.0f} kernel launches a step")
+        for us, key, count in prof["rows"][:8]:
+            print(f"[lm] profiler {us / 1e3:9.3f} ms {count:6d}x  {key[:90]}")
+    del model, eng, logits, cache
+    torch.cuda.empty_cache()
+    return n_tokens
+
+
+def _assert_close(got, want, what):
+    err = (got.double().cpu() - want.double().cpu()).abs()
+    bad = err > LM_ATOL + LM_RTOL * want.double().cpu().abs()
+    check(not bool(bad.any()), f"{what}: {int(bad.sum())} elements beyond "
+          f"rtol {LM_RTOL}, atol {LM_ATOL} (max abs err {float(err.max())})")
+    return float(err.max())
+
+
+def phase_lm_checks(torch, configs, models, serve, bridge, dev):
+    """Phase 11(b) and (c), in fp32 with TF32 off."""
+    import numpy as np
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        # (b) decode token by token against prefill, the widths cut in depth
+        cfg = dataclasses.replace(configs.get_config(LM_ARCH),
+                                  n_layers=LM_CHECK_LAYERS,
+                                  compute_dtype="float32")
+        model = models.build_model(cfg, device=dev, seed=0)
+        gen = torch.Generator(device=dev).manual_seed(1)
+        toks = torch.randint(0, cfg.vocab_size, (2, LM_CHECK_TOKENS),
+                             generator=gen, device=dev)
+        want, _ = model.prefill({"tokens": toks})
+        cache = model.cache_spec(2, LM_CHECK_TOKENS)
+        for i in range(LM_CHECK_TOKENS):
+            got, cache = model.decode_step(cache, toks[:, i:i + 1], i)
+        err = (got - want).abs()
+        check(bool((err <= LM_DECODE_TOL * (1 + want.abs())).all()),
+              f"decode against prefill: max abs err {float(err.max())}")
+        print(f"[lm] (b) {LM_ARCH} widths, {LM_CHECK_LAYERS} layers, fp32: "
+              f"{LM_CHECK_TOKENS} tokens decoded one by one give prefill's "
+              f"logits, max abs err {float(err.max()):.3e} (tolerance "
+              f"{LM_DECODE_TOL:g})")
+        del model, cache
+        torch.cuda.empty_cache()
+        # (c) card against CPU on one parameter set
+        for arch in LM_CPU_ARCHS:
+            cfg = configs.get_config(arch).reduced()
+            on_cpu = models.build_model(cfg, device="cpu", seed=0)
+            on_card = models.build_model(cfg, device=dev, seed=1)
+            bridge.lm_params_from_numpy(on_card,
+                                        bridge.lm_params_to_numpy(on_cpu))
+            rng = np.random.default_rng(2)
+            toks = rng.integers(0, cfg.vocab_size, (2, 64))
+            lc, cc = on_cpu.prefill({"tokens": torch.as_tensor(toks)})
+            lg, cg = on_card.prefill({"tokens": torch.as_tensor(toks,
+                                                                device=dev)})
+            worst = 0.0
+            for step in range(LM_CPU_STEPS + 1):
+                what = f"{arch} " + ("prefill" if step == 0
+                                     else f"decode step {step}")
+                worst = max(worst, _assert_close(lg, lc, what))
+                for k in cc:
+                    worst = max(worst, _assert_close(cg[k], cc[k],
+                                                     f"{what} cache {k}"))
+                if step == LM_CPU_STEPS:
+                    break
+                tok = torch.argmax(lc, -1)[:, None]
+                lc, cc = on_cpu.decode_step(cc, tok, 64 + step)
+                lg, cg = on_card.decode_step(cg, tok.to(dev), 64 + step)
+            drains = []
+            for model, device in ((on_cpu, "cpu"), (on_card, dev)):
+                eng = serve.ServeEngine(model, batch_lanes=2, max_len=128,
+                                        delta=8.0, seed=0, device=device)
+                for r in _lm_requests(serve, cfg.vocab_size, LM_CPU_REQUESTS,
+                                      (4, 24), (8, 24), seed=3):
+                    eng.submit(r)
+                drains.append({u: r.tokens for u, r in eng.run().items()})
+            check(drains[0] == drains[1], f"{arch}: the card's served "
+                  f"tokens differ from the CPU's: {drains}")
+            print(f"[lm] (c) {arch} reduced, fp32: card = CPU in prefill "
+                  f"logits, cache and {LM_CPU_STEPS} decode steps (max abs "
+                  f"err {worst:.3e}); a {LM_CPU_REQUESTS}-request drain "
+                  f"gives the same tokens ({sum(map(len, drains[0].values()))}"
+                  f" tokens)")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
 def main() -> int:
     try:
         import torch
@@ -1626,6 +1892,9 @@ def main() -> int:
     from repro_torch.kernels import threefry as tf
     from repro_torch.obs import trace
     from repro_torch.service import api, daemon, wire
+    from repro_torch import bridge
+    from repro_torch import configs, models, serve
+    from repro_torch.core import theory
 
     card = card_line()
     print(card)
@@ -1669,6 +1938,9 @@ def main() -> int:
     b1_serve, b2_serve = phase_service(torch, pm, ps, sweep, wire, daemon, api,
                                        trace, "cuda", root, sharded)
     t["10 serve"] = time.perf_counter() - t0 - sum(t.values())
+    phase_lm_serve(torch, configs, models, serve, theory, "cuda")
+    phase_lm_checks(torch, configs, models, serve, bridge, "cuda")
+    t["11 LM serve"] = time.perf_counter() - t0 - sum(t.values())
     print("[setup] phase wall: "
           + ", ".join(f"{k} {v:.2f} s" for k, v in t.items()))
 

@@ -473,3 +473,61 @@ def test_sharded_service_on_nccl(nccl_mesh):
         assert json.dumps(resp.result.as_dict()) == \
             json.dumps(direct.as_dict())
     assert svc.stats.n_passes == 1
+
+
+# ---------------------------------------------------------------------------
+# the language-model serve path (no kernel of its own: the card against the
+# CPU on one parameter set, in fp32 with TF32 off)
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def fp32_matmul(dev):
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield dev
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def _lm_on_both(arch, dev):
+    from repro_torch import bridge
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = get_config(arch).reduced()
+    on_cpu = build_model(cfg, device="cpu", seed=0)
+    on_card = build_model(cfg, device=dev, seed=1)
+    bridge.lm_params_from_numpy(on_card, bridge.lm_params_to_numpy(on_cpu))
+    return cfg, on_cpu, on_card
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "gemma2-2b", "mixtral-8x7b"])
+def test_lm_prefill_and_decode_card_equals_cpu(fp32_matmul, arch):
+    cfg, on_cpu, on_card = _lm_on_both(arch, fp32_matmul)
+    toks = torch.as_tensor(
+        np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 64)))
+    lc, cc = on_cpu.prefill({"tokens": toks})
+    lg, cg = on_card.prefill({"tokens": toks.to(fp32_matmul)})
+    for step in range(4):
+        torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-5)
+        for k in cc:
+            torch.testing.assert_close(cg[k].cpu(), cc[k], rtol=1e-4,
+                                       atol=1e-5)
+        tok = torch.argmax(lc, -1)[:, None]
+        lc, cc = on_cpu.decode_step(cc, tok, 64 + step)
+        lg, cg = on_card.decode_step(cg, tok.to(fp32_matmul), 64 + step)
+
+
+def test_lm_serve_engine_card_equals_cpu(fp32_matmul):
+    from repro_torch.serve import Request, ServeEngine
+    cfg, on_cpu, on_card = _lm_on_both("llama3.2-1b", fp32_matmul)
+    rng = np.random.default_rng(5)
+    reqs = [(u, rng.integers(0, cfg.vocab_size, int(rng.integers(4, 25))),
+             int(rng.integers(8, 30))) for u in range(5)]
+    out = []
+    for model, device in ((on_cpu, "cpu"), (on_card, fp32_matmul)):
+        eng = ServeEngine(model, batch_lanes=2, max_len=96, delta=8.0,
+                          device=device)
+        for u, p, n in reqs:
+            eng.submit(Request(u, p, n))
+        out.append({u: r.tokens for u, r in eng.run().items()})
+    assert out[0] == out[1]

@@ -1,5 +1,6 @@
-"""The port stands alone: no module of ``src/repro_torch`` and not
-``chip_smoke.py`` imports ``jax`` or the JAX package ``repro``."""
+"""The port stands alone: no module of ``src/repro_torch``, not
+``chip_smoke.py`` and not the port's examples import ``jax`` or the JAX
+package ``repro``."""
 import ast
 import pathlib
 
@@ -7,7 +8,7 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "examples" / "serve_lm_torch.py"]
 FORBIDDEN = {"jax", "jaxlib", "repro"}
 
 
@@ -35,6 +36,12 @@ def test_walk_covers_the_port_and_both_import_forms():
             "src/repro_torch/core/distributed.py",
             "src/repro_torch/core/mesh.py",
             "src/repro_torch/distributed/delta_sync.py",
+            "src/repro_torch/configs/base.py",
+            "src/repro_torch/models/transformer.py",
+            "src/repro_torch/models/flash.py",
+            "src/repro_torch/models/moe.py",
+            "src/repro_torch/serve/engine.py",
+            "examples/serve_lm_torch.py",
             "chip_smoke.py"} <= names
     probe = ("import jax.numpy as jnp\n"
              "def f():\n    from repro.core import horizon\n"

@@ -149,3 +149,60 @@ def assert_service_snapshot_matches(port_snap, ref_snap) -> None:
             assert math.isclose(p["sum"], r["sum"], rel_tol=RTOL), key
         else:       # u, the GVT rate and the row counts: bitwise
             assert (p["counts"], p["sum"]) == (r["counts"], r["sum"]), key
+
+
+#: Tolerance of the language-model parity tests in fp32 (the reduced
+#: configs): logits and caches of whole models, summed in another order.
+LM_RTOL, LM_ATOL = 1e-4, 1e-5
+
+
+def lm_pair(arch: str, seed: int = 0):
+    """``(jax model, jax params, port model)`` of ``arch``'s reduced config,
+    the port's on the CPU with JAX's weights carried across by the bridge."""
+    import jax
+    from repro.configs import get_config as jax_config
+    from repro.models import build_model as jax_build
+    from repro_torch import bridge
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    jm = jax_build(jax_config(arch).reduced())
+    params = jm.init(jax.random.key(seed))
+    model = build_model(get_config(arch).reduced(), device="cpu")
+    bridge.lm_params_from_numpy(model, jax.tree.map(np.asarray, params))
+    return jm, params, model
+
+
+def assert_lm_prefill_decode(arch, S=64, B=2, steps=8):
+    """Hold the port's prefill logits and cache, and ``steps`` decode steps'
+    logits and caches, to ``repro``'s; tokens fed back are JAX's argmax."""
+    import jax
+    import jax.numpy as jnp
+
+    jm, params, model = lm_pair(arch)
+    cfg = jm.cfg
+    rng = np.random.default_rng(11)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)}
+    if cfg.input_mode == "embeddings":
+        batch["embeddings"] = (rng.standard_normal((B, S, cfg.d_model))
+                               * 0.1).astype(np.float32)
+    jl, jcache = jax.jit(jm.prefill)(
+        params, {k: jnp.asarray(v) for k, v in batch.items()})
+    tl, tcache = model.prefill({k: torch.as_tensor(v) for k, v in batch.items()})
+
+    def check(what):
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=LM_RTOL,
+                                   atol=LM_ATOL, err_msg=f"{what} logits")
+        assert set(tcache) == set(jcache)
+        for k in jcache:
+            np.testing.assert_allclose(tcache[k].numpy(), np.asarray(jcache[k]),
+                                       rtol=LM_RTOL, atol=LM_ATOL,
+                                       err_msg=f"{what} cache {k}")
+
+    check("prefill")
+    step = jax.jit(jm.decode_step)
+    for i in range(steps):
+        tok = np.argmax(np.asarray(jl), -1)[:, None].astype(np.int32)
+        jl, jcache = step(params, jcache, jnp.asarray(tok), jnp.int32(S + i))
+        tl, tcache = model.decode_step(tcache, torch.as_tensor(tok), S + i)
+        check(f"decode step {i}")
