@@ -86,7 +86,26 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` with
    fp32 on the card against the same parameters on the CPU: prefill
    logits, the cache and 8 decode steps to rtol 1e-4, and a 4-request
    ``ServeEngine`` drain token for token;
-12. the last lines: one JSON object per kernel (times, bound, launches),
+12. the ssm, hybrid and encdec families (no TPU kernel lies on them
+   either): (a) zamba2-2.7b and (b) mamba2-130m at their published widths
+   and depths, fp32 parameters and bf16 compute, each served through
+   phase 11's engine and request mix with prompts of 128 to 512 tokens in
+   steps of the SSM chunk (``SSM_PROMPTS``), with phase 11's timings,
+   bounds, profile and lane utilization; (c) whisper-base at full width:
+   encode 8 x 1024 frame embeddings, the cross K/V for a 448-slot
+   decoder, 64 greedy decode steps from token 0, each timed; (d) in fp32
+   with TF32 off, decode fed token by token against prefill for
+   mamba2-130m at full width and depth and zamba2-2.7b's widths cut to
+   one group (6 SSM layers, one shared block), to 2e-3; (e) the reduced
+   mamba2-130m, zamba2-2.7b and whisper-base in fp32 on the card against
+   the same parameters on the CPU: prefill logits, every cache leaf and 8
+   decode steps to rtol 1e-4, and the same greedy tokens;
+13. the port's PDES examples as subprocesses: ``quickstart_torch.py`` as
+   it is, ``pdes_scaling_study_torch.py`` and ``paper_figures_torch.py``
+   with ``--fast --backend pallas_multistep`` (B1 under new entry
+   points; the figures' claims asserted), each one's wall, B1's and the
+   generator's launches;
+14. the last lines: one JSON object per kernel (times, bound, launches),
    then ``{"ok": true, "device": {...}}``.
 
 Every phase asserts; any failure exits non-zero with no result line.
@@ -213,6 +232,34 @@ LM_CPU_REQUESTS = 4
 #: (c) the CPU parity tests' (fp32 sums in another order).
 LM_DECODE_TOL = 2e-3
 LM_RTOL, LM_ATOL = 1e-4, 1e-5
+#: Phase 12(a, b): the hybrid and the Mamba2 decoder served at full width
+#: through phase 11's engine and request mix, prompt lengths drawn from
+#: these (every padded batch a multiple of the SSM chunk, 128, and within
+#: the hybrid's flash q_block of 512, as the reference requires).
+SSM_ARCHS = ("zamba2-2.7b", "mamba2-130m")
+SSM_PROMPTS = (128, 256, 384, 512)
+#: Phase 12(c): whisper-base's batch, encoder frames (the released 1500
+#: break the reference's flash blocking: neither at most q_block = 1024
+#: nor a multiple of it), decoder cache (the released target length) and
+#: greedy decode steps.
+WHISPER_ARCH = "whisper-base"
+WHISPER_BATCH = 8
+WHISPER_FRAMES = 1024
+WHISPER_MAX_DECODE = 448
+WHISPER_STEPS = 64
+#: Phase 12(d): decode fed token by token against prefill, fp32, TF32
+#: off: (arch, layers kept (None = all), tokens).
+FAMILY_CHECKS = (("mamba2-130m", None, 64), ("zamba2-2.7b", 6, 64))
+#: Phase 12(e): the reduced archs held card against CPU, decode steps.
+FAMILY_CPU_ARCHS = ("mamba2-130m", "zamba2-2.7b", "whisper-base")
+#: Phase 13: the port's PDES examples, run as subprocesses from the root.
+EXAMPLES = (
+    ("examples/quickstart_torch.py", ()),
+    ("examples/pdes_scaling_study_torch.py",
+     ("--fast", "--backend", "pallas_multistep")),
+    ("examples/paper_figures_torch.py",
+     ("--fast", "--backend", "pallas_multistep")),
+)
 #: Phase 10(b)'s restart: the CLI's own ``main`` with the clock read
 #: (CLOCK_MONOTONIC, shared with the parent) after the torch import and
 #: CUDA init, after loading B1's library and around the state cache's
@@ -263,6 +310,21 @@ COUNTED = textwrap.dedent("""
     if "RANK" in os.environ:
         atexit.register(count)
     sys.exit(main())
+""")
+#: Phase 13's example runs: the script (argv[1]) as ``__main__``, with
+#: B1's and the generator's launch counts written to ``COUNTS`` at exit.
+EXAMPLE = textwrap.dedent("""
+    import atexit, json, os, runpy, sys
+    from repro_torch.kernels import pdes_multistep, threefry
+
+    def count():
+        with open(os.environ["COUNTS"], "w") as fh:
+            json.dump({"B1": pdes_multistep.launches,
+                       "threefry_bits": threefry.launches}, fh)
+
+    atexit.register(count)
+    sys.argv = sys.argv[1:]
+    runpy.run_path(sys.argv[0], run_name="__main__")
 """)
 #: JAX's own words: (step, b, l, word 0, word 1) of
 #: repro.core.horizon.event_bits(jax.random.key(7), step, (448, 10000)),
@@ -1643,14 +1705,16 @@ def phase_service(torch, pm, ps, sweep, wire, daemon, api, trace, dev, root,
     return b1_launches, b2_launches
 
 
-def _lm_requests(serve, vocab, n, prompt, new, seed=0):
-    """``n`` requests from ``default_rng(seed)``: prompt length, prompt
-    tokens and new tokens drawn in turn for each."""
+def _lm_requests(serve, vocab, n, prompt, new, seed=0, lengths=None):
+    """``n`` requests from ``default_rng(seed)``: prompt length (uniform on
+    ``prompt``, or one of ``lengths``), prompt tokens and new tokens drawn
+    in turn for each."""
     import numpy as np
     rng = np.random.default_rng(seed)
     reqs = []
     for uid in range(n):
-        length = int(rng.integers(prompt[0], prompt[1] + 1))
+        length = int(rng.integers(prompt[0], prompt[1] + 1) if lengths is None
+                     else rng.choice(lengths))
         reqs.append(serve.Request(
             uid, rng.integers(0, vocab, length).astype(np.int32),
             int(rng.integers(new[0], new[1] + 1))))
@@ -1689,22 +1753,64 @@ def _lm_bounds(cfg, B, S):
     return decode_ms, flops / BF16_FLOPS_PER_S * 1e3
 
 
-def phase_lm_serve(torch, configs, models, serve, theory, dev):
-    """Phase 11(a): the LM serve path at full width on the card."""
+def _ssm_bounds(cfg, n_params, B, S):
+    """``_lm_bounds`` of the ssm and hybrid families over ``n_params``
+    weights: decode also reads and writes the fp32 SSM state and reads the
+    shared block's K/V (S slots); prefill adds the chunked scan's causal
+    half of the intra-chunk products and its two state products. Returns
+    (decode ms, prefill ms, decode bytes)."""
+    s = cfg.ssm
+    Q = min(s.chunk, S)
+    n_shared = cfg.n_layers // cfg.hybrid_period if cfg.hybrid_period else 0
+    table = cfg.vocab_size * cfg.d_model
+    state = cfg.n_layers * B * s.n_heads * s.head_dim * s.d_state * 4
+    kv = n_shared * B * S * cfg.n_kv_heads * cfg.head_dim * 2 * 2
+    n_bytes = n_params * 2 + 2 * state + kv
+    scan = cfg.n_layers * B * S * (Q * s.d_state + Q * s.d_inner
+                                   + 4 * s.d_inner * s.d_state)
+    attn = n_shared * 2 * B * S * S * cfg.n_heads * cfg.head_dim
+    flops = 2 * (n_params - table) * B * S + 2 * table * B + scan + attn
+    return (n_bytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS_PER_S * 1e3,
+            n_bytes)
+
+
+def phase_lm_serve(torch, configs, models, serve, theory, dev, arch=LM_ARCH,
+                   tag="lm", lengths=None):
+    """Phase 11(a), and 12(a, b): ``arch`` served at full width on the
+    card through ``ServeEngine``; prompt lengths uniform on ``LM_PROMPT``
+    or drawn from ``lengths``."""
     import numpy as np
-    cfg = configs.get_config(LM_ARCH)
+    cfg = configs.get_config(arch)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = models.build_model(cfg, device=dev, seed=0)
     model.compute_params()
     sync(torch, dev)
     init_s = time.perf_counter() - t0
-    print(f"[lm] {LM_ARCH}: {cfg.n_layers} layers, d {cfg.d_model}, "
-          f"{cfg.n_heads} heads / {cfg.n_kv_heads} kv, hd {cfg.head_dim}, "
-          f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.n_params():,} "
-          f"params ({cfg.param_dtype}, compute {cfg.compute_dtype}); drawn "
-          f"and cast on the card in {init_s:.3f} s; memory "
-          f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB")
+    n_params = sum(p.numel() for p in model.parameters())
+    if cfg.ssm is None:
+        widths = (f"{cfg.n_heads} heads / {cfg.n_kv_heads} kv, hd "
+                  f"{cfg.head_dim}, d_ff {cfg.d_ff}")
+
+        def bounds(B, S):
+            return (*_lm_bounds(cfg, B, S), cfg.n_params() * 2)
+    else:
+        widths = (f"d_state {cfg.ssm.d_state}, {cfg.ssm.n_heads} SSM heads "
+                  f"of {cfg.ssm.head_dim}, chunk {cfg.ssm.chunk}")
+        if cfg.hybrid_period:
+            widths += (f"; a shared block after every {cfg.hybrid_period} "
+                       f"({cfg.n_layers // cfg.hybrid_period} applications),"
+                       f" {cfg.n_heads} heads of {cfg.head_dim}, d_ff "
+                       f"{cfg.d_ff}")
+
+        def bounds(B, S):
+            return _ssm_bounds(cfg, n_params, B, S)
+    print(f"[{tag}] {arch}: {cfg.n_layers} layers, d {cfg.d_model}, "
+          f"{widths}, vocab {cfg.vocab_size}, {cfg.n_params():,} params "
+          f"(config; {n_params:,} tensors' elements; {cfg.param_dtype}, "
+          f"compute {cfg.compute_dtype}); drawn and cast on the card in "
+          f"{init_s:.3f} s; memory {torch.cuda.memory_allocated() / 2**30:.3f}"
+          f" GiB")
     # warm-up outside the timed drain: the first use of every operator
     warm = model.prefill({"tokens": torch.zeros((LM_LANES, 64),
                                                 dtype=torch.long, device=dev)})
@@ -1714,7 +1820,8 @@ def phase_lm_serve(torch, configs, models, serve, theory, dev):
     sync(torch, dev)
     eng = serve.ServeEngine(model, batch_lanes=LM_LANES, max_len=LM_MAX_LEN,
                             delta=LM_DELTA, seed=0, device=dev)
-    reqs = _lm_requests(serve, cfg.vocab_size, LM_REQUESTS, LM_PROMPT, LM_NEW)
+    reqs = _lm_requests(serve, cfg.vocab_size, LM_REQUESTS, LM_PROMPT, LM_NEW,
+                        lengths=lengths)
     for r in reqs:
         eng.submit(r)
     prefills, decodes = [], []
@@ -1741,27 +1848,30 @@ def phase_lm_serve(torch, configs, models, serve, theory, dev):
     n_tokens = sum(len(res.tokens) for res in results.values())
     for start, end, _, args in prefills:
         B, S = args[0]["tokens"].shape
-        bound = _lm_bounds(cfg, B, S)[1]
-        print(f"[lm] prefill {B} x {S}: {start.elapsed_time(end):.3f} ms "
-              f"(CUDA events; bound {bound:.3f} ms)")
+        print(f"[{tag}] prefill {B} x {S}: {start.elapsed_time(end):.3f} ms "
+              f"(CUDA events; bound {bounds(B, S)[1]:.3f} ms)")
     step_ms = np.array([s.elapsed_time(e) for s, e, _, _ in decodes])
     host_ms = np.diff([t for _, _, t, _ in decodes]) * 1e3
-    decode_bound, prefill_bound = _lm_bounds(cfg, LM_LANES, LM_PROMPT[1])
-    print(f"[lm] decode: {len(step_ms)} steps, {np.median(step_ms):.3f} ms a "
-          f"step median (CUDA events; min {step_ms.min():.3f}, p90 "
+    decode_bound, prefill_bound, n_bytes = bounds(LM_LANES, LM_PROMPT[1])
+    print(f"[{tag}] decode: {len(step_ms)} steps, {np.median(step_ms):.3f} ms "
+          f"a step median (CUDA events; min {step_ms.min():.3f}, p90 "
           f"{np.percentile(step_ms, 90):.3f}, max {step_ms.max():.3f}); host "
           f"clock between step starts median {np.median(host_ms):.3f} ms; "
-          f"bound {decode_bound:.4f} ms (bf16 weights read once: "
-          f"{cfg.n_params():,} x 2 B / {HBM_BYTES_PER_S / 1e12:.2f} TB/s)")
-    dense_ms = 2 * cfg.n_params() * LM_LANES * LM_PROMPT[1] \
-        / BF16_FLOPS_PER_S * 1e3
-    print(f"[lm] drain: {LM_REQUESTS} requests, {n_tokens} tokens generated "
-          f"in {wall:.3f} s wall: {n_tokens / wall:.1f} tokens/s; peak "
-          f"memory {peak / 2**30:.3f} GiB (max_memory_allocated); prefill "
-          f"bound of {LM_LANES} x {LM_PROMPT[1]} tokens {prefill_bound:.3f} ms"
-          f" (2 x params x tokens {dense_ms:.3f} ms less the output table "
-          f"for all but the last token, plus causal attention)")
-    print(f"[lm] lane utilization {util:.4f} beside u_RD({LM_DELTA:g}) = "
+          f"bound {decode_bound:.4f} ms ({n_bytes / 1e9:.4f} GB at "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s: the bf16 weights read once"
+          + ("" if cfg.ssm is None else ", the fp32 SSM state read and "
+             "written" + (", the shared block's K/V over a "
+                          f"{LM_PROMPT[1]}-slot cache read"
+                          if cfg.hybrid_period else ""))
+          + ")")
+    print(f"[{tag}] drain: {LM_REQUESTS} requests, {n_tokens} tokens "
+          f"generated in {wall:.3f} s wall: {n_tokens / wall:.1f} tokens/s; "
+          f"peak memory {peak / 2**30:.3f} GiB (max_memory_allocated); "
+          f"prefill bound of {LM_LANES} x {LM_PROMPT[1]} tokens "
+          f"{prefill_bound:.3f} ms (2 x params x tokens less the output table "
+          f"for all but the last token, plus causal attention"
+          + ("" if cfg.ssm is None else " and the chunked scan") + ")")
+    print(f"[{tag}] lane utilization {util:.4f} beside u_RD({LM_DELTA:g}) = "
           f"{float(theory.u_rd(LM_DELTA)):.4f}")
     logits, cache = model.prefill({"tokens": torch.randint(
         0, cfg.vocab_size, (LM_LANES, LM_PROMPT[1]), device=dev)})
@@ -1770,23 +1880,33 @@ def phase_lm_serve(torch, configs, models, serve, theory, dev):
     def steps():
         for i in range(LM_PROFILE_STEPS):
             model.decode_step(cache, tok, LM_PROMPT[1] + i)
-    prof = _profile(torch, dev, steps)
-    if prof is None:
-        print("[lm] torch.profiler gave no device time: idle share not "
-              "measured")
-    else:
-        launches = sum(count for _, _, count in prof["rows"])
-        print(f"[lm] profiler, {LM_PROFILE_STEPS} decode steps at B="
-              f"{LM_LANES}, cache {LM_PROMPT[1]}: wall "
-              f"{prof['wall_us'] / 1e3:.3f} ms, device busy "
-              f"{prof['busy_us'] / 1e3:.3f} ms (idle share "
-              f"{1 - prof['busy_us'] / prof['wall_us']:.3f}), "
-              f"{launches / LM_PROFILE_STEPS:.0f} kernel launches a step")
-        for us, key, count in prof["rows"][:8]:
-            print(f"[lm] profiler {us / 1e3:9.3f} ms {count:6d}x  {key[:90]}")
+    t1 = time.perf_counter()
+    _print_profile(torch, dev, steps, tag,
+                   f"{LM_PROFILE_STEPS} decode steps at B={LM_LANES}, cache "
+                   f"{LM_PROMPT[1]}", LM_PROFILE_STEPS)
+    print(f"[{tag}] walls: build {init_s:.3f} s, drain {wall:.3f} s, the "
+          f"profiled steps and their tables {time.perf_counter() - t1:.3f} s")
     del model, eng, logits, cache
     torch.cuda.empty_cache()
     return n_tokens
+
+
+def _print_profile(torch, dev, fn, tag, what, n_steps):
+    """Print the profiler's wall, device busy time, idle share and kernel
+    launches a step over one call of ``fn`` (``n_steps`` steps), and its
+    eight largest kernels."""
+    prof = _profile(torch, dev, fn)
+    if prof is None:
+        print(f"[{tag}] torch.profiler gave no device time: idle share not "
+              f"measured")
+        return
+    launches = sum(count for _, _, count in prof["rows"])
+    print(f"[{tag}] profiler, {what}: wall {prof['wall_us'] / 1e3:.3f} ms, "
+          f"device busy {prof['busy_us'] / 1e3:.3f} ms (idle share "
+          f"{1 - prof['busy_us'] / prof['wall_us']:.3f}), "
+          f"{launches / n_steps:.0f} kernel launches a step")
+    for us, key, count in prof["rows"][:8]:
+        print(f"[{tag}] profiler {us / 1e3:9.3f} ms {count:6d}x  {key[:90]}")
 
 
 def _assert_close(got, want, what):
@@ -1868,6 +1988,197 @@ def phase_lm_checks(torch, configs, models, serve, bridge, dev):
         torch.backends.cuda.matmul.allow_tf32 = tf32
 
 
+def phase_whisper(torch, configs, models, dev):
+    """Phase 12(c): whisper-base at full width: encode a batch of frame
+    embeddings, seed the cross K/V, decode greedily from token 0."""
+    import numpy as np
+    cfg = configs.get_config(WHISPER_ARCH)
+    model = models.build_model(cfg, device=dev, seed=0)
+    model.compute_params()
+    n_params = sum(p.numel() for p in model.parameters())
+    B, S = WHISPER_BATCH, WHISPER_FRAMES
+    gen = torch.Generator(device=dev).manual_seed(0)
+    batch = {"enc_embeddings": torch.randn((B, S, cfg.d_model), generator=gen,
+                                           device=dev) * 0.1}
+    encode_ms = cuda_ms(lambda: model.encode(batch["enc_embeddings"]), 3)
+    prefill_ms = cuda_ms(lambda: model.prefill(
+        batch, max_decode_len=WHISPER_MAX_DECODE), 3)
+    logits, cache = model.prefill(batch, max_decode_len=WHISPER_MAX_DECODE)
+    check(tuple(logits.shape) == (B, cfg.vocab_size) and
+          not bool(logits.any()), "prefill: the logits are not zeros")
+    check(tuple(cache["xk"].shape) == (cfg.n_layers, B, S, cfg.n_kv_heads,
+                                       cfg.head_dim), "cross K/V shape")
+    tok = torch.zeros((B, 1), dtype=torch.long, device=dev)
+    step_ms, tokens = [], []
+    for pos in range(WHISPER_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        logits, cache = model.decode_step(cache, tok, pos)
+        end.record()
+        tok = torch.argmax(logits, -1)[:, None]
+        step_ms.append((start, end))
+        tokens.append(tok)
+    sync(torch, dev)
+    step_ms = np.array([a.elapsed_time(b) for a, b in step_ms])
+    toks = torch.cat(tokens, dim=1)
+    check(tuple(logits.shape) == (B, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()), "decode logits not finite")
+    check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+          "a token outside the vocabulary")
+    enc_params = sum(p.numel() for p in model.params["enc_layers"].parameters())
+    dec_params = sum(p.numel() for p in model.params["dec_layers"].parameters())
+    table = cfg.vocab_size * cfg.d_model
+    enc_flops = 2 * enc_params * B * S \
+        + 4 * B * S * S * cfg.n_heads * cfg.head_dim * cfg.encoder_layers
+    kv_bytes = 2 * cache["xk"].numel() * cache["xk"].element_size()
+    dec_bytes = 2 * (dec_params + table) + kv_bytes
+    print(f"[whisper] {WHISPER_ARCH}: {cfg.encoder_layers} + {cfg.n_layers} "
+          f"layers, d {cfg.d_model}, {cfg.n_heads} heads of {cfg.head_dim}, "
+          f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, {n_params:,} tensors' "
+          f"elements ({cfg.param_dtype}, compute {cfg.compute_dtype}); batch "
+          f"{B} x {S} frames, decoder cache {WHISPER_MAX_DECODE}")
+    print(f"[whisper] encode {encode_ms:.3f} ms (CUDA events, mean of 3; "
+          f"bound {enc_flops / BF16_FLOPS_PER_S * 1e3:.3f} ms: 2 x encoder "
+          f"params x frames plus bidirectional attention at bf16 peak); "
+          f"prefill (encode and the cross K/V) {prefill_ms:.3f} ms")
+    print(f"[whisper] decode: {WHISPER_STEPS} greedy steps from token 0, "
+          f"{np.median(step_ms):.3f} ms a step median (CUDA events; min "
+          f"{step_ms.min():.3f}, p90 {np.percentile(step_ms, 90):.3f}); bound "
+          f"{dec_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms (the decoder's and the "
+          f"table's bf16 weights and the cross K/V read once, "
+          f"{dec_bytes / 1e9:.4f} GB); {len(set(toks.flatten().tolist()))} "
+          f"distinct tokens")
+
+    def steps():
+        for i in range(LM_PROFILE_STEPS):
+            model.decode_step(cache, tok, WHISPER_STEPS + i)
+    _print_profile(torch, dev, steps, "whisper",
+                   f"{LM_PROFILE_STEPS} decode steps at B={B}", LM_PROFILE_STEPS)
+    del model, cache, logits, batch
+    torch.cuda.empty_cache()
+
+
+def _leaves(cache, prefix=""):
+    """``(path, tensor)`` of every leaf of a (nested) cache, in order."""
+    for k, v in cache.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, f"{prefix}{k}/")
+        else:
+            yield prefix + k, v
+
+
+def phase_family_checks(torch, configs, models, bridge, dev):
+    """Phase 12(d) and (e), in fp32 with TF32 off."""
+    import numpy as np
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        # (d) decode token by token against prefill
+        for arch, layers, n_tok in FAMILY_CHECKS:
+            cfg = dataclasses.replace(configs.get_config(arch),
+                                      compute_dtype="float32")
+            if layers is not None:
+                cfg = dataclasses.replace(cfg, n_layers=layers)
+            model = models.build_model(cfg, device=dev, seed=0)
+            gen = torch.Generator(device=dev).manual_seed(1)
+            toks = torch.randint(0, cfg.vocab_size, (2, n_tok), generator=gen,
+                                 device=dev)
+            want, _ = model.prefill({"tokens": toks})
+            cache = (model.init_cache(2) if cfg.family == "ssm"
+                     else model.init_cache(2, n_tok))
+            for i in range(n_tok):
+                got, cache = model.decode_step(cache, toks[:, i:i + 1], i)
+            err = (got - want).abs()
+            check(bool((err <= LM_DECODE_TOL * (1 + want.abs())).all()),
+                  f"{arch}: decode against prefill: max abs err "
+                  f"{float(err.max())}")
+            print(f"[family] (d) {arch} widths, {cfg.n_layers} layers, fp32: "
+                  f"{n_tok} tokens decoded one by one give prefill's logits, "
+                  f"max abs err {float(err.max()):.3e} (tolerance "
+                  f"{LM_DECODE_TOL:g})")
+            del model, cache
+            torch.cuda.empty_cache()
+        # (e) card against CPU on one parameter set
+        for arch in FAMILY_CPU_ARCHS:
+            cfg = configs.get_config(arch).reduced()
+            on_cpu = models.build_model(cfg, device="cpu", seed=0)
+            on_card = models.build_model(cfg, device=dev, seed=1)
+            bridge.lm_params_from_numpy(on_card,
+                                        bridge.lm_params_to_numpy(on_cpu))
+            rng = np.random.default_rng(2)
+            if cfg.family == "encdec":
+                batch = {"enc_embeddings": torch.as_tensor((rng.standard_normal(
+                    (2, 64, cfg.d_model)) * 0.1).astype(np.float32))}
+                kw, pos0 = {"max_decode_len": 16}, 0
+            else:
+                batch = {"tokens": torch.as_tensor(
+                    rng.integers(0, cfg.vocab_size, (2, 64)))}
+                kw, pos0 = {}, 64
+            lc, cc = on_cpu.prefill(batch, **kw)
+            lg, cg = on_card.prefill({k: v.to(dev) for k, v in batch.items()},
+                                     **kw)
+            worst, tokens = 0.0, []
+            for step in range(LM_CPU_STEPS + 1):
+                what = f"{arch} " + ("prefill" if step == 0
+                                     else f"decode step {step}")
+                worst = max(worst, _assert_close(lg, lc, what))
+                for (k, want), (_, got) in zip(_leaves(cc), _leaves(cg)):
+                    worst = max(worst, _assert_close(got, want,
+                                                     f"{what} cache {k}"))
+                tok = torch.argmax(lc, -1)[:, None]
+                check(torch.equal(torch.argmax(lg, -1)[:, None].cpu(), tok),
+                      f"{what}: the card's greedy tokens differ")
+                tokens.append(tok)
+                if step == LM_CPU_STEPS:
+                    break
+                lc, cc = on_cpu.decode_step(cc, tok, pos0 + step)
+                lg, cg = on_card.decode_step(cg, tok.to(dev), pos0 + step)
+            print(f"[family] (e) {arch} reduced, fp32: card = CPU in prefill "
+                  f"logits, every cache leaf and {LM_CPU_STEPS} decode steps "
+                  f"(max abs err {worst:.3e}), the same greedy tokens "
+                  f"{torch.cat(tokens, 1)[0].tolist()}")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def phase_examples(root):
+    """Phase 13: the port's PDES examples as subprocesses, each counting
+    B1's and the generator's launches in its process."""
+    work = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_examples_"))
+    env = dict(os.environ, PYTHONPATH=str(root / "src"), ROOT=str(root))
+    counts = {"B1": 0, "threefry_bits": 0}
+    try:
+        for i, (script, args) in enumerate(EXAMPLES):
+            out = work / f"out{i}"
+            env["COUNTS"] = str(work / f"counts{i}.json")
+            extra = () if script.endswith("quickstart_torch.py") else (
+                "--out", str(out))
+            t0 = time.perf_counter()
+            res = _run([sys.executable, "-c", EXAMPLE, script, *args, *extra],
+                       env, script)
+            wall = time.perf_counter() - t0
+            got = json.loads(pathlib.Path(env["COUNTS"]).read_text())
+            for k in counts:
+                counts[k] += got[k]
+            lines = res.stdout.strip().splitlines()
+            if script.endswith("paper_figures_torch.py"):
+                check("all paper-figure claims hold" in lines,
+                      f"{script}: the claims line is missing")
+                check(len(list((out / "figures").glob("*.json"))) == 4,
+                      f"{script}: not four figures")
+            if script.endswith("pdes_scaling_study_torch.py"):
+                data = json.loads((out / "example_scaling.json").read_text())
+                check(all(0 < u <= 1 for k, v in data.items() if k != "backend"
+                          for u in v["u"]), f"{script}: u outside (0, 1]")
+            print(f"[examples] {script} {' '.join(args)}: exit 0 in "
+                  f"{wall:.3f} s wall; B1 launches {got['B1']}, generator "
+                  f"launches {got['threefry_bits']}; last line: {lines[-1]}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return counts
+
+
 def main() -> int:
     try:
         import torch
@@ -1941,6 +2252,14 @@ def main() -> int:
     phase_lm_serve(torch, configs, models, serve, theory, "cuda")
     phase_lm_checks(torch, configs, models, serve, bridge, "cuda")
     t["11 LM serve"] = time.perf_counter() - t0 - sum(t.values())
+    for arch in SSM_ARCHS:
+        phase_lm_serve(torch, configs, models, serve, theory, "cuda", arch,
+                       arch.split("-")[0], SSM_PROMPTS)
+    phase_whisper(torch, configs, models, "cuda")
+    phase_family_checks(torch, configs, models, bridge, "cuda")
+    t["12 ssm/hybrid/encdec"] = time.perf_counter() - t0 - sum(t.values())
+    ex_launches = phase_examples(root)
+    t["13 examples"] = time.perf_counter() - t0 - sum(t.values())
     print("[setup] phase wall: "
           + ", ".join(f"{k} {v:.2f} s" for k, v in t.items()))
 
@@ -1948,7 +2267,8 @@ def main() -> int:
         dict(name="pdes_multistep_counter", route="cuda",
              source="src/repro_torch/kernels/csrc/pdes_multistep_counter.cu",
              replaces="src/repro/kernels/pdes_multistep.py:169",
-             launches=b1_launches + b1_serve, library_ms=None, **kstats),
+             launches=b1_launches + b1_serve + ex_launches["B1"],
+             library_ms=None, **kstats),
         dict(name="pdes_step", route="cuda",
              source="src/repro_torch/kernels/csrc/pdes_step.cu",
              replaces="src/repro/kernels/pdes_step.py:69",
@@ -1961,10 +2281,12 @@ def main() -> int:
         dict(name="threefry_bits", route="cuda",
              source="src/repro_torch/kernels/csrc/threefry_bits.cu",
              replaces="jax.random.bits (XLA, outside Pallas)",
-             launches=gen_launches, library_ms=None, **gstats)]
-    print(f"[launches] B1: phase 3 {b1_launches}, phase 10(a) {b1_serve}; "
-          f"B2: phase 5 {b2_launches}, phase 9(c) {b2_sharded}, phase 10(d) "
-          f"{b2_serve}")
+             launches=gen_launches + ex_launches["threefry_bits"],
+             library_ms=None, **gstats)]
+    print(f"[launches] B1: phase 3 {b1_launches}, phase 10(a) {b1_serve}, "
+          f"phase 13 {ex_launches['B1']}; B2: phase 5 {b2_launches}, phase "
+          f"9(c) {b2_sharded}, phase 10(d) {b2_serve}; generator: phase 8(a) "
+          f"{gen_launches}, phase 13 {ex_launches['threefry_bits']}")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,7 @@
-"""Model zoo of the port: the dense, SWA and MoE decoders (port of
-``repro.models``).  Mamba2, hybrid and encoder-decoder models are still to
-be ported (ROADMAP, queue A, A13b)."""
-from .model import build_model  # noqa: F401
-from .transformer import DecoderModel  # noqa: F401
+"""Model zoo of the port (port of ``repro.models``): the dense, SWA and MoE
+decoders, the Mamba2 decoder, the Mamba2 + shared-attention hybrid and the
+encoder-decoder; ``build_model`` picks one by ``cfg.family``."""
+from .encdec import EncDecModel  # noqa: F401
+from .hybrid import HybridModel  # noqa: F401
+from .model import SSMModel, build_model  # noqa: F401
+from .transformer import DecoderModel, LMModule  # noqa: F401

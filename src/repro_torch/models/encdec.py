@@ -1,0 +1,177 @@
+"""Encoder-decoder transformer (whisper family; port of
+``repro.models.encdec``).
+
+The audio frontend (log-mel + conv downsampling) is a stub, as in the
+reference: the batch carries precomputed frame embeddings (B, S_enc, d).
+Encoder: bidirectional self-attention + sinusoidal positions.
+Decoder: causal self-attention (KV cache for decode), cross-attention to the
+encoder output (cross K/V computed once at prefill), learned positions.
+
+Decode clamps where ``lax.dynamic_update_slice_in_dim`` and
+``lax.dynamic_slice_in_dim`` clamp in the reference, explicitly: the
+self-attention cache slot at ``max_len - 1`` (``transformer.cache_slot``,
+which also lets the attention see every slot once ``pos + 1 > max_len``)
+and the learned position at ``pos_table_len - 1`` (``layers.dslice``).
+"""
+from __future__ import annotations
+
+import torch
+
+from .attention import decode_attention
+from .flash import flash_attention
+from .layers import (dslice, embed_init, embed_lookup, mlp, mlp_init,
+                     sinusoidal_positions)
+from .transformer import (LMModule, _at, _dt, _norm, _norm_init, _qkv,
+                          attn_init, cache_slot)
+
+
+def _cross_kv(enc, p, cfg, cd, constrain):
+    def w(n):
+        return p[n].to(cd)
+    k = torch.einsum("bsd,dhk->bshk", enc, w("wk"))
+    v = torch.einsum("bsd,dhk->bshk", enc, w("wv"))
+    if cfg.qkv_bias:
+        k, v = k + w("bk"), v + w("bv")
+    return constrain(k, "kv_heads"), constrain(v, "kv_heads")
+
+
+def _cross_q(x, p, cfg, cd):
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(cd))
+    return q + p["bq"].to(cd) if cfg.qkv_bias else q
+
+
+def _cross_apply(x, kc, vc, p, cfg, cd, constrain):
+    out = flash_attention(_cross_q(x, p, cfg, cd), kc, vc, False, None, None,
+                          cfg.q_block, cfg.k_block, 0)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(cd))
+
+
+def _cross_decode(x, kc, vc, p, cfg, cd):
+    out = decode_attention(_cross_q(x, p, cfg, cd), kc, vc, kc.shape[1])
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(cd))
+
+
+class EncDecModel(LMModule):
+    """``params["enc_layers"]`` and ``params["dec_layers"]`` are stacked on
+    ``(encoder_layers,)`` and ``(n_layers,)``; a decoder layer adds
+    ``ln_x`` and ``xattn`` (cross-attention) to a transformer layer.
+
+    The cache is ``{"k", "v" (n_layers, B, max_len, KH, hd), "xk", "xv"
+    (n_layers, B, S_enc, KH, hd)}``.
+    """
+
+    def _init_tree(self, gen: torch.Generator) -> dict:
+        cfg = self.cfg
+        pd = _dt(cfg.param_dtype)
+        dev = gen.device
+
+        def layer(lead, cross):
+            p = {"ln1": _norm_init(cfg, pd, dev, lead),
+                 "attn": attn_init(gen, cfg, pd, lead=lead)}
+            if cross:
+                p["ln_x"] = _norm_init(cfg, pd, dev, lead)
+                p["xattn"] = attn_init(gen, cfg, pd, lead=lead)
+            p["ln2"] = _norm_init(cfg, pd, dev, lead)
+            p["mlp"] = mlp_init(gen, cfg.d_model, cfg.d_ff, pd,
+                                gated=cfg.gated_mlp, bias=True, lead=lead)
+            return p
+
+        pos = torch.randn((cfg.pos_table_len, cfg.d_model), generator=gen,
+                          device=dev)
+        return {
+            "embed": embed_init(gen, cfg.vocab_size, cfg.d_model, pd),
+            "pos_table": (pos * 0.01).to(pd),
+            "enc_layers": layer((cfg.encoder_layers,), cross=False),
+            "enc_norm": _norm_init(cfg, pd, dev),
+            "dec_layers": layer((cfg.n_layers,), cross=True),
+            "final_norm": _norm_init(cfg, pd, dev),
+        }
+
+    def _layer_views(self, tree):
+        """``(encoder layers, decoder layers)``."""
+        return ([_at(tree["enc_layers"], i)
+                 for i in range(self.cfg.encoder_layers)],
+                [_at(tree["dec_layers"], i) for i in range(self.cfg.n_layers)])
+
+    # ---- encoder ----
+    def _encode(self, params, enc_layers, enc_embeddings):
+        cfg = self.cfg
+        cd = _dt(cfg.compute_dtype)
+        x = enc_embeddings.to(cd)
+        x = x + sinusoidal_positions(x.shape[1], cfg.d_model, cd,
+                                     x.device)[None]
+        x = self.constrain(x, "act")
+        for p in enc_layers:
+            h = _norm(x, p["ln1"], cfg)
+            q, k, v = _qkv(h, p["attn"], cfg, cd, self.constrain, None)
+            h = flash_attention(q, k, v, False, None, None,
+                                cfg.q_block, cfg.k_block, 0)
+            h = torch.einsum("bshk,hkd->bsd", h, p["attn"]["wo"].to(cd))
+            x = self.constrain(x + h, "act")
+            h = mlp(_norm(x, p["ln2"], cfg), p["mlp"], cfg.act, cd,
+                    constrain=lambda t: self.constrain(t, "act_ff"))
+            x = self.constrain(x + h, "act")
+        return _norm(x, params["enc_norm"], cfg)
+
+    @torch.no_grad()
+    def encode(self, enc_embeddings):
+        """The encoder's output (B, S_enc, d) of frame embeddings."""
+        params, (enc_layers, _) = self._cast()
+        return self._encode(params, enc_layers, enc_embeddings)
+
+    # ---- serve ----
+    def init_cache(self, batch_size: int, max_len: int, enc_len: int):
+        cfg = self.cfg
+        cd = _dt(cfg.compute_dtype)
+
+        def kv(s):
+            return torch.zeros((cfg.n_layers, batch_size, s, cfg.n_kv_heads,
+                                cfg.head_dim), dtype=cd, device=self.device)
+        return {"k": kv(max_len), "v": kv(max_len),
+                "xk": kv(enc_len), "xv": kv(enc_len)}
+
+    @torch.no_grad()
+    def prefill(self, batch, max_decode_len: int = 256):
+        """Encode ``batch["enc_embeddings"]`` and seed the cross K/V; the
+        decoder starts empty (autoregressive from BOS), so the logits are
+        zeros."""
+        cfg = self.cfg
+        cd = _dt(cfg.compute_dtype)
+        params, (enc_layers, dec_layers) = self._cast()
+        enc = self._encode(params, enc_layers, batch["enc_embeddings"])
+        B = enc.shape[0]
+        cache = self.init_cache(B, max_decode_len, enc.shape[1])
+        for i, p in enumerate(dec_layers):
+            cache["xk"][i], cache["xv"][i] = _cross_kv(
+                enc, p["xattn"], cfg, cd, self.constrain)
+        logits = torch.zeros((B, cfg.vocab_size), device=enc.device)
+        return logits, cache
+
+    @torch.no_grad()
+    def decode_step(self, cache, tokens, pos: int):
+        """tokens: (B, 1) ints; pos: this token's position.  Writes the
+        self-attention cache in place; returns (logits (B, V) fp32, cache)."""
+        cfg = self.cfg
+        cd = _dt(cfg.compute_dtype)
+        params, (_, dec_layers) = self._cast()
+        pos = int(pos)
+        x = embed_lookup(params["embed"], tokens, cd)
+        x = x + dslice(params["pos_table"], pos, 1, 0)[None]
+        x = self.constrain(x, "act")
+        slot, eff_pos, _ = cache_slot(pos, cache["k"].shape[2], None)
+        for i, p in enumerate(dec_layers):
+            ck, cv = cache["k"][i], cache["v"][i]
+            h = _norm(x, p["ln1"], cfg)
+            q, k, v = _qkv(h, p["attn"], cfg, cd, self.constrain, None)
+            ck[:, slot] = k[:, 0]
+            cv[:, slot] = v[:, 0]
+            h = decode_attention(q, ck, cv, eff_pos)
+            h = torch.einsum("bshk,hkd->bsd", h, p["attn"]["wo"].to(cd))
+            x = x + h
+            h = _cross_decode(_norm(x, p["ln_x"], cfg), cache["xk"][i],
+                              cache["xv"][i], p["xattn"], cfg, cd)
+            x = x + h
+            h = mlp(_norm(x, p["ln2"], cfg), p["mlp"], cfg.act, cd)
+            x = x + h
+        x = _norm(x, params["final_norm"], cfg)
+        return self._logits_f32(x[:, 0], params["embed"]["table"]), cache

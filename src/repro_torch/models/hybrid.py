@@ -1,0 +1,135 @@
+"""Hybrid SSM + shared-attention model (zamba2 family; port of
+``repro.models.hybrid``).
+
+Backbone: a stack of Mamba2 blocks.  After every ``hybrid_period`` SSM layers
+a *shared* transformer block (one weight set reused at every application, as
+in Zamba/Zamba2) runs on ``proj([hidden ; original_embedding])`` — the concat
+re-injects the token embedding at depth, per the Zamba design; the block's
+delta (its attention+FFN contribution) is added back to the residual stream.
+The released model's per-application LoRA deltas are simplified away, as in
+the reference.
+"""
+from __future__ import annotations
+
+import torch
+
+from .layers import dense_init, embed_init, embed_lookup
+from .ssm import ssm_apply, ssm_decode_step, ssm_init
+from .transformer import (LMModule, _at, _dt, _layer_prefill, _norm,
+                          _norm_init, _rope, layer_decode, layer_init)
+
+
+class HybridModel(LMModule):
+    """``params["ssm_layers"]`` is stacked on ``(n_shared, hybrid_period)``;
+    ``params["shared"]`` is one (unstacked) transformer layer, applied once
+    a group on ``params["shared_in"]``'s projection of ``[x ; emb0]``.
+
+    The cache is ``{"ssm": {"ssm", "conv"} (n_shared, hybrid_period, B,
+    ...), "k", "v" (n_shared, B, S, KH, hd)}``.
+    """
+
+    @property
+    def n_shared(self) -> int:
+        return self.cfg.n_layers // self.cfg.hybrid_period
+
+    def _init_tree(self, gen: torch.Generator) -> dict:
+        cfg = self.cfg
+        pd = _dt(cfg.param_dtype)
+        lead = (self.n_shared, cfg.hybrid_period)
+        return {
+            "embed": embed_init(gen, cfg.vocab_size, cfg.d_model, pd),
+            "ssm_layers": {"norm": _norm_init(cfg, pd, gen.device, lead),
+                           "ssm": ssm_init(gen, cfg.ssm, pd, lead)},
+            "shared": layer_init(gen, cfg, pd),               # one weight set
+            "shared_in": dense_init(gen, 2 * cfg.d_model, (cfg.d_model,), pd),
+            "final_norm": _norm_init(cfg, pd, gen.device),
+        }
+
+    def _layer_views(self, tree):
+        """Per group: its ``hybrid_period`` SSM layers' parameters."""
+        return [[_at(tree["ssm_layers"], g, j)
+                 for j in range(self.cfg.hybrid_period)]
+                for g in range(self.n_shared)]
+
+    def init_cache(self, batch_size: int, max_len: int):
+        cfg = self.cfg
+        cd = _dt(cfg.compute_dtype)
+        s = cfg.ssm
+        G, R, B = self.n_shared, cfg.hybrid_period, batch_size
+        dev = self.device
+        kv = (G, B, max_len, cfg.n_kv_heads, cfg.head_dim)
+        return {
+            "ssm": {
+                "ssm": torch.zeros((G, R, B, s.n_heads, s.head_dim, s.d_state),
+                                   device=dev),
+                "conv": torch.zeros((G, R, B, s.d_conv - 1, s.conv_dim),
+                                    dtype=cd, device=dev),
+            },
+            "k": torch.zeros(kv, dtype=cd, device=dev),
+            "v": torch.zeros(kv, dtype=cd, device=dev),
+        }
+
+    def _shared_in(self, params, x, emb0):
+        return torch.cat([x, emb0], dim=-1) @ params["shared_in"]
+
+    @torch.no_grad()
+    def prefill(self, batch):
+        """``batch["tokens"]`` (B, S) -> (last logits (B, V) fp32, cache);
+        the cache's K/V are S long."""
+        cfg = self.cfg
+        cd = _dt(cfg.compute_dtype)
+        params, groups = self._cast()
+        x = embed_lookup(params["embed"], batch["tokens"], cd)
+        emb0 = x
+        S = x.shape[1]
+        rope = _rope(cfg, torch.arange(S, device=x.device)[None, :])
+        ssm_caches, ks, vs = [], [], []
+        for group in groups:
+            for pj in group:
+                h, c = ssm_apply(_norm(x, pj["norm"], cfg), pj["ssm"], cfg.ssm,
+                                 cd)
+                ssm_caches.append(c)
+                x = x + h
+            xin = self._shared_in(params, x, emb0)
+            out, _, k, v = _layer_prefill(xin, params["shared"], cfg,
+                                          kind="full", constrain=self.constrain,
+                                          rope=rope)
+            x = x + (out - xin)
+            ks.append(k)
+            vs.append(v)
+        x = _norm(x, params["final_norm"], cfg)
+        lead = (self.n_shared, cfg.hybrid_period)
+        cache = {
+            "ssm": {n: torch.stack([c[n] for c in ssm_caches]).reshape(
+                *lead, *ssm_caches[0][n].shape) for n in ("ssm", "conv")},
+            "k": torch.stack(ks), "v": torch.stack(vs)}
+        return self._logits_f32(x[:, -1], params["embed"]["table"]), cache
+
+    @torch.no_grad()
+    def decode_step(self, cache, tokens, pos: int):
+        """tokens: (B, 1) ints; pos: this token's position.  Writes ``cache``
+        in place (the K/V slot clamped as ``transformer.cache_slot`` says);
+        returns (logits (B, V) fp32, cache)."""
+        cfg = self.cfg
+        cd = _dt(cfg.compute_dtype)
+        params, groups = self._cast()
+        pos = int(pos)
+        x = embed_lookup(params["embed"], tokens, cd)       # (B,1,d)
+        emb0 = x                                            # this token's
+        rope = _rope(cfg, torch.full((1, 1), pos, device=x.device))
+        ssm_cache = cache["ssm"]
+        for g, group in enumerate(groups):
+            for j, pj in enumerate(group):
+                h, c = ssm_decode_step(_norm(x, pj["norm"], cfg)[:, 0],
+                                       _at(ssm_cache, g, j), pj["ssm"],
+                                       cfg.ssm, cd)
+                ssm_cache["ssm"][g, j], ssm_cache["conv"][g, j] = \
+                    c["ssm"], c["conv"]
+                x = x + h[:, None, :]
+            xin = self._shared_in(params, x, emb0)
+            out, _, _ = layer_decode(xin, params["shared"], cfg, cache["k"][g],
+                                     cache["v"][g], pos, kind="full",
+                                     constrain=self.constrain, rope=rope)
+            x = x + (out - xin)
+        x = _norm(x, params["final_norm"], cfg)
+        return self._logits_f32(x[:, 0], params["embed"]["table"]), cache

@@ -1,10 +1,12 @@
 """Decoder-only transformer: init / prefill / decode (port of
 ``repro.models.transformer``, the serving half).
 
-``DecoderModel`` is an ``nn.Module`` that owns its parameters.  They keep
-the reference's tree and layouts (``wq (d,H,hd)``, ``wo (H,hd,d)``, layers
-stacked on a leading ``(n_groups, group_size)`` axis), so carrying JAX's
-weights across is a copy (``bridge.lm_params_from_numpy``) and the einsums
+``DecoderModel`` is an ``nn.Module`` that owns its parameters; its base
+``LMModule``, shared by every model class of the port, holds them and
+their compute-dtype copy.  They keep the reference's tree and layouts
+(``wq (d,H,hd)``, ``wo (H,hd,d)``, layers stacked on a leading
+``(n_groups, group_size)`` axis), so carrying JAX's weights across is a
+copy (``bridge.lm_params_from_numpy``) and the einsums
 use the reference's subscripts.  Heterogeneous layer patterns (gemma-2
 local/global alternation) are the static ``layer_group`` tuple: the loop
 runs over groups and unrolls each group's members with their kinds.
@@ -128,6 +130,13 @@ def _attn_prefill(x, p, cfg: ModelConfig, *, kind, constrain, rope,
     q, k, v = _qkv(x, p, cfg, cd, constrain, rope)
     out = constrain(_attend(q, k, v, cfg, kind, causal), "heads")
     return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(cd)), k, v
+
+
+def attn_prefill_kv(x, p, cfg: ModelConfig, cd, constrain, positions):
+    """K/V for cache seeding (rope pre-applied)."""
+    rope = _rope(cfg, positions) if positions is not None else None
+    _, k, v = _qkv(x, p, cfg, cd, constrain, rope)
+    return k, v
 
 
 def attn_apply(x, p, cfg: ModelConfig, *, kind: str, constrain: Constrain,
@@ -268,34 +277,47 @@ def layer_decode(x, p, cfg: ModelConfig, ck, cv, pos, *, kind: str,
 # ---------------------------------------------------------------------------
 
 
-def _as_module(tree: dict) -> nn.Module:
-    """Nested dicts of tensors as nested ``ModuleDict``s whose leaves are
-    ``ParameterDict``s, with the tree's keys."""
-    if all(isinstance(v, torch.Tensor) for v in tree.values()):
-        return nn.ParameterDict(
-            {k: nn.Parameter(v, requires_grad=False) for k, v in tree.items()})
-    return nn.ModuleDict({k: _as_module(v) for k, v in tree.items()})
+class ParamTree(nn.Module):
+    """A nested dict of tensors as a module, under the tree's keys: a dict
+    is a submodule, a tensor a (frozen) parameter; ``tree[key]`` reads
+    either."""
+
+    def __init__(self, tree: dict):
+        super().__init__()
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                self.add_module(k, ParamTree(v))
+            else:
+                self.register_parameter(k, nn.Parameter(v,
+                                                        requires_grad=False))
+
+    def __getitem__(self, key: str):
+        return getattr(self, key)
+
+    def as_dict(self, fn) -> dict:
+        """The tree as nested dicts, ``fn`` applied to every leaf."""
+        out = {k: fn(t) for k, t in self._parameters.items()}
+        out.update((k, m.as_dict(fn)) for k, m in self._modules.items())
+        return out
 
 
-def _as_tree(mod: nn.Module, fn) -> dict:
-    """The module tree back as nested dicts, ``fn`` applied to every leaf."""
-    return {k: _as_tree(v, fn) if isinstance(v, nn.ModuleDict)
-            else {n: fn(t) for n, t in v.items()} for k, v in mod.items()}
+def _at(tree: dict, *idx) -> dict:
+    """Every leaf of a nested dict indexed at ``idx`` (one layer of a
+    stacked tree, as views)."""
+    return {k: _at(v, *idx) if isinstance(v, dict) else v[idx]
+            for k, v in tree.items()}
 
 
-# ---------------------------------------------------------------------------
-# decoder-only model
-# ---------------------------------------------------------------------------
+class LMModule(nn.Module):
+    """A language model that owns its parameters.
 
-
-class DecoderModel(nn.Module):
-    """Decoder-only LM (dense / SWA / MoE families).
-
-    ``DecoderModel(cfg, device=None, seed=0)`` draws its parameters on
-    ``device`` (``None`` = the GPU) from a ``torch.Generator`` seeded with
-    ``seed``; ``bridge.lm_params_from_numpy`` loads JAX's instead.
-    ``params`` holds the reference's tree (``params["layers"]["attn"]
-    ["wq"]`` is ``(n_groups, group_size, d, H, hd)``).
+    ``Model(cfg, device=None, seed=0)`` draws the parameter tree of
+    ``_init_tree`` on ``device`` (``None`` = the GPU) from a
+    ``torch.Generator`` seeded with ``seed``; ``bridge.lm_params_from_numpy``
+    loads JAX's instead.  ``params`` holds the reference's tree, layers
+    stacked on leading axes.  The compute reads ``_cast()``: the tree in
+    the compute dtype, made once, with ``_layer_views``' per-layer views
+    of it.
     """
 
     def __init__(self, cfg: ModelConfig, constrain: Constrain = _noop, *,
@@ -305,24 +327,17 @@ class DecoderModel(nn.Module):
         self.constrain = constrain
         dev = resolve_device(device)
         gen = torch.Generator(device=dev).manual_seed(seed)
-        self.params = _as_module(self._init_tree(gen))
+        self.params = ParamTree(self._init_tree(gen))
         self._compute = None        # (key, tree, layer views): see _cast
 
-    # ---- init ----
     def _init_tree(self, gen: torch.Generator) -> dict:
         """A fresh parameter tree (nested dicts) from ``gen``, on its
         device: the reference's distributions, not its bits."""
-        cfg = self.cfg
-        pd = _dt(cfg.param_dtype)
-        lead = (cfg.n_groups, cfg.group_size)
-        params = {
-            "embed": embed_init(gen, cfg.vocab_size, cfg.d_model, pd),
-            "layers": layer_init(gen, cfg, pd, lead),
-            "final_norm": _norm_init(cfg, pd, gen.device),
-        }
-        if not cfg.tie_embeddings:
-            params["lm_head"] = embed_init(gen, cfg.vocab_size, cfg.d_model, pd)
-        return params
+        raise NotImplementedError
+
+    def _layer_views(self, tree: dict):
+        """The compute tree's layers, as the forward passes walk them."""
+        raise NotImplementedError
 
     @property
     def device(self) -> torch.device:
@@ -343,20 +358,48 @@ class DecoderModel(nn.Module):
         if self._compute is None or self._compute[0] != key:
             cd = _dt(self.cfg.compute_dtype)
             self._compute = None        # free the old copy before the new
-            tree = _as_tree(self.params, lambda a: a.detach().to(cd)
-                            if a.dtype == torch.float32 and a.ndim > 1
-                            else a.detach())
+            tree = self.params.as_dict(lambda a: a.detach().to(cd)
+                                       if a.dtype == torch.float32
+                                       and a.ndim > 1 else a.detach())
             self._compute = (key, tree, self._layer_views(tree))
         return self._compute[1:]
+
+    def _logits_f32(self, x, table):
+        """fp32 logits of ``x (B, d)`` against ``table``, the product in
+        fp32 (the reference's ``preferred_element_type``)."""
+        return einsum_f32("bd,vd->bv", x, table)[:, :self.cfg.vocab_size]
+
+
+# ---------------------------------------------------------------------------
+# decoder-only model
+# ---------------------------------------------------------------------------
+
+
+class DecoderModel(LMModule):
+    """Decoder-only LM (dense / SWA / MoE families).
+
+    ``params["layers"]["attn"]["wq"]`` is ``(n_groups, group_size, d, H,
+    hd)``.
+    """
+
+    # ---- init ----
+    def _init_tree(self, gen: torch.Generator) -> dict:
+        cfg = self.cfg
+        pd = _dt(cfg.param_dtype)
+        lead = (cfg.n_groups, cfg.group_size)
+        params = {
+            "embed": embed_init(gen, cfg.vocab_size, cfg.d_model, pd),
+            "layers": layer_init(gen, cfg, pd, lead),
+            "final_norm": _norm_init(cfg, pd, gen.device),
+        }
+        if not cfg.tie_embeddings:
+            params["lm_head"] = embed_init(gen, cfg.vocab_size, cfg.d_model, pd)
+        return params
 
     def _layer_views(self, tree):
         """Per layer (group g, member j): (kind, g, j, params of the layer)."""
         cfg = self.cfg
-
-        def at(t, g, j):
-            return {k: at(v, g, j) if isinstance(v, dict) else v[g, j]
-                    for k, v in t.items()}
-        return [(kind, g, j, at(tree["layers"], g, j))
+        return [(kind, g, j, _at(tree["layers"], g, j))
                 for g in range(cfg.n_groups)
                 for j, kind in enumerate(cfg.layer_group)]
 
@@ -374,8 +417,7 @@ class DecoderModel(nn.Module):
     def _logits(self, params, x):
         """fp32 logits of ``x (B, d)`` over the vocabulary, soft-capped."""
         cfg = self.cfg
-        logits = einsum_f32("bd,vd->bv", x, self._out_table(params))
-        logits = logits[..., :cfg.vocab_size]
+        logits = self._logits_f32(x, self._out_table(params))
         if cfg.final_softcap is not None:
             logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
         return logits

@@ -531,3 +531,45 @@ def test_lm_serve_engine_card_equals_cpu(fp32_matmul):
             eng.submit(Request(u, p, n))
         out.append({u: r.tokens for u, r in eng.run().items()})
     assert out[0] == out[1]
+
+
+@pytest.mark.parametrize("arch", ["mamba2-130m", "zamba2-2.7b",
+                                  "whisper-base"])
+def test_ssm_hybrid_encdec_card_equals_cpu(fp32_matmul, arch):
+    """Prefill logits, every cache leaf and 8 decode steps of the reduced
+    ssm, hybrid and encdec archs: the card against the CPU."""
+    from torch_parity import flat_cache
+    cfg, on_cpu, on_card = _lm_on_both(arch, fp32_matmul)
+    rng = np.random.default_rng(0)
+    if cfg.family == "encdec":
+        batch = {"enc_embeddings": torch.as_tensor(
+            (rng.standard_normal((2, 64, cfg.d_model)) * 0.1).astype(
+                np.float32))}
+        kw, pos0 = {"max_decode_len": 16}, 0
+    else:
+        batch = {"tokens": torch.as_tensor(
+            rng.integers(0, cfg.vocab_size, (2, 64)))}
+        kw, pos0 = {}, 64
+    lc, cc = on_cpu.prefill(batch, **kw)
+    lg, cg = on_card.prefill({k: v.to(fp32_matmul) for k, v in batch.items()},
+                             **kw)
+    for step in range(9):
+        torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-5)
+        got = flat_cache(cg)
+        for k, want in flat_cache(cc).items():
+            torch.testing.assert_close(got[k].cpu(), want, rtol=1e-4,
+                                       atol=1e-5, msg=f"step {step} cache {k}")
+        tok = torch.argmax(lc, -1)[:, None]
+        lc, cc = on_cpu.decode_step(cc, tok, pos0 + step)
+        lg, cg = on_card.decode_step(cg, tok.to(fp32_matmul), pos0 + step)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-130m", "zamba2-2.7b",
+                                  "whisper-base"])
+def test_model_without_cuda_raises(dev, arch, monkeypatch):
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_model(get_config(arch).reduced())
+

@@ -8,7 +8,7 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "examples" / "serve_lm_torch.py"]
+    ROOT / "chip_smoke.py"] + sorted((ROOT / "examples").glob("*_torch.py"))
 FORBIDDEN = {"jax", "jaxlib", "repro"}
 
 
@@ -41,7 +41,13 @@ def test_walk_covers_the_port_and_both_import_forms():
             "src/repro_torch/models/flash.py",
             "src/repro_torch/models/moe.py",
             "src/repro_torch/serve/engine.py",
+            "src/repro_torch/models/ssm.py",
+            "src/repro_torch/models/hybrid.py",
+            "src/repro_torch/models/encdec.py",
             "examples/serve_lm_torch.py",
+            "examples/quickstart_torch.py",
+            "examples/pdes_scaling_study_torch.py",
+            "examples/paper_figures_torch.py",
             "chip_smoke.py"} <= names
     probe = ("import jax.numpy as jnp\n"
              "def f():\n    from repro.core import horizon\n"

@@ -5,7 +5,7 @@ Every reduced dense arch through ``prefill`` and 8 ``decode_step``s at
 rtol 1e-4 (``torch_parity.assert_lm_prefill_decode``); the serve cache's
 clamp (ROADMAP C6) pinned against ``repro``; decode fed token by token
 against prefill (rtol = atol = 2e-3, ``tests/test_models.py``'s); the
-bridge's checks; the families still to port.
+bridge's checks, also on the ssm, hybrid and encdec trees.
 """
 import dataclasses
 
@@ -154,11 +154,28 @@ def test_bf16_compute_copy_follows_the_reference_cast():
     assert cache["k0"].dtype == torch.bfloat16
 
 
-@pytest.mark.parametrize("arch", ["mamba2-130m", "zamba2-2.7b",
-                                  "whisper-base"])
-def test_families_still_to_port_raise(arch):
-    with pytest.raises(NotImplementedError, match="A13b"):
-        build_model(get_config(arch).reduced(), device="cpu")
+@pytest.mark.parametrize("arch,cls,leaf", [
+    ("mamba2-130m", "SSMModel", ("layers", "ssm", "A_log")),
+    ("zamba2-2.7b", "HybridModel", ("shared_in",)),
+    ("whisper-base", "EncDecModel", ("dec_layers", "xattn", "bq"))])
+def test_family_builds_and_the_bridge_checks_its_tree(arch, cls, leaf):
+    """The ssm, hybrid and encdec families build on the CPU and load JAX's
+    tree; a tree without one of the family's own leaves, or with an extra
+    one, is refused."""
+    model = build_model(get_config(arch).reduced(), device="cpu")
+    assert type(model).__name__ == cls and model.device.type == "cpu"
+    jm, params, model = lm_pair(arch)
+    tree = jax.tree.map(np.asarray, params)
+    missing = jax.tree.map(lambda a: a, tree)
+    node = missing
+    for k in leaf[:-1]:
+        node = node[k]
+    del node[leaf[-1]]
+    with pytest.raises(ValueError, match="missing.*" + "/".join(leaf)):
+        bridge.lm_params_from_numpy(model, missing)
+    extra = dict(tree, lm_head={"table": tree["embed"]["table"]})
+    with pytest.raises(ValueError, match="extra.*lm_head/table"):
+        bridge.lm_params_from_numpy(model, extra)
 
 
 def test_model_runs_on_the_gpu_by_default(monkeypatch):

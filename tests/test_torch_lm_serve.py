@@ -1,5 +1,5 @@
-"""The port's ``ServeEngine`` against ``repro``'s on the reduced llama, with
-JAX's weights carried across by the bridge.
+"""The port's ``ServeEngine`` against ``repro``'s on the reduced llama,
+mamba2 and zamba2, with JAX's weights carried across by the bridge.
 
 Lanes 2 and 4, Δ 8 and 16, prompts of mixed lengths so that batches are
 left-padded.  Tokens must equal ``repro``'s token for token; where one
@@ -20,10 +20,17 @@ from torch_parity import lm_pair
 NEAR_TIE = 1e-4
 
 
-def _requests(vocab, n=7, seed=5):
+def _requests(vocab, n=7, seed=5, lengths=None):
+    """``n`` requests; prompt lengths from 4 to 24, or drawn from
+    ``lengths``."""
     rng = np.random.default_rng(seed)
-    return [(uid, rng.integers(0, vocab, int(rng.integers(4, 25))).astype(
-        np.int32), int(rng.integers(8, 41))) for uid in range(n)]
+    out = []
+    for uid in range(n):
+        length = int(rng.integers(4, 25) if lengths is None
+                     else rng.choice(lengths))
+        out.append((uid, rng.integers(0, vocab, length).astype(np.int32),
+                    int(rng.integers(8, 41))))
+    return out
 
 
 def _recording_engine(jm, params, **kw):
@@ -68,11 +75,9 @@ def _token_logits(log):
     return rows
 
 
-@pytest.mark.parametrize("lanes,delta", [(2, 8.0), (2, 16.0), (4, 8.0),
-                                         (4, 16.0)])
-def test_serve_engine_matches_reference(lanes, delta):
-    jm, params, model = lm_pair("llama3.2-1b")
-    reqs = _requests(jm.cfg.vocab_size)
+def _assert_serves_like_reference(arch, lanes, delta, lengths=None):
+    jm, params, model = lm_pair(arch)
+    reqs = _requests(jm.cfg.vocab_size, lengths=lengths)
     ref, log = _recording_engine(jm, params, batch_lanes=lanes, max_len=128,
                                  delta=delta)
     port = ServeEngine(model, batch_lanes=lanes, max_len=128, delta=delta,
@@ -97,6 +102,21 @@ def test_serve_engine_matches_reference(lanes, delta):
                 break
     assert port.lane_utilization == ref.lane_utilization
     assert 0.0 < port.lane_utilization <= 1.0
+
+
+@pytest.mark.parametrize("lanes,delta", [(2, 8.0), (2, 16.0), (4, 8.0),
+                                         (4, 16.0)])
+def test_serve_engine_matches_reference(lanes, delta):
+    _assert_serves_like_reference("llama3.2-1b", lanes, delta)
+
+
+@pytest.mark.parametrize("arch,lanes,delta", [("mamba2-130m", 4, 16.0),
+                                              ("zamba2-2.7b", 4, 8.0)])
+def test_serve_engine_matches_reference_on_ssm_families(arch, lanes, delta):
+    """Mamba2 and the hybrid: every padded prompt a multiple of the reduced
+    chunk (16) or shorter, and within the hybrid's flash q block (32), as
+    the reference requires."""
+    _assert_serves_like_reference(arch, lanes, delta, lengths=(8, 12, 16, 32))
 
 
 def test_serve_engine_runs_on_the_gpu_by_default(monkeypatch):

@@ -173,36 +173,78 @@ def lm_pair(arch: str, seed: int = 0):
     return jm, params, model
 
 
-def assert_lm_prefill_decode(arch, S=64, B=2, steps=8):
-    """Hold the port's prefill logits and cache, and ``steps`` decode steps'
-    logits and caches, to ``repro``'s; tokens fed back are JAX's argmax."""
-    import jax
+class LMPair:
+    """``lm_pair(arch)`` with ``repro``'s ``prefill`` and ``decode_step``
+    jitted once, so that a test module can share one (a fixture)."""
+
+    def __init__(self, arch: str, seed: int = 0):
+        import jax
+        self.jm, self.params, self.model = lm_pair(arch, seed)
+        self.cfg = self.jm.cfg
+        static = ("max_decode_len",) if self.cfg.family == "encdec" else ()
+        self.prefill = jax.jit(self.jm.prefill, static_argnames=static)
+        self.decode = jax.jit(self.jm.decode_step)
+
+
+def flat_cache(cache, prefix="") -> dict:
+    """``{"a/b": leaf}`` of a (nested) cache."""
+    out = {}
+    for k, v in cache.items():
+        if isinstance(v, dict):
+            out.update(flat_cache(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def assert_lm_prefill_decode(arch, S=64, B=2, steps=8, *, pos0=None,
+                             max_decode_len=16):
+    """Hold the port's prefill logits and cache (every leaf of a nested
+    one), and ``steps`` decode steps' logits and caches, to ``repro``'s;
+    tokens fed back are JAX's argmax.
+
+    ``arch`` is an arch id or an ``LMPair``.  Decode runs at positions
+    ``pos0``, ``pos0 + 1``, ...: by default S (after the prompt), or 0 for
+    an encoder-decoder, whose batch is S frame embeddings and whose
+    decoder cache has ``max_decode_len`` slots.
+    """
     import jax.numpy as jnp
 
-    jm, params, model = lm_pair(arch)
-    cfg = jm.cfg
+    pair = LMPair(arch) if isinstance(arch, str) else arch
+    cfg, params, model = pair.cfg, pair.params, pair.model
     rng = np.random.default_rng(11)
-    batch = {"tokens": rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)}
-    if cfg.input_mode == "embeddings":
-        batch["embeddings"] = (rng.standard_normal((B, S, cfg.d_model))
-                               * 0.1).astype(np.float32)
-    jl, jcache = jax.jit(jm.prefill)(
-        params, {k: jnp.asarray(v) for k, v in batch.items()})
-    tl, tcache = model.prefill({k: torch.as_tensor(v) for k, v in batch.items()})
+    kw = {}
+    if cfg.family == "encdec":
+        batch = {"enc_embeddings": (rng.standard_normal((B, S, cfg.d_model))
+                                    * 0.1).astype(np.float32)}
+        kw["max_decode_len"] = max_decode_len
+        start = 0 if pos0 is None else pos0
+    else:
+        batch = {"tokens": rng.integers(0, cfg.vocab_size, (B, S)).astype(
+            np.int32)}
+        if cfg.input_mode == "embeddings":
+            batch["embeddings"] = (rng.standard_normal((B, S, cfg.d_model))
+                                   * 0.1).astype(np.float32)
+        start = S if pos0 is None else pos0
+    jl, jcache = pair.prefill(
+        params, {k: jnp.asarray(v) for k, v in batch.items()}, **kw)
+    tl, tcache = model.prefill({k: torch.as_tensor(v) for k, v in
+                                batch.items()}, **kw)
 
     def check(what):
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=LM_RTOL,
                                    atol=LM_ATOL, err_msg=f"{what} logits")
-        assert set(tcache) == set(jcache)
-        for k in jcache:
-            np.testing.assert_allclose(tcache[k].numpy(), np.asarray(jcache[k]),
+        theirs, ours = flat_cache(jcache), flat_cache(tcache)
+        assert set(ours) == set(theirs)
+        for k in theirs:
+            np.testing.assert_allclose(ours[k].numpy(), np.asarray(theirs[k]),
                                        rtol=LM_RTOL, atol=LM_ATOL,
                                        err_msg=f"{what} cache {k}")
 
     check("prefill")
-    step = jax.jit(jm.decode_step)
     for i in range(steps):
         tok = np.argmax(np.asarray(jl), -1)[:, None].astype(np.int32)
-        jl, jcache = step(params, jcache, jnp.asarray(tok), jnp.int32(S + i))
-        tl, tcache = model.decode_step(tcache, torch.as_tensor(tok), S + i)
+        jl, jcache = pair.decode(params, jcache, jnp.asarray(tok),
+                                 jnp.int32(start + i))
+        tl, tcache = model.decode_step(tcache, torch.as_tensor(tok), start + i)
         check(f"decode step {i}")
