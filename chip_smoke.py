@@ -105,7 +105,24 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` with
    with ``--fast --backend pallas_multistep`` (B1 under new entry
    points; the figures' claims asserted), each one's wall, B1's and the
    generator's launches;
-14. the last lines: one JSON object per kernel (times, bound, launches),
+14. training (``repro_torch.train``; no TPU kernel lies on it, so it adds
+   none): (a) mamba2-130m at full width, B 4 x S 512, remat full,
+   ce_chunk 256, fp32 parameters and bf16 compute, 48 steps through
+   ``TrainController`` uninterrupted and again with failures injected at
+   steps 20 and 37 (a checkpoint every 16): 2 restarts, the final loss
+   within rtol 1e-5 of the uninterrupted run's (bitwise reported), the
+   loss falling, every gradient norm finite; each step timed with CUDA
+   events, tokens/s, peak memory, the bound and a profile; then the
+   trained module's ``prefill`` equal to a fresh module's loaded through
+   the bridge; (b) ``python -m repro_torch.launch.train --arch
+   llama3.2-1b --steps 8 --batch 4 --seq 2048 --ckpt-every 4 --fail-at
+   6`` as a subprocess (exit 0, 1 restart, a finite, falling loss), then
+   4 steps in this process timed and split (flash forward and backward,
+   AdamW, the chunked cross-entropy) and 2 profiled; (c) every reduced
+   arch's loss and gradients, card against CPU in fp32 with TF32 off;
+   (d) (a)'s trained state saved on the card, restored on the CPU and
+   back, bitwise;
+15. the last lines: one JSON object per kernel (times, bound, launches),
    then ``{"ok": true, "device": {...}}``.
 
 Every phase asserts; any failure exits non-zero with no result line.
@@ -252,6 +269,32 @@ WHISPER_STEPS = 64
 FAMILY_CHECKS = (("mamba2-130m", None, 64), ("zamba2-2.7b", 6, 64))
 #: Phase 12(e): the reduced archs held card against CPU, decode steps.
 FAMILY_CPU_ARCHS = ("mamba2-130m", "zamba2-2.7b", "whisper-base")
+#: Phase 14(a): mamba2-130m trained at full width with
+#: ``examples/train_lm_torch.py``'s batch and sequence, uninterrupted and
+#: with injected failures; a checkpoint every ``TRAIN_SSM_CKPT`` steps.
+TRAIN_SSM_ARCH = "mamba2-130m"
+TRAIN_SSM_SHAPE = (4, 512)
+TRAIN_SSM_STEPS = 48
+TRAIN_SSM_CKPT = 16
+TRAIN_SSM_FAILS = (20, 37)
+#: Phase 14(b): llama3.2-1b through the launcher as a subprocess, then
+#: steps timed in the process; steps profiled in (a) and (b).
+TRAIN_LM_ARGS = ("--arch", "llama3.2-1b", "--steps", "8", "--batch", "4",
+                 "--seq", "2048", "--ckpt-every", "4", "--fail-at", "6")
+TRAIN_LM_TIMED = 4
+TRAIN_PROFILE_STEPS = 2
+#: Phase 14(c): every reduced arch, card against CPU in fp32 (TF32 off):
+#: the batch, the loss's rtol, and each gradient leaf's tolerance as a
+#: share of its largest entry, plus ``LM_ATOL`` (a gradient that is zero
+#: but for rounding, as whisper's key biases', is all noise).  (a)'s
+#: recovered run against the uninterrupted one: the JAX test's rtol on
+#: the final loss.
+TRAIN_CPU_SHAPE = (2, 64)
+TRAIN_RTOL = 1e-5
+TRAIN_GRAD_TOL = 1e-4
+#: The H100's float32 rate outside the tensor cores (data sheet): the
+#: port's attention and cross-entropy products run in fp32.
+FP32_FLOPS_PER_S = 67e12
 #: Phase 13: the port's PDES examples, run as subprocesses from the root.
 EXAMPLES = (
     ("examples/quickstart_torch.py", ()),
@@ -685,16 +728,20 @@ def phase_step(torch, ps, ref, ops, events, build, dev, timer=cuda_ms):
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations")
 
 
-def _profile(torch, dev, fn):
+def _profile(torch, dev, fn, warm=True, host=True):
     """Device time by kernel over one call of ``fn`` (run once before,
-    unprofiled), from torch.profiler; None where the profiler gives no
-    device time.  ``comm_host_us`` is the host time of the collectives'
-    ``c10d::`` operators in the call."""
+    unprofiled, if ``warm``), from torch.profiler; None where the profiler
+    gives no device time.  ``comm_host_us`` is the host time of the
+    collectives' ``c10d::`` operators in the call (with ``host``: the
+    host's operators are recorded too, which costs a train step's 10**5
+    of them tens of seconds)."""
     from torch.profiler import ProfilerActivity, profile
-    fn()
+    if warm:
+        fn()
     sync(torch, dev)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host
+                                            else [])
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         fn()
         sync(torch, dev)
@@ -1891,11 +1938,11 @@ def phase_lm_serve(torch, configs, models, serve, theory, dev, arch=LM_ARCH,
     return n_tokens
 
 
-def _print_profile(torch, dev, fn, tag, what, n_steps):
+def _print_profile(torch, dev, fn, tag, what, n_steps, host=True):
     """Print the profiler's wall, device busy time, idle share and kernel
     launches a step over one call of ``fn`` (``n_steps`` steps), and its
     eight largest kernels."""
-    prof = _profile(torch, dev, fn)
+    prof = _profile(torch, dev, fn, host=host)
     if prof is None:
         print(f"[{tag}] torch.profiler gave no device time: idle share not "
               f"measured")
@@ -2179,6 +2226,431 @@ def phase_examples(root):
     return counts
 
 
+def _train_flops(cfg, n_params, B, S):
+    """``(bf16 FLOP, fp32 FLOP)`` of one train step as the port runs it
+    with full remat (the forward twice, the backward's two products a
+    product): the layers' products in the compute dtype (8 x params x
+    tokens, the output table left out), and in fp32 the cross-entropy's
+    logits (forward, its chunk's recompute, two backward products) and
+    flash's tiles (every q/k tile, masked or not: two products forward,
+    twice, and seven in the backward's two passes), or the SSD scan's
+    products for an SSM."""
+    T = B * S
+    table = cfg.vocab_size * cfg.d_model
+    bf16 = 8 * (n_params - table) * T
+    fp32 = 4 * 2 * T * cfg.d_model * cfg.vocab_size
+    if cfg.ssm is None:
+        qb, kb = min(cfg.q_block, S), min(cfg.k_block, S)
+        tiles = (S // qb) * (S // kb)
+        fp32 += cfg.n_layers * tiles * 11 * 2 * B * cfg.n_heads * qb * kb \
+            * cfg.head_dim
+    else:
+        s = cfg.ssm
+        Q = min(s.chunk, S)
+        fp32 += 4 * cfg.n_layers * 2 * B * S * (Q * s.d_state + Q * s.d_inner
+                                                + 2 * s.d_inner * s.d_state)
+    return bf16, fp32
+
+
+def _train_bound(cfg, n_params, B, S):
+    """Least ms of one train step (the same work, every product at the
+    bf16 tensor-core peak; 6 x params x tokens, the remat forward and
+    causal attention's useful half) against the bytes AdamW must move
+    (28 a parameter: fp32 parameter, gradient, m and v read, and
+    parameter, m and v written): ``(ms, "operations" or "bytes")``."""
+    T = B * S
+    table = cfg.vocab_size * cfg.d_model
+    flops = 8 * (n_params - table) * T + 8 * T * cfg.d_model * cfg.vocab_size
+    if cfg.ssm is None:
+        flops += 4 * 2 * B * S * S * cfg.n_heads * cfg.head_dim * cfg.n_layers
+    else:
+        s = cfg.ssm
+        Q = min(s.chunk, S)
+        flops += 4 * cfg.n_layers * B * S * (Q * s.d_state + Q * s.d_inner
+                                             + 4 * s.d_inner * s.d_state)
+    ops_ms = flops / BF16_FLOPS_PER_S * 1e3
+    bytes_ms = 28 * n_params / HBM_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms \
+        else "bytes"
+
+
+def _timed_steps(torch, step_fn, store):
+    """``step_fn`` with a CUDA event pair and the host clock around every
+    call."""
+    def run(state, batch):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        out = step_fn(state, batch)
+        end.record()
+        store.append((start, end, t0))
+        return out
+    return run
+
+
+def _report_train(torch, tag, cfg, n_params, B, S, step_ms, peak):
+    import numpy as np
+    step_ms = np.asarray(step_ms)
+    med = float(np.median(step_ms))
+    bound, by = _train_bound(cfg, n_params, B, S)
+    bf16, fp32 = _train_flops(cfg, n_params, B, S)
+    print(f"[{tag}] train step at B {B} x S {S}: {med:.3f} ms median of "
+          f"{len(step_ms)} (CUDA events; min {step_ms.min():.3f}, max "
+          f"{step_ms.max():.3f}), {B * S / med * 1e3:.1f} tokens/s; peak "
+          f"memory {peak / 2**30:.3f} GiB (max_memory_allocated); bound "
+          f"{bound:.3f} ms ({by}: every product at the bf16 peak, AdamW's "
+          f"28 B a parameter at {HBM_BYTES_PER_S / 1e12:.2f} TB/s), the step "
+          f"at {bound / med:.4f} of it; as the port runs it, "
+          f"{bf16 / 1e12:.3f} TFLOP in bf16 and {fp32 / 1e12:.3f} TFLOP in "
+          f"fp32 (the fp32 alone >= {fp32 / FP32_FLOPS_PER_S * 1e3:.3f} ms "
+          f"at {FP32_FLOPS_PER_S / 1e12:.0f} TFLOP/s)")
+
+
+def _close_trees(torch, a, b):
+    """``(bitwise, max abs difference)`` over the leaves of two trees."""
+    from repro_torch.tree import tree_leaves
+    same, worst = True, 0.0
+    with torch.no_grad():
+        for x, y in zip(tree_leaves(a), tree_leaves(b)):
+            same = same and torch.equal(x, y)
+            worst = max(worst, float((x.double() - y.double()).abs().max()))
+    return same, worst
+
+
+def phase_train_ssm(torch, configs, dev):
+    """Phase 14(a): mamba2-130m trained at full width, uninterrupted and
+    with injected failures, then served.  Returns the trained state (for
+    (d))."""
+    import numpy as np
+    from repro_torch import bridge, models
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.fault import (FaultInjector, RecoveryConfig,
+                                         TrainController)
+    from repro_torch.train.train_step import init_train_state, make_train_step
+    B, S = TRAIN_SSM_SHAPE
+    cfg = dataclasses.replace(configs.get_config(TRAIN_SSM_ARCH),
+                              ce_chunk=min(256, S))
+    opt = AdamWConfig(warmup_steps=max(TRAIN_SSM_STEPS // 20, 5),
+                      total_steps=TRAIN_SSM_STEPS)
+    dc = DataConfig(cfg.vocab_size, S, B)
+    work = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
+    runs = {}
+    try:
+        for name, fails in (("uninterrupted", None),
+                            ("recovered", TRAIN_SSM_FAILS)):
+            torch.cuda.reset_peak_memory_stats()
+            model, step = make_train_step(cfg, None, opt, device=dev, seed=0)
+            timed = []
+            ctl = TrainController(
+                _timed_steps(torch, step, timed), init_train_state(model),
+                lambda i: make_batch(dc, i, dev),
+                RecoveryConfig(ckpt_dir=str(work / name),
+                               ckpt_every=TRAIN_SSM_CKPT),
+                injector=FaultInjector(fails) if fails else None)
+            t0 = time.perf_counter()
+            log = ctl.run(TRAIN_SSM_STEPS)
+            sync(torch, dev)
+            runs[name] = dict(model=model, step=step, ctl=ctl, log=log,
+                              wall=time.perf_counter() - t0,
+                              ms=[a.elapsed_time(b) for a, b, _ in timed],
+                              peak=torch.cuda.max_memory_allocated())
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    a, b = runs["uninterrupted"], runs["recovered"]
+    check(b["ctl"].restarts == 2, f"restarts {b['ctl'].restarts}, not 2")
+    replayed = sum(f - f // TRAIN_SSM_CKPT * TRAIN_SSM_CKPT
+                   for f in TRAIN_SSM_FAILS)
+    check(len(a["log"]) == TRAIN_SSM_STEPS and
+          len(b["log"]) == TRAIN_SSM_STEPS + replayed,
+          f"logs of {len(a['log'])} and {len(b['log'])} steps")
+    la, lb = a["log"][-1]["loss"], b["log"][-1]["loss"]
+    check(abs(la - lb) <= TRAIN_RTOL * abs(la),
+          f"recovered final loss {lb!r} against {la!r}")
+    bitwise, worst = _close_trees(torch, a["ctl"].state, b["ctl"].state)
+    for run in (a, b):
+        check(all(math.isfinite(m["grad_norm"]) and math.isfinite(m["loss"])
+                  for m in run["log"]), "a loss or gradient norm not finite")
+    losses = [m["loss"] for m in a["log"]]
+    first, last = float(np.mean(losses[:8])), float(np.mean(losses[-8:]))
+    check(last < first, f"the loss does not fall: {first} -> {last}")
+    n_params = sum(p.numel() for p in a["model"].parameters())
+    print(f"[train a] {TRAIN_SSM_ARCH}: {cfg.n_layers} layers, d "
+          f"{cfg.d_model}, vocab {cfg.vocab_size}, {n_params:,} parameters "
+          f"({cfg.param_dtype}, compute {cfg.compute_dtype}, remat "
+          f"{cfg.remat}, ce_chunk {cfg.ce_chunk}); {TRAIN_SSM_STEPS} steps "
+          f"uninterrupted in {a['wall']:.3f} s wall; loss {losses[0]:.4f} "
+          f"-> {losses[-1]:.4f} (mean of the first 8 {first:.4f}, of the "
+          f"last 8 {last:.4f}); every gradient norm finite")
+    print(f"[train a] failures injected at steps {TRAIN_SSM_FAILS}, a "
+          f"checkpoint every {TRAIN_SSM_CKPT}: {b['ctl'].restarts} restarts, "
+          f"{len(b['log'])} steps run in {b['wall']:.3f} s wall; final loss "
+          f"{lb!r} against {la!r} uninterrupted (rtol {TRAIN_RTOL:g}); final "
+          f"state bitwise equal: {bitwise} (max abs difference {worst:.3e})")
+    _report_train(torch, "train a", cfg, n_params, B, S, a["ms"], a["peak"])
+    # the serve path reads the trained parameters
+    fresh = models.build_model(cfg, device=dev, seed=1)
+    bridge.lm_params_from_numpy(fresh, bridge.lm_params_to_numpy(a["model"]))
+    toks = make_batch(dc, 10 ** 6, dev)["tokens"]
+    got, cache = a["model"].prefill({"tokens": toks})
+    want, want_cache = fresh.prefill({"tokens": toks})
+    check(torch.equal(got, want) and all(
+        torch.equal(cache[k], want_cache[k]) for k in cache),
+        "prefill of the trained module differs from a fresh one's")
+    print(f"[train a] prefill of the trained module ({B} x {S}) equals a "
+          f"fresh module's loaded through the bridge, logits and cache bit "
+          f"for bit")
+    del fresh, cache, want_cache, b, runs
+    state = a["ctl"].state
+    batches = [make_batch(dc, i, dev) for i in range(TRAIN_PROFILE_STEPS)]
+
+    def steps():
+        nonlocal state
+        for batch in batches:
+            state, _ = a["step"](state, batch)
+    _print_profile(torch, dev, steps, "train a", f"{TRAIN_PROFILE_STEPS} "
+                   f"train steps", TRAIN_PROFILE_STEPS, host=False)
+    return a["model"], state
+
+
+def _parse_launch(stdout: str) -> dict:
+    """The numbers of ``launch.train``'s last lines."""
+    import re
+    out = {}
+    for line in stdout.splitlines():
+        for k, v in re.findall(r"(\w+)=([-\d.]+|nan|inf)", line):
+            out.setdefault(k, float(v))
+    return out
+
+
+def phase_train_lm(torch, configs, dev, root):
+    """Phase 14(b): llama3.2-1b through ``python -m
+    repro_torch.launch.train`` (a failure injected), then steps timed and
+    split in this process."""
+    import numpy as np
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.models import flash, transformer
+    from repro_torch.optim import adamw
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.train_step import init_train_state, make_train_step
+    work = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_launch_"))
+    env = dict(os.environ, PYTHONPATH=str(root / "src"), ROOT=str(root))
+    try:
+        t0 = time.perf_counter()
+        res = _run([sys.executable, "-m", "repro_torch.launch.train",
+                    *TRAIN_LM_ARGS, "--ckpt-dir", str(work)], env,
+                   "launch.train")
+        wall = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    got = _parse_launch(res.stdout)
+    args = dict(zip(TRAIN_LM_ARGS[::2], TRAIN_LM_ARGS[1::2]))
+    steps, every = int(args["--steps"]), int(args["--ckpt-every"])
+    fail = int(args["--fail-at"])
+    check(got.get("restarts") == 1 and
+          got.get("steps") == steps + fail - fail // every * every,
+          f"launch.train: {res.stdout}")
+    check(all(math.isfinite(got[k]) for k in ("first", "last", "min")),
+          f"launch.train: a loss not finite: {res.stdout}")
+    check(got["last"] < got["first"], f"launch.train: the loss does not "
+          f"fall: {res.stdout}")
+    for line in res.stdout.strip().splitlines():
+        print(f"[train b] launch.train: {line}")
+    print(f"[train b] python -m repro_torch.launch.train "
+          f"{' '.join(TRAIN_LM_ARGS)}: exit 0 in {wall:.3f} s wall")
+    # the same step, timed in this process
+    B, S = int(args["--batch"]), int(args["--seq"])
+    cfg = configs.get_config(args["--arch"])
+    cfg = dataclasses.replace(cfg, ce_chunk=min(cfg.ce_chunk, S))
+    torch.cuda.reset_peak_memory_stats()
+    model, step = make_train_step(cfg, None, AdamWConfig(
+        warmup_steps=5, total_steps=100), device=dev, seed=0)
+    state = init_train_state(model)
+    dc = DataConfig(cfg.vocab_size, S, B)
+    state, _ = step(state, make_batch(dc, 0, dev))          # warm-up
+    parts = {"flash forward": [], "flash backward": [], "AdamW": []}
+    q_blocks = []
+
+    def timed(fn, key):
+        def run(*a, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*a, **kw)
+            end.record()
+            parts[key].append((start, end))
+            return out
+        return run
+
+    def bwd(q, *a, **kw):
+        q_blocks.append(q.shape[1] // min(kw.get("q_block", a[8]),
+                                          q.shape[1]))
+        return bwd_timed(q, *a, **kw)
+    originals = (flash.flash_forward, flash.flash_backward, adamw.update)
+    bwd_timed = timed(flash.flash_backward, "flash backward")
+    flash.flash_forward = timed(flash.flash_forward, "flash forward")
+    flash.flash_backward = bwd
+    adamw.update = timed(adamw.update, "AdamW")
+    step_events = []
+    try:
+        run = _timed_steps(torch, step, step_events)
+        for i in range(TRAIN_LM_TIMED):
+            state, met = run(state, make_batch(dc, 1 + i, dev))
+            check(math.isfinite(float(met["loss"])), "loss not finite")
+        sync(torch, dev)
+    finally:
+        flash.flash_forward, flash.flash_backward, adamw.update = originals
+    peak = torch.cuda.max_memory_allocated()
+    check(set(q_blocks) == {S // min(cfg.q_block, S)} and
+          len(q_blocks) == TRAIN_LM_TIMED * cfg.n_layers,
+          f"flash's backward ran over {set(q_blocks)} q blocks, "
+          f"{len(q_blocks)} times")
+    ms = [a.elapsed_time(b) for a, b, _ in step_events]
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"[train b] {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
+          f"{cfg.n_heads} heads / {cfg.n_kv_heads} kv of {cfg.head_dim}, "
+          f"vocab {cfg.vocab_size}, {n_params:,} parameters ({cfg.param_dtype}"
+          f", compute {cfg.compute_dtype}, remat {cfg.remat}, ce_chunk "
+          f"{cfg.ce_chunk}); flash's backward over {q_blocks[0]} q blocks of "
+          f"{cfg.q_block} in each of the {cfg.n_layers} layers")
+    _report_train(torch, "train b", cfg, n_params, B, S, ms, peak)
+    split = {k: sum(a.elapsed_time(b) for a, b in v) / TRAIN_LM_TIMED
+             for k, v in parts.items()}
+    # the chunked cross-entropy, forward and backward, on this step's shapes
+    h = torch.randn((B, S, cfg.d_model), device=dev, dtype=torch.bfloat16,
+                    requires_grad=True)
+    table = model.params["embed"]["table"].detach().to(
+        torch.bfloat16).requires_grad_(True)
+    labels = make_batch(dc, 0, dev)["labels"]
+    split["chunked CE (fwd + bwd, alone)"] = cuda_ms(
+        lambda: torch.autograd.grad(transformer.chunked_ce(
+            h, table, labels, cfg, transformer._noop)[0], (h, table)), 2)
+    del h, table
+    print(f"[train b] split of a step ({np.median(ms):.3f} ms median): "
+          + "; ".join(f"{k} {v:.3f} ms" for k, v in split.items())
+          + " (CUDA events around each call, a step's sum)")
+    batches = [make_batch(dc, 10 + i, dev) for i in range(TRAIN_PROFILE_STEPS)]
+
+    def steps():
+        nonlocal state
+        for batch in batches:
+            state, _ = step(state, batch)
+    t1 = time.perf_counter()
+    prof = _profile(torch, dev, steps, warm=False, host=False)
+    if prof is None:
+        print("[train b] torch.profiler gave no device time: idle share not "
+              "measured")
+    else:
+        gemm = [(us, k.lower()) for us, k, _ in prof["rows"]
+                if any(t in k.lower() for t in ("gemm", "nvjet", "xmma",
+                                                "cutlass"))]
+        fp32 = sum(us for us, k in gemm
+                   if any(t in k for t in ("f32f32", "sgemm", "ffma")))
+        launches = sum(c for _, _, c in prof["rows"])
+        n = TRAIN_PROFILE_STEPS
+        products = sum(u for u, _ in gemm)
+        print(f"[train b] profiler, {n} steps: wall "
+              f"{prof['wall_us'] / 1e3:.3f} ms, device busy "
+              f"{prof['busy_us'] / 1e3:.3f} ms (idle share "
+              f"{1 - prof['busy_us'] / prof['wall_us']:.3f}), "
+              f"{launches / n:.0f} kernel launches a step; a step's product "
+              f"kernels {products / n / 1e3:.3f} ms: fp32 (f32f32, sgemm, "
+              f"ffma) {fp32 / n / 1e3:.3f} ms, the rest (bf16 on the tensor "
+              f"cores) {(products - fp32) / n / 1e3:.3f} ms; the other "
+              f"kernels {(prof['busy_us'] - products) / n / 1e3:.3f} ms")
+        for us, key, count in prof["rows"][:12]:
+            print(f"[train b] profiler {us / 1e3:9.3f} ms {count:6d}x  "
+                  f"{key[:90]}")
+    print(f"[train b] walls: the launcher {wall:.3f} s, the profiled steps "
+          f"and their tables {time.perf_counter() - t1:.3f} s")
+    del model, state
+    torch.cuda.empty_cache()
+
+
+def phase_train_checks(torch, configs, dev, trained):
+    """Phase 14(c) every reduced arch's loss and gradients, card against
+    CPU in fp32 with TF32 off; (d) a checkpoint of (a)'s trained state
+    saved on the card restores on the CPU and back, bitwise."""
+    import numpy as np
+    from repro_torch import bridge, models
+    from repro_torch.train import checkpoint
+    from repro_torch.train.train_step import init_train_state
+    from repro_torch.tree import tree_leaves, tree_map
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for arch in configs.ARCH_IDS:
+            cfg = configs.get_config(arch).reduced()
+            on_cpu = models.build_model(cfg, device="cpu", seed=0)
+            on_card = models.build_model(cfg, device=dev, seed=1)
+            bridge.lm_params_from_numpy(on_card,
+                                        bridge.lm_params_to_numpy(on_cpu))
+            rng = np.random.default_rng(3)
+            B, S = TRAIN_CPU_SHAPE
+            batch = {"tokens": rng.integers(0, cfg.vocab_size, (B, S)),
+                     "labels": rng.integers(0, cfg.vocab_size, (B, S))}
+            batch["labels"][0, :5] = -1
+            if cfg.family == "encdec":
+                batch["enc_embeddings"] = (rng.standard_normal(
+                    (B, S, cfg.d_model)) * 0.1).astype(np.float32)
+            out = []
+            for model in (on_cpu, on_card):
+                loss, _ = model.loss({k: torch.as_tensor(v, device=model.device)
+                                      for k, v in batch.items()})
+                leaves = model.trainable_leaves()
+                grads = torch.autograd.grad(loss, list(leaves.values()),
+                                            materialize_grads=True)
+                out.append((float(loss.detach()), dict(zip(leaves, grads))))
+            (lc, gc), (lg, gg) = out
+            check(abs(lg - lc) <= TRAIN_RTOL * abs(lc),
+                  f"{arch}: loss {lg!r} on the card, {lc!r} on the CPU")
+            worst = 0.0
+            for k, want in gc.items():
+                got = gg[k].cpu()
+                tol = TRAIN_GRAD_TOL * float(want.abs().max()) + LM_ATOL
+                err = float((got - want).abs().max())
+                check(err <= tol, f"{arch}: gradient {k} differs by {err} "
+                      f"(tolerance {tol})")
+                worst = max(worst, err / tol)
+            print(f"[train c] {arch} reduced, fp32: loss on the card {lg!r}, "
+                  f"on the CPU {lc!r}; {len(gc)} gradient leaves, the worst "
+                  f"at {worst:.3e} of its tolerance")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    model, state = trained
+    work = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"))
+    try:
+        t0 = time.perf_counter()
+        checkpoint.save(state, work / "card", step=int(state["step"]))
+        save_s = time.perf_counter() - t0
+        host = models.build_model(model.cfg, device="cpu", seed=2)
+        t0 = time.perf_counter()
+        host_state = checkpoint.restore(work / "card", init_train_state(host))
+        restore_s = time.perf_counter() - t0
+        same = all(torch.equal(a.cpu(), b) for a, b in
+                   zip(tree_leaves(state), tree_leaves(host_state)))
+        check(same, "the card's checkpoint restored on the CPU differs")
+        checkpoint.save(host_state, work / "host", step=int(state["step"]))
+        before = tree_map(lambda t: t.clone(), state)
+        with torch.no_grad():
+            for t in tree_leaves(state):
+                t.zero_()
+        back = checkpoint.restore(work / "host", state)
+        check(all(torch.equal(a, b) for a, b in
+                  zip(tree_leaves(before), tree_leaves(back))) and
+              back["params"]["embed"]["table"] is
+              model.params["embed"]["table"],
+              "the CPU's checkpoint restored on the card differs")
+        size = (work / "card.npz").stat().st_size
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"[train d] {model.cfg.name}'s trained state saved on the card "
+          f"({size / 2**20:.1f} MiB in {save_s:.3f} s), restored on the CPU "
+          f"into a fresh module ({restore_s:.3f} s) and back into the card's "
+          f"own tensors: bitwise both ways")
+
+
 def main() -> int:
     try:
         import torch
@@ -2260,6 +2732,11 @@ def main() -> int:
     t["12 ssm/hybrid/encdec"] = time.perf_counter() - t0 - sum(t.values())
     ex_launches = phase_examples(root)
     t["13 examples"] = time.perf_counter() - t0 - sum(t.values())
+    trained = phase_train_ssm(torch, configs, "cuda")
+    phase_train_lm(torch, configs, "cuda", root)
+    phase_train_checks(torch, configs, "cuda", trained)
+    del trained
+    t["14 training"] = time.perf_counter() - t0 - sum(t.values())
     print("[setup] phase wall: "
           + ", ".join(f"{k} {v:.2f} s" for k, v in t.items()))
 

@@ -5,7 +5,9 @@ arrays) continues in the port, and back, bit for bit.  A threefry key
 crosses the same way (``jax.random.key_data`` as numpy in, the port's key
 out), so the port can continue a JAX key's stream.  A language model's
 parameter tree (``DecoderModel.init``'s, as numpy) loads into the port's
-module, and back (``lm_params_from_numpy``, ``lm_params_to_numpy``).
+module, and back (``lm_params_from_numpy``, ``lm_params_to_numpy``); so
+does a training state, ``{"params", "opt": {"m", "v", "count"}, "step"}``
+(``train_state_from_numpy``, ``train_state_to_numpy``).
 """
 from __future__ import annotations
 
@@ -112,3 +114,39 @@ def lm_params_to_numpy(model) -> dict:
         t = t.detach().cpu()
         node[leaf] = (t.float() if t.dtype == torch.bfloat16 else t).numpy()
     return out
+
+
+def train_state_from_numpy(model, tree) -> dict:
+    """The port's training state of ``model`` from a JAX one as numpy
+    (``jax.tree.map(np.asarray, state)``): the parameters are loaded into
+    the module in place (``lm_params_from_numpy``) and the state holds
+    them; the moments are new tensors of the parameters' dtypes on the
+    model's device, ``count`` and ``step`` int32."""
+    from .train.train_step import init_train_state
+    lm_params_from_numpy(model, tree["params"])
+    state = init_train_state(model)
+    ours = _flat(state["opt"]["m"])
+    with torch.no_grad():
+        for part in ("m", "v"):
+            theirs = _flat(tree["opt"][part])
+            if set(theirs) != set(ours):
+                raise ValueError(f"opt/{part} differs from the parameters")
+            for name, t in _flat(state["opt"][part]).items():
+                t.copy_(_tensor_of(theirs[name]).to(t.dtype))
+        for t, a in ((state["opt"]["count"], tree["opt"]["count"]),
+                     (state["step"], tree["step"])):
+            t.fill_(int(np.asarray(a)))
+    return state
+
+
+def train_state_to_numpy(state) -> dict:
+    """A training state as nested dicts of numpy arrays in the reference's
+    layout (bfloat16 leaves as float32, exact)."""
+    def host(t):
+        t = t.detach().to("cpu", copy=True)         # never the live tensor
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    def walk(tree):
+        return {k: walk(v) if isinstance(v, dict) else host(v)
+                for k, v in tree.items()}
+    return walk(state)

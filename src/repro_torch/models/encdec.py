@@ -21,8 +21,8 @@ from .attention import decode_attention
 from .flash import flash_attention
 from .layers import (dslice, embed_init, embed_lookup, mlp, mlp_init,
                      sinusoidal_positions)
-from .transformer import (LMModule, _at, _dt, _norm, _norm_init, _qkv,
-                          attn_init, cache_slot)
+from .transformer import (LMModule, _dt, _norm, _norm_init, _qkv, _remat,
+                          _unstack, attn_init, cache_slot)
 
 
 def _cross_kv(enc, p, cfg, cd, constrain):
@@ -89,19 +89,19 @@ class EncDecModel(LMModule):
 
     def _layer_views(self, tree):
         """``(encoder layers, decoder layers)``."""
-        return ([_at(tree["enc_layers"], i)
-                 for i in range(self.cfg.encoder_layers)],
-                [_at(tree["dec_layers"], i) for i in range(self.cfg.n_layers)])
+        return (_unstack(tree["enc_layers"], (self.cfg.encoder_layers,)),
+                _unstack(tree["dec_layers"], (self.cfg.n_layers,)))
 
     # ---- encoder ----
-    def _encode(self, params, enc_layers, enc_embeddings):
+    def _encode(self, params, enc_layers, enc_embeddings, remat="none"):
         cfg = self.cfg
         cd = _dt(cfg.compute_dtype)
         x = enc_embeddings.to(cd)
         x = x + sinusoidal_positions(x.shape[1], cfg.d_model, cd,
                                      x.device)[None]
         x = self.constrain(x, "act")
-        for p in enc_layers:
+
+        def body(x, p):
             h = _norm(x, p["ln1"], cfg)
             q, k, v = _qkv(h, p["attn"], cfg, cd, self.constrain, None)
             h = flash_attention(q, k, v, False, None, None,
@@ -110,7 +110,11 @@ class EncDecModel(LMModule):
             x = self.constrain(x + h, "act")
             h = mlp(_norm(x, p["ln2"], cfg), p["mlp"], cfg.act, cd,
                     constrain=lambda t: self.constrain(t, "act_ff"))
-            x = self.constrain(x + h, "act")
+            return self.constrain(x + h, "act")
+
+        body = _remat(body, remat)
+        for p in enc_layers:
+            x = body(x, p)
         return _norm(x, params["enc_norm"], cfg)
 
     @torch.no_grad()
@@ -118,6 +122,46 @@ class EncDecModel(LMModule):
         """The encoder's output (B, S_enc, d) of frame embeddings."""
         params, (enc_layers, _) = self._cast()
         return self._encode(params, enc_layers, enc_embeddings)
+
+    # ---- decoder trunk (train) ----
+    def _dec_embed(self, params, tokens, cd, pos0=0):
+        """Token embeddings plus the learned positions ``pos0`` onward."""
+        x = embed_lookup(params["embed"], tokens, cd)
+        S = tokens.shape[1]
+        return x + params["pos_table"].to(cd)[pos0:pos0 + S][None]
+
+    def loss(self, batch):
+        """batch: enc_embeddings (B,S_enc,d), tokens (B,S), labels (B,S).
+        Returns (loss, {"nll"}), differentiable in the module's
+        parameters."""
+        cfg = self.cfg
+        cd = _dt(cfg.compute_dtype)
+        params, (enc_layers, dec_layers) = self._live()
+        enc = self._encode(params, enc_layers, batch["enc_embeddings"],
+                           cfg.remat)
+        x = self.constrain(self._dec_embed(params, batch["tokens"], cd), "act")
+
+        def body(x, p):
+            h = _norm(x, p["ln1"], cfg)
+            q, k, v = _qkv(h, p["attn"], cfg, cd, self.constrain, None)
+            h = flash_attention(q, k, v, True, None, None,
+                                cfg.q_block, cfg.k_block, 0)
+            h = torch.einsum("bshk,hkd->bsd", h, p["attn"]["wo"].to(cd))
+            x = self.constrain(x + h, "act")
+            kc, vc = _cross_kv(enc, p["xattn"], cfg, cd, self.constrain)
+            h = _cross_apply(_norm(x, p["ln_x"], cfg), kc, vc, p["xattn"],
+                             cfg, cd, self.constrain)
+            x = self.constrain(x + h, "act")
+            h = mlp(_norm(x, p["ln2"], cfg), p["mlp"], cfg.act, cd,
+                    constrain=lambda t: self.constrain(t, "act_ff"))
+            return self.constrain(x + h, "act")
+
+        body = _remat(body, cfg.remat)
+        for p in dec_layers:
+            x = body(x, p)
+        x = _norm(x, params["final_norm"], cfg)
+        loss = self._ce(x, params["embed"]["table"], batch)
+        return loss, {"nll": loss}
 
     # ---- serve ----
     def init_cache(self, batch_size: int, max_len: int, enc_len: int):

@@ -16,7 +16,8 @@ import torch
 from .layers import dense_init, embed_init, embed_lookup
 from .ssm import ssm_apply, ssm_decode_step, ssm_init
 from .transformer import (LMModule, _at, _dt, _layer_prefill, _norm,
-                          _norm_init, _rope, layer_decode, layer_init)
+                          _norm_init, _remat, _rope, _unstack, layer_decode,
+                          layer_init)
 
 
 class HybridModel(LMModule):
@@ -47,9 +48,9 @@ class HybridModel(LMModule):
 
     def _layer_views(self, tree):
         """Per group: its ``hybrid_period`` SSM layers' parameters."""
-        return [[_at(tree["ssm_layers"], g, j)
-                 for j in range(self.cfg.hybrid_period)]
-                for g in range(self.n_shared)]
+        R = self.cfg.hybrid_period
+        layers = _unstack(tree["ssm_layers"], (self.n_shared, R))
+        return [layers[g * R:(g + 1) * R] for g in range(self.n_shared)]
 
     def init_cache(self, batch_size: int, max_len: int):
         cfg = self.cfg
@@ -71,6 +72,36 @@ class HybridModel(LMModule):
 
     def _shared_in(self, params, x, emb0):
         return torch.cat([x, emb0], dim=-1) @ params["shared_in"]
+
+    # ---- train ----
+    def loss(self, batch):
+        """``batch["tokens"]``, ``batch["labels"]`` (B, S) -> (loss,
+        {"nll"}), differentiable in the module's parameters."""
+        cfg = self.cfg
+        cd = _dt(cfg.compute_dtype)
+        params, groups = self._live()
+        x = self.constrain(embed_lookup(params["embed"], batch["tokens"], cd),
+                           "act")
+        emb0 = x
+        rope = _rope(cfg, torch.arange(x.shape[1], device=x.device)[None, :])
+
+        def group_body(x, group):
+            for pj in group:
+                h, _ = ssm_apply(_norm(x, pj["norm"], cfg), pj["ssm"], cfg.ssm,
+                                 cd)
+                x = self.constrain(x + h, "act")
+            xin = self._shared_in(params, x, emb0)
+            out, _, _, _ = _layer_prefill(xin, params["shared"], cfg,
+                                          kind="full", constrain=self.constrain,
+                                          rope=rope)
+            return self.constrain(x + (out - xin), "act")
+
+        body = _remat(group_body, cfg.remat)
+        for group in groups:
+            x = body(x, group)
+        x = _norm(x, params["final_norm"], cfg)
+        loss = self._ce(x, params["embed"]["table"], batch)
+        return loss, {"nll": loss}
 
     @torch.no_grad()
     def prefill(self, batch):

@@ -17,8 +17,10 @@ import torch.nn.functional as F
 def einsum_f32(eq: str, *operands: torch.Tensor) -> torch.Tensor:
     """``einsum`` with an fp32 result, as the reference's
     ``preferred_element_type=jnp.float32`` asks: inputs of a narrower dtype
-    are widened first, which is exact, and the products are summed in fp32."""
-    return torch.einsum(eq, *(t.float() for t in operands))
+    are widened first, which is exact, and the products are summed in fp32.
+    fp64 inputs stay fp64 (a gradient check's)."""
+    return torch.einsum(eq, *(t if t.dtype == torch.float64 else t.float()
+                              for t in operands))
 
 
 def dslice(x: torch.Tensor, start: int, size: int, dim: int) -> torch.Tensor:

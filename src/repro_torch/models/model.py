@@ -16,7 +16,7 @@ from .hybrid import HybridModel
 from .layers import embed_init, embed_lookup
 from .ssm import ssm_apply, ssm_decode_step, ssm_init
 from .transformer import (Constrain, DecoderModel, LMModule, _at, _dt, _noop,
-                          _norm, _norm_init)
+                          _norm, _norm_init, _remat, _unstack)
 
 if TYPE_CHECKING:  # hints only
     from ..configs.base import ModelConfig
@@ -43,7 +43,27 @@ class SSMModel(LMModule):
         }
 
     def _layer_views(self, tree):
-        return [_at(tree["layers"], i) for i in range(self.cfg.n_layers)]
+        return _unstack(tree["layers"], (self.cfg.n_layers,))
+
+    def loss(self, batch):
+        """``batch["tokens"]``, ``batch["labels"]`` (B, S) -> (loss,
+        {"nll"}), differentiable in the module's parameters."""
+        cfg = self.cfg
+        cd = _dt(cfg.compute_dtype)
+        params, layers = self._live()
+        x = self.constrain(embed_lookup(params["embed"], batch["tokens"], cd),
+                           "act")
+
+        def body(x, p):
+            h, _ = ssm_apply(_norm(x, p["norm"], cfg), p["ssm"], cfg.ssm, cd)
+            return self.constrain(x + h, "act")
+
+        body = _remat(body, cfg.remat)
+        for p in layers:
+            x = body(x, p)
+        x = _norm(x, params["final_norm"], cfg)
+        loss = self._ce(x, params["embed"]["table"], batch)
+        return loss, {"nll": loss}
 
     def init_cache(self, batch_size: int):
         cfg = self.cfg

@@ -129,9 +129,15 @@ def ssm_apply(x, params, spec: SSMSpec, compute_dtype):
     seg = la[:, :, :, None, :] - la[:, :, None, :, :]                # (B,nc,i,j,H)
     iq = torch.arange(Q, device=x.device)
     causal = iq[:, None] >= iq[None, :]
-    att = CB[..., None] * torch.exp(seg) * dt_c[:, :, None, :, :]    # (B,nc,i,j,H)
-    # a select, not a product: exp(seg) overflows to inf above the diagonal
-    att = torch.where(causal[None, None, :, :, None], att, 0.0)
+    causal = causal[None, None, :, :, None]
+    # seg is masked before the exp: above the diagonal it is positive and
+    # its exp overflows once a chunk's decay sum passes 88.7, and a select
+    # after the exp would take the gradient 0·inf = NaN there (the
+    # reference does; ROADMAP, queue C, C10).  exp(-inf) = 0 gives the same
+    # forward.
+    decay = torch.exp(torch.where(causal, seg, float("-inf")))
+    att = CB[..., None] * decay * dt_c[:, :, None, :, :]             # (B,nc,i,j,H)
+    att = torch.where(causal, att, 0.0)
     y_diag = einsum_f32("bcijh,bcjhp->bcihp", att.to(cd), xs_c)
 
     # ---- inter-chunk state recurrence ----

@@ -15,18 +15,25 @@ The reference casts every fp32 matrix to the compute dtype inside every
 call; the module makes that cast once per parameter set and device and
 keeps the compute-dtype copy (same bits).  Sharding is injected via a
 ``constrain(x, kind)`` hook, a no-op here, so model code stays
-mesh-agnostic.  ``loss`` and its chunked cross-entropy come with the
-training slice (ROADMAP, queue A, A13c).
+mesh-agnostic.
+
+Training (``loss``) casts inside autograd on every call instead
+(``LMModule._live``), so the gradients reach the module's own fp32
+parameters; the per-layer body runs under ``_remat``'s policy and the
+cross-entropy in ``chunked_ce``'s slices.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import TYPE_CHECKING, Callable
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from ..device import resolve_device
+from ..tree import tree_leaves_with_path
 from .attention import (blockwise_attention, decode_attention,
                         packed_causal_attention, swa_attention)
 from .flash import flash_attention
@@ -273,13 +280,89 @@ def layer_decode(x, p, cfg: ModelConfig, ck, cv, pos, *, kind: str,
 
 
 # ---------------------------------------------------------------------------
+# chunked cross-entropy (never materializes (B, S, V)) and remat
+# ---------------------------------------------------------------------------
+
+
+def _chunk_nll(h_c, t, y_c, V, cap):
+    """``(sum of the nll, valid labels)`` of one ``(B, c)`` slice; label
+    ``-1`` is a pad."""
+    logits = einsum_f32("bsd,vd->bsv", h_c, t)[..., :V]
+    if cap is not None:
+        logits = cap * torch.tanh(logits / cap)
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = torch.gather(logits, -1,
+                          torch.clamp(y_c, min=0)[..., None].long())[..., 0]
+    valid = y_c >= 0
+    nll = torch.where(valid, lse - picked, 0.0)
+    return torch.sum(nll), torch.sum(valid)
+
+
+def chunked_ce(h, table, labels, cfg: ModelConfig, constrain: Constrain):
+    """h: (B,S,d); table: (Vp, d) output embedding; labels (B,S) (-1 = pad).
+
+    Returns (sum_nll, n_valid).  Computed in ``cfg.ce_chunk`` slices, each
+    under ``torch.utils.checkpoint``, so the peak logits memory is
+    (B, chunk, V) fp32: the backward recomputes a slice's logits.
+    """
+    B, S, d = h.shape
+    c = min(cfg.ce_chunk, S)
+    if S % c:
+        raise ValueError(f"chunked_ce: S = {S} is no multiple of the chunk "
+                         f"{c}")
+    t = table.to(h.dtype)
+    nll = torch.zeros((), device=h.device)
+    n = torch.zeros((), dtype=torch.int64, device=h.device)
+    for i in range(S // c):
+        part = ckpt.checkpoint(_chunk_nll, h[:, i * c:(i + 1) * c], t,
+                               labels[:, i * c:(i + 1) * c], cfg.vocab_size,
+                               cfg.final_softcap, use_reentrant=False)
+        nll, n = nll + part[0], n + part[1]
+    return nll, n
+
+
+def _unbatched_product(op, args) -> bool:
+    """An ``aten`` product without batch dimensions: ``mm``/``addmm``, or
+    the ``bmm`` of batch 1 that ``torch.einsum`` lowers such a contraction
+    to."""
+    aten = torch.ops.aten
+    if op in (aten.mm.default, aten.addmm.default):
+        return True
+    return op is aten.bmm.default and args[0].shape[0] == 1
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Save what JAX's ``checkpoint_dots_with_no_batch_dims`` saves (the
+    products without batch dimensions); recompute the rest."""
+    if _unbatched_product(op, args):
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, policy: str):
+    """``fn`` under the config's remat policy: ``none`` keeps every
+    activation, ``full`` recomputes the body in the backward (keeping its
+    inputs), ``dots`` keeps the unbatched products' outputs only."""
+    if policy == "none":
+        return fn
+    if policy == "full":
+        return functools.partial(ckpt.checkpoint, fn, use_reentrant=False)
+    if policy == "dots":
+        return functools.partial(
+            ckpt.checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(
+                ckpt.create_selective_checkpoint_contexts, _dots_policy))
+    raise ValueError(policy)
+
+
+# ---------------------------------------------------------------------------
 # parameter trees as modules
 # ---------------------------------------------------------------------------
 
 
 class ParamTree(nn.Module):
     """A nested dict of tensors as a module, under the tree's keys: a dict
-    is a submodule, a tensor a (frozen) parameter; ``tree[key]`` reads
+    is a submodule, a tensor a (trainable) parameter; ``tree[key]`` reads
     either."""
 
     def __init__(self, tree: dict):
@@ -288,8 +371,7 @@ class ParamTree(nn.Module):
             if isinstance(v, dict):
                 self.add_module(k, ParamTree(v))
             else:
-                self.register_parameter(k, nn.Parameter(v,
-                                                        requires_grad=False))
+                self.register_parameter(k, nn.Parameter(v))
 
     def __getitem__(self, key: str):
         return getattr(self, key)
@@ -306,6 +388,18 @@ def _at(tree: dict, *idx) -> dict:
     stacked tree, as views)."""
     return {k: _at(v, *idx) if isinstance(v, dict) else v[idx]
             for k, v in tree.items()}
+
+
+def _unstack(tree: dict, lead: tuple) -> list:
+    """The layers of a tree stacked on the ``lead`` axes, row-major, as
+    views: one ``unbind`` a leaf, whose gradient is one ``stack`` (where
+    indexing layer by layer would build a full-size zero tensor per layer
+    in the backward)."""
+    n = math.prod(lead)
+    parts = {k: _unstack(v, lead) if isinstance(v, dict) else
+             v.reshape(n, *v.shape[len(lead):]).unbind(0)
+             for k, v in tree.items()}
+    return [{k: p[i] for k, p in parts.items()} for i in range(n)]
 
 
 class LMModule(nn.Module):
@@ -350,19 +444,46 @@ class LMModule(nn.Module):
         return self._cast()[0]
 
     def _cast(self):
-        """``(compute tree, layer views)``: made once and kept; made again
-        when a parameter has moved or was written in place (its storage or
-        version counter changed)."""
+        """``(compute tree, layer views)`` for serving: detached, made once
+        and kept; made again when a parameter has moved or was written in
+        place (its storage or version counter changed), as an optimizer
+        step writes it."""
         leaves = list(self.params.parameters())
         key = tuple((t.data_ptr(), t._version, t.dtype) for t in leaves)
         if self._compute is None or self._compute[0] != key:
-            cd = _dt(self.cfg.compute_dtype)
             self._compute = None        # free the old copy before the new
-            tree = self.params.as_dict(lambda a: a.detach().to(cd)
-                                       if a.dtype == torch.float32
-                                       and a.ndim > 1 else a.detach())
+            tree = self.params.as_dict(self._cast_leaf(detach=True))
             self._compute = (key, tree, self._layer_views(tree))
         return self._compute[1:]
+
+    def _live(self):
+        """``(compute tree, layer views)`` for training: ``_cast``'s rule,
+        applied inside autograd on every call, so the gradients flow back
+        to the fp32 parameters.  Nothing is kept."""
+        tree = self.params.as_dict(self._cast_leaf(detach=False))
+        return tree, self._layer_views(tree)
+
+    def _cast_leaf(self, *, detach: bool):
+        """The reference's cast: fp32 leaves of more than one axis (of the
+        stacked tree) to the compute dtype, the rest as they are."""
+        cd = _dt(self.cfg.compute_dtype)
+
+        def cast(a):
+            a = a.detach() if detach else a
+            return a.to(cd) if a.dtype == torch.float32 and a.ndim > 1 else a
+        return cast
+
+    def _ce(self, h, table, batch):
+        """Mean next-token loss of the final hidden states ``h``."""
+        nll, n = chunked_ce(h, table, batch["labels"], self.cfg,
+                            self.constrain)
+        return nll / torch.clamp(n, min=1)
+
+    def trainable_leaves(self) -> dict:
+        """``{keystr path: parameter}`` in the reference's leaf order (the
+        sorted key paths of ``jax.tree_util``), e.g. ``"['layers']['attn']
+        ['wq']"``: what the optimizer and the checkpoint key on."""
+        return dict(tree_leaves_with_path(self.params.as_dict(lambda t: t)))
 
     def _logits_f32(self, x, table):
         """fp32 logits of ``x (B, d)`` against ``table``, the product in
@@ -399,7 +520,8 @@ class DecoderModel(LMModule):
     def _layer_views(self, tree):
         """Per layer (group g, member j): (kind, g, j, params of the layer)."""
         cfg = self.cfg
-        return [(kind, g, j, _at(tree["layers"], g, j))
+        layers = _unstack(tree["layers"], (cfg.n_groups, cfg.group_size))
+        return [(kind, g, j, layers[g * cfg.group_size + j])
                 for g in range(cfg.n_groups)
                 for j, kind in enumerate(cfg.layer_group)]
 
@@ -421,6 +543,41 @@ class DecoderModel(LMModule):
         if cfg.final_softcap is not None:
             logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
         return logits
+
+    # ---- train ----
+    def loss(self, batch):
+        """batch: tokens/embeddings + labels (-1 ignored), on the model's
+        device.  Returns (loss, metrics), differentiable in the module's
+        parameters: nll + 0.01·lb + 0.001·z, the MoE aux losses summed
+        over the layers and divided by ``n_layers``."""
+        cfg = self.cfg
+        cd = _dt(cfg.compute_dtype)
+        params, layers = self._live()
+        x = self.constrain(self._embed_in(params, batch, cd), "act")
+        rope = _rope(cfg, torch.arange(x.shape[1], device=x.device)[None, :])
+
+        def group_body(x, group):
+            aux_sum = torch.zeros((2,), device=x.device)
+            for kind, pj in group:
+                x, aux, _, _ = _layer_prefill(x, pj, cfg, kind=kind,
+                                              constrain=self.constrain,
+                                              rope=rope)
+                aux_sum = aux_sum + torch.stack([aux["lb_loss"],
+                                                 aux["z_loss"]])
+            return x, aux_sum
+
+        body = _remat(group_body, cfg.remat)
+        auxes = []
+        for g in range(cfg.n_groups):
+            group = [(kind, pj) for kind, gg, _, pj in layers if gg == g]
+            x, aux = body(x, group)
+            auxes.append(aux)
+        aux = torch.sum(torch.stack(auxes), dim=0)
+        x = _norm(x, params["final_norm"], cfg)
+        loss = self._ce(x, self._out_table(params), batch)
+        lb, z = aux[0] / cfg.n_layers, aux[1] / cfg.n_layers
+        total = loss + 0.01 * lb + 0.001 * z
+        return total, {"nll": loss, "lb_loss": lb, "z_loss": z}
 
     # ---- serve ----
     def cache_spec(self, batch_size: int, max_len: int):

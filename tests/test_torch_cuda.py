@@ -1,4 +1,6 @@
-"""The port's CUDA kernels on the GPU, against their plain PyTorch versions.
+"""The port's CUDA kernels on the GPU, against their plain PyTorch versions,
+and the port's model, serving and training paths on the card against the
+CPU.
 
 A CUDA kernel has no CPU mode, so every test here needs an NVIDIA GPU and
 skips without one.  On a machine with a card (Hopper, ``sm_90a``)::
@@ -573,3 +575,57 @@ def test_model_without_cuda_raises(dev, arch, monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         build_model(get_config(arch).reduced())
 
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "gemma2-2b", "mixtral-8x7b",
+                                  "mamba2-130m", "zamba2-2.7b",
+                                  "whisper-base"])
+def test_loss_and_grads_card_equal_cpu(fp32_matmul, arch):
+    """The training loss and every gradient leaf of the reduced archs in
+    fp32: the card against the CPU (rtol 1e-5 on the loss, 1e-4 of each
+    leaf's largest entry plus 1e-5 on the gradients)."""
+    from torch_parity import lm_train_batch, port_loss_and_grads
+    cfg, on_cpu, on_card = _lm_on_both(arch, fp32_matmul)
+    batch = lm_train_batch(cfg, B=2, S=64)
+    lc, _, gc = port_loss_and_grads(on_cpu, batch)
+    lg, _, gg = port_loss_and_grads(on_card, batch)
+    torch.testing.assert_close(lg.cpu(), lc, rtol=1e-5, atol=0)
+    for k, want in gc.items():
+        err = float((gg[k].cpu() - want).abs().max())
+        assert err <= 1e-4 * float(want.abs().max()) + 1e-5, k
+
+
+def test_train_steps_and_checkpoint_across_devices(dev, tmp_path):
+    """Three train steps of reduced llama on the card; the state saved
+    there restores on the CPU and back into the card's own tensors, bit
+    for bit; the recovered controller's run equals the uninterrupted one."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.train import checkpoint
+    from repro_torch.train.fault import (FaultInjector, RecoveryConfig,
+                                         TrainController)
+    from repro_torch.train.train_step import init_train_state, make_train_step
+    from repro_torch.tree import tree_leaves
+    cfg = get_config("llama3.2-1b").reduced()
+    dc = DataConfig(cfg.vocab_size, 64, 4)
+    runs = []
+    for name, fails in (("a", None), ("b", (2, 5))):
+        model, step = make_train_step(cfg, device=dev)
+        ctl = TrainController(step, init_train_state(model),
+                              lambda i: make_batch(dc, i, dev),
+                              RecoveryConfig(str(tmp_path / name), 2),
+                              injector=FaultInjector(fails) if fails else None)
+        runs.append((ctl, ctl.run(7)))
+    (a, log_a), (b, log_b) = runs
+    assert b.restarts == 2
+    assert math.isclose(log_a[-1]["loss"], log_b[-1]["loss"], rel_tol=1e-5)
+    checkpoint.save(a.state, tmp_path / "card", step=7)
+    host = checkpoint.restore(tmp_path / "card", b.state, device="cpu")
+    for x, y in zip(tree_leaves(a.state), tree_leaves(host)):
+        assert y.device.type == "cpu" and torch.equal(x.cpu(), y)
+    checkpoint.save(host, tmp_path / "host", step=7)
+    back = checkpoint.restore(tmp_path / "host", b.state)
+    for x, y in zip(tree_leaves(a.state), tree_leaves(back)):
+        assert torch.equal(x, y)
+    assert back["params"]["embed"]["table"] is b.state["params"]["embed"][
+        "table"]

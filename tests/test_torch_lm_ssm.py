@@ -5,7 +5,7 @@ parameters: ``ssm_apply`` and ``ssm_decode_step`` at the LM tolerance;
 chunked prefill against the token-by-token recurrence at chunk 4, 8 and 16
 (rtol 2e-4, ``tests/test_ssm_moe.py``'s); state decay; the ``S % Q``
 error; a large ``dt·A``, where ``exp`` of the masked segment sums
-overflows and the output must stay finite.  The model: prefill, the cache
+overflows and the output and the gradient must stay finite.  The model: prefill, the cache
 and 8 decode steps (``torch_parity.assert_lm_prefill_decode``), decode fed
 token by token against prefill, and the reference's cast of the stacked
 tree in bf16.
@@ -121,6 +121,41 @@ def test_large_decay_stays_finite():
     assert np.isfinite(np.asarray(jy)).all()
     _close(ty, jy, "y at large dt·A")
     _close(tc["ssm"], jc["ssm"], "state at large dt·A")
+
+
+def test_large_decay_grad_stays_finite():
+    """The same overflow in the backward: with the select after ``exp``,
+    the masked entries' gradient is 0·inf = NaN.  ``repro``'s gradient is
+    NaN there (ROADMAP, queue C, C10); the port masks the segment sums
+    before the ``exp``, so its gradient is finite everywhere and equals
+    JAX's wherever JAX's is finite (rtol 1e-4, atol 1e-4 of the leaf's
+    largest entry)."""
+    jspec, tspec, params, tparams = _block(16, dt_bias=8.0,
+                                           A_log=float(np.log(16.0)))
+    x = _x(2, 32, 64)
+
+    def f(p, x):
+        return jnp.sum(JS.ssm_apply(x, p, jspec, jnp.float32)[0] ** 2)
+
+    jg, jgx = jax.jit(jax.grad(f, argnums=(0, 1)))(params, jnp.asarray(x))
+    assert np.isnan(np.asarray(jgx)).all()                # the defect
+    assert np.isnan(np.asarray(jg["dt_bias"])).all()
+    tp = {k: v.clone().requires_grad_(True) for k, v in tparams.items()}
+    tx = torch.tensor(x, requires_grad=True)
+    y, _ = TS.ssm_apply(tx, tp, tspec, torch.float32)
+    grads = torch.autograd.grad((y ** 2).sum(), [tx, *tp.values()])
+    n_finite = 0
+    for name, got in zip(["x", *tp], grads):
+        assert bool(torch.isfinite(got).all()), f"d{name} not finite"
+        want = np.asarray(jgx if name == "x" else jg[name])
+        ok = np.isfinite(want)
+        n_finite += int(ok.sum())
+        # rtol 1e-4, and 1e-4 of the leaf's largest entry: the gradient
+        # sums many terms, so small entries carry the large ones' rounding
+        scale = np.abs(want[ok]).max(initial=0.0)
+        np.testing.assert_allclose(got.numpy()[ok], want[ok], rtol=LM_RTOL,
+                                   atol=LM_RTOL * scale, err_msg=f"d{name}")
+    assert n_finite > 0
 
 
 @pytest.fixture(scope="module")

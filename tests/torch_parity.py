@@ -13,6 +13,7 @@ import sys
 import time
 
 import numpy as np
+import pytest
 import torch
 
 SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
@@ -24,6 +25,17 @@ EXACT_STATS = ("utilization", "gvt")
 RTOL = 1e-5
 #: wall-clock metric series: never compared between runs
 WALL_SERIES = {"repro_service_phase_seconds", "repro_daemon_phase_seconds"}
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """One torch thread for each test of a module that imports this
+    fixture: its models are small, Python sets the pace, and the suite's
+    workers share the machine's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @functools.cache
@@ -248,3 +260,62 @@ def assert_lm_prefill_decode(arch, S=64, B=2, steps=8, *, pos0=None,
                                  jnp.int32(start + i))
         tl, tcache = model.decode_step(tcache, torch.as_tensor(tok), start + i)
         check(f"decode step {i}")
+
+
+def lm_train_batch(cfg, B=2, S=64, seed=0, pads=True) -> dict:
+    """A numpy training batch for ``cfg``: tokens and labels (the first
+    five labels of row 0 pads, ``-1``, with ``pads``), plus the frame
+    embeddings of an encoder-decoder and the input embeddings of an
+    ``input_mode="embeddings"`` config."""
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32),
+             "labels": rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)}
+    if pads:
+        batch["labels"][0, :5] = -1
+    if cfg.family == "encdec":
+        batch["enc_embeddings"] = (rng.standard_normal((B, S, cfg.d_model))
+                                   * 0.1).astype(np.float32)
+    if cfg.input_mode == "embeddings":
+        batch["embeddings"] = (rng.standard_normal((B, S, cfg.d_model))
+                               * 0.1).astype(np.float32)
+    return batch
+
+
+def port_loss_and_grads(model, batch) -> tuple:
+    """``(loss, metrics, {keystr: grad})`` of the port's ``model.loss`` on
+    a numpy ``batch`` (on the model's device), unused leaves' gradients as
+    zeros."""
+    tb = {k: torch.as_tensor(v, device=model.device) for k, v in batch.items()}
+    loss, metrics = model.loss(tb)
+    leaves = model.trainable_leaves()
+    grads = torch.autograd.grad(loss, list(leaves.values()),
+                                materialize_grads=True)
+    return loss.detach(), {k: v.detach() for k, v in metrics.items()}, \
+        dict(zip(leaves, grads))
+
+
+def assert_loss_and_grads(pair, batch) -> dict:
+    """Hold the port's loss, metrics and every gradient leaf to
+    ``jax.value_and_grad(model.loss)`` on the same parameters and batch,
+    at the LM tolerance.  Returns the port's gradients."""
+    import jax
+    import jax.numpy as jnp
+
+    fn = jax.jit(jax.value_and_grad(pair.jm.loss, has_aux=True))
+    (jl, jmet), jg = fn(pair.params,
+                        {k: jnp.asarray(v) for k, v in batch.items()})
+    loss, metrics, grads = port_loss_and_grads(pair.model, batch)
+    np.testing.assert_allclose(loss.numpy(), np.asarray(jl), rtol=LM_RTOL,
+                               atol=LM_ATOL, err_msg="loss")
+    assert set(metrics) == set(jmet)
+    for k in jmet:
+        np.testing.assert_allclose(metrics[k].numpy(), np.asarray(jmet[k]),
+                                   rtol=LM_RTOL, atol=LM_ATOL, err_msg=k)
+    theirs = {jax.tree_util.keystr(kp): v
+              for kp, v in jax.tree_util.tree_leaves_with_path(jg)}
+    assert list(grads) == list(theirs)          # same paths, same order
+    for k, g in grads.items():
+        np.testing.assert_allclose(g.numpy(), np.asarray(theirs[k]),
+                                   rtol=LM_RTOL, atol=LM_ATOL,
+                                   err_msg=f"grad {k}")
+    return grads
