@@ -122,7 +122,20 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` with
    arch's loss and gradients, card against CPU in fp32 with TF32 off;
    (d) (a)'s trained state saved on the card, restored on the CPU and
    back, bitwise;
-15. the last lines: one JSON object per kernel (times, bound, launches),
+15. the sharding rules (``repro_torch.distributed.sharding``, DTensor)
+   and the dry run (``repro_torch.launch.dryrun``): (a) phase 14(b)'s
+   llama step, 2 steps with ``par`` on a (1, 1) ``("data", "model")``
+   mesh over NCCL, the losses and every parameter bitwise equal to the
+   ``par=None`` steps, step ms (CUDA events) and peak memory; (b) the dry
+   run of that cell on a one-rank fake group, its predicted flops, bytes,
+   peak memory and roofline beside (a)'s measurement; (c) llama's
+   train_4k (cut to ``DRY_TRAIN_LAYERS`` layers) and decode_32k on the
+   256-rank production mesh: per-device memory, flops, collectives,
+   dominant roofline term; (d) ``--pdes-core`` on the single mesh, one
+   rank's shard of L = 2^20 x 512 trials x 64 steps run on the card
+   (both modes), every B2 launch held against its plain version, the
+   collective bytes and messages a step, B2's launches and ms;
+16. the last lines: one JSON object per kernel (times, bound, launches),
    then ``{"ok": true, "device": {...}}``.
 
 Every phase asserts; any failure exits non-zero with no result line.
@@ -169,10 +182,11 @@ SUM_RTOL = 1e-5
 SUM_ATOL = 1e-2
 EXACT_KEYS = ("ucount", "min", "max")
 
-#: H100 SXM published peaks: HBM rate, and the fp32 rate outside the
+#: H100 SXM published peaks: HBM rate (``main`` reads it, with the bf16
+#: peak, from ``repro_torch.launch.mesh``), and the fp32 rate outside the
 #: tensor cores, the only non-tensor 32-bit rate the datasheet gives; the
 #: kernel's integer hash and fp32 work are counted at it.
-HBM_BYTES_PER_S = 3.35e12
+HBM_BYTES_PER_S = None
 SCALAR_OPS_PER_S = 67e12
 #: Operations of the kernel (see the note in its source): per PE-step
 #: 23 integer (PE hash, word 0, site pick) and 11 fp32 (rules, moments,
@@ -235,8 +249,8 @@ LM_PROMPT = (64, 512)
 LM_NEW = (16, 64)
 LM_PROFILE_STEPS = 8
 #: The H100 SXM's dense bf16 tensor-core peak (data sheet), for the
-#: prefill bound.
-BF16_FLOPS_PER_S = 989e12
+#: prefill bound; ``main`` reads it from ``repro_torch.launch.mesh``.
+BF16_FLOPS_PER_S = None
 #: Phase 11(b): layers kept of the full widths, and tokens fed one by one;
 #: phase 11(c): the reduced archs held card against CPU, the decode steps
 #: compared and the requests drained on both.
@@ -295,6 +309,14 @@ TRAIN_GRAD_TOL = 1e-4
 #: The H100's float32 rate outside the tensor cores (data sheet): the
 #: port's attention and cross-entropy products run in fp32.
 FP32_FLOPS_PER_S = 67e12
+#: Phase 15: (a) phase 14(b)'s llama step, sharded on a (1, 1) mesh over
+#: NCCL against the one-device step, ``SHARDED_STEPS`` steps each;
+#: (c) the production mesh's dry run, train_4k cut to ``DRY_TRAIN_LAYERS``
+#: of llama's 16 layers (decode_32k at full depth); (d) the PDES core's
+#: shard at the reference's dry-run size.
+SHARDED_STEPS = 2
+DRY_TRAIN_LAYERS = 2
+PDES_CORE = dict(L=1 << 20, trials=512, steps=64)
 #: Phase 13: the port's PDES examples, run as subprocesses from the root.
 EXAMPLES = (
     ("examples/quickstart_torch.py", ()),
@@ -2651,7 +2673,184 @@ def phase_train_checks(torch, configs, dev, trained):
           f"own tensors: bitwise both ways")
 
 
+def phase_sharded_train(torch, configs, dev):
+    """Phase 15(a): phase 14(b)'s llama step with ``par`` on a ``(1, 1)``
+    ``("data", "model")`` mesh over NCCL against the ``par=None`` step from
+    the same seed and batches: the losses and every parameter bitwise."""
+    import datetime
+    import numpy as np
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.distributed.sharding import Parallelism
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.train_step import init_train_state, make_train_step
+    from repro_torch.tree import tree_leaves_with_path
+    args = dict(zip(TRAIN_LM_ARGS[::2], TRAIN_LM_ARGS[1::2]))
+    B, S = int(args["--batch"]), int(args["--seq"])
+    cfg = configs.get_config(args["--arch"])
+    cfg = dataclasses.replace(cfg, ce_chunk=min(cfg.ce_chunk, S))
+    dc = DataConfig(cfg.vocab_size, S, B)
+    batches = [make_batch(dc, i, dev) for i in range(SHARDED_STEPS)]
+
+    def run(par):
+        torch.cuda.reset_peak_memory_stats()
+        model, step = make_train_step(cfg, par, AdamWConfig(
+            warmup_steps=5, total_steps=100), device=dev, seed=0)
+        state = init_train_state(model)
+        losses, events = [], []
+        run_step = _timed_steps(torch, step, events)
+        for batch in batches:
+            state, met = run_step(state, batch)
+            losses.append(met["loss"].item())
+        sync(torch, dev)
+        peak = torch.cuda.max_memory_allocated()
+        params = {k: (v.full_tensor() if isinstance(v, DTensor) else v)
+                  .detach().to("cpu", copy=True)
+                  for k, v in tree_leaves_with_path(state["params"])}
+        ms = [a.elapsed_time(b) for a, b, _ in events]
+        n_params.append(sum(p.numel() for p in model.parameters()))
+        del model, state
+        torch.cuda.empty_cache()
+        return losses, params, ms, peak
+
+    n_params = []
+    plain = run(None)
+    kind = torch.device(dev).type
+    backend = "nccl" if kind == "cuda" else "gloo"
+    dist.init_process_group(backend, store=dist.HashStore(), rank=0,
+                            world_size=1,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh = make_host_mesh((1, 1), ("data", "model"), device_type=kind)
+        sharded = run(Parallelism(mesh))
+    finally:
+        dist.destroy_process_group()
+    same = plain[0] == sharded[0] and all(
+        torch.equal(plain[1][k], sharded[1][k]) for k in plain[1])
+    worst = max(float((plain[1][k].double() - sharded[1][k].double())
+                      .abs().max()) for k in plain[1])
+    check(same, f"the (1, 1)-mesh step differs from the one-device step: "
+          f"losses {plain[0]} vs {sharded[0]}, max |param diff| {worst:.3g}")
+    for tag, (losses, _, ms, peak) in (("par=None", plain),
+                                      ("par (1, 1) mesh", sharded)):
+        print(f"[shard a] {cfg.name} B {B} x S {S}, {tag}: losses "
+              f"{', '.join(f'{x:.6f}' for x in losses)}; step ms "
+              f"{', '.join(f'{x:.3f}' for x in ms)} (CUDA events; the "
+              f"first includes warm-up), peak memory {peak / 2**30:.3f} GiB "
+              f"(max_memory_allocated)")
+    print(f"[shard a] {SHARDED_STEPS} steps with par on a (1, 1) "
+          f"(\"data\", \"model\") {backend} mesh: losses and all "
+          f"{len(plain[1])} parameters bitwise equal to par=None")
+    return dict(cfg=cfg, B=B, S=S, n_params=n_params[0], peak=sharded[3],
+                ms=float(np.median(sharded[2][1:] or sharded[2])))
+
+
+def phase_dryrun(torch, configs, measured):
+    """Phase 15(b) and (c): the dry run of phase 15(a)'s cell on a
+    one-rank fake group beside what (a) measured, then llama's train_4k
+    and decode_32k on the 256-rank production mesh."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.dryrun import lower_cell
+    from repro_torch.launch.mesh import (fake_world, make_host_mesh,
+                                         make_production_mesh)
+    cfg, B, S = measured["cfg"], measured["B"], measured["S"]
+    shape = ShapeConfig(f"train_b{B}_s{S}", S, B, "train")
+    t0 = time.perf_counter()
+    with fake_world(1):
+        rec, _ = lower_cell(cfg.name, shape, make_host_mesh((1, 1)),
+                            overrides={"ce_chunk": cfg.ce_chunk})
+    rl, mem = rec["roofline"], rec["memory"]
+    bf16, fp32 = _train_flops(cfg, measured["n_params"], B, S)
+    print(f"[shard b] dry run of (a)'s cell on a (1, 1) fake mesh "
+          f"({time.perf_counter() - t0:.1f} s): predicted "
+          f"{rl['flops_per_dev'] / 1e12:.3f} TFLOP (products counted; phase "
+          f"14's reckoning {(bf16 + fp32) / 1e12:.3f}), "
+          f"{rl['bytes_per_dev'] / 1e12:.3f} TB moved (eager ops' inputs and "
+          f"outputs), peak {mem['peak_gib']:.3f} GiB against "
+          f"{measured['peak'] / 2**30:.3f} GiB measured in (a); roofline "
+          f"{max(rl['compute_s'], rl['memory_s']) * 1e3:.3f} ms "
+          f"({rl['dominant']}) against {measured['ms']:.3f} ms measured")
+    with fake_world(256):
+        mesh = make_production_mesh()
+        for name, over in (("train_4k", {"n_layers": DRY_TRAIN_LAYERS}),
+                           ("decode_32k", {})):
+            rec, _ = lower_cell("llama3.2-1b", name, mesh, overrides=over)
+            rl, mem = rec["roofline"], rec["memory"]
+            coll = {k: v for k, v in rl["coll_detail"].items() if v}
+            print(f"[shard c] llama3.2-1b {name} on 16 x 16 "
+                  f"({'depth ' + str(over['n_layers']) + ' of 16 layers, '
+                     if over else ''}traced in {rec['lower_s']} s): per "
+                  f"device peak {mem['peak_gib']:.3f} GiB (arguments "
+                  f"{mem['argument_gib']:.3f}), {rl['flops_per_dev'] / 1e12:.3f}"
+                  f" TFLOP, {rl['bytes_per_dev'] / 1e12:.3f} TB, collectives "
+                  f"{coll}; roofline compute {rl['compute_s'] * 1e3:.3f} ms, "
+                  f"memory {rl['memory_s'] * 1e3:.3f} ms, collective "
+                  f"{rl['collective_s'] * 1e3:.3f} ms: {rl['dominant']}")
+
+
+def phase_pdes_core(torch, ps, ops, ref, _build, dev, timer=cuda_ms):
+    """Phase 15(d): ``--pdes-core`` on the single mesh, one rank's shard
+    run for real on the card; every B2 launch of it held against the plain
+    version on the same inputs.  Returns B2's launches in the runs."""
+    from repro_torch.launch.dryrun import pdes_core_record
+    from repro_torch.launch.mesh import fake_world
+    original = ops.pdes_step
+    held = []
+
+    def checked(tau_h, bits, base, **kw):
+        out = original(tau_h, bits, base, **kw)
+        t_p, _, m_p = ref.pdes_step_ref(tau_h, bits, base, **kw)
+        check(torch.equal(out[0], t_p), f"B2's tau' differs from the plain "
+              f"version at {tuple(tau_h.shape)}")
+        for key, a in out[1].items():
+            check(torch.equal(a, m_p[key]) if key in EXACT_KEYS else
+                  torch.allclose(a, m_p[key], rtol=SUM_RTOL, atol=SUM_ATOL),
+                  f"B2's {key} differs from the plain version")
+        held.append(max(float(((out[1][k] - m_p[k]).abs()
+                               / m_p[k].abs().clamp(min=1)).max())
+                        for k in m_p))
+        return out
+    ps.launches = 0
+    ops.pdes_step = checked
+    try:
+        with fake_world(256):
+            recs = [pdes_core_record(mode, "single", device=dev, **PDES_CORE)
+                    for mode in ("exact", "commavoid")]
+    finally:
+        ops.pdes_step = original
+    launches = ps.launches
+    check(launches == len(held) > 0, f"B2 launches {launches}, held "
+          f"{len(held)}")
+    B_l, L_l = PDES_CORE["trials"] // 16, PDES_CORE["L"] // 16
+    tau = torch.zeros((B_l, L_l + 2), device=dev)
+    bits = torch.randint(0, 2**32, (B_l, L_l, 2), device=dev,
+                         dtype=torch.int64)
+    base = torch.zeros((B_l, 1), device=dev)
+    kw = dict(n_v=100, delta=100.0, rd_mode=False, border_both=False)
+    words = _build.u32_bits(bits).reshape(bits.shape).contiguous()
+    out = torch.empty((B_l, L_l), device=dev)
+    stats = torch.empty((6, B_l), device=dev)
+    k_ms = timer(lambda: ps.launch(tau, words, base, out, stats, **kw), 200)
+    w_ms = timer(lambda: original(tau, bits, base, **kw), 50)
+    for rec in recs:
+        print(f"[shard d] pdes-core {rec['mode']} on 16 x 16, one shard of "
+              f"{B_l} x {L_l} on the card: {rec['coll_bytes_per_step']:.1f} "
+              f"collective bytes and {rec['coll_msgs_per_step']:.4f} "
+              f"messages a step ({ {k: v for k, v in rec['collectives']
+                                      .items() if v} }), temp memory "
+              f"{rec['memory_temp_gib'] * 2**30 / 2**20:.3f} MiB")
+    print(f"[shard d] B2 launches {launches}, each held against the plain "
+          f"version (tau'/ucount/min/max bitwise, the sums within rtol "
+          f"{SUM_RTOL}: max relative error {max(held):.3g}); one step at "
+          f"{B_l} x {L_l}: the kernel {k_ms:.5f} ms, the wrapper with its "
+          f"int64 -> uint32 word conversion {w_ms:.5f} ms (CUDA events)")
+    return launches
+
+
 def main() -> int:
+    global HBM_BYTES_PER_S, BF16_FLOPS_PER_S
     try:
         import torch
     except ImportError:
@@ -2663,6 +2862,9 @@ def main() -> int:
         return fail(f"no src/repro_torch beside {__file__}: run it from a "
                     f"checkout of the repository")
     sys.path.insert(0, str(root / "src"))
+    from repro_torch.launch import mesh as launch_mesh
+    HBM_BYTES_PER_S = launch_mesh.HBM_BYTES_PER_S
+    BF16_FLOPS_PER_S = launch_mesh.BF16_FLOPS_PER_S
     from repro_torch.core import distributed as D
     from repro_torch.core import engine as engine_mod
     from repro_torch.core import ensemble, events, horizon, prng
@@ -2737,6 +2939,10 @@ def main() -> int:
     phase_train_checks(torch, configs, "cuda", trained)
     del trained
     t["14 training"] = time.perf_counter() - t0 - sum(t.values())
+    measured = phase_sharded_train(torch, configs, "cuda")
+    phase_dryrun(torch, configs, measured)
+    b2_core = phase_pdes_core(torch, ps, ops, ref, _build, "cuda")
+    t["15 sharding"] = time.perf_counter() - t0 - sum(t.values())
     print("[setup] phase wall: "
           + ", ".join(f"{k} {v:.2f} s" for k, v in t.items()))
 
@@ -2749,8 +2955,8 @@ def main() -> int:
         dict(name="pdes_step", route="cuda",
              source="src/repro_torch/kernels/csrc/pdes_step.cu",
              replaces="src/repro/kernels/pdes_step.py:69",
-             launches=b2_launches + b2_sharded + b2_serve, library_ms=None,
-             **sstats),
+             launches=b2_launches + b2_sharded + b2_serve + b2_core,
+             library_ms=None, **sstats),
         dict(name="pdes_multistep", route="cuda",
              source="src/repro_torch/kernels/csrc/pdes_multistep.cu",
              replaces="src/repro/kernels/pdes_multistep.py:129",
@@ -2762,7 +2968,8 @@ def main() -> int:
              library_ms=None, **gstats)]
     print(f"[launches] B1: phase 3 {b1_launches}, phase 10(a) {b1_serve}, "
           f"phase 13 {ex_launches['B1']}; B2: phase 5 {b2_launches}, phase "
-          f"9(c) {b2_sharded}, phase 10(d) {b2_serve}; generator: phase 8(a) "
+          f"9(c) {b2_sharded}, phase 10(d) {b2_serve}, phase 15(d) "
+          f"{b2_core}; generator: phase 8(a) "
           f"{gen_launches}, phase 13 {ex_launches['threefry_bits']}")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -37,8 +37,13 @@ over the strip, with the interior's moments straight from the middle one.
 
 With the same η, τ, the Kahan pair, ``u`` and ``gvt`` equal ``repro``'s
 bit for bit; ``w2``, ``mean_tau``, ``max_dev`` and ``min_dev`` agree to
-rounding (the sums' order differs).  ``repro``'s ``lower_sharded`` (an
-XLA lowering for its dry-run tools) has no counterpart yet.
+rounding (the sums' order differs).
+
+**Dry run.**  ``lower_sharded`` (the reference lowers the sharded program
+for its dry-run tools) runs one rank's ``_shard_body`` on a fake process
+group of the mesh's size inside ``launch.cost.CostCounter``: the rank's
+flops, bytes and all-reduces as it runs them, and the halo exchange
+reported as the reference's two ``collective-permute``s.
 """
 from __future__ import annotations
 
@@ -245,6 +250,72 @@ def _shard_body(tau, off, comp, seed: int, step_base: int, b0,
         tau, off, comp, stats = finish_chunk(tau, off, comp, parts)
         out.append(stats)
     return tau, off, comp, torch.cat(out, dim=1)
+
+
+class _DryRing(_Ring):
+    """Rank ``i`` of a ring of ``n`` on a fake process group: the
+    all-reduces go to the group (which moves nothing), the halo exchange
+    is reported to ``cost`` as two ``collective-permute``s and answered
+    with the shard's own wrap (a fake group delivers no data)."""
+
+    def __init__(self, group, n: int, i: int, cost):
+        self.group, self.n, self.i = group, n, i
+        self.cost = cost
+
+    def halo(self, tau, w: int):
+        n_bytes = tau.shape[0] * w * tau.element_size()
+        self.cost.add_collective("collective-permute", 2 * n_bytes, msgs=2)
+        return tau[:, -w:].clone(), tau[:, :w].clone()
+
+
+def lower_sharded(cfg: PDESConfig, mesh: ProcessMesh, *, n_trials: int,
+                  n_steps: int, dist: DistConfig = DistConfig(),
+                  dtype=torch.float32, sweep: bool = False, device="cpu"):
+    """One rank's shard of :func:`run_sharded_state`, counted: returns
+    ``(Cost, memory)`` (``launch.cost``), ``memory`` the shard's
+    ``{"argument_bytes", "peak_bytes", "temp_bytes"}``.
+
+    ``mesh`` gives the layout (an abstract one will do); the default
+    process group must be a fake one of ``mesh.size`` ranks
+    (``launch.mesh.fake_world``), whose rank 0 this runs as.  On
+    ``device="cpu"`` the shard's tensors are fake (``FakeTensorMode``) and
+    its step is the plain version; on a CUDA device they are real and its
+    step is the kernel B2.  ``sweep`` adds the per-row Δ column.
+    """
+    from ..launch.cost import CostCounter
+    dev = resolve_device(device)
+    B_l, L_l = _check_layout(cfg, mesh, dist, n_trials, cfg.L)
+    if tdist.get_world_size() != mesh.size:
+        raise ValueError(f"the process group has {tdist.get_world_size()} "
+                         f"ranks, the mesh {mesh.size}")
+    coords = mesh.coords_of(0)
+    line = [mesh.rank_of({**coords, dist.ring_axis: i})
+            for i in range(mesh.shape[dist.ring_axis])]
+    group = tdist.new_group(line)
+    if dev.type == "cpu":
+        # fake kernels for the c10d collectives on fake tensors
+        from torch.distributed._tools import fake_collectives  # noqa: F401
+        from torch._subclasses.fake_tensor import FakeTensorMode
+        mode = FakeTensorMode()
+    else:
+        import contextlib
+        mode = contextlib.nullcontext()
+    with mode:
+        counter = CostCounter()
+        ring = _DryRing(group, len(line), 0, counter.cost)
+        tau = torch.zeros((B_l, L_l), dtype=dtype, device=dev)
+        off = torch.zeros((B_l,), dtype=dtype, device=dev)
+        comp = torch.zeros((B_l,), dtype=dtype, device=dev)
+        delta_col = (torch.full((B_l, 1), cfg.delta, dtype=dtype, device=dev)
+                     if sweep else None)
+        with counter:
+            arg = counter.track((tau, off, comp, delta_col))
+            out = _shard_body(tau, off, comp, 0, 0, 0, delta_col, ring=ring,
+                              cfg=cfg, dist_cfg=dist, n_steps=n_steps)
+            del out
+    return counter.cost, {"argument_bytes": arg,
+                          "peak_bytes": counter.peak_bytes,
+                          "temp_bytes": counter.peak_bytes - arg}
 
 
 def _check_layout(cfg: PDESConfig, mesh: ProcessMesh, dist_cfg: DistConfig,

@@ -1,2 +1,3 @@
-"""Launchers of the port (port of ``repro.launch``): ``train``.  The dry
-run, the roofline and the HLO cost model go with A14."""
+"""Launchers of the port (port of ``repro.launch``): ``train``, and the
+dry run on a fake process group (``dryrun``, with ``mesh``, ``specs``,
+``cost`` and ``roofline``)."""

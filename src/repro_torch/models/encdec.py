@@ -21,13 +21,14 @@ from .attention import decode_attention
 from .flash import flash_attention
 from .layers import (dslice, embed_init, embed_lookup, mlp, mlp_init,
                      sinusoidal_positions)
+from .sharded import local_heads, whole, write_slot
 from .transformer import (LMModule, _dt, _norm, _norm_init, _qkv, _remat,
-                          _unstack, attn_init, cache_slot)
+                          _unstack, _wo, attn_init, cache_slot)
 
 
 def _cross_kv(enc, p, cfg, cd, constrain):
     def w(n):
-        return p[n].to(cd)
+        return whole(p[n].to(cd), -1)
     k = torch.einsum("bsd,dhk->bshk", enc, w("wk"))
     v = torch.einsum("bsd,dhk->bshk", enc, w("wv"))
     if cfg.qkv_bias:
@@ -36,19 +37,28 @@ def _cross_kv(enc, p, cfg, cd, constrain):
 
 
 def _cross_q(x, p, cfg, cd):
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(cd))
+    q = torch.einsum("bsd,dhk->bshk", x, whole(p["wq"].to(cd), -1))
     return q + p["bq"].to(cd) if cfg.qkv_bias else q
 
 
+def _flash(q, k, v, causal, cfg):
+    """Flash attention, under DTensor on each rank's rows and heads."""
+    return local_heads(
+        lambda q, k, v: flash_attention(q, k, v, causal, None, None,
+                                        cfg.q_block, cfg.k_block, 0),
+        q, k, v)
+
+
 def _cross_apply(x, kc, vc, p, cfg, cd, constrain):
-    out = flash_attention(_cross_q(x, p, cfg, cd), kc, vc, False, None, None,
-                          cfg.q_block, cfg.k_block, 0)
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(cd))
+    out = _flash(_cross_q(x, p, cfg, cd), kc, vc, False, cfg)
+    return torch.einsum("bshk,hkd->bsd", out, _wo(p, cd))
 
 
 def _cross_decode(x, kc, vc, p, cfg, cd):
-    out = decode_attention(_cross_q(x, p, cfg, cd), kc, vc, kc.shape[1])
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(cd))
+    n = kc.shape[1]
+    out = local_heads(lambda q, k, v: decode_attention(q, k, v, n),
+                      _cross_q(x, p, cfg, cd), kc, vc)
+    return torch.einsum("bshk,hkd->bsd", out, _wo(p, cd))
 
 
 class EncDecModel(LMModule):
@@ -59,6 +69,8 @@ class EncDecModel(LMModule):
     The cache is ``{"k", "v" (n_layers, B, max_len, KH, hd), "xk", "xv"
     (n_layers, B, S_enc, KH, hd)}``.
     """
+
+    STACKED = ("enc_layers", "dec_layers")
 
     def _init_tree(self, gen: torch.Generator) -> dict:
         cfg = self.cfg
@@ -102,11 +114,11 @@ class EncDecModel(LMModule):
         x = self.constrain(x, "act")
 
         def body(x, p):
+            p = self._view(p)
             h = _norm(x, p["ln1"], cfg)
             q, k, v = _qkv(h, p["attn"], cfg, cd, self.constrain, None)
-            h = flash_attention(q, k, v, False, None, None,
-                                cfg.q_block, cfg.k_block, 0)
-            h = torch.einsum("bshk,hkd->bsd", h, p["attn"]["wo"].to(cd))
+            h = _flash(q, k, v, False, cfg)
+            h = torch.einsum("bshk,hkd->bsd", h, _wo(p["attn"], cd))
             x = self.constrain(x + h, "act")
             h = mlp(_norm(x, p["ln2"], cfg), p["mlp"], cfg.act, cd,
                     constrain=lambda t: self.constrain(t, "act_ff"))
@@ -142,11 +154,11 @@ class EncDecModel(LMModule):
         x = self.constrain(self._dec_embed(params, batch["tokens"], cd), "act")
 
         def body(x, p):
+            p = self._view(p)
             h = _norm(x, p["ln1"], cfg)
             q, k, v = _qkv(h, p["attn"], cfg, cd, self.constrain, None)
-            h = flash_attention(q, k, v, True, None, None,
-                                cfg.q_block, cfg.k_block, 0)
-            h = torch.einsum("bshk,hkd->bsd", h, p["attn"]["wo"].to(cd))
+            h = _flash(q, k, v, True, cfg)
+            h = torch.einsum("bshk,hkd->bsd", h, _wo(p["attn"], cd))
             x = self.constrain(x + h, "act")
             kc, vc = _cross_kv(enc, p["xattn"], cfg, cd, self.constrain)
             h = _cross_apply(_norm(x, p["ln_x"], cfg), kc, vc, p["xattn"],
@@ -184,10 +196,11 @@ class EncDecModel(LMModule):
         params, (enc_layers, dec_layers) = self._cast()
         enc = self._encode(params, enc_layers, batch["enc_embeddings"])
         B = enc.shape[0]
-        cache = self.init_cache(B, max_decode_len, enc.shape[1])
-        for i, p in enumerate(dec_layers):
-            cache["xk"][i], cache["xv"][i] = _cross_kv(
-                enc, p["xattn"], cfg, cd, self.constrain)
+        cache = self.init_cache(B, max_decode_len, 0)
+        cross = [_cross_kv(enc, self._view(p["xattn"]), cfg, cd,
+                           self.constrain) for p in dec_layers]
+        cache["xk"] = torch.stack([kv[0] for kv in cross])
+        cache["xv"] = torch.stack([kv[1] for kv in cross])
         logits = torch.zeros((B, cfg.vocab_size), device=enc.device)
         return logits, cache
 
@@ -204,13 +217,15 @@ class EncDecModel(LMModule):
         x = self.constrain(x, "act")
         slot, eff_pos, _ = cache_slot(pos, cache["k"].shape[2], None)
         for i, p in enumerate(dec_layers):
+            p = self._view(p)
             ck, cv = cache["k"][i], cache["v"][i]
             h = _norm(x, p["ln1"], cfg)
             q, k, v = _qkv(h, p["attn"], cfg, cd, self.constrain, None)
-            ck[:, slot] = k[:, 0]
-            cv[:, slot] = v[:, 0]
-            h = decode_attention(q, ck, cv, eff_pos)
-            h = torch.einsum("bshk,hkd->bsd", h, p["attn"]["wo"].to(cd))
+            write_slot(ck, slot, k[:, 0])
+            write_slot(cv, slot, v[:, 0])
+            h = local_heads(lambda q, k, v: decode_attention(q, k, v, eff_pos),
+                            q, ck, cv)
+            h = torch.einsum("bshk,hkd->bsd", h, _wo(p["attn"], cd))
             x = x + h
             h = _cross_decode(_norm(x, p["ln_x"], cfg), cache["xk"][i],
                               cache["xv"][i], p["xattn"], cfg, cd)

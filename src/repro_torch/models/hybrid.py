@@ -29,6 +29,8 @@ class HybridModel(LMModule):
     ...), "k", "v" (n_shared, B, S, KH, hd)}``.
     """
 
+    STACKED = ("ssm_layers",)
+
     @property
     def n_shared(self) -> int:
         return self.cfg.n_layers // self.cfg.hybrid_period
@@ -86,7 +88,7 @@ class HybridModel(LMModule):
         rope = _rope(cfg, torch.arange(x.shape[1], device=x.device)[None, :])
 
         def group_body(x, group):
-            for pj in group:
+            for pj in map(self._view, group):
                 h, _ = ssm_apply(_norm(x, pj["norm"], cfg), pj["ssm"], cfg.ssm,
                                  cd)
                 x = self.constrain(x + h, "act")
@@ -116,7 +118,7 @@ class HybridModel(LMModule):
         rope = _rope(cfg, torch.arange(S, device=x.device)[None, :])
         ssm_caches, ks, vs = [], [], []
         for group in groups:
-            for pj in group:
+            for pj in map(self._view, group):
                 h, c = ssm_apply(_norm(x, pj["norm"], cfg), pj["ssm"], cfg.ssm,
                                  cd)
                 ssm_caches.append(c)
@@ -150,7 +152,7 @@ class HybridModel(LMModule):
         rope = _rope(cfg, torch.full((1, 1), pos, device=x.device))
         ssm_cache = cache["ssm"]
         for g, group in enumerate(groups):
-            for j, pj in enumerate(group):
+            for j, pj in enumerate(map(self._view, group)):
                 h, c = ssm_decode_step(_norm(x, pj["norm"], cfg)[:, 0],
                                        _at(ssm_cache, g, j), pj["ssm"],
                                        cfg.ssm, cd)

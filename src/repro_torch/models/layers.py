@@ -13,6 +13,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from .sharded import embedding
+
 
 def einsum_f32(eq: str, *operands: torch.Tensor) -> torch.Tensor:
     """``einsum`` with an fp32 result, as the reference's
@@ -189,7 +191,7 @@ def embed_lookup(params, tokens, compute_dtype, scale_by_sqrt_d=False):
     """Rows of the table in the compute dtype; with ``scale_by_sqrt_d``
     times ``sqrt(d)`` rounded to the compute dtype first."""
     t = params["table"].to(compute_dtype)
-    x = t[tokens]
+    x = embedding(tokens, t)
     if scale_by_sqrt_d:
         x = x * torch.tensor(math.sqrt(t.shape[-1]), dtype=compute_dtype,
                              device=x.device)

@@ -55,6 +55,7 @@ class SSMModel(LMModule):
                            "act")
 
         def body(x, p):
+            p = self._view(p)
             h, _ = ssm_apply(_norm(x, p["norm"], cfg), p["ssm"], cfg.ssm, cd)
             return self.constrain(x + h, "act")
 
@@ -85,6 +86,7 @@ class SSMModel(LMModule):
         x = embed_lookup(params["embed"], batch["tokens"], cd)
         caches = []
         for p in layers:
+            p = self._view(p)
             h, c = ssm_apply(_norm(x, p["norm"], cfg), p["ssm"], cfg.ssm, cd)
             x = x + h
             caches.append(c)
@@ -101,6 +103,7 @@ class SSMModel(LMModule):
         params, layers = self._cast()
         x = embed_lookup(params["embed"], tokens, cd)[:, 0]    # (B, d)
         for i, p in enumerate(layers):
+            p = self._view(p)
             h, c = ssm_decode_step(_norm(x, p["norm"], cfg), _at(cache, i),
                                    p["ssm"], cfg.ssm, cd)
             cache["ssm"][i], cache["conv"][i] = c["ssm"], c["conv"]

@@ -18,6 +18,7 @@ from typing import NamedTuple
 import torch
 
 from .layers import act_fn, dense_init
+from .sharded import experts_local, local_rows
 
 
 class MoESpec(NamedTuple):
@@ -63,28 +64,67 @@ def moe_apply(x, params, spec: MoESpec, *, act="silu",
 
     Routing and slot assignment are per batch row; tokens beyond an expert's
     capacity are dropped (standard switch behavior, capacity_factor slack).
+    Under DTensor the routing, the dispatch and the combine run on each
+    rank's own rows (``sharded.local_rows``): they index by computed slots,
+    which DTensor has no rule for; the router product, the aux losses and
+    the expert FFN are DTensor ops.
     """
     B, S, d = x.shape
     E, k = spec.n_experts, spec.top_k
     C = capacity(S, spec)
-    dev = x.device
 
     def w(n):
         return params[n].to(compute_dtype)
 
     logits = x.float() @ params["router"].float()
     probs = torch.softmax(logits, dim=-1)
-    top_vals, top_idx = top_k(logits, k)                       # (B,S,k)
-    gate = torch.softmax(top_vals, dim=-1)                     # renormalized
+    routed = {}
+
+    def route(lg):
+        top_vals, top_idx = top_k(lg, k)                       # (B,S,k)
+        routed["gate"] = torch.softmax(top_vals, dim=-1)       # renormalized
+        routed["e_flat"], routed["slot"], routed["keep"] = _slots(
+            top_idx, E, C)
+        return torch.nn.functional.one_hot(top_idx[..., 0], E).float()
 
     # ---- aux losses (computed on the full router distribution) ----
     me = torch.mean(probs, dim=(0, 1))                             # (E,)
-    assign_onehot = torch.nn.functional.one_hot(top_idx[..., 0], E).float()
-    ce = torch.mean(assign_onehot, dim=(0, 1))                     # top-1 share
+    assign_onehot = local_rows(route, logits, out_shape=(B, S, E))
+    ce = torch.mean(assign_onehot, dim=(0, 1))            # top-1 share
     lb_loss = E * torch.sum(me * ce)
     z_loss = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
 
-    # ---- slot assignment: position of each (token, k) within its expert ----
+    expert_in = local_rows(lambda xl: _dispatch(xl, routed, E, C), x,
+                           out_shape=(B, E, C, d))                 # (B,E,C,d)
+    if constrain_in is not None:
+        expert_in = constrain_in(expert_in)
+
+    # ---- expert FFN (batched over E) ----
+    expert_in, back = experts_local(expert_in, w("wi"))
+    h = torch.einsum("becd,edf->becf", expert_in, w("wi"))
+    h = act_fn(act)(h)
+    if "wg" in params:
+        h = h * torch.einsum("becd,edf->becf", expert_in, w("wg"))
+    if constrain_hidden is not None:
+        h = constrain_hidden(h)
+    out_e = back(torch.einsum("becf,efd->becd", h, w("wo")))      # (B,E,C,d)
+    if constrain_out is not None:
+        out_e = constrain_out(out_e)
+
+    out = local_rows(lambda ol: _combine(ol, routed, S, k), out_e,
+                     out_shape=(B, S, d))
+    keep = routed["keep"]
+    aux = {"lb_loss": lb_loss, "z_loss": z_loss,
+           "drop_frac": 1.0 - torch.mean(keep.float())}
+    return out, aux
+
+
+def _slots(top_idx, E, C):
+    """``(e_flat, slot, keep)`` of the top-k choices ``(B, S, k)``: each
+    (token, k)'s expert, its position within that expert (the overflow
+    slot ``C`` past the capacity) and whether it fits."""
+    B, S, k = top_idx.shape
+    dev = top_idx.device
     e_flat = top_idx.reshape(B, S * k)                             # token-major
     order = torch.argsort(e_flat, dim=-1, stable=True)             # (B,S*k)
     sorted_e = torch.gather(e_flat, -1, order)
@@ -96,8 +136,16 @@ def moe_apply(x, params, spec: MoESpec, *, act="silu",
     slot = torch.gather(pos_sorted, -1, inv_order)
     keep = slot < C
     slot = torch.where(keep, slot, C)                              # overflow slot
+    return e_flat, slot, keep
 
-    # ---- dispatch: (E, C+1) slot table of source-token indices ----
+
+def _dispatch(x, routed, E, C):
+    """``(B, E, C, d)`` expert inputs: the (E, C+1) slot table of source
+    tokens, rows gathered from ``x`` (a zero row for empty slots)."""
+    B, S, d = x.shape
+    e_flat, slot = routed["e_flat"], routed["slot"]
+    k = e_flat.shape[1] // S
+    dev = x.device
     tok_idx = torch.arange(S, device=dev).repeat_interleave(k).expand(B, S * k)
     table = torch.full((B, E * (C + 1)), S, dtype=torch.int64, device=dev)
     table.scatter_(1, e_flat * (C + 1) + slot, tok_idx)   # S -> the zero row
@@ -105,30 +153,20 @@ def moe_apply(x, params, spec: MoESpec, *, act="silu",
     xp = torch.cat([x, torch.zeros((B, 1, d), dtype=x.dtype, device=dev)],
                    dim=1)                                          # zero pad row
     src = table[..., :C].reshape(B, E * C, 1).expand(B, E * C, d)
-    expert_in = torch.gather(xp, 1, src).view(B, E, C, d)          # (B,E,C,d)
-    if constrain_in is not None:
-        expert_in = constrain_in(expert_in)
+    return torch.gather(xp, 1, src).view(B, E, C, d)
 
-    # ---- expert FFN (batched over E) ----
-    h = torch.einsum("becd,edf->becf", expert_in, w("wi"))
-    h = act_fn(act)(h)
-    if "wg" in params:
-        h = h * torch.einsum("becd,edf->becf", expert_in, w("wg"))
-    if constrain_hidden is not None:
-        h = constrain_hidden(h)
-    out_e = torch.einsum("becf,efd->becd", h, w("wo"))            # (B,E,C,d)
-    if constrain_out is not None:
-        out_e = constrain_out(out_e)
 
-    # ---- combine: gather each assignment's result, weight, and sum over k ----
+def _combine(out_e, routed, S, k):
+    """``(B, S, d)``: each assignment's expert output gathered back,
+    weighted by its gate (0 when dropped) and summed over the k choices."""
+    B, E, C, d = out_e.shape
+    e_flat, slot, keep = routed["e_flat"], routed["slot"], routed["keep"]
     out_flat = torch.cat(
-        [out_e, torch.zeros((B, E, 1, d), dtype=out_e.dtype, device=dev)],
+        [out_e, torch.zeros((B, E, 1, d), dtype=out_e.dtype,
+                            device=out_e.device)],
         dim=2).reshape(B, E * (C + 1), d)
     gather_idx = e_flat * (C + 1) + slot                           # (B,S*k)
     vals = torch.gather(out_flat, 1, gather_idx[..., None].expand(-1, -1, d))
-    vals = vals * (gate.reshape(B, S * k, 1) * keep[..., None]).to(vals.dtype)
-    out = vals.reshape(B, S, k, d).sum(dim=2)
-
-    aux = {"lb_loss": lb_loss, "z_loss": z_loss,
-           "drop_frac": 1.0 - torch.mean(keep.float())}
-    return out, aux
+    vals = vals * (routed["gate"].reshape(B, S * k, 1)
+                   * keep[..., None]).to(vals.dtype)
+    return vals.reshape(B, S, k, d).sum(dim=2)

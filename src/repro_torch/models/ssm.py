@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from .layers import dense_init, einsum_f32, rmsnorm
+from .sharded import local_rows, replicate, whole
 
 
 class SSMSpec(NamedTuple):
@@ -94,22 +95,44 @@ def ssm_apply(x, params, spec: SSMSpec, compute_dtype):
 
     The cache, ``{"ssm": (B, H, P, N) fp32, "conv": (B, K-1, conv_dim)}``,
     seeds decode.  ``S`` must be at most the chunk or a multiple of it.
+    Under DTensor the block between the two projections runs on each
+    rank's own rows (``sharded.local_rows``), the projections as DTensor
+    products; the TP-sharded ``in_proj`` output is gathered for the split
+    into z | xBC | dt.
     """
     cd = compute_dtype
     B, S, _ = x.shape
-    di, N, H, P = spec.d_inner, spec.d_state, spec.n_heads, spec.head_dim
+    H, P, N = spec.n_heads, spec.head_dim, spec.d_state
     Q = min(spec.chunk, S)
     if S % Q:
         raise ValueError(f"ssm_apply: the sequence length S = {S} is not a "
                          f"multiple of the chunk Q = {Q}")
-    nc = S // Q
 
     def w(n):
         return params[n].to(cd)
 
-    zxbcdt = x @ w("in_proj")
+    zxbcdt = whole(x @ w("in_proj"), -1)
+    inner = {"conv_w": w("conv_w"), "conv_b": w("conv_b"),
+             "dt_bias": params["dt_bias"], "A_log": params["A_log"],
+             "D": params["D"], "norm_scale": params["norm_scale"]}
+    y, s = local_rows(lambda z, p: _ssd(z, p, spec, cd), zxbcdt, inner,
+                      out_shape=((B, S, spec.d_inner), (B, H, P, N)))
+    out = y @ w("out_proj")
+
+    conv_tail = xBC_raw_tail(x, params, spec, cd)
+    return out, {"ssm": s, "conv": conv_tail}
+
+
+def _ssd(zxbcdt, params, spec: SSMSpec, cd):
+    """The block between the projections, row by row: the causal conv,
+    the chunked SSD scan, the gate and the norm.  Returns ``(y (B, S,
+    d_inner), final state (B, H, P, N) fp32)``."""
+    B, S, _ = zxbcdt.shape
+    di, N, H, P = spec.d_inner, spec.d_state, spec.n_heads, spec.head_dim
+    Q = min(spec.chunk, S)
+    nc = S // Q
     z, xBC, dt_raw = _split_proj(zxbcdt, spec)
-    xBC = _causal_conv(xBC, w("conv_w"), w("conv_b"))
+    xBC = _causal_conv(xBC, params["conv_w"], params["conv_b"])
     xs = xBC[..., :di].reshape(B, S, H, P)
     Bm = xBC[..., di:di + N]                                  # (B, S, N), G=1
     Cm = xBC[..., di + N:]
@@ -127,7 +150,7 @@ def ssm_apply(x, params, spec: SSMSpec, compute_dtype):
     # ---- intra-chunk (dual/attention-like) term, vectorized over chunks ----
     CB = einsum_f32("bcin,bcjn->bcij", C_c, B_c)                     # (B,nc,Q,Q)
     seg = la[:, :, :, None, :] - la[:, :, None, :, :]                # (B,nc,i,j,H)
-    iq = torch.arange(Q, device=x.device)
+    iq = torch.arange(Q, device=zxbcdt.device)
     causal = iq[:, None] >= iq[None, :]
     causal = causal[None, None, :, :, None]
     # seg is masked before the exp: above the diagonal it is positive and
@@ -145,7 +168,7 @@ def ssm_apply(x, params, spec: SSMSpec, compute_dtype):
     chunk_state = einsum_f32("bcjh,bcjn,bcjhp->bchpn",
                              (decay_to_end * dt_c).to(cd), B_c, xs_c)
     chunk_decay = torch.exp(la[:, :, -1, :])                         # (B,nc,H)
-    s = torch.zeros((B, H, P, N), device=x.device)
+    s = torch.zeros((B, H, P, N), device=zxbcdt.device)
     prev = []
     for c in range(nc):
         prev.append(s)                          # the state *before* chunk c
@@ -159,20 +182,17 @@ def ssm_apply(x, params, spec: SSMSpec, compute_dtype):
     y = y + params["D"].float()[None, None, :, None] * xs.float()
     y = y.reshape(B, S, di).to(cd)
 
-    # gated RMSNorm + out projection
+    # gated RMSNorm (the out projection follows)
     y = y * F.silu(z)
-    y = rmsnorm(y, {"scale": params["norm_scale"]}, 1e-5)
-    out = y @ w("out_proj")
-
-    conv_tail = xBC_raw_tail(x, params, spec, cd)
-    return out, {"ssm": s, "conv": conv_tail}
+    return rmsnorm(y, {"scale": params["norm_scale"]}, 1e-5), s
 
 
 def xBC_raw_tail(x, params, spec: SSMSpec, compute_dtype):
     """Last (K-1) pre-conv xBC rows — the decode conv cache after prefill,
     projected again from ``x`` as the reference does."""
     K = spec.d_conv
-    tail = x[:, -(K - 1):, :] @ params["in_proj"].to(compute_dtype)
+    tail = whole(x[:, -(K - 1):, :] @ params["in_proj"].to(compute_dtype),
+                 -1)
     _, xBC, _ = _split_proj(tail, spec)
     return xBC  # (B, K-1, conv_dim)
 
@@ -197,11 +217,13 @@ def ssm_decode_step(x, cache, params, spec: SSMSpec, compute_dtype):
     def w(n):
         return params[n].to(cd)
 
-    zxbcdt = x @ w("in_proj")
+    zxbcdt = whole(x @ w("in_proj"), -1)
     z, xBC_new, dt_raw = _split_proj(zxbcdt, spec)
     # rolling conv window: cache holds previous K-1 raw xBC rows
-    window = torch.cat([cache["conv"], xBC_new[:, None, :]], dim=1)  # (B,K,C)
-    conv_out = torch.einsum("bkc,kc->bc", window, w("conv_w")) + w("conv_b")
+    window = torch.cat([whole(cache["conv"], -1), xBC_new[:, None, :]],
+                       dim=1)                                        # (B,K,C)
+    conv_out = torch.einsum("bkc,kc->bc", window, replicate(w("conv_w"))) \
+        + replicate(w("conv_b"))
     xBC = F.silu(conv_out)
     xv = xBC[:, :di].reshape(B, H, P)
     Bm = xBC[:, di:di + N]

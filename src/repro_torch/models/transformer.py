@@ -14,8 +14,10 @@ runs over groups and unrolls each group's members with their kinds.
 The reference casts every fp32 matrix to the compute dtype inside every
 call; the module makes that cast once per parameter set and device and
 keeps the compute-dtype copy (same bits).  Sharding is injected via a
-``constrain(x, kind)`` hook, a no-op here, so model code stays
-mesh-agnostic.
+``constrain(x, kind)`` hook: a no-op on one device; under a
+``Parallelism`` the parameters and activations are DTensors, ``constrain``
+redistributes them by role (``distributed/sharding.py``) and
+``models/sharded.py`` holds the ops DTensor cannot place alone.
 
 Training (``loss``) casts inside autograd on every call instead
 (``LMModule._live``), so the gradients reach the module's own fp32
@@ -41,6 +43,7 @@ from .layers import (einsum_f32, embed_init, embed_lookup, layernorm,
                      layernorm_init, mlp, mlp_init, rmsnorm, rmsnorm_init,
                      rope_angles, rope_rotate, _he)
 from .moe import moe_apply, moe_init
+from .sharded import is_dt, local_heads, local_rows, whole, write_slot
 
 if TYPE_CHECKING:  # hints only
     from ..configs.base import ModelConfig
@@ -89,9 +92,13 @@ def attn_init(gen, cfg: ModelConfig, dtype, d_model=None, lead=()):
 
 
 def _qkv(x, p, cfg: ModelConfig, cd, constrain, rope=None):
-    """q, k, v of ``x``; ``rope`` is ``layers.rope_angles``' (cos, sin)."""
+    """q, k, v of ``x``; ``rope`` is ``layers.rope_angles``' (cos, sin).
+
+    The decode profile shards a projection over ``head_dim`` when its
+    heads do not divide TP; under DTensor that dim is gathered for the
+    product (a reshape of a sharded ``head_dim`` has no rule)."""
     def w(n):
-        return p[n].to(cd)
+        return whole(p[n].to(cd), -1)
     q = torch.einsum("bsd,dhk->bshk", x, w("wq"))
     k = torch.einsum("bsd,dhk->bshk", x, w("wk"))
     v = torch.einsum("bsd,dhk->bshk", x, w("wv"))
@@ -109,6 +116,13 @@ def _rope(cfg: ModelConfig, positions):
 
 
 def _attend(q, k, v, cfg: ModelConfig, kind, causal):
+    """Attention by the config's implementation; under DTensor on each
+    rank's own rows and heads (``sharded.local_heads``)."""
+    return local_heads(lambda q, k, v: _attend_local(q, k, v, cfg, kind,
+                                                     causal), q, k, v)
+
+
+def _attend_local(q, k, v, cfg: ModelConfig, kind, causal):
     S = q.shape[1]
     window = cfg.window if kind == "local" else None
     if cfg.attn_impl == "flash":
@@ -136,7 +150,13 @@ def _attn_prefill(x, p, cfg: ModelConfig, *, kind, constrain, rope,
     x = constrain(x, "attn_in")
     q, k, v = _qkv(x, p, cfg, cd, constrain, rope)
     out = constrain(_attend(q, k, v, cfg, kind, causal), "heads")
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(cd)), k, v
+    return torch.einsum("bshk,hkd->bsd", out, _wo(p, cd)), k, v
+
+
+def _wo(p, cd):
+    """The attention output projection ``(H, hd, d)`` in ``cd``, its
+    ``head_dim`` gathered where the decode profile shards it."""
+    return whole(p["wo"].to(cd), -2)
 
 
 def attn_prefill_kv(x, p, cfg: ModelConfig, cd, constrain, positions):
@@ -186,11 +206,14 @@ def attn_decode(x, p, cfg: ModelConfig, cache_k, cache_v, pos, *, kind: str,
     q, k, v = _qkv(x, p, cfg, cd, constrain, rope)
     window = cfg.window if kind == "local" else None
     slot, eff_pos, eff_window = cache_slot(pos, cache_k.shape[1], window)
-    cache_k[:, slot] = k[:, 0]
-    cache_v[:, slot] = v[:, 0]
-    out = decode_attention(q, cache_k, cache_v, eff_pos, window=eff_window,
-                           softcap=cfg.attn_softcap)
-    out = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(cd))
+    write_slot(cache_k, slot, k[:, 0])
+    write_slot(cache_v, slot, v[:, 0])
+    out = local_heads(
+        lambda q, ck, cv: decode_attention(q, ck, cv, eff_pos,
+                                           window=eff_window,
+                                           softcap=cfg.attn_softcap),
+        q, cache_k, cache_v)
+    out = torch.einsum("bshk,hkd->bsd", out, _wo(p, cd))
     return out, cache_k, cache_v
 
 
@@ -284,18 +307,29 @@ def layer_decode(x, p, cfg: ModelConfig, ck, cv, pos, *, kind: str,
 # ---------------------------------------------------------------------------
 
 
-def _chunk_nll(h_c, t, y_c, V, cap):
+def _chunk_nll(h_c, t, y_c, V, cap, constrain):
     """``(sum of the nll, valid labels)`` of one ``(B, c)`` slice; label
-    ``-1`` is a pad."""
-    logits = einsum_f32("bsd,vd->bsv", h_c, t)[..., :V]
+    ``-1`` is a pad.  Vocab-sharded logits (the reference's ``"logits"``
+    role) are gathered over the vocabulary, and the log-sum-exp and the
+    label pick run on each rank's rows (``sharded.whole``,
+    ``local_rows``)."""
+    logits = whole(constrain(einsum_f32("bsd,vd->bsv", h_c, t), "logits"),
+                   -1)
+    nll = local_rows(lambda lg, y: _row_nll(lg[..., :V], y, cap),
+                     (logits, y_c), out_shape=tuple(y_c.shape))
+    valid = y_c >= 0
+    nll = torch.where(valid, nll, 0.0)
+    return torch.sum(nll), torch.sum(valid)
+
+
+def _row_nll(logits, y, cap):
+    """Per token ``logsumexp(logits) - logits[y]`` (soft-capped first)."""
     if cap is not None:
         logits = cap * torch.tanh(logits / cap)
     lse = torch.logsumexp(logits, dim=-1)
     picked = torch.gather(logits, -1,
-                          torch.clamp(y_c, min=0)[..., None].long())[..., 0]
-    valid = y_c >= 0
-    nll = torch.where(valid, lse - picked, 0.0)
-    return torch.sum(nll), torch.sum(valid)
+                          torch.clamp(y, min=0)[..., None].long())[..., 0]
+    return lse - picked
 
 
 def chunked_ce(h, table, labels, cfg: ModelConfig, constrain: Constrain):
@@ -316,7 +350,8 @@ def chunked_ce(h, table, labels, cfg: ModelConfig, constrain: Constrain):
     for i in range(S // c):
         part = ckpt.checkpoint(_chunk_nll, h[:, i * c:(i + 1) * c], t,
                                labels[:, i * c:(i + 1) * c], cfg.vocab_size,
-                               cfg.final_softcap, use_reentrant=False)
+                               cfg.final_softcap, constrain,
+                               use_reentrant=False)
         nll, n = nll + part[0], n + part[1]
     return nll, n
 
@@ -390,6 +425,17 @@ def _at(tree: dict, *idx) -> dict:
             for k, v in tree.items()}
 
 
+def _stack_whole(v, n_lead: int):
+    """A stacked leaf with its ``n_lead`` layer axes unsharded.  Only a
+    DTensor can be sharded there: the reference's rule for a 3-D ``wo``
+    (heads, head_dim, d) also takes a stacked 2-D MLP ``wo`` (layers, f,
+    d) and shards its layer axis over TP; the layers are gathered before
+    they are split apart (``unbind`` has no rule for a sharded dim)."""
+    for d in range(n_lead):
+        v = whole(v, d)
+    return v
+
+
 def _unstack(tree: dict, lead: tuple) -> list:
     """The layers of a tree stacked on the ``lead`` axes, row-major, as
     views: one ``unbind`` a leaf, whose gradient is one ``stack`` (where
@@ -397,7 +443,8 @@ def _unstack(tree: dict, lead: tuple) -> list:
     in the backward)."""
     n = math.prod(lead)
     parts = {k: _unstack(v, lead) if isinstance(v, dict) else
-             v.reshape(n, *v.shape[len(lead):]).unbind(0)
+             _stack_whole(v, len(lead)).reshape(
+                 n, *v.shape[len(lead):]).unbind(0)
              for k, v in tree.items()}
     return [{k: p[i] for k, p in parts.items()} for i in range(n)]
 
@@ -449,10 +496,12 @@ class LMModule(nn.Module):
         place (its storage or version counter changed), as an optimizer
         step writes it."""
         leaves = list(self.params.parameters())
-        key = tuple((t.data_ptr(), t._version, t.dtype) for t in leaves)
+        key = tuple((id(t._local_tensor) if is_dt(t) else t.data_ptr(),
+                     t._version, t.dtype) for t in leaves)
         if self._compute is None or self._compute[0] != key:
             self._compute = None        # free the old copy before the new
-            tree = self.params.as_dict(self._cast_leaf(detach=True))
+            tree = self._top_view(
+                self.params.as_dict(self._cast_leaf(detach=True)))
             self._compute = (key, tree, self._layer_views(tree))
         return self._compute[1:]
 
@@ -460,8 +509,29 @@ class LMModule(nn.Module):
         """``(compute tree, layer views)`` for training: ``_cast``'s rule,
         applied inside autograd on every call, so the gradients flow back
         to the fp32 parameters.  Nothing is kept."""
-        tree = self.params.as_dict(self._cast_leaf(detach=False))
+        tree = self._top_view(
+            self.params.as_dict(self._cast_leaf(detach=False)))
         return tree, self._layer_views(tree)
+
+    #: top-level keys of the parameter tree that hold layers stacked on
+    #: leading axes: gathered a layer at a time (``_view``)
+    STACKED = ("layers",)
+
+    def _view(self, tree):
+        """A parameter (sub)tree as the compute reads it: under a
+        ``Parallelism`` each leaf gathered over the FSDP axis
+        (``constrain``'s ``"param"`` role), ZeRO-3's gather on use; on one
+        device the tree itself.  The model views each layer's parameters
+        inside its (rematerialized) body, so one layer's are gathered at a
+        time."""
+        if isinstance(tree, dict):
+            return {k: self._view(v) for k, v in tree.items()}
+        return self.constrain(tree, "param")
+
+    def _top_view(self, tree):
+        """``_view`` of every top-level subtree but the stacked layers."""
+        return {k: v if k in self.STACKED else self._view(v)
+                for k, v in tree.items()}
 
     def _cast_leaf(self, *, detach: bool):
         """The reference's cast: fp32 leaves of more than one axis (of the
@@ -487,8 +557,10 @@ class LMModule(nn.Module):
 
     def _logits_f32(self, x, table):
         """fp32 logits of ``x (B, d)`` against ``table``, the product in
-        fp32 (the reference's ``preferred_element_type``)."""
-        return einsum_f32("bd,vd->bv", x, table)[:, :self.cfg.vocab_size]
+        fp32 (the reference's ``preferred_element_type``); vocab-sharded
+        ones gathered before the slice to the vocabulary."""
+        return whole(einsum_f32("bd,vd->bv", x, table),
+                     -1)[:, :self.cfg.vocab_size]
 
 
 # ---------------------------------------------------------------------------
@@ -559,7 +631,8 @@ class DecoderModel(LMModule):
         def group_body(x, group):
             aux_sum = torch.zeros((2,), device=x.device)
             for kind, pj in group:
-                x, aux, _, _ = _layer_prefill(x, pj, cfg, kind=kind,
+                x, aux, _, _ = _layer_prefill(x, self._view(pj), cfg,
+                                              kind=kind,
                                               constrain=self.constrain,
                                               rope=rope)
                 aux_sum = aux_sum + torch.stack([aux["lb_loss"],
@@ -610,8 +683,9 @@ class DecoderModel(LMModule):
                  else S for j, kind in enumerate(cfg.layer_group)}
         slabs = {f"{c}{j}": [] for j in spans for c in "kv"}
         for kind, _, j, pj in layers:
-            x, _, k, v = _layer_prefill(x, pj, cfg, kind=kind,
-                                        constrain=self.constrain, rope=rope)
+            x, _, k, v = _layer_prefill(x, self._view(pj), cfg, kind=kind,
+                                        constrain=self.constrain,
+                                        rope=rope)
             slabs[f"k{j}"].append(k[:, S - spans[j]:])
             slabs[f"v{j}"].append(v[:, S - spans[j]:])
         cache = {name: torch.stack(s) for name, s in slabs.items()}
@@ -634,7 +708,7 @@ class DecoderModel(LMModule):
         x = self.constrain(x, "act")
         rope = _rope(cfg, torch.full((1, 1), pos, device=x.device))
         for kind, g, j, pj in layers:
-            x, _, _ = layer_decode(x, pj, cfg, cache[f"k{j}"][g],
+            x, _, _ = layer_decode(x, self._view(pj), cfg, cache[f"k{j}"][g],
                                    cache[f"v{j}"][g], pos, kind=kind,
                                    constrain=self.constrain, rope=rope)
         x = _norm(x, params["final_norm"], cfg)

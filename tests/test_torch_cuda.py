@@ -629,3 +629,40 @@ def test_train_steps_and_checkpoint_across_devices(dev, tmp_path):
         assert torch.equal(x, y)
     assert back["params"]["embed"]["table"] is b.state["params"]["embed"][
         "table"]
+
+
+# ---------------------------------------------------------------------------
+# sharded training (DTensor on a (1, 1) device mesh over NCCL)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "mixtral-8x7b"])
+def test_sharded_train_steps_bitwise_on_one_card(nccl_mesh, arch):
+    """``chip_smoke.py`` phase 15(a) on a reduced arch: two steps with
+    ``par`` on a ``(1, 1)`` device mesh over the module's NCCL group equal
+    the ``par=None`` steps bit for bit, loss and every parameter."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.distributed.sharding import Parallelism
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.train.train_step import init_train_state, make_train_step
+    from repro_torch.tree import tree_leaves
+    dev = nccl_mesh.device
+    cfg = get_config(arch).reduced()
+    batches = [make_batch(DataConfig(cfg.vocab_size, 64, 4), i, dev)
+               for i in range(2)]
+
+    def run(par):
+        model, step = make_train_step(cfg, par, device=dev, seed=3)
+        state, losses = init_train_state(model), []
+        for b in batches:
+            state, met = step(state, b)
+            losses.append(met["loss"].item())
+        return losses, [(t.full_tensor() if isinstance(t, DTensor) else t)
+                        .detach() for t in tree_leaves(state["params"])]
+
+    plain = run(None)
+    sharded = run(Parallelism(make_host_mesh((1, 1), device_type="cuda")))
+    assert plain[0] == sharded[0]
+    assert all(torch.equal(a, b) for a, b in zip(plain[1], sharded[1]))

@@ -6,7 +6,8 @@ batches (``make_batch`` is bitwise), six steps of the port's
 microbatches: the loss, the metrics and the gradient norm each step at
 rtol 1e-4, and every parameter, moment and count after (rtol 1e-4, atol
 1e-6).  The step updates the module's own parameters in place; a ``par``
-raises (sharded steps are A14's).
+that is no ``Parallelism`` raises (sharded steps:
+``test_torch_train_sharded.py``).
 """
 import dataclasses
 
@@ -71,7 +72,7 @@ def test_sharded_par_is_refused_and_serve_steps_read_the_module():
     cfg = get_config("llama3.2-1b").reduced()
     for make in (TS.make_train_step, TS.make_prefill_step,
                  TS.make_decode_step):
-        with pytest.raises(NotImplementedError, match="A14"):
+        with pytest.raises(TypeError, match="Parallelism"):
             make(cfg, object(), device="cpu")
     model, prefill = TS.make_prefill_step(cfg, device="cpu")
     _, decode = TS.make_decode_step(cfg, device="cpu")    # same seed
