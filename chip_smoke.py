@@ -129,13 +129,23 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` with
    ``par=None`` steps, step ms (CUDA events) and peak memory; (b) the dry
    run of that cell on a one-rank fake group, its predicted flops, bytes,
    peak memory and roofline beside (a)'s measurement; (c) llama's
-   train_4k (cut to ``DRY_TRAIN_LAYERS`` layers) and decode_32k on the
-   256-rank production mesh: per-device memory, flops, collectives,
-   dominant roofline term; (d) ``--pdes-core`` on the single mesh, one
-   rank's shard of L = 2^20 x 512 trials x 64 steps run on the card
-   (both modes), every B2 launch held against its plain version, the
-   collective bytes and messages a step, B2's launches and ms;
-16. the last lines: one JSON object per kernel (times, bound, launches),
+   train_4k at its full 16 layers, prefill_32k and decode_32k on the
+   256-rank production mesh, each loop counted once and scaled by its
+   trip count (``launch.cost.scan``): each trace's wall, per-device
+   memory, flops, collectives, dominant roofline term; (d)
+   ``--pdes-core`` on the single mesh, one rank's shard of L = 2^20 x 512
+   trials x 64 steps run on the card (both modes), every B2 launch held
+   against its plain version, the collective bytes and messages a step,
+   B2's launches and ms;
+16. the causality linter (``repro_torch.analysis``), after the kernels
+   are built: ``python -m repro_torch.analysis --backend all --format
+   json -o <file>`` as a subprocess, exit 0 and each backend's report
+   equal to ``tests/golden/analysis_<backend>.json``; every kernel's
+   launch plan at L = 10,000 and at ``tiling.MAX_RING_L`` with the
+   registers, static shared bytes and spills of this run's ptxas logs,
+   against one block's budget; the six seeded fixtures, each firing its
+   own rule and only it;
+17. the last lines: one JSON object per kernel (times, bound, launches),
    then ``{"ok": true, "device": {...}}``.
 
 Every phase asserts; any failure exits non-zero with no result line.
@@ -311,11 +321,10 @@ TRAIN_GRAD_TOL = 1e-4
 FP32_FLOPS_PER_S = 67e12
 #: Phase 15: (a) phase 14(b)'s llama step, sharded on a (1, 1) mesh over
 #: NCCL against the one-device step, ``SHARDED_STEPS`` steps each;
-#: (c) the production mesh's dry run, train_4k cut to ``DRY_TRAIN_LAYERS``
-#: of llama's 16 layers (decode_32k at full depth); (d) the PDES core's
-#: shard at the reference's dry-run size.
+#: (c) the production mesh's dry run of ``DRY_CELLS`` at full depth;
+#: (d) the PDES core's shard at the reference's dry-run size.
 SHARDED_STEPS = 2
-DRY_TRAIN_LAYERS = 2
+DRY_CELLS = ("train_4k", "prefill_32k", "decode_32k")
 PDES_CORE = dict(L=1 << 20, trials=512, steps=64)
 #: Phase 13: the port's PDES examples, run as subprocesses from the root.
 EXAMPLES = (
@@ -2774,19 +2783,23 @@ def phase_dryrun(torch, configs, measured):
           f"({rl['dominant']}) against {measured['ms']:.3f} ms measured")
     with fake_world(256):
         mesh = make_production_mesh()
-        for name, over in (("train_4k", {"n_layers": DRY_TRAIN_LAYERS}),
-                           ("decode_32k", {})):
-            rec, _ = lower_cell("llama3.2-1b", name, mesh, overrides=over)
+        for name in DRY_CELLS:
+            t1 = time.perf_counter()
+            rec, cost = lower_cell("llama3.2-1b", name, mesh)
             rl, mem = rec["roofline"], rec["memory"]
             coll = {k: v for k, v in rl["coll_detail"].items() if v}
-            print(f"[shard c] llama3.2-1b {name} on 16 x 16 "
-                  f"({'depth ' + str(over['n_layers']) + ' of 16 layers, '
-                     if over else ''}traced in {rec['lower_s']} s): per "
-                  f"device peak {mem['peak_gib']:.3f} GiB (arguments "
+            check(rl["flops_per_dev"] > 0 and mem["peak_gib"] > 0,
+                  f"dry run of {name} counted nothing")
+            print(f"[shard c] llama3.2-1b {name} on 16 x 16, full depth, "
+                  f"loops counted once (traced in "
+                  f"{time.perf_counter() - t1:.1f} s): per device peak "
+                  f"{mem['peak_gib']:.3f} GiB (arguments "
                   f"{mem['argument_gib']:.3f}), {rl['flops_per_dev'] / 1e12:.3f}"
-                  f" TFLOP, {rl['bytes_per_dev'] / 1e12:.3f} TB, collectives "
-                  f"{coll}; roofline compute {rl['compute_s'] * 1e3:.3f} ms, "
-                  f"memory {rl['memory_s'] * 1e3:.3f} ms, collective "
+                  f" TFLOP, {rl['bytes_per_dev'] / 1e12:.3f} TB, collective "
+                  f"bytes {cost.coll_bytes:.6g} in {cost.coll_msgs:.0f} "
+                  f"messages {coll}; roofline compute "
+                  f"{rl['compute_s'] * 1e3:.3f} ms, memory "
+                  f"{rl['memory_s'] * 1e3:.3f} ms, collective "
                   f"{rl['collective_s'] * 1e3:.3f} ms: {rl['dominant']}")
 
 
@@ -2847,6 +2860,55 @@ def phase_pdes_core(torch, ps, ops, ref, _build, dev, timer=cuda_ms):
           f"{B_l} x {L_l}: the kernel {k_ms:.5f} ms, the wrapper with its "
           f"int64 -> uint32 word conversion {w_ms:.5f} ms (CUDA events)")
     return launches
+
+
+def phase_linter(root):
+    """Phase 16: the causality linter over every backend (a subprocess,
+    its report held to the goldens), each kernel's launch plan and this
+    run's ptxas figures against one block's budget, and the six seeded
+    fixtures."""
+    from repro_torch.analysis import analyze_probe
+    from repro_torch.analysis.fixtures import FIXTURES
+    from repro_torch.analysis.rules import vmem
+    from repro_torch.kernels.tiling import MAX_RING_L
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = pathlib.Path(tmp) / "analysis.json"
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.analysis", "--backend", "all",
+             "--format", "json", "-o", str(out)], cwd=root,
+            env=dict(os.environ, PYTHONPATH=str(root / "src")),
+            capture_output=True, text=True, timeout=600)
+        check(proc.returncode == 0, "python -m repro_torch.analysis exited "
+              f"{proc.returncode}:\n{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
+        report = json.loads(out.read_text())
+    for rep in report["backends"]:
+        golden = json.loads((root / "tests" / "golden" /
+                             f"analysis_{rep['backend']}.json").read_text())
+        check(rep == golden, f"the linter's report for {rep['backend']} "
+              f"differs from its golden: {rep}")
+    print(f"[linter] python -m repro_torch.analysis --backend all: exit 0, "
+          f"{len(report['backends'])} backends equal to their goldens, "
+          f"{report['n_findings']} findings ({time.perf_counter() - t0:.1f} s)")
+    for L in (10_000, MAX_RING_L):
+        for row in vmem.kernel_budgets(L):
+            info = row["ptxas"]
+            check(info is not None, f"no ptxas log for {row['kernel']}")
+            check(not row["over"], f"{row['kernel']} at L={L}: {row['over']}")
+            print(f"[linter] {row['kernel']} at L={L}: grid {row['grid']}, "
+                  f"{row['threads']} threads, shared {row['dynamic_smem']} B "
+                  f"dynamic + {row['static_smem']} B static of "
+                  f"{vmem.DEFAULT_BUDGET} B; ptxas: {info['registers']} "
+                  f"registers ({info['registers'] * row['threads']} of "
+                  f"{vmem.REGISTERS_PER_SM} a block), {info['static_smem']} B "
+                  f"static shared, spills {info['spill_stores']} B stored / "
+                  f"{info['spill_loads']} B loaded, stack {info['stack']} B")
+    for name in sorted(FIXTURES):
+        probe, rule = FIXTURES[name]()
+        fired = {f.rule for f in analyze_probe(probe)}
+        check(fired == {rule}, f"fixture {name} fired {sorted(fired)}, "
+              f"expected only {rule}")
+        print(f"[linter] fixture {name}: fires {rule} and only it")
 
 
 def main() -> int:
@@ -2943,6 +3005,8 @@ def main() -> int:
     phase_dryrun(torch, configs, measured)
     b2_core = phase_pdes_core(torch, ps, ops, ref, _build, "cuda")
     t["15 sharding"] = time.perf_counter() - t0 - sum(t.values())
+    phase_linter(root)
+    t["16 linter"] = time.perf_counter() - t0 - sum(t.values())
     print("[setup] phase wall: "
           + ", ".join(f"{k} {v:.2f} s" for k, v in t.items()))
 

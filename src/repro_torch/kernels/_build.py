@@ -9,7 +9,9 @@ already built.  A build failure raises with the compiler's output; the
 compiler's log (``-Xptxas -v``: registers, shared memory, spills) is kept
 beside the library.
 
-The launch helpers at the end are shared by the kernel wrappers.
+The launch helpers at the end are shared by the kernel wrappers;
+:func:`ptxas_info` reads a built library's log (the linter's
+``vmem-budget`` rule and ``chip_smoke.py`` phase 16).
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ import functools
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 
@@ -65,6 +68,55 @@ def build(name: str) -> pathlib.Path:
     out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
     os.replace(tmp, out)
     return out
+
+
+_ENTRY = re.compile(r"Compiling entry function '([^']+)'")
+_PROPS = re.compile(r"Function properties for (\S+)")
+_SPILL = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                    r"(\d+) bytes spill loads")
+_USED = re.compile(r"Used (\d+) registers")
+_SMEM = re.compile(r"(\d+) bytes smem")
+
+
+def parse_ptxas(text: str) -> dict:
+    """``{entry function: {"registers", "static_smem", "stack",
+    "spill_stores", "spill_loads"}}`` from ``nvcc -Xptxas -v`` output."""
+    out, entry = {}, None
+    for line in text.splitlines():
+        m = _ENTRY.search(line) or _PROPS.search(line)
+        if m:
+            entry = m.group(1)
+            out.setdefault(entry, {"registers": 0, "static_smem": 0,
+                                   "stack": 0, "spill_stores": 0,
+                                   "spill_loads": 0})
+            continue
+        if entry is None:
+            continue
+        m = _SPILL.search(line)
+        if m:
+            out[entry].update(stack=int(m.group(1)),
+                              spill_stores=int(m.group(2)),
+                              spill_loads=int(m.group(3)))
+        m = _USED.search(line)
+        if m:
+            out[entry]["registers"] = int(m.group(1))
+            sm = _SMEM.search(line)
+            out[entry]["static_smem"] = int(sm.group(1)) if sm else 0
+    return out
+
+
+def ptxas_info(name: str, kernel: str) -> dict | None:
+    """The ptxas figures of ``kernel`` (the ``__global__`` function's name)
+    in the log kept beside ``csrc/<name>.cu``'s library, the largest over
+    its instantiations; None where it was not built here (no log)."""
+    log = library_path(name).with_suffix(".log")
+    if not log.exists():
+        return None
+    rows = [v for k, v in parse_ptxas(log.read_text()).items()
+            if kernel in k]
+    if not rows:
+        return None
+    return {k: max(r[k] for r in rows) for k in rows[0]}
 
 
 @functools.cache

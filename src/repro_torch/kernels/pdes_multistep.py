@@ -29,7 +29,7 @@ from ..core import horizon
 from ..core.horizon import MOMENT_KEYS
 from . import _build
 from .ref import ctr_values, pdes_multistep_counter_ref, pdes_multistep_ref
-from .tiling import check_ring_fits, ring_warps
+from .tiling import SMEM_STATIC, check_ring_fits, ring_smem_bytes, ring_warps
 
 #: Kernel launches made by :func:`pdes_multistep_counter` in this process.
 launches = 0
@@ -70,6 +70,18 @@ def _bits_lib() -> ctypes.CDLL:
     return lib
 
 
+def launch_plan(B: int, L: int) -> dict:
+    """The launch of B1 or B3 on ``B`` rings of ``L`` PEs (any number of
+    steps: they loop inside the block): one block a ring of
+    ``tiling.ring_warps(L)`` warps, the ring in dynamic shared memory
+    (``csrc/pdes_ring.cuh::ring_launch_check`` sets the same ``4 L``
+    bytes) beside the block's static partials and log table.  The
+    wrappers launch with it and the linter's ``vmem-budget`` rule reads
+    it, so the two cannot disagree."""
+    return {"grid": (B,), "threads": 32 * ring_warps(L),
+            "dynamic_smem": ring_smem_bytes(L), "static_smem": SMEM_STATIC}
+
+
 def _check_tau(tau) -> None:
     if tau.ndim != 2 or tau.dtype != torch.float32:
         raise ValueError(f"tau must be (B, L) float32, got "
@@ -92,11 +104,13 @@ def bits_launch(tau_in, words, tau_out, stats, *, n_v: int, delta: float,
     to see the kernel alone.
     """
     K, (B, L) = words.shape[0], tau_in.shape
+    plan = launch_plan(B, L)
     dev = tau_in.device
     with torch.cuda.device(dev):
         err = _bits_lib().pdes_multistep_launch(
             tau_in.data_ptr(), words.data_ptr(), tau_out.data_ptr(),
-            stats.data_ptr(), B, L, K, ring_warps(L), n_v, float(delta),
+            stats.data_ptr(), plan["grid"][0], L, K, plan["threads"] // 32,
+            n_v, float(delta),
             int(rd_mode), int(border_both), _build.stream(dev))
     _build.check(err, "pdes_multistep launch")
 
@@ -110,13 +124,15 @@ def counter_launch(tau_in, tau_out, stats, dcol, tcol, ctr, *, n_v: int,
     kernel alone.
     """
     K, (B, L) = stats.shape[1], tau_in.shape
+    plan = launch_plan(B, L)
     dev = tau_in.device
     with torch.cuda.device(dev):
         err = _lib().pdes_multistep_counter_launch(
             tau_in.data_ptr(), tau_out.data_ptr(), stats.data_ptr(),
             None if dcol is None else dcol.data_ptr(),
             None if tcol is None else tcol.data_ptr(),
-            B, L, K, ring_warps(L), *ctr, n_v, float(delta), int(rd_mode),
+            plan["grid"][0], L, K, plan["threads"] // 32, *ctr, n_v,
+            float(delta), int(rd_mode),
             int(border_both), _build.stream(dev))
     _build.check(err, "pdes_multistep_counter launch")
 

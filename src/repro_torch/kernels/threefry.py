@@ -27,6 +27,20 @@ launches = 0
 
 _LIB = "threefry_bits"
 
+#: Threads of a block and word pairs each thread writes a step
+#: (``kThreads``, ``kPairsPerThread`` in ``csrc/threefry_bits.cu``).
+THREADS, PAIRS_PER_THREAD = 256, 4
+
+
+def launch_plan(n_steps: int, n_pairs: int) -> dict:
+    """The generator's launch for ``n_steps`` steps of ``n_pairs`` word
+    pairs: a grid of (blocks, steps), blocks capped at 65,535 (threads then
+    stride), no shared memory; ``csrc/threefry_bits.cu``'s launcher sizes
+    the same grid from the same two numbers."""
+    per_block = THREADS * PAIRS_PER_THREAD
+    return {"grid": (min(-(-n_pairs // per_block), 65535), n_steps),
+            "threads": THREADS, "dynamic_smem": 0, "static_smem": 0}
+
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load(_LIB)

@@ -68,10 +68,12 @@ def _storages(tree) -> dict:
 
 
 def lower_cell(arch: str, shape, mesh, *, overrides: dict | None = None,
-               joint_batch: bool | None = None):
+               joint_batch: bool | None = None, scale_loops: bool = True):
     """Trace one step of ``arch`` at ``shape`` (a name or a
     ``ShapeConfig``) on ``mesh`` (a ``DeviceMesh`` over a fake group):
-    returns ``(record, Cost)``."""
+    returns ``(record, Cost)``.  The model's loops are counted once each
+    and scaled by their trip counts (``launch.cost.scan``);
+    ``scale_loops=False`` traces every iteration."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     from ..optim.adamw import AdamWConfig
     from ..train.train_step import (make_decode_step, make_prefill_step,
@@ -101,7 +103,7 @@ def lower_cell(arch: str, shape, mesh, *, overrides: dict | None = None,
             tokens = batch_specs(cfg, shape_cfg)["tokens"]
             args = (cache, tokens, shape_cfg.seq_len - 1)
             aliased = _storages(cache)        # written in place
-        with CostCounter() as counter:
+        with CostCounter(scale_loops=scale_loops) as counter:
             arg_bytes = counter.track((args, abstract_params(model, cfg)))
             out = step(*args)
             out_st = _storages(out)

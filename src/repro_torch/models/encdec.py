@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import torch
 
+from ..launch.cost import scan
 from .attention import decode_attention
 from .flash import flash_attention
 from .layers import (dslice, embed_init, embed_lookup, mlp, mlp_init,
@@ -125,8 +126,8 @@ class EncDecModel(LMModule):
             return self.constrain(x + h, "act")
 
         body = _remat(body, remat)
-        for p in enc_layers:
-            x = body(x, p)
+        x, _ = scan(lambda i, x: (body(x, enc_layers[i]), None), x,
+                    len(enc_layers), xs=enc_layers)
         return _norm(x, params["enc_norm"], cfg)
 
     @torch.no_grad()
@@ -169,8 +170,8 @@ class EncDecModel(LMModule):
             return self.constrain(x + h, "act")
 
         body = _remat(body, cfg.remat)
-        for p in dec_layers:
-            x = body(x, p)
+        x, _ = scan(lambda i, x: (body(x, dec_layers[i]), None), x,
+                    len(dec_layers), xs=dec_layers)
         x = _norm(x, params["final_norm"], cfg)
         loss = self._ce(x, params["embed"]["table"], batch)
         return loss, {"nll": loss}
@@ -197,8 +198,9 @@ class EncDecModel(LMModule):
         enc = self._encode(params, enc_layers, batch["enc_embeddings"])
         B = enc.shape[0]
         cache = self.init_cache(B, max_decode_len, 0)
-        cross = [_cross_kv(enc, self._view(p["xattn"]), cfg, cd,
-                           self.constrain) for p in dec_layers]
+        _, cross = scan(lambda i, _: (None, _cross_kv(
+            enc, self._view(dec_layers[i]["xattn"]), cfg, cd,
+            self.constrain)), None, len(dec_layers))
         cache["xk"] = torch.stack([kv[0] for kv in cross])
         cache["xv"] = torch.stack([kv[1] for kv in cross])
         logits = torch.zeros((B, cfg.vocab_size), device=enc.device)
@@ -216,8 +218,9 @@ class EncDecModel(LMModule):
         x = x + dslice(params["pos_table"], pos, 1, 0)[None]
         x = self.constrain(x, "act")
         slot, eff_pos, _ = cache_slot(pos, cache["k"].shape[2], None)
-        for i, p in enumerate(dec_layers):
-            p = self._view(p)
+
+        def layer(i, x):
+            p = self._view(dec_layers[i])
             ck, cv = cache["k"][i], cache["v"][i]
             h = _norm(x, p["ln1"], cfg)
             q, k, v = _qkv(h, p["attn"], cfg, cd, self.constrain, None)
@@ -231,6 +234,8 @@ class EncDecModel(LMModule):
                               cache["xv"][i], p["xattn"], cfg, cd)
             x = x + h
             h = mlp(_norm(x, p["ln2"], cfg), p["mlp"], cfg.act, cd)
-            x = x + h
+            return x + h, None
+
+        x, _ = scan(layer, x, len(dec_layers))
         x = _norm(x, params["final_norm"], cfg)
         return self._logits_f32(x[:, 0], params["embed"]["table"]), cache

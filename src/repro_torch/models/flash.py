@@ -15,11 +15,17 @@ GQA, gemma-2 logit soft-capping and a ``q_offset``.  ``FlashAttention``
 is the ``torch.autograd.Function`` that joins them; it saves only
 ``(q, k, v, out, lse)``.  ``flash_attention`` goes through it only when an
 input needs a gradient; otherwise it is the forward alone.
+
+The tile loops run through ``launch.cost.scan``: plain loops, except in a
+dry run on fake tensors, where a tile is counted once for all (every tile
+runs the same ops on the same shapes: the causal mask is a select on
+every tile, not a skip).
 """
 from __future__ import annotations
 
 import torch
 
+from ..launch.cost import scan
 from .attention import NEG_INF
 from .layers import dslice, einsum_f32
 
@@ -80,17 +86,16 @@ def flash_forward(q, k, v, causal=True, window=None, softcap=None,
     masked = causal or window is not None     # skip the selects when all-True
     iq = torch.arange(qb, device=q.device)
     ik = torch.arange(kb, device=q.device)
-    outs, lses = [], []
-    for qi in range(nq):
+
+    def q_block(qi, _):
         qblk = qg[:, qi * qb:(qi + 1) * qb]
         if use_slab:
             start = max(0, min(q_offset + (qi + 1) * qb - slab, Sk - slab))
         else:
             start = 0
-        m = torch.full((B, KH, G, qb), NEG_INF, dtype=acc_dt, device=q.device)
-        lsum = torch.zeros((B, KH, G, qb), dtype=acc_dt, device=q.device)
-        acc = torch.zeros((B, KH, G, qb, D), dtype=acc_dt, device=q.device)
-        for kj in range(nk):
+
+        def kv_tile(kj, carry):
+            m, lsum, acc = carry
             k0 = start + kj * kb
             kblk = dslice(k, k0, kb, 1)
             vblk = dslice(v, k0, kb, 1)
@@ -109,11 +114,20 @@ def flash_forward(q, k, v, causal=True, window=None, softcap=None,
             pv = einsum_f32("bhgqk,bkhd->bhgqd", p.to(vblk.dtype), vblk)
             m_new = torch.maximum(m, m2)
             a1, a2 = torch.exp(m - m_new), torch.exp(m2 - m_new)
-            m, lsum, acc = (m_new, lsum * a1 + l2 * a2,
-                            acc * a1[..., None] + pv * a2[..., None])
+            return (m_new, lsum * a1 + l2 * a2,
+                    acc * a1[..., None] + pv * a2[..., None]), None
+
+        m = torch.full((B, KH, G, qb), NEG_INF, dtype=acc_dt, device=q.device)
+        lsum = torch.zeros((B, KH, G, qb), dtype=acc_dt, device=q.device)
+        acc = torch.zeros((B, KH, G, qb, D), dtype=acc_dt, device=q.device)
+        (m, lsum, acc), _ = scan(kv_tile, (m, lsum, acc), nk)
         o = acc / torch.clamp(lsum, min=1e-37)[..., None]
-        lses.append(m + torch.log(torch.clamp(lsum, min=1e-37)))
-        outs.append(o.permute(0, 3, 1, 2, 4).reshape(B, qb, H, D).to(q.dtype))
+        lse = m + torch.log(torch.clamp(lsum, min=1e-37))
+        return None, (o.permute(0, 3, 1, 2, 4).reshape(B, qb, H, D).to(
+            q.dtype), lse)
+
+    _, blocks = scan(q_block, None, nq)
+    outs, lses = zip(*blocks)
     return torch.cat(outs, dim=1), torch.cat(lses, dim=-1)
 
 
@@ -155,16 +169,15 @@ def flash_backward(q, k, v, out, lse, dout, causal=True, window=None,
         return ds, p
 
     # ---- pass A: dq per q block ----
-    dqs = []
-    for qi in range(nq):
+    def dq_block(qi, _):
         qblk = qg[:, qi * qb:(qi + 1) * qb]
         do_blk = dog[:, qi * qb:(qi + 1) * qb]
         lse_blk = lse[..., qi * qb:(qi + 1) * qb]
         delta_blk = delta[..., qi * qb:(qi + 1) * qb]
         start = max(0, min(q_offset + (qi + 1) * qb - slab, Sk - slab)) \
             if use_slab else 0
-        dq = torch.zeros((B, qb, KH, G, D), dtype=acc_dt, device=q.device)
-        for kj in range(nk):
+
+        def kv_tile(kj, dq):
             k0 = start + kj * kb
             kblk = dslice(k, k0, kb, 1)
             vblk = dslice(v, k0, kb, 1)
@@ -172,8 +185,14 @@ def flash_backward(q, k, v, out, lse, dout, causal=True, window=None,
             kpos = k0 + ik[None, :]
             ds, _ = tile_grads(qblk, kblk, vblk, lse_blk, delta_blk, do_blk,
                                qpos, kpos)
-            dq = dq + einsum_f32("bhgqk,bkhd->bqhgd", ds.to(kblk.dtype), kblk)
-        dqs.append((dq * scale).to(q.dtype))
+            return dq + einsum_f32("bhgqk,bkhd->bqhgd", ds.to(kblk.dtype),
+                                   kblk), None
+
+        dq = torch.zeros((B, qb, KH, G, D), dtype=acc_dt, device=q.device)
+        dq, _ = scan(kv_tile, dq, nk)
+        return None, (dq * scale).to(q.dtype)
+
+    _, dqs = scan(dq_block, None, nq)
     dq = torch.cat(dqs, dim=1).reshape(B, Sq, H, D)
 
     # ---- pass B: dk, dv per kv block ----
@@ -184,15 +203,15 @@ def flash_backward(q, k, v, out, lse, dout, causal=True, window=None,
     else:
         q_slab = Sq
     nq_b = q_slab // qb
-    dks, dvs = [], []
-    for kj in range(nk_full):
+
+    def dkv_block(kj, _):
         k0 = kj * kb
         kblk = k[:, k0:k0 + kb]
         vblk = v[:, k0:k0 + kb]
         qstart = max(0, min(k0 - q_offset, Sq - q_slab)) if use_slab else 0
-        dk = torch.zeros((B, kb, KH, D), dtype=acc_dt, device=q.device)
-        dv = torch.zeros((B, kb, KH, D), dtype=acc_dt, device=q.device)
-        for qi in range(nq_b):
+
+        def q_tile(qi, carry):
+            dk, dv = carry
             qpos0 = qstart + qi * qb
             qblk = dslice(qg, qpos0, qb, 1)
             do_blk = dslice(dog, qpos0, qb, 1)
@@ -202,11 +221,18 @@ def flash_backward(q, k, v, out, lse, dout, causal=True, window=None,
             kpos = k0 + ik[None, :]
             ds, p = tile_grads(qblk, kblk, vblk, lse_blk, delta_blk, do_blk,
                                qpos, kpos)
-            dk = dk + einsum_f32("bhgqk,bqhgd->bkhd", ds.to(qblk.dtype), qblk)
-            dv = dv + einsum_f32("bhgqk,bqhgd->bkhd", p.to(do_blk.dtype),
-                                 do_blk)
-        dks.append((dk * scale).to(k.dtype))
-        dvs.append(dv.to(v.dtype))
+            return (dk + einsum_f32("bhgqk,bqhgd->bkhd", ds.to(qblk.dtype),
+                                    qblk),
+                    dv + einsum_f32("bhgqk,bqhgd->bkhd", p.to(do_blk.dtype),
+                                    do_blk)), None
+
+        dk = torch.zeros((B, kb, KH, D), dtype=acc_dt, device=q.device)
+        dv = torch.zeros((B, kb, KH, D), dtype=acc_dt, device=q.device)
+        (dk, dv), _ = scan(q_tile, (dk, dv), nq_b)
+        return None, ((dk * scale).to(k.dtype), dv.to(v.dtype))
+
+    _, dkvs = scan(dkv_block, None, nk_full)
+    dks, dvs = zip(*dkvs)
     dk = torch.cat(dks, dim=1)
     dv = torch.cat(dvs, dim=1)
     if dk.shape[1] < Sk:        # the unread tail (Sk no multiple of kb)

@@ -13,7 +13,9 @@ from __future__ import annotations
 
 import torch
 
+from ..launch.cost import scan
 from .layers import dense_init, embed_init, embed_lookup
+from .sharded import write_at
 from .ssm import ssm_apply, ssm_decode_step, ssm_init
 from .transformer import (LMModule, _at, _dt, _layer_prefill, _norm,
                           _norm_init, _remat, _rope, _unstack, layer_decode,
@@ -73,7 +75,11 @@ class HybridModel(LMModule):
         }
 
     def _shared_in(self, params, x, emb0):
-        return torch.cat([x, emb0], dim=-1) @ params["shared_in"]
+        # placed as the activations are: on the 512-rank mesh the shared
+        # block's gradient otherwise reaches this product sequence-sharded,
+        # flattened into a strided shard that DTensor cannot multiply
+        return self.constrain(torch.cat([x, emb0], dim=-1)
+                              @ params["shared_in"], "act")
 
     # ---- train ----
     def loss(self, batch):
@@ -99,8 +105,8 @@ class HybridModel(LMModule):
             return self.constrain(x + (out - xin), "act")
 
         body = _remat(group_body, cfg.remat)
-        for group in groups:
-            x = body(x, group)
+        x, _ = scan(lambda g, x: (body(x, groups[g]), None), x, len(groups),
+                    xs=groups)
         x = _norm(x, params["final_norm"], cfg)
         loss = self._ce(x, params["embed"]["table"], batch)
         return loss, {"nll": loss}
@@ -116,20 +122,27 @@ class HybridModel(LMModule):
         emb0 = x
         S = x.shape[1]
         rope = _rope(cfg, torch.arange(S, device=x.device)[None, :])
-        ssm_caches, ks, vs = [], [], []
-        for group in groups:
-            for pj in map(self._view, group):
+
+        def block(g, x):
+            group = groups[g]
+
+            def member(j, x):
+                pj = self._view(group[j])
                 h, c = ssm_apply(_norm(x, pj["norm"], cfg), pj["ssm"], cfg.ssm,
                                  cd)
-                ssm_caches.append(c)
-                x = x + h
+                return x + h, c
+
+            x, caches = scan(member, x, len(group))
             xin = self._shared_in(params, x, emb0)
             out, _, k, v = _layer_prefill(xin, params["shared"], cfg,
                                           kind="full", constrain=self.constrain,
                                           rope=rope)
-            x = x + (out - xin)
-            ks.append(k)
-            vs.append(v)
+            return x + (out - xin), (caches, k, v)
+
+        x, blocks = scan(block, x, len(groups))
+        ssm_caches = [c for caches, _, _ in blocks for c in caches]
+        ks = [k for _, k, _ in blocks]
+        vs = [v for _, _, v in blocks]
         x = _norm(x, params["final_norm"], cfg)
         lead = (self.n_shared, cfg.hybrid_period)
         cache = {
@@ -151,18 +164,23 @@ class HybridModel(LMModule):
         emb0 = x                                            # this token's
         rope = _rope(cfg, torch.full((1, 1), pos, device=x.device))
         ssm_cache = cache["ssm"]
-        for g, group in enumerate(groups):
-            for j, pj in enumerate(map(self._view, group)):
+
+        def block(g, x):
+            # the members run in full: the reference's rule may shard the
+            # conv cache's member axis, so which rank writes depends on j
+            for j, pj in enumerate(map(self._view, groups[g])):
                 h, c = ssm_decode_step(_norm(x, pj["norm"], cfg)[:, 0],
                                        _at(ssm_cache, g, j), pj["ssm"],
                                        cfg.ssm, cd)
-                ssm_cache["ssm"][g, j], ssm_cache["conv"][g, j] = \
-                    c["ssm"], c["conv"]
+                write_at(ssm_cache["ssm"], (g, j), c["ssm"])
+                write_at(ssm_cache["conv"], (g, j), c["conv"])
                 x = x + h[:, None, :]
             xin = self._shared_in(params, x, emb0)
             out, _, _ = layer_decode(xin, params["shared"], cfg, cache["k"][g],
                                      cache["v"][g], pos, kind="full",
                                      constrain=self.constrain, rope=rope)
-            x = x + (out - xin)
+            return x + (out - xin), None
+
+        x, _ = scan(block, x, len(groups))
         x = _norm(x, params["final_norm"], cfg)
         return self._logits_f32(x[:, 0], params["embed"]["table"]), cache

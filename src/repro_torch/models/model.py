@@ -11,6 +11,7 @@ from typing import TYPE_CHECKING
 
 import torch
 
+from ..launch.cost import scan
 from .encdec import EncDecModel
 from .hybrid import HybridModel
 from .layers import embed_init, embed_lookup
@@ -60,8 +61,8 @@ class SSMModel(LMModule):
             return self.constrain(x + h, "act")
 
         body = _remat(body, cfg.remat)
-        for p in layers:
-            x = body(x, p)
+        x, _ = scan(lambda i, x: (body(x, layers[i]), None), x, len(layers),
+                    xs=layers)
         x = _norm(x, params["final_norm"], cfg)
         loss = self._ce(x, params["embed"]["table"], batch)
         return loss, {"nll": loss}
@@ -84,12 +85,13 @@ class SSMModel(LMModule):
         cd = _dt(cfg.compute_dtype)
         params, layers = self._cast()
         x = embed_lookup(params["embed"], batch["tokens"], cd)
-        caches = []
-        for p in layers:
-            p = self._view(p)
+
+        def layer(i, x):
+            p = self._view(layers[i])
             h, c = ssm_apply(_norm(x, p["norm"], cfg), p["ssm"], cfg.ssm, cd)
-            x = x + h
-            caches.append(c)
+            return x + h, c
+
+        x, caches = scan(layer, x, len(layers))
         x = _norm(x, params["final_norm"], cfg)
         cache = {k: torch.stack([c[k] for c in caches]) for k in ("ssm", "conv")}
         return self._logits_f32(x[:, -1], params["embed"]["table"]), cache
@@ -102,12 +104,15 @@ class SSMModel(LMModule):
         cd = _dt(cfg.compute_dtype)
         params, layers = self._cast()
         x = embed_lookup(params["embed"], tokens, cd)[:, 0]    # (B, d)
-        for i, p in enumerate(layers):
-            p = self._view(p)
+
+        def layer(i, x):
+            p = self._view(layers[i])
             h, c = ssm_decode_step(_norm(x, p["norm"], cfg), _at(cache, i),
                                    p["ssm"], cfg.ssm, cd)
             cache["ssm"][i], cache["conv"][i] = c["ssm"], c["conv"]
-            x = x + h
+            return x + h, None
+
+        x, _ = scan(layer, x, len(layers))
         x = _norm(x, params["final_norm"], cfg)
         # the product in the compute dtype, widened after (as the reference)
         logits = (x @ params["embed"]["table"].T).float()

@@ -31,6 +31,10 @@ unchanged.
   over ``data``, where the tokens are split by batch).
 * ``write_slot``: the decode's KV-cache write at one position of a
   sequence-sharded cache, on the rank that holds it.
+* ``write_at``: a decode's write of one layer's state at leading indices
+  of a stacked cache whose indexed dims may be sharded (the hybrid's
+  conv cache: the reference's rule takes any ``ssm`` leaf of 4 dims or
+  more for a state and shards its second dim), on the rank that holds it.
 * ``embedding``: the lookup in a vocabulary-sharded table, Megatron's
   vocabulary-parallel embedding: each rank its own rows, one all-reduce
   (DTensor's own rule leaves a masked partial sum whose backward it
@@ -216,6 +220,34 @@ def write_slot(cache, slot: int, val) -> None:
         S = min(chunk, max(S - mesh.get_local_rank(i) * chunk, 0))
     if lo <= slot < lo + local.shape[1]:
         local[:, slot - lo] = local_val
+
+
+def write_at(cache, idx: tuple, val) -> None:
+    """``cache[idx] = val`` in place for integer indices ``idx`` of the
+    leading dims; on a DTensor whose indexed dims are sharded only the
+    rank holding the element writes, into its own shard (DTensor's own
+    ``__setitem__`` writes each rank's local index instead)."""
+    if not is_dt(cache):
+        cache[idx] = val
+        return
+    mesh, n = cache.device_mesh, len(idx)
+    if not is_dt(val):
+        val = DTensor.from_local(val, mesh, [Replicate()] * mesh.ndim)
+    vp, lo, size = [], [0] * n, list(cache.shape[:n])
+    for i, p in enumerate(cache.placements):
+        if isinstance(p, Shard) and p.dim < n:
+            chunk = -(-size[p.dim] // mesh.size(i))   # torch.chunk's split
+            r = mesh.get_local_rank(i)
+            lo[p.dim] += r * chunk
+            size[p.dim] = min(chunk, max(size[p.dim] - r * chunk, 0))
+            vp.append(Replicate())
+        elif isinstance(p, Shard):
+            vp.append(Shard(p.dim - n))
+        else:
+            vp.append(p)
+    local_val = _redistribute(val, vp).to_local()
+    if all(0 <= i - l < s for i, l, s in zip(idx, lo, size)):
+        cache.to_local()[tuple(i - l for i, l in zip(idx, lo))] = local_val
 
 
 class _SumOverGroup(torch.autograd.Function):

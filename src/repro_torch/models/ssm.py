@@ -18,8 +18,9 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from ..launch.cost import scan
 from .layers import dense_init, einsum_f32, rmsnorm
-from .sharded import local_rows, replicate, whole
+from .sharded import is_dt, local_rows, replicate, whole
 
 
 class SSMSpec(NamedTuple):
@@ -168,12 +169,16 @@ def _ssd(zxbcdt, params, spec: SSMSpec, cd):
     chunk_state = einsum_f32("bcjh,bcjn,bcjhp->bchpn",
                              (decay_to_end * dt_c).to(cd), B_c, xs_c)
     chunk_decay = torch.exp(la[:, :, -1, :])                         # (B,nc,H)
-    s = torch.zeros((B, H, P, N), device=zxbcdt.device)
-    prev = []
-    for c in range(nc):
-        prev.append(s)                          # the state *before* chunk c
+    # the state after each chunk; under autograd every chunk runs in a dry
+    # run too: the last chunk's state takes no gradient in training
+    def chunk(c, s):
         s = s * chunk_decay[:, c, :, None, None] + chunk_state[:, c]
-    prev_states = torch.stack(prev, dim=1)                           # (B,nc,H,P,N)
+        return s, s
+
+    s0 = torch.zeros((B, H, P, N), device=zxbcdt.device)
+    s, after = scan(chunk, s0, nc, under_grad=False)
+    # the state *before* chunk c
+    prev_states = torch.stack([s0] + after[:-1], dim=1)               # (B,nc,H,P,N)
 
     y_inter = einsum_f32("bcin,bchpn,bcih->bcihp", C_c, prev_states.to(cd),
                          torch.exp(la).to(cd))
@@ -234,8 +239,17 @@ def ssm_decode_step(x, cache, params, spec: SSMSpec, compute_dtype):
 
     state = cache["ssm"] * dA[..., None, None] + torch.einsum(
         "bh,bhp,bn->bhpn", dt, xv.float(), Bm.float())               # (B,H,P,N)
-    y = torch.einsum("bhpn,bn->bhp", state, Cm.float())
+    if is_dt(state):
+        # DTensor cannot place the einsum's bmm on a state sharded over TP
+        # (heads or P): it flattens them into a strided shard; the same
+        # sum, elementwise
+        y = (state * Cm.float()[:, None, None, :]).sum(-1)
+    else:
+        y = torch.einsum("bhpn,bn->bhp", state, Cm.float())
     y = y + params["D"].float()[None, :, None] * xv.float()
+    # (H, P) whole before they are flattened (as above) for the gated
+    # norm, which reads all of them anyway
+    y = whole(whole(y, 1), 2)
     y = y.reshape(B, di).to(cd)
     y = y * F.silu(z)
     y = rmsnorm(y, {"scale": params["norm_scale"]}, 1e-5)

@@ -35,6 +35,7 @@ from torch import nn
 from torch.utils import checkpoint as ckpt
 
 from ..device import resolve_device
+from ..launch.cost import scan
 from ..tree import tree_leaves_with_path
 from .attention import (blockwise_attention, decode_attention,
                         packed_causal_attention, swa_attention)
@@ -345,14 +346,17 @@ def chunked_ce(h, table, labels, cfg: ModelConfig, constrain: Constrain):
         raise ValueError(f"chunked_ce: S = {S} is no multiple of the chunk "
                          f"{c}")
     t = table.to(h.dtype)
-    nll = torch.zeros((), device=h.device)
-    n = torch.zeros((), dtype=torch.int64, device=h.device)
-    for i in range(S // c):
+
+    def chunk(i, carry):
         part = ckpt.checkpoint(_chunk_nll, h[:, i * c:(i + 1) * c], t,
                                labels[:, i * c:(i + 1) * c], cfg.vocab_size,
                                cfg.final_softcap, constrain,
                                use_reentrant=False)
-        nll, n = nll + part[0], n + part[1]
+        return (carry[0] + part[0], carry[1] + part[1]), None
+
+    (nll, n), _ = scan(chunk, (torch.zeros((), device=h.device),
+                               torch.zeros((), dtype=torch.int64,
+                                           device=h.device)), S // c)
     return nll, n
 
 
@@ -640,11 +644,10 @@ class DecoderModel(LMModule):
             return x, aux_sum
 
         body = _remat(group_body, cfg.remat)
-        auxes = []
-        for g in range(cfg.n_groups):
-            group = [(kind, pj) for kind, gg, _, pj in layers if gg == g]
-            x, aux = body(x, group)
-            auxes.append(aux)
+        groups = [[(kind, pj) for kind, gg, _, pj in layers if gg == g]
+                  for g in range(cfg.n_groups)]
+        x, auxes = scan(lambda g, x: body(x, groups[g]), x, cfg.n_groups,
+                        xs=groups)
         aux = torch.sum(torch.stack(auxes), dim=0)
         x = _norm(x, params["final_norm"], cfg)
         loss = self._ce(x, self._out_table(params), batch)
@@ -682,12 +685,18 @@ class DecoderModel(LMModule):
         spans = {j: min(cfg.window, S) if kind == "local" and cfg.window
                  else S for j, kind in enumerate(cfg.layer_group)}
         slabs = {f"{c}{j}": [] for j in spans for c in "kv"}
-        for kind, _, j, pj in layers:
+
+        def layer(i, x):
+            kind, _, j, pj = layers[i]
             x, _, k, v = _layer_prefill(x, self._view(pj), cfg, kind=kind,
                                         constrain=self.constrain,
                                         rope=rope)
-            slabs[f"k{j}"].append(k[:, S - spans[j]:])
-            slabs[f"v{j}"].append(v[:, S - spans[j]:])
+            return x, (k[:, S - spans[j]:], v[:, S - spans[j]:])
+
+        x, kvs = scan(layer, x, len(layers), key=lambda i: layers[i][0])
+        for (_, _, j, _), (k, v) in zip(layers, kvs):
+            slabs[f"k{j}"].append(k)
+            slabs[f"v{j}"].append(v)
         cache = {name: torch.stack(s) for name, s in slabs.items()}
         x = _norm(x, params["final_norm"], cfg)
         return self._logits(params, x[:, -1]), cache
@@ -707,9 +716,14 @@ class DecoderModel(LMModule):
                          scale_by_sqrt_d=cfg.embed_scale)
         x = self.constrain(x, "act")
         rope = _rope(cfg, torch.full((1, 1), pos, device=x.device))
-        for kind, g, j, pj in layers:
+
+        def layer(i, x):
+            kind, g, j, pj = layers[i]
             x, _, _ = layer_decode(x, self._view(pj), cfg, cache[f"k{j}"][g],
                                    cache[f"v{j}"][g], pos, kind=kind,
                                    constrain=self.constrain, rope=rope)
+            return x, None
+
+        x, _ = scan(layer, x, len(layers), key=lambda i: layers[i][0])
         x = _norm(x, params["final_norm"], cfg)
         return self._logits(params, x[:, 0]), cache

@@ -1,0 +1,188 @@
+"""The port's linter rules on their seeded violations, the ``dtype-drift``
+exemptions, the ptxas-log parser and the kernels' launch plans.
+
+Every rule is proven live by a fixture (``repro_torch.analysis.fixtures``,
+the reference's six in torch): each plants exactly one protocol violation,
+its rule must report it with provenance, and the other rules must stay
+quiet (``tests/test_analysis.py`` asks the same of the reference).
+"""
+import contextlib
+import pathlib
+
+import pytest
+import torch
+
+from repro_torch.analysis import analyze_probe
+from repro_torch.analysis.fixtures import EXTRA, FIXTURES
+from repro_torch.analysis.probes import iter_probes
+from repro_torch.analysis.rules import dtype_drift
+from repro_torch.kernels import _build, pdes_multistep, pdes_step, threefry
+from repro_torch.kernels.tiling import SMEM_PER_BLOCK
+from torch_parity import one_torch_thread  # noqa: F401 (autouse)
+
+CSRC = pathlib.Path(_build.CSRC)
+
+
+@pytest.mark.parametrize("name", sorted(FIXTURES))
+def test_fixture_fires_expected_rule(name):
+    probe, expected_rule = FIXTURES[name]()
+    findings = analyze_probe(probe)
+    fired = {f.rule for f in findings}
+    assert expected_rule in fired, (
+        f"fixture {name!r} should trip {expected_rule!r}; fired: "
+        f"{sorted(fired)}")
+    hits = [f for f in findings if f.rule == expected_rule]
+    # findings carry context + provenance, not just a verdict
+    assert all(f.backend == probe.backend and f.probe == probe.name
+               for f in hits)
+    assert any(f.op or f.path for f in hits), hits
+
+
+@pytest.mark.parametrize("name", sorted(FIXTURES))
+def test_fixture_clean_rules_stay_quiet(name):
+    """A planted violation must not cascade into unrelated rules."""
+    probe, expected_rule = FIXTURES[name]()
+    fired = {f.rule for f in analyze_probe(probe)}
+    assert fired == {expected_rule}, sorted(fired)
+
+
+def test_dtype_drift_exemptions():
+    """tau widened to fp64 fires; C1's fp64 decode and the int64 word
+    carrier, which every clean probe holds, do not."""
+    probe, rule = EXTRA["f64_tau"]()
+    findings = analyze_probe(probe)
+    assert {f.rule for f in findings} == {rule}
+    assert any("tau output dtype float64" in f.message for f in findings)
+    # the declared site is the decode's fp64 log
+    file, line = dtype_drift.FP64_SITE.split(":")
+    src = (pathlib.Path(pdes_step.__file__).parents[1] / file).read_text()
+    assert "torch.log(x.to(torch.float64))" in src.splitlines()[int(line) - 1]
+    (probe,) = [p for p in iter_probes("reference") if p.name == "step"]
+    wide = {(n.aval.dtype, n.src) for n in probe.graph.nodes
+            if n.aval is not None and n.aval.dtype in ("int64", "float64")}
+    assert ("float64", dtype_drift.FP64_SITE) in wide
+    assert any(dt == "int64" and src.startswith("core/events.py")
+               for dt, src in wide)
+    assert dtype_drift.check(probe) == []
+    assert set(dtype_drift.EXEMPTIONS) == {"int64", "float64"}
+    # a torch whose make_fx keeps no frames leaves the nodes without a
+    # src: the decode is then known by its shape alone
+    for n in probe.graph.nodes:
+        n.src = n.path = ""
+    assert dtype_drift.check(probe) == []
+    probe, rule = EXTRA["f64_tau"]()
+    for n in probe.graph.nodes:
+        n.src = n.path = ""
+    assert {f.rule for f in analyze_probe(probe)} == {rule}
+
+
+PTXAS_LOG = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_Z24multistep_counter_kernelILb0ELb0EEvPKfPf' for 'sm_90a'
+ptxas info    : Function properties for _Z24multistep_counter_kernelILb0ELb0EEvPKfPf
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 40 registers, used 1 barriers, 2624 bytes smem, 428 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z24multistep_counter_kernelILb1ELb0EEvPKfPf' for 'sm_90a'
+ptxas info    : Function properties for _Z24multistep_counter_kernelILb1ELb0EEvPKfPf
+    8 bytes stack frame, 12 bytes spill stores, 16 bytes spill loads
+ptxas info    : Used 56 registers, used 1 barriers, 2624 bytes smem, 428 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z17decode_eta_kernelPKjPfxi' for 'sm_90a'
+ptxas info    : Function properties for _Z17decode_eta_kernelPKjPfxi
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 18 registers, 380 bytes cmem[0]
+"""
+
+
+def test_ptxas_log_parser(tmp_path, monkeypatch):
+    got = _build.parse_ptxas(PTXAS_LOG)
+    assert got["_Z17decode_eta_kernelPKjPfxi"] == {
+        "registers": 18, "static_smem": 0, "stack": 0, "spill_stores": 0,
+        "spill_loads": 0}
+    assert got["_Z24multistep_counter_kernelILb1ELb0EEvPKfPf"] == {
+        "registers": 56, "static_smem": 2624, "stack": 8,
+        "spill_stores": 12, "spill_loads": 16}
+    # a kernel's figures: the largest over its instantiations
+    lib = tmp_path / "libpdes_multistep_counter-0.so"
+    lib.with_suffix(".log").write_text(PTXAS_LOG)
+    monkeypatch.setattr(_build, "library_path", lambda name: lib)
+    info = _build.ptxas_info("pdes_multistep_counter",
+                             "multistep_counter_kernel")
+    assert info == {"registers": 56, "static_smem": 2624, "stack": 8,
+                    "spill_stores": 12, "spill_loads": 16}
+    assert _build.ptxas_info("pdes_multistep_counter", "nope") is None
+    # with the log the budget rule reads registers x threads
+    from repro_torch.analysis.rules import vmem
+    row = vmem.budget_of("pdes_multistep_counter",
+                         pdes_multistep.launch_plan(4, 10_000))
+    assert row["ptxas"] == info and row["over"] == []
+    row = vmem.budget_of("pdes_multistep_counter",
+                         pdes_multistep.launch_plan(4, 100_000))
+    assert len(row["over"]) == 1 and "shared memory" in row["over"][0]
+    monkeypatch.setattr(_build, "ptxas_info",
+                        lambda *a: dict(info, registers=300))
+    row = vmem.budget_of("pdes_multistep_counter",
+                         pdes_multistep.launch_plan(4, 10_000))
+    assert any("registers" in o for o in row["over"])
+
+
+class _FakeLib:
+    """Stands in for a kernel library: records each launch's arguments."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        def launch(*args):
+            self.calls.append((name, args))
+            return 0
+        return launch
+
+
+@pytest.mark.parametrize("L", [16, 300, 10_000])
+def test_launch_plan_is_what_the_wrappers_launch(L, monkeypatch):
+    """Each wrapper's raw launcher passes its plan's grid and block; the
+    sources' launch constants are the plan's."""
+    fake = _FakeLib()
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(_build, "stream", lambda dev: None)
+    for mod, attr in ((pdes_multistep, "_lib"), (pdes_multistep, "_bits_lib"),
+                      (pdes_step, "_lib")):
+        monkeypatch.setattr(mod, attr, lambda: fake)
+    B, K = 3, 5
+    tau = torch.zeros((B, L))
+    stats = torch.zeros((6, K, B))
+    kw = dict(n_v=4, delta=1.0, rd_mode=False, border_both=False)
+    plan = pdes_multistep.launch_plan(B, L)
+    pdes_multistep.counter_launch(tau, tau.clone(), stats, None, None,
+                                  (0, 0, 0, 0), **kw)
+    pdes_multistep.bits_launch(tau, torch.zeros((K, B, L, 2), dtype=torch.int32),
+                               tau.clone(), stats, **kw)
+    (_, a1), (_, a3) = fake.calls
+    assert a1[5:9] == (plan["grid"][0], L, K, plan["threads"] // 32)
+    assert a3[4:8] == (plan["grid"][0], L, K, plan["threads"] // 32)
+    assert plan["dynamic_smem"] == 4 * L and plan["static_smem"] <= \
+        SMEM_PER_BLOCK
+    ring = (CSRC / "pdes_ring.cuh").read_text()
+    assert "const int smem = L * (int)sizeof(float);" in ring
+    assert "kernel<<<B, 32 * warps, smem" in \
+        (CSRC / "pdes_multistep_counter.cu").read_text()
+
+    fake.calls.clear()
+    plan = pdes_step.launch_plan(B)
+    pdes_step.launch(torch.zeros((B, L + 2)), torch.zeros((B, L, 2)),
+                     torch.zeros((B, 1)), torch.zeros((B, L)),
+                     torch.zeros((6, B)), **kw)
+    ((_, a2),) = fake.calls
+    assert a2[5:7] == (plan["grid"][0], L)
+    src = (CSRC / "pdes_step.cu").read_text()
+    assert f"constexpr int kThreads = {plan['threads']};" in src
+    assert "pdes_step_kernel<<<B, kThreads, 0," in src
+    assert plan["dynamic_smem"] == 0
+
+    src = (CSRC / "threefry_bits.cu").read_text()
+    assert f"constexpr int kThreads = {threefry.THREADS};" in src
+    assert f"constexpr int kPairsPerThread = {threefry.PAIRS_PER_THREAD};" \
+        in src
+    plan = threefry.launch_plan(K, B * L)
+    assert plan["grid"] == (-(-B * L // 1024), K)
