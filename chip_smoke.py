@@ -24,8 +24,13 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` with
    asserted, B1's launch count read;
 4. B2 against its plain version: ``pdes_step`` at B = 448, Lc = 10,000
    over N_V, ``rd_mode``, ``border_both``, static Δ, a folded Δ column and
-   a stale base; τ′/ucount/min/max bitwise, the sums to tolerance; timed
-   with CUDA events, with the host-side pieces of one engine step;
+   a stale base, and the same cases at every (B, Lc) of ``STEP_SHAPES``
+   (a ``--pdes-core`` shard's 8-block clusters, the commavoid edge
+   strip's shared blocks, odd and long rows); τ′/ucount/min/max bitwise,
+   the sums to tolerance; a row's six moments bitwise the same in a
+   larger batch, alone and at B = 1; timed with CUDA events, at every
+   shape beside its bytes bound, with the host-side pieces of one engine
+   step;
 5. B2's path, the ``pallas`` backend: (a) 256 exact-window steps bitwise
    equal to ``pallas_multistep``; (b) a stale-window ``SweepService``
    drain, every response equal to a direct run, stale ``u`` at most exact
@@ -136,15 +141,16 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` with
    ``--pdes-core`` on the single mesh, one rank's shard of L = 2^20 x 512
    trials x 64 steps run on the card (both modes), every B2 launch held
    against its plain version, the collective bytes and messages a step,
-   B2's launches and ms;
+   B2's launches, ms and share of its bytes bound;
 16. the causality linter (``repro_torch.analysis``), after the kernels
    are built: ``python -m repro_torch.analysis --backend all --format
    json -o <file>`` as a subprocess, exit 0 and each backend's report
    equal to ``tests/golden/analysis_<backend>.json``; every kernel's
    launch plan at L = 10,000 and at ``tiling.MAX_RING_L`` with the
    registers, static shared bytes and spills of this run's ptxas logs,
-   against one block's budget; the six seeded fixtures, each firing its
-   own rule and only it;
+   against one block's budget, and B2's plan (cluster size, rows a block)
+   at 10,000, 65,536 and ``MAX_RING_L``; the six seeded fixtures, each
+   firing its own rule and only it;
 17. the last lines: one JSON object per kernel (times, bound, launches),
    then ``{"ok": true, "device": {...}}``.
 
@@ -208,6 +214,18 @@ OPS_PER_UPDATE = 15
 #: (decode, log, add).  No hash: the bits come from memory.
 STEP_OPS_PER_PE = 14
 STEP_OPS_PER_UPDATE = 6
+#: Phase 4: the shapes (B, Lc) at which B2 is also held to its plain
+#: version and timed, beside the main path's: a ``--pdes-core`` shard (512
+#: trials over 16 ``data`` ranks, 2^20 PEs over 16 ``model`` ranks), one
+#: Δ's replicas, the commavoid shard step's K = 16 edge strip, the JAX
+#: tests' odd row, and a row past B1's shared memory (None:
+#: ``tiling.MAX_RING_L`` + 1000); and the rows of its batch-invariance
+#: check, launched in a larger batch, alone and one by one.
+STEP_SHAPES = ((32, 65_536), (64, 10_000), (32, 16), (3, 37), (2, None))
+BATCH_ROWS = 32
+#: Clock cycles the card sleeps while ``device_ms`` queues its calls
+#: (about 10 ms, longer than the host takes to queue 200 launches).
+SLEEP_CYCLES = 20_000_000
 #: The cut depth of phase 5: burn-in and measured steps of the stale drain
 #: and of the refinement (default_burn_in asks for 32,143 at Δ = 64), and
 #: the steps of the exact-window comparison.
@@ -467,13 +485,32 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps: int) -> float:
+    """Mean ms of ``fn`` over ``reps`` calls queued while the card sleeps
+    (CUDA events): the kernels then run back to back with no host time
+    between them, so a call whose host work outlasts its kernel shows the
+    kernel's time, not the host's."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def phase_decode(torch, horizon, pm, dev):
     """Kernel decode == plain rule on the card; count against the host.
     Kernel site pick == ``%`` on the card."""
     import numpy as np
     w1 = torch.arange(1 << 24, device=dev, dtype=torch.int64) << 8
     plain = horizon.decode_eta(w1)
-    for table in (False, True):     # B2's library log, B1's and B3's table
+    for table in (False, True):     # the library log; the kernels' table
         kern = pm.decode_eta_cuda(w1, table=table)
         n_bad = int((kern.view(torch.int32) != plain.view(torch.int32)).sum())
         check(n_bad == 0, f"kernel decode (table={table}) differs from the "
@@ -512,7 +549,8 @@ def _kernel_inputs(torch, rng, B: int, L: int, dev):
     deltas = np.array([1.0, 4.0, 16.0, 64.0, np.inf], np.float32)
     dcol = deltas[np.arange(B) % deltas.size][:, None]
     trials = np.arange(B, dtype=np.int64)
-    trials[-REPLICAS:] = -1 - np.arange(REPLICAS)   # the service's pad indices
+    pad = min(REPLICAS, B)
+    trials[-pad:] = -1 - np.arange(pad)     # the service's pad indices
     return (torch.as_tensor(tau, device=dev),
             torch.as_tensor(dcol, device=dev),
             torch.as_tensor(trials[:, None], device=dev))
@@ -671,43 +709,110 @@ def phase_main_path(torch, pm, sweep, api, trace, dev, chunk_ms):
     return launches
 
 
-def phase_step(torch, ps, ref, ops, events, build, dev, timer=cuda_ms):
-    """B2 against its plain version at the main path's shape, then timed."""
+def _step_bytes(B: int, Lc: int) -> int:
+    """Bytes B2 must move on (B, Lc): tau_h read once, the words, tau'
+    written once, the gvt column and the six moment rows."""
+    return 4 * B * (Lc + 2) + 8 * B * Lc + 4 * B + 4 * B * Lc + 4 * 6 * B
+
+
+def _step_cases(gvt, stale, dcol):
+    """(n_v, rd_mode, border_both, window base, static Δ) of phase 4."""
+    return [(1, False, False, gvt, 16.0), (10, False, False, gvt, 16.0),
+            (10, False, False, gvt, math.inf), (10, True, False, gvt, 4.0),
+            (10, False, True, gvt, 16.0), (10, False, False, stale, 16.0),
+            (10, False, False, gvt + dcol, 0.0),
+            (10, False, False, stale + dcol, 0.0)]
+
+
+def _step_inputs(torch, ops, events, B, Lc, seed, dev):
+    """Phase 4's operands at (B, Lc): counter bits with the service's
+    negative pad trials, a Δ column with inf rows, the exact base."""
     import numpy as np
-    # counter bits with the service's negative pad trials, a Δ column with
-    # inf rows, and the exact base
-    tau, dcol, tcol = _kernel_inputs(torch, np.random.default_rng(1), B_MAIN,
-                                     L_MAIN, dev)
-    tau_h = ops.ring_halo(tau)
-    bits = events.counter_bits_block(7, 0xFFFFFFFF, tcol[:, 0], 0, B_MAIN,
-                                     L_MAIN)
+    tau, dcol, tcol = _kernel_inputs(torch, np.random.default_rng(seed), B,
+                                     Lc, dev)
+    bits = events.counter_bits_block(7, 0xFFFFFFFF, tcol[:, 0], 0, B, Lc)
     gvt = torch.amin(tau, dim=-1, keepdim=True)
+    return tau, ops.ring_halo(tau), bits, gvt, dcol
+
+
+def _hold_step(torch, ps, ref, tau_h, bits, base, kw, what) -> float:
+    """B2 against its plain version on one input: tau'/ucount/min/max
+    bitwise, the sums within tolerance; returns the sums' max |err|."""
+    t_k, m_k = ps.pdes_step(tau_h, bits, base, **kw)
+    t_p, _, m_p = ref.pdes_step_ref(tau_h, bits, base, **kw)
+    check(torch.equal(t_k, t_p), f"tau' differs: {what}")
+    err = 0.0
+    for key in m_p:
+        a, b = m_k[key], m_p[key]
+        if key in EXACT_KEYS:
+            check(torch.equal(a, b), f"{key} differs: {what}")
+        else:
+            check(torch.allclose(a, b, rtol=SUM_RTOL, atol=SUM_ATOL),
+                  f"{key} beyond tolerance: {what}")
+        err = max(err, float((a - b).abs().max()))
+    return err
+
+
+def phase_step(torch, ps, ref, ops, events, build, dev, timer=cuda_ms,
+               dev_timer=device_ms):
+    """B2 against its plain version at the main path's shape and at
+    ``STEP_SHAPES``, its moments the same at any batch, then timed: the
+    shapes with the card's queue filled first (``device_ms``), so a
+    launch-bound shape shows the kernel's time, not the host's."""
+    from repro_torch.kernels.tiling import MAX_RING_L, step_plan
+    tau, tau_h, bits, gvt, dcol = _step_inputs(torch, ops, events, B_MAIN,
+                                               L_MAIN, 1, dev)
     stale = gvt - 3.0                 # a stale base below the row minimum
-    # (n_v, rd_mode, border_both, window base, static Δ)
-    cases = [(1, False, False, gvt, 16.0), (10, False, False, gvt, 16.0),
-             (10, False, False, gvt, math.inf), (10, True, False, gvt, 4.0),
-             (10, False, True, gvt, 16.0), (10, False, False, stale, 16.0),
-             (10, False, False, gvt + dcol, 0.0),
-             (10, False, False, stale + dcol, 0.0)]
     max_err = 0.0
+    cases = _step_cases(gvt, stale, dcol)
     for n_v, rd_mode, border_both, base, delta in cases:
         kw = dict(n_v=n_v, delta=delta, rd_mode=rd_mode,
                   border_both=border_both)
-        t_k, m_k = ps.pdes_step(tau_h, bits, base, **kw)
-        t_p, _, m_p = ref.pdes_step_ref(tau_h, bits, base, **kw)
-        what = f"{kw} stale={base is stale}"
-        check(torch.equal(t_k, t_p), f"tau' differs: {what}")
-        for key in m_p:
-            a, b = m_k[key], m_p[key]
-            if key in EXACT_KEYS:
-                check(torch.equal(a, b), f"{key} differs: {what}")
-            else:
-                check(torch.allclose(a, b, rtol=SUM_RTOL, atol=SUM_ATOL),
-                      f"{key} beyond tolerance: {what}")
-            max_err = max(max_err, float((a - b).abs().max()))
+        max_err = max(max_err, _hold_step(
+            torch, ps, ref, tau_h, bits, base, kw,
+            f"{kw} stale={base is stale}"))
     print(f"[step] tau'/ucount/min/max bitwise equal to the plain version "
           f"over {len(cases)} cases at B={B_MAIN} Lc={L_MAIN}; max |err| of "
           f"the sums {max_err:.3g}")
+    shapes = [(B, Lc or MAX_RING_L + 1000) for B, Lc in STEP_SHAPES]
+    inputs = {}
+    for i, (B, Lc) in enumerate(shapes):
+        _, th, bt, g, dc = inputs[B, Lc] = _step_inputs(
+            torch, ops, events, B, Lc, 10 + i, dev)
+        err = 0.0
+        for n_v, rd_mode, border_both, base, delta in _step_cases(
+                g, g - 3.0, dc):
+            kw = dict(n_v=n_v, delta=delta, rd_mode=rd_mode,
+                      border_both=border_both)
+            err = max(err, _hold_step(torch, ps, ref, th, bt, base, kw,
+                                      f"{kw} at B={B} Lc={Lc}"))
+        max_err = max(max_err, err)
+        print(f"[step] B={B} Lc={Lc} ({step_plan(Lc)}): tau'/ucount/min/max "
+              f"bitwise over {len(cases)} cases; max |err| of the sums "
+              f"{err:.3g}")
+
+    # the same rows give the same moments, bit for bit, at any batch
+    kw = dict(n_v=N_V_MAIN, delta=0.0)
+    for B, Lc in ((B_MAIN, L_MAIN), (64, 65_536), (64, 16)):
+        _, th, bt, g, dc = ((tau, tau_h, bits, gvt, dcol) if Lc == L_MAIN
+                            else _step_inputs(torch, ops, events, B, Lc, 20,
+                                              dev))
+        base = g + dc
+        t_all, m_all = ps.pdes_step(th, bt, base, **kw)
+        runs = [(slice(0, BATCH_ROWS), 0)] + [
+            (slice(r, r + 1), r) for r in range(BATCH_ROWS)]
+        for rows, r0 in runs:
+            t_b, m_b = ps.pdes_step(th[rows], bt[rows], base[rows], **kw)
+            n = t_b.shape[0]
+            check(torch.equal(t_all[r0:r0 + n], t_b),
+                  f"tau' of rows {rows} depends on the batch at Lc={Lc}")
+            for key, v in m_b.items():
+                check(torch.equal(m_all[key][r0:r0 + n], v),
+                      f"{key} of rows {rows} depends on the batch "
+                      f"(B={B} against {n}) at Lc={Lc}")
+        print(f"[step] batch invariance at Lc={Lc}: the first {BATCH_ROWS} "
+              f"rows of a B={B} launch give all six moments and tau' bit for "
+              f"bit as at B={BATCH_ROWS} and each at B=1")
 
     # timing at the main path's operands: N_V = 10, the folded Δ column
     base = gvt + dcol
@@ -730,6 +835,19 @@ def phase_step(torch, ps, ref, ops, events, build, dev, timer=cuda_ms):
     print(f"[step] one step at B={B_MAIN} Lc={L_MAIN} N_V={N_V_MAIN}: kernel "
           f"{k1:.5f} / {k2:.5f} ms, plain {p1:.4f} / {p2:.4f} ms (order "
           f"plain, kernel, kernel, plain)")
+    # the kernel alone at every shape, beside its bytes bound
+    for B, Lc in shapes:
+        _, th, bt, g, dc = inputs[B, Lc]
+        w = build.u32_bits(bt).reshape(bt.shape).contiguous()
+        o = torch.empty((B, Lc), dtype=torch.float32, device=dev)
+        st = torch.empty((6, B), dtype=torch.float32, device=dev)
+        b = g + dc
+        t1, t2 = (dev_timer(lambda: ps.launch(th, w, b, o, st, **kw), 200)
+                  for _ in range(2))
+        b_ms = _step_bytes(B, Lc) / HBM_BYTES_PER_S * 1e3
+        print(f"[step] kernel at B={B} Lc={Lc}: {t1:.5f} / {t2:.5f} ms; "
+              f"bytes bound {_step_bytes(B, Lc)} B -> {b_ms:.5f} ms, share "
+              f"{b_ms / min(t1, t2):.3f}; plan {ps.launch_plan(B, Lc)}")
 
     # the host-side pieces of one `pallas` engine step, at the same shape
     trials = torch.arange(B_MAIN, device=dev)
@@ -746,8 +864,7 @@ def phase_step(torch, ps, ref, ops, events, build, dev, timer=cuda_ms):
         print(f"[step] piece {name:22s} {timer(fn, 20):.5f} ms")
     ucount = float(ps.pdes_step(tau_h, bits, base, **kw)[1]["ucount"].sum())
     n_pe = B_MAIN * L_MAIN
-    n_bytes = (4 * B_MAIN * (L_MAIN + 2) + 8 * n_pe + 4 * B_MAIN
-               + 4 * n_pe + 4 * 6 * B_MAIN)
+    n_bytes = _step_bytes(B_MAIN, L_MAIN)
     n_ops = STEP_OPS_PER_PE * n_pe + STEP_OPS_PER_UPDATE * ucount
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     ops_ms = n_ops / SCALAR_OPS_PER_S * 1e3
@@ -2854,11 +2971,14 @@ def phase_pdes_core(torch, ps, ops, ref, _build, dev, timer=cuda_ms):
               f"messages a step ({ {k: v for k, v in rec['collectives']
                                       .items() if v} }), temp memory "
               f"{rec['memory_temp_gib'] * 2**30 / 2**20:.3f} MiB")
+    b_ms = _step_bytes(B_l, L_l) / HBM_BYTES_PER_S * 1e3
     print(f"[shard d] B2 launches {launches}, each held against the plain "
           f"version (tau'/ucount/min/max bitwise, the sums within rtol "
           f"{SUM_RTOL}: max relative error {max(held):.3g}); one step at "
-          f"{B_l} x {L_l}: the kernel {k_ms:.5f} ms, the wrapper with its "
-          f"int64 -> uint32 word conversion {w_ms:.5f} ms (CUDA events)")
+          f"{B_l} x {L_l}: the kernel {k_ms:.5f} ms ({b_ms:.5f} ms bytes "
+          f"bound, share {b_ms / k_ms:.3f}; plan "
+          f"{ps.launch_plan(B_l, L_l)}), the wrapper with its int64 -> "
+          f"uint32 word conversion {w_ms:.5f} ms (CUDA events)")
     return launches
 
 
@@ -2890,12 +3010,18 @@ def phase_linter(root):
     print(f"[linter] python -m repro_torch.analysis --backend all: exit 0, "
           f"{len(report['backends'])} backends equal to their goldens, "
           f"{report['n_findings']} findings ({time.perf_counter() - t0:.1f} s)")
+    from repro_torch.kernels import pdes_step as ps
     for L in (10_000, MAX_RING_L):
         for row in vmem.kernel_budgets(L):
             info = row["ptxas"]
             check(info is not None, f"no ptxas log for {row['kernel']}")
             check(not row["over"], f"{row['kernel']} at L={L}: {row['over']}")
+            check(row["kernel"] != "pdes_step"
+                  or info["static_smem"] == ps.STATIC_SMEM,
+                  f"pdes_step's static shared memory: ptxas "
+                  f"{info['static_smem']} B, the plan {ps.STATIC_SMEM} B")
             print(f"[linter] {row['kernel']} at L={L}: grid {row['grid']}, "
+                  f"cluster {row.get('cluster', 1)}, "
                   f"{row['threads']} threads, shared {row['dynamic_smem']} B "
                   f"dynamic + {row['static_smem']} B static of "
                   f"{vmem.DEFAULT_BUDGET} B; ptxas: {info['registers']} "
@@ -2903,6 +3029,16 @@ def phase_linter(root):
                   f"{vmem.REGISTERS_PER_SM} a block), {info['static_smem']} B "
                   f"static shared, spills {info['spill_stores']} B stored / "
                   f"{info['spill_loads']} B loaded, stack {info['stack']} B")
+    for L in (10_000, 65_536, MAX_RING_L):
+        plan = ps.launch_plan(B_MAIN, L)
+        row = vmem.budget_of("pdes_step", plan)
+        check(not row["over"], f"pdes_step at L={L}: {row['over']}")
+        print(f"[linter] pdes_step's plan at L={L}, B={B_MAIN}: cluster "
+              f"{plan['cluster']}, {plan['rows']} row(s) a block, grid "
+              f"{plan['grid']}, {plan['threads']} threads, "
+              f"{plan['dynamic_smem']} B dynamic shared a block, "
+              f"{ps.resident_clusters(L)} clusters on the card at once "
+              f"({ps.step_plan(L)})")
     for name in sorted(FIXTURES):
         probe, rule = FIXTURES[name]()
         fired = {f.rule for f in analyze_probe(probe)}

@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
-"""Measurements of the multistep ring kernels (B1, B3) beside chip_smoke.py.
+"""Measurements of the PDES kernels (B1, B2, B3) beside chip_smoke.py.
 
 Run on a machine with one NVIDIA GPU and ``nvcc``, from the root of a
 checkout::
 
     python3 ring_bench.py ablate CSRC_DIR
     python3 ring_bench.py drain SRC_DIR [SRC_DIR ...]
+    python3 ring_bench.py step SRC_DIR [SRC_DIR ...]
+    python3 ring_bench.py ablate-step CSRC_DIR
 
 ``ablate`` splits a ring loop's time.  It copies ``CSRC_DIR`` (the
 ``src/repro_torch/kernels/csrc`` of some checkout, for example one unpacked
@@ -21,6 +23,17 @@ say what a piece of the loop costs and nothing else.
 in each ``SRC_DIR`` (a checkout's ``src``), in a process of its own, three
 times: the first includes the build and the first use of every operator;
 the other two are warm.  Give the trees in turns (old, new, new, old).
+
+``step`` times the one-step kernel (B2) of the port in each ``SRC_DIR``,
+in a process of its own, through that tree's ``pdes_step.launch`` at the
+shapes of ``STEP_SHAPES`` with CUDA events (the best of two runs of 200
+launches, warm), on ``chip_smoke.py`` phase 4's operands.
+
+``ablate-step`` does for B2 what ``ablate`` does for the ring loops: one
+variant of ``CSRC_DIR``'s ``pdes_step.cu`` per entry of ``STEP_VARIANTS``
+(text edits, or another launch plan than ``tiling.step_plan``'s), each
+launched through its library's C symbol and timed at the main path's and
+a --pdes-core shard's shapes.
 """
 from __future__ import annotations
 
@@ -39,6 +52,9 @@ ROOT = pathlib.Path(__file__).resolve().parent
 OUT = ROOT / "build" / "ring_bench"
 B, K, N_V = 448, 16, 10
 LS = (10_000, 1000)
+#: (B, Lc) of ``step``: the main path, a --pdes-core shard, one Δ's
+#: replicas, the commavoid edge strip.
+STEP_SHAPES = ((448, 10_000), (32, 65_536), (64, 10_000), (32, 16))
 
 
 def _swap(old: str, new: str):
@@ -91,7 +107,56 @@ VARIANTS = {
 }
 
 
-def _make(csrc: pathlib.Path, name: str, edits: dict):
+def _one_kernel(wide: bool):
+    """One instantiation for every plan: the wide or the narrow kernel."""
+    return _swap("return threads == kMaxThreads ? pdes_step_kernel<true>\n"
+                 "                                : pdes_step_kernel<false>;",
+                 f"return pdes_step_kernel<{str(wide).lower()}>;")
+
+
+def _plan(cluster: int, threads: int | None = None):
+    """A plan transform: a row in ``cluster`` segments, one block of
+    ``threads`` threads each (the plan's own where None)."""
+    def transform(p, tiling, lc):
+        import dataclasses
+        g = threads or p.threads
+        seg = 2 * -(-lc // (2 * cluster))
+        tile = min(seg, 2 * tiling.STEP_PAIRS * g)
+        return dataclasses.replace(
+            p, cluster=cluster, threads=g, rows=1, seg=seg, tile=tile,
+            keep=tile == seg, smem=4 * tiling.step_group_floats(
+                seg, tile == seg))
+    return transform
+
+
+#: Variants of B2: (edits by file, plan transform or None).  The table
+#: decode against the library log and against no decode (a few bits of
+#: word 1), the wide kernel (pairs of PEs, 40 registers) or the narrow one
+#: (a PE a lane, 32 registers) for every plan, the cluster's launch and
+#: exchange dropped (its sums are then wrong), and other plans: one block
+#: a row, clusters of 4, blocks of 256 or 512 threads.
+STEP_VARIANTS = {
+    "as given": ({}, None),
+    "library log": ({"pdes_step.cu": [_swap(
+        "eta_from_w1(w.y, tab))", "eta_from_w1(w.y))")]}, None),
+    "no decode": ({"pdes_step.cu": [_swap(
+        "eta_from_w1(w.y, tab))",
+        "__uint_as_float((w.y >> 9) | 0x3c000000u))")]}, None),
+    "wide kernel": ({"pdes_step.cu": [_one_kernel(True)]}, None),
+    "narrow kernel": ({"pdes_step.cu": [_one_kernel(False)]}, None),
+    "no cluster": ({"pdes_step.cu": [
+        _swap("attr->val.clusterDim.x = (unsigned)cluster;",
+              "attr->val.clusterDim.x = 1u;"),
+        _swap("if (S > 1) {", "if (false) {")]}, None),
+    "one block a row": ({}, _plan(1)),
+    "1 x 512 threads": ({}, _plan(1, 512)),
+    "4 x 256 threads": ({}, _plan(4, 256)),
+    "4 x 512 threads": ({}, _plan(4, 512)),
+}
+
+
+def _make(csrc: pathlib.Path, name: str, edits: dict,
+          srcs=("pdes_multistep_counter", "pdes_multistep")):
     d = OUT / "".join(c if c.isalnum() else "_" for c in name)
     shutil.rmtree(d, ignore_errors=True)
     d.mkdir(parents=True)
@@ -105,13 +170,14 @@ def _make(csrc: pathlib.Path, name: str, edits: dict):
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import _build
     libs = {}
-    for src in ("pdes_multistep_counter", "pdes_multistep"):
+    for src in srcs:
         so = d / f"lib{src}.so"
         proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o",
                                str(so), str(d / f"{src}.cu")],
                               capture_output=True, text=True)
         if proc.returncode:
             raise RuntimeError(f"{name}: {proc.stdout}{proc.stderr}")
+        so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
         libs[src] = so
     return name, libs
 
@@ -181,6 +247,65 @@ def ablate(csrc: pathlib.Path) -> dict:
     return out
 
 
+def ablate_step(csrc: pathlib.Path) -> dict:
+    import torch
+    import chip_smoke
+    from repro_torch.core import events
+    from repro_torch.kernels import _build, ops, tiling
+    with concurrent.futures.ThreadPoolExecutor(len(STEP_VARIANTS)) as pool:
+        built = dict(pool.map(
+            lambda kv: _make(csrc, "step " + kv[0], kv[1][0], ("pdes_step",)),
+            STEP_VARIANTS.items()))
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    out = {}
+    for b, lc in STEP_SHAPES[:2]:
+        _, tau_h, bits, gvt, dcol = chip_smoke._step_inputs(
+            torch, ops, events, b, lc, 1, "cuda")
+        words = _build.u32_bits(bits).reshape(bits.shape).contiguous()
+        base = (gvt + dcol).contiguous()
+        o = torch.empty((b, lc), device="cuda")
+        st = torch.empty((6, b), device="cuda")
+        for name, (_, transform) in STEP_VARIANTS.items():
+            libs = built["step " + name]
+            if libs is None:
+                print(f"[ablate-step] {name}: the sources lack its text; "
+                      f"skipped")
+                continue
+            f = ctypes.CDLL(str(libs["pdes_step"])).pdes_step_launch
+            f.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
+                          + [ctypes.c_uint32, ctypes.c_float]
+                          + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+            p = tiling.step_plan(lc)
+            if transform is not None:
+                p = transform(p, tiling, lc)
+
+            def run():
+                return f(tau_h.data_ptr(), words.data_ptr(), base.data_ptr(),
+                         o.data_ptr(), st.data_ptr(), b, lc, N_V, 0.0, 0, 0,
+                         p.cluster, p.threads, p.rows, p.seg, p.tile,
+                         int(p.keep), p.smem, stream)
+
+            err = run()
+            if err:
+                print(f"[ablate-step] {b}x{lc} {name}: launch refused, CUDA "
+                      f"error {err}", flush=True)
+                continue
+            ms = min(chip_smoke.cuda_ms(run, 200) for _ in range(2))
+            dev_ms = min(chip_smoke.device_ms(run, 200) for _ in range(2))
+            occ = ctypes.CDLL(str(libs["pdes_step"])).pdes_step_max_clusters(
+                p.cluster, p.threads, p.smem)     # the variant's own kernel
+            info = _build.parse_ptxas(
+                libs["pdes_step"].with_suffix(".log").read_text())
+            regs = max(v["registers"] for v in info.values())
+            spill = max(v["spill_stores"] for v in info.values())
+            out[f"{b}x{lc} {name}"] = dev_ms
+            print(f"[ablate-step] {b}x{lc} {name:18s} {dev_ms:.5f} ms "
+                  f"(back to back {ms:.5f}; {regs} registers, {spill} B "
+                  f"spilled; cluster {p.cluster} tile {p.tile} smem {p.smem}"
+                  f", {occ} clusters at once)", flush=True)
+    return out
+
+
 def drain_one(src: pathlib.Path) -> list:
     sys.path.insert(0, str(src))
     import torch
@@ -202,6 +327,29 @@ def drain_one(src: pathlib.Path) -> list:
     return walls
 
 
+def step_one(src: pathlib.Path) -> dict:
+    sys.path.insert(0, str(src))
+    import torch
+    import chip_smoke
+    from repro_torch.core import events
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import pdes_step as ps
+    assert pathlib.Path(ps.__file__).is_relative_to(src), ps.__file__
+    kw = dict(n_v=N_V, delta=0.0, rd_mode=False, border_both=False)
+    out = {}
+    for b, lc in STEP_SHAPES:
+        _, tau_h, bits, gvt, dcol = chip_smoke._step_inputs(
+            torch, ops, events, b, lc, 1, "cuda")
+        words = _build.u32_bits(bits).reshape(bits.shape).contiguous()
+        base = gvt + dcol
+        o = torch.empty((b, lc), device="cuda")
+        st = torch.empty((6, b), device="cuda")
+        out[f"{b}x{lc}"] = min(chip_smoke.cuda_ms(
+            lambda: ps.launch(tau_h, words, base, o, st, **kw), 200)
+            for _ in range(2))
+    return out
+
+
 def main(argv) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -209,7 +357,7 @@ def main(argv) -> int:
         return 1
     sys.path.insert(0, str(ROOT))
     import chip_smoke
-    if argv[:1] in (["ablate"], ["drain"]):
+    if argv[:1] in (["ablate"], ["drain"], ["step"], ["ablate-step"]):
         print(chip_smoke.card_line())
     if argv[:1] == ["ablate"] and len(argv) == 2:
         sys.path.insert(0, str(ROOT / "src"))
@@ -226,6 +374,21 @@ def main(argv) -> int:
                   f"and first use)", flush=True)
     elif argv[:1] == ["_drain"] and len(argv) == 2:
         print(json.dumps(drain_one(pathlib.Path(argv[1]).resolve())))
+    elif argv[:1] == ["step"] and len(argv) >= 2:
+        for src in argv[1:]:
+            proc = subprocess.run(
+                [sys.executable, __file__, "_step", src],
+                capture_output=True, text=True)
+            if proc.returncode:
+                raise RuntimeError(proc.stdout + proc.stderr)
+            ms = json.loads(proc.stdout.splitlines()[-1])
+            print(f"[step] {src}: B2 ms per launch " + ", ".join(
+                f"{k} {v:.5f}" for k, v in ms.items()), flush=True)
+    elif argv[:1] == ["ablate-step"] and len(argv) == 2:
+        sys.path.insert(0, str(ROOT / "src"))
+        print(json.dumps(ablate_step(pathlib.Path(argv[1]).resolve())))
+    elif argv[:1] == ["_step"] and len(argv) == 2:
+        print(json.dumps(step_one(pathlib.Path(argv[1]).resolve())))
     else:
         print(__doc__, file=sys.stderr)
         return 2

@@ -125,7 +125,7 @@ def _ring_plan(tau, *a, **kw):
 
 def _b2_plan(tau_h, *a, **kw):
     from ..kernels import pdes_step
-    return pdes_step.launch_plan(tau_h.shape[0])
+    return pdes_step.launch_plan(tau_h.shape[0], tau_h.shape[1] - 2)
 
 
 #: (module, attribute) of each kernel wrapper as its callers reach it, the

@@ -16,13 +16,15 @@ Where the kernel was built here, ``kernels/_build.py`` kept ``nvcc``'s
 compiled kernel's registers, static shared memory and spill bytes
 (``_build.ptxas_info``).  It fires when static plus dynamic shared memory
 passes the budget, or registers times threads pass the 65,536 registers
-of an SM; spills are reported by :func:`kernel_budgets` and do not fire.
-Without a log (no ``nvcc`` here) the plan's static figure stands.
+of an SM, for each block of a launch (a cluster's blocks each hold their
+own), or when a launch's cluster passes the portable cluster size; spills
+are reported by :func:`kernel_budgets` and do not fire.  Without a log
+(no ``nvcc`` here) the plan's static figure stands.
 """
 from __future__ import annotations
 
 from ...kernels import _build, pdes_multistep, pdes_step, threefry
-from ...kernels.tiling import MAX_RING_L, SMEM_PER_BLOCK
+from ...kernels.tiling import MAX_RING_L, SMEM_PER_BLOCK, STEP_MAX_CLUSTER
 from ..probes import Probe
 from ..report import Finding
 
@@ -31,6 +33,10 @@ RULE = "vmem-budget"
 DEFAULT_BUDGET = SMEM_PER_BLOCK       # bytes; one H100 block
 #: 32-bit registers of one SM (and the most one block may hold)
 REGISTERS_PER_SM = 65_536
+#: Most blocks of a cluster that every Hopper part schedules
+PORTABLE_CLUSTER = STEP_MAX_CLUSTER
+#: The kernels that keep a whole ring in one block's shared memory
+RING_KERNELS = ("pdes_multistep_counter", "pdes_multistep")
 
 #: kernel -> (CUDA source, __global__ function) of its library
 SOURCES = {
@@ -44,7 +50,8 @@ SOURCES = {
 
 def budget_of(kernel: str, plan: dict, budget: int = DEFAULT_BUDGET) -> dict:
     """The plan of one launch against the budget: the plan's numbers, the
-    ptxas figures where a log exists, and ``over`` (what fires)."""
+    ptxas figures where a log exists, and ``over`` (what fires).  Each
+    block of a cluster is held to the block budget on its own."""
     info = _build.ptxas_info(*SOURCES[kernel])
     static = plan["static_smem"] if info is None else max(
         plan["static_smem"], info["static_smem"])
@@ -59,6 +66,10 @@ def budget_of(kernel: str, plan: dict, budget: int = DEFAULT_BUDGET) -> dict:
         row["over"].append(
             f"{info['registers']} registers x {plan['threads']} threads > "
             f"{REGISTERS_PER_SM}")
+    if plan.get("cluster", 1) > PORTABLE_CLUSTER:
+        row["over"].append(
+            f"cluster of {plan['cluster']} blocks > the portable "
+            f"{PORTABLE_CLUSTER}")
     return row
 
 
@@ -70,7 +81,7 @@ def kernel_budgets(L: int = 10_000, budget: int = DEFAULT_BUDGET,
     phase 16 prints."""
     ring = pdes_multistep.launch_plan(B, L)
     return [budget_of("pdes_multistep_counter", ring, budget),
-            budget_of("pdes_step", pdes_step.launch_plan(B), budget),
+            budget_of("pdes_step", pdes_step.launch_plan(B, L), budget),
             budget_of("pdes_multistep", ring, budget),
             budget_of("threefry_bits", threefry.launch_plan(K, B * L),
                       budget)]
@@ -92,5 +103,5 @@ def check(probe: Probe, vmem_budget: int = DEFAULT_BUDGET, **_) -> list:
                         + "; ".join(row["over"])
                         + (f" (rings above L={MAX_RING_L} need a "
                            "thread-block cluster)"
-                           if call.plan["dynamic_smem"] else "")))
+                           if call.kernel in RING_KERNELS else "")))
     return findings

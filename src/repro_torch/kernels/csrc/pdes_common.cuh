@@ -206,8 +206,9 @@ __device__ __forceinline__ float eta_from_w1(uint32_t w1,
   return neg_log_rn(decode_x(w1), tab);
 }
 
-// eta by the fp64 library log (B2, whose occupancy leaves no registers for
-// the table's arithmetic); the same float on every input
+// eta by the fp64 library log, the plain rule's own arithmetic (the decode
+// check of pdes_multistep_counter.cu takes it); the same float on every
+// input
 __device__ __forceinline__ float eta_from_w1(uint32_t w1) {
   return __double2float_rn(-log((double)decode_x(w1)));
 }

@@ -9,7 +9,7 @@ exact-GVT step on full rings;
 through B3 (``pdes_multistep``), the words of each chunk made by the
 generator kernel (``threefry.threefry_bits``).  The TPU tile helpers
 ``vmem_bytes`` and ``pick_block_b`` have no Hopper counterpart: the kernels
-run one block per row whatever the row length.
+size their launches from the row length alone (``kernels/tiling.py``).
 """
 from __future__ import annotations
 

@@ -2,15 +2,16 @@
 
 Port of ``repro.kernels.pdes_step.pdes_step``, the engine's ``pallas``
 backend and the only fused path for ``window="stale"``.  On a CUDA tensor
-the wrapper launches the hand-written kernel in ``csrc/pdes_step.cu`` (one
-block per row, threads striding over the row; see the note there for its
-bound) or raises; on a CPU tensor it runs the plain PyTorch version,
-``ref.pdes_step_ref``.  There is no other path.
+the wrapper launches the hand-written kernel in ``csrc/pdes_step.cu`` (a
+long row over a thread-block cluster, short rows sharing a block, as
+``tiling.step_plan`` says; see the note there for its bound) or raises; on
+a CPU tensor it runs the plain PyTorch version, ``ref.pdes_step_ref``.
+There is no other path.
 
 The window base ``gvt`` comes from the caller: the exact minimum, the stale
 per-chunk one, or either with a per-row Δ folded in (``gvt + delta_col``
 with a static ``delta`` of 0, as the engine does).  Rows may be of any
-length: the kernel keeps nothing of a row in shared memory.
+length: the kernel keeps nothing of a row between launches.
 
 ``launches`` counts kernel launches, so a run can show that its main path
 went through the kernel.
@@ -25,26 +26,31 @@ from ..core import horizon
 from ..core.horizon import MOMENT_KEYS
 from . import _build
 from .ref import pdes_step_ref
+from .tiling import step_plan
 
 #: Kernel launches made by :func:`pdes_step` in this process.
 launches = 0
 
 _LIB = "pdes_step"
 
-#: Threads of a block (``kThreads`` in ``csrc/pdes_step.cu``).
-THREADS = 512
-#: Static shared memory of a block: five float and one unsigned partial
-#: per warp and the row sum (``csrc/pdes_step.cu``).
-STATIC_SMEM = 6 * 4 * (THREADS // 32) + 4
+#: Static shared memory of a block (``csrc/pdes_step.cu``): six per-warp
+#: partials of 16 warps, 17 five-word partial moments (one a group, one
+#: for the cluster), 16 sumabs slots and the decode's log table, 2,836
+#: bytes, rounded up to the table's 16-byte alignment as ptxas lays them
+#: out (2,848).
+STATIC_SMEM = -(-(6 * 4 * 16 + 17 * 20 + 4 * 16 + 128 * 16) // 16) * 16
 
 
-def launch_plan(B: int) -> dict:
-    """The launch of B2 on ``B`` haloed rows of any length: one block of
-    :data:`THREADS` a row, striding over it in device memory, with no
-    dynamic shared memory (the launcher passes 0 bytes).  :func:`launch`
-    launches with it and the linter's ``vmem-budget`` rule reads it."""
-    return {"grid": (B,), "threads": THREADS, "dynamic_smem": 0,
-            "static_smem": STATIC_SMEM}
+def launch_plan(B: int, Lc: int) -> dict:
+    """The launch of B2 on ``B`` haloed rows of ``Lc`` PEs, from
+    ``tiling.step_plan(Lc)``: ``cluster`` blocks a row as one cluster, or
+    ``rows`` rows a block, so ``cluster * ceil(B / rows)`` blocks of
+    ``threads``.  :func:`launch` launches with it and the linter's
+    ``vmem-budget`` rule reads it."""
+    p = step_plan(Lc)
+    return {"grid": (p.cluster * -(-B // p.rows),), "cluster": p.cluster,
+            "threads": p.threads, "rows": p.rows,
+            "dynamic_smem": p.smem, "static_smem": STATIC_SMEM}
 
 
 def _lib() -> ctypes.CDLL:
@@ -53,9 +59,22 @@ def _lib() -> ctypes.CDLL:
     if f.argtypes is None:
         f.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
                       + [ctypes.c_uint32, ctypes.c_float]
-                      + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+                      + [ctypes.c_int] * 9 + [ctypes.c_void_p])
         f.restype = ctypes.c_int
+        g = lib.pdes_step_max_clusters
+        g.argtypes = [ctypes.c_int] * 3
+        g.restype = ctypes.c_int
     return lib
+
+
+def resident_clusters(Lc: int) -> int:
+    """Clusters of B2's launch on rows of ``Lc`` PEs that the current card
+    holds at once (``cudaOccupancyMaxActiveClusters``); a batch needing
+    more runs in waves."""
+    p = step_plan(Lc)
+    n = _lib().pdes_step_max_clusters(p.cluster, p.threads, p.smem)
+    _build.check(max(0, -n), "pdes_step occupancy")
+    return n
 
 
 def launch(tau_h, words, gvt, tau_out, stats, *, n_v: int, delta: float,
@@ -64,18 +83,20 @@ def launch(tau_h, words, gvt, tau_out, stats, *, n_v: int, delta: float,
 
     ``words`` is the (B, Lc, 2) int32 tensor of uint32 bit patterns,
     ``tau_out`` (B, Lc) and ``stats`` (6, B) float32 outputs, all
-    contiguous on one CUDA device.  Counts nothing: timing scripts call it
-    to see the kernel alone.
+    contiguous on one CUDA device.  Launches with ``step_plan(Lc)``
+    (:func:`launch_plan`) and raises on a launch the card refuses; nothing
+    falls back.  Counts nothing: timing scripts call it to see the kernel
+    alone.
     """
     B, Lc = tau_out.shape
-    plan = launch_plan(B)
+    p = step_plan(Lc)
     dev = tau_out.device
     with torch.cuda.device(dev):
         err = _lib().pdes_step_launch(
             tau_h.data_ptr(), words.data_ptr(), gvt.data_ptr(),
-            tau_out.data_ptr(), stats.data_ptr(), plan["grid"][0], Lc, n_v,
-            float(delta),
-            int(rd_mode), int(border_both), _build.stream(dev))
+            tau_out.data_ptr(), stats.data_ptr(), B, Lc, n_v, float(delta),
+            int(rd_mode), int(border_both), p.cluster, p.threads, p.rows,
+            p.seg, p.tile, int(p.keep), p.smem, _build.stream(dev))
     _build.check(err, "pdes_step launch")
 
 

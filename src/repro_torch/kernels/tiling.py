@@ -13,8 +13,17 @@ five rings share an SM.
 The block's warps come from :func:`ring_warps`, a function of ``L``
 alone: the order in which a ring's sums are reduced follows the warps, so
 it must not depend on the batch the ring runs in.
+
+The one-step kernel (B2) keeps nothing of a row between launches, so a
+row of any length runs; how its work is spread comes from
+:func:`step_plan`, a function of the row length ``Lc`` alone for the same
+reason: a long row is cut into segments, one block each, the blocks of a
+row one thread-block cluster; short rows share a block.
 """
 from __future__ import annotations
+
+import dataclasses
+import functools
 
 #: Dynamic shared memory one H100 block may use (227 KB, 232,448 bytes).
 SMEM_PER_BLOCK = 232_448
@@ -62,3 +71,93 @@ def check_ring_fits(L: int) -> None:
         raise ValueError(
             f"ring of L={L} PEs needs {ring_smem_bytes(L)} bytes of shared "
             f"memory; one block holds rings up to L={MAX_RING_L}")
+
+
+#: Most threads of a B2 block (``kMaxThreads`` in ``csrc/pdes_step.cu``):
+#: a segment's group where 8 blocks of ``STEP_SEG_THREADS`` would not
+#: cover the row.
+STEP_THREADS = 512
+#: Threads of a B2 segment's group on rows that take a cluster.
+STEP_SEG_THREADS = 256
+#: Threads of a B2 block whose short rows share it.
+STEP_SHARED_THREADS = 128
+#: Pairs of PEs a B2 thread takes from a tile (``kPairs``): a group of
+#: ``G`` threads walks its segment in tiles of ``2 * STEP_PAIRS * G`` PEs,
+#: and keeps τ′ on chip where the segment is one tile, which a row of up
+#: to ``2 * STEP_PAIRS * STEP_THREADS * STEP_MAX_CLUSTER`` = 81,920 PEs is.
+STEP_PAIRS = 10
+#: Most blocks of a row's cluster: the portable cluster size.
+STEP_MAX_CLUSTER = 8
+
+
+@dataclasses.dataclass(frozen=True)
+class StepPlan:
+    """How B2 spreads a row of ``Lc`` PEs (``csrc/pdes_step.cu``).
+
+    A row is cut into ``cluster`` segments of ``seg`` PEs (even; the last
+    one shorter), one block each; the blocks of a row are one cluster.  A
+    block of ``threads`` threads holds ``rows`` rows (more than one only
+    for short rows, which then take one segment), one group of
+    ``threads // rows`` threads a row.  A group walks its segment in tiles
+    of ``tile`` PEs; where ``keep`` (one tile a segment) its τ′ stays in
+    shared memory for the sumabs pass.  ``smem`` is the block's dynamic
+    shared memory in bytes.
+    """
+    cluster: int
+    threads: int
+    rows: int
+    seg: int
+    tile: int
+    keep: bool
+    smem: int
+
+    @property
+    def group(self) -> int:
+        """Threads of a row's group."""
+        return self.threads // self.rows
+
+
+def step_group_floats(seg: int, keep: bool) -> int:
+    """Floats of shared memory one group of B2 takes: the kept τ′ of its
+    segment, in whole 16-byte granules, where ``keep``."""
+    return (seg + 3) // 4 * 4 if keep else 0
+
+
+@functools.lru_cache(maxsize=1024)
+def step_plan(Lc: int) -> StepPlan:
+    """The launch shape of B2 on rows of ``Lc`` PEs, for any batch.
+
+    A row that :data:`STEP_SEG_THREADS` threads cover at ``2 *
+    STEP_PAIRS`` PEs a thread takes one group of the least power of two of
+    warps that does (at least one warp), and groups under
+    :data:`STEP_SHARED_THREADS` threads share a block.  A longer row takes
+    the least power of two of ``STEP_SEG_THREADS``-thread blocks that
+    does, up to :data:`STEP_MAX_CLUSTER`, as one cluster, and blocks of
+    :data:`STEP_THREADS` where 8 of those would not; past that its
+    segments are walked tile by tile and no longer keep τ′ on chip.  Small
+    blocks let a whole batch of the main path's rows (448 of 10,000 PEs)
+    sit on the card at once, 8 an SM.  The order of a row's sums follows
+    this plan, so it must not depend on the batch: a row gives the same
+    moments, bit for bit, in any launch.
+    """
+    if Lc < 1:
+        raise ValueError(f"a row has at least one PE, got Lc={Lc}")
+    per = 2 * STEP_PAIRS
+    need = -(-Lc // per)                  # threads at 2 * STEP_PAIRS PEs each
+    if need <= STEP_SEG_THREADS:
+        group, cluster = 32, 1
+        while group < need:
+            group *= 2
+    else:
+        group = (STEP_SEG_THREADS if need <= STEP_MAX_CLUSTER
+                 * STEP_SEG_THREADS else STEP_THREADS)
+        cluster = 1
+        while cluster < min(STEP_MAX_CLUSTER, -(-need // group)):
+            cluster *= 2
+    threads = max(group, STEP_SHARED_THREADS)
+    rows = threads // group
+    seg = 2 * -(-Lc // (2 * cluster))     # even, so segments start aligned
+    tile = min(seg, per * group)
+    keep = tile == seg
+    smem = 4 * rows * step_group_floats(seg, keep)
+    return StepPlan(cluster, threads, rows, seg, tile, keep, smem)

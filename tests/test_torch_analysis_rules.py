@@ -16,7 +16,8 @@ from repro_torch.analysis import analyze_probe
 from repro_torch.analysis.fixtures import EXTRA, FIXTURES
 from repro_torch.analysis.probes import iter_probes
 from repro_torch.analysis.rules import dtype_drift
-from repro_torch.kernels import _build, pdes_multistep, pdes_step, threefry
+from repro_torch.kernels import (_build, pdes_multistep, pdes_step, threefry,
+                                 tiling)
 from repro_torch.kernels.tiling import SMEM_PER_BLOCK
 from torch_parity import one_torch_thread  # noqa: F401 (autouse)
 
@@ -169,16 +170,26 @@ def test_launch_plan_is_what_the_wrappers_launch(L, monkeypatch):
         (CSRC / "pdes_multistep_counter.cu").read_text()
 
     fake.calls.clear()
-    plan = pdes_step.launch_plan(B)
+    plan = pdes_step.launch_plan(B, L)
+    sp = tiling.step_plan(L)
     pdes_step.launch(torch.zeros((B, L + 2)), torch.zeros((B, L, 2)),
                      torch.zeros((B, 1)), torch.zeros((B, L)),
                      torch.zeros((6, B)), **kw)
     ((_, a2),) = fake.calls
-    assert a2[5:7] == (plan["grid"][0], L)
+    assert a2[5:7] == (B, L)
+    assert a2[11:18] == (plan["cluster"], plan["threads"], plan["rows"],
+                         sp.seg, sp.tile, int(sp.keep), plan["dynamic_smem"])
+    assert plan["grid"] == (plan["cluster"] * -(-B // plan["rows"]),)
     src = (CSRC / "pdes_step.cu").read_text()
-    assert f"constexpr int kThreads = {plan['threads']};" in src
-    assert "pdes_step_kernel<<<B, kThreads, 0," in src
-    assert plan["dynamic_smem"] == 0
+    assert f"constexpr int kMaxThreads = {tiling.STEP_THREADS};" in src
+    assert f"constexpr int kPairs = {tiling.STEP_PAIRS};" in src
+    assert "cudaLaunchKernelEx(" in src
+    assert "cudaLaunchAttributeClusterDimension" in src
+    assert "cluster * ((B + rows - 1) / rows), cluster, threads, smem," in src
+    assert "kernel_for(threads)" in src
+    assert "smem != 4 * rows * group_floats(seg, keep)" in src
+    assert "return keep ? (seg + 3) & ~3 : 0;" in src
+    assert plan["dynamic_smem"] == sp.smem <= SMEM_PER_BLOCK
 
     src = (CSRC / "threefry_bits.cu").read_text()
     assert f"constexpr int kThreads = {threefry.THREADS};" in src
@@ -186,3 +197,33 @@ def test_launch_plan_is_what_the_wrappers_launch(L, monkeypatch):
         in src
     plan = threefry.launch_plan(K, B * L)
     assert plan["grid"] == (-(-B * L // 1024), K)
+
+
+@pytest.mark.parametrize("case", ["ring", "step", "cluster"])
+def test_vmem_budget_holds_each_block_of_a_cluster(case):
+    """Each block of a launch is held to one block's budget, a cluster to
+    the portable size; only the ring kernels' findings point at a
+    cluster split (B2's blocks hold a segment each already)."""
+    from repro_torch.analysis.probes import KernelCall, Probe
+    from repro_torch.analysis.rules import vmem
+    L = {"ring": 100_000, "step": 65_536, "cluster": 65_536}[case]
+    kernel = "pdes_multistep_counter" if case == "ring" else "pdes_step"
+    plan = (pdes_multistep.launch_plan(4, L) if case == "ring"
+            else pdes_step.launch_plan(32, L))
+    budget = vmem.DEFAULT_BUDGET
+    if case == "step":
+        budget = plan["dynamic_smem"]          # one block's, not the cluster's
+        assert vmem.budget_of(kernel, plan, budget + plan["static_smem"])[
+            "over"] == []
+    if case == "cluster":
+        plan = dict(plan, cluster=2 * vmem.PORTABLE_CLUSTER)
+    row = vmem.budget_of(kernel, plan, budget)
+    assert len(row["over"]) == 1
+    assert ("cluster of 16 blocks" if case == "cluster" else
+            "shared memory") in row["over"][0]
+    probe = Probe("p", backend="fixture", graph=None, tau_in=0, tau_out=0,
+                  ring_widths=frozenset(), L_ring=L, delta=1.0,
+                  delta_input=None,
+                  kernels=[KernelCall(kernel=kernel, plan=plan, src="x:1")])
+    (f,) = vmem.check(probe, vmem_budget=budget)
+    assert ("need a thread-block cluster" in f.message) == (case == "ring")

@@ -7,6 +7,7 @@ skips without one.  On a machine with a card (Hopper, ``sm_90a``)::
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import dataclasses
 import math
 
 import numpy as np
@@ -74,7 +75,7 @@ def test_decode_matches_plain_rule_on_all_inputs(dev):
 
 
 def test_library_decode_matches_plain_rule_on_all_inputs(dev):
-    """B2's decode (the fp64 library log) gives the table decode's floats."""
+    """The fp64 library log of the decode check gives the table's floats."""
     w1 = torch.arange(1 << 24, device=dev, dtype=torch.int64) << 8
     assert torch.equal(pm.decode_eta_cuda(w1, table=False),
                        horizon.decode_eta(w1))
@@ -207,10 +208,16 @@ def _assert_step_equal(got, want):
     (10, True, False, "stale"), (3, False, True, "stale"),
     (10, False, False, "folded")])
 @pytest.mark.parametrize("B,Lc", [(16, 1000), (3, 37),
-                                  (2, tiling.MAX_RING_L + 1000)])
+                                  (2, tiling.MAX_RING_L + 1000),
+                                  (32, 65_536), (32, 16), (7, 9_999),
+                                  (3, 70_001)])
 def test_step_kernel_matches_plain_version(dev, n_v, rd_mode, border_both,
                                            base, B, Lc):
-    """Rows longer than B1's shared-memory limit run too."""
+    """Rows longer than B1's shared-memory limit run too; at every shape
+    of B2's plan: a --pdes-core shard's 8-block clusters, the commavoid
+    edge strip's shared blocks, odd rows (every other one 8 bytes off a
+    16-byte boundary) over a 2-block cluster, and segments walked tile
+    by tile past 2^16 PEs."""
     tau_h, bits, gvt = _step_inputs(dev, B, Lc)
     delta = 4.0
     if base == "stale":
@@ -225,6 +232,48 @@ def test_step_kernel_matches_plain_version(dev, n_v, rd_mode, border_both,
     assert ps.launches == before + 1
     t_p, _, m_p = ref.pdes_step_ref(tau_h, bits, gvt, **kw)
     torch.cuda.synchronize()
+    _assert_step_equal(got, (t_p, m_p))
+
+
+@pytest.mark.parametrize("Lc", [16, 37, 10_000, 65_536, 70_001])
+def test_step_result_does_not_depend_on_its_batch(dev, Lc):
+    """The first 32 rows of a 448-row launch give the same six moments, bit
+    for bit, as the same rows launched alone at B = 32 and each at B = 1
+    (a coalesced pass against a direct run); τ′ too."""
+    B = 448 if Lc <= 10_000 else 64
+    tau_h, bits, gvt = _step_inputs(dev, B, Lc, seed=3)
+    kw = dict(n_v=10, delta=4.0)
+    t_all, m_all = ps.pdes_step(tau_h, bits, gvt, **kw)
+    t_32, m_32 = ps.pdes_step(tau_h[:32], bits[:32], gvt[:32], **kw)
+    assert torch.equal(t_all[:32], t_32)
+    for key in horizon.MOMENT_KEYS:
+        assert torch.equal(m_all[key][:32], m_32[key]), key
+    for r in range(32):
+        t_1, m_1 = ps.pdes_step(tau_h[r:r + 1], bits[r:r + 1],
+                                gvt[r:r + 1], **kw)
+        assert torch.equal(t_all[r:r + 1], t_1)
+        for key in horizon.MOMENT_KEYS:
+            assert torch.equal(m_all[key][r:r + 1], m_1[key]), (r, key)
+
+
+def test_step_kernel_refused_cluster_raises(dev, monkeypatch):
+    """A cluster the card does not place (16 blocks without the
+    non-portable attribute) raises; nothing falls back."""
+    Lc = 65_536
+    p = tiling.step_plan(Lc)
+    seg = 2 * -(-Lc // 32)
+    wide = dataclasses.replace(
+        p, cluster=16, seg=seg, tile=seg, keep=True,
+        smem=4 * tiling.step_group_floats(seg, True))
+    monkeypatch.setattr(ps, "step_plan", lambda L: wide)
+    tau_h, bits, gvt = _step_inputs(dev, 2, Lc)
+    before = ps.launches
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        ps.pdes_step(tau_h, bits, gvt, n_v=10, delta=4.0)
+    assert ps.launches == before
+    monkeypatch.undo()
+    got = ps.pdes_step(tau_h, bits, gvt, n_v=10, delta=4.0)
+    t_p, _, m_p = ref.pdes_step_ref(tau_h, bits, gvt, n_v=10, delta=4.0)
     _assert_step_equal(got, (t_p, m_p))
 
 

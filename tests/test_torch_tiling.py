@@ -1,17 +1,18 @@
-"""What the CPU can check of the multistep kernels' design (B1, B3).
+"""What the CPU can check of the kernels' design (B1, B2, B3).
 
 The kernels themselves run only on a card (``tests/test_torch_cuda.py``);
-here are the pieces of them that are plain arithmetic: the launch shape
-that ``kernels/tiling.py`` picks from L, the division-free site pick and
-the table-driven η decode, each repeated in Python the way the kernels
-compute them and held against ``%`` and the plain decode rule.
+here are the pieces of them that are plain arithmetic: the launch shapes
+that ``kernels/tiling.py`` picks from L (the rings' warps, B2's plan),
+the division-free site pick and the table-driven η decode, each repeated
+in Python the way the kernels compute them and held against ``%`` and
+the plain decode rule.
 """
 import re
 
 import numpy as np
 import pytest
 
-from repro_torch.kernels import _build, ref, tiling
+from repro_torch.kernels import _build, pdes_step, ref, tiling
 
 #: n_v values whose multiply-high constants take every shape: 1 (no shift),
 #: powers of two, small odd, the paper's 10, and the two largest classes.
@@ -59,6 +60,71 @@ def test_ring_warps(L, warps):
 def test_ring_warps_rejects_an_empty_ring():
     with pytest.raises(ValueError, match="at least one PE"):
         tiling.ring_warps(0)
+
+
+#: Row lengths B2's plan is checked at: every Lc to past the longest row
+#: one cluster keeps on chip, then a stride and every class boundary up to
+#: the full ring of ``--pdes-core`` and two past it.
+STEP_LCS = sorted(set(range(1, 66_001)) | set(range(66_001, (1 << 20) + 3,
+                                                     997))
+                  | {(1 << k) + d for k in range(17, 21) for d in (-1, 0, 1, 2)})
+#: (row length, cluster, threads, rows) at the shapes the port runs: the
+#: commavoid edge strip, the JAX tests' rows, the main path, a
+#: --pdes-core shard, the longest ring of B1, the full ring of 2^20 PEs.
+STEP_SHAPES = [(16, 1, 128, 4), (37, 1, 128, 4), (1000, 1, 128, 2),
+               (5120, 1, 256, 1), (10_000, 2, 256, 1), (40_960, 8, 256, 1),
+               (65_536, 8, 512, 1), (tiling.MAX_RING_L + 1000, 8, 512, 1),
+               (1 << 20, 8, 512, 1)]
+
+
+@pytest.mark.parametrize("case", ["batch", "cluster", "cover", "smem",
+                                  "shapes"])
+def test_step_plan(case):
+    """B2's plan is a function of Lc alone: the same for every batch, at
+    most the portable cluster, every PE in exactly one segment and one
+    thread's share of a tile, and a block's shared memory within the
+    card's, for every Lc from 1 to 2^20 + 2."""
+    plans = [(Lc, tiling.step_plan(Lc)) for Lc in STEP_LCS]
+    if case == "batch":
+        for Lc, p in plans[::61]:
+            for B in (1, 2, 3, 5, 32, 448, 1001):
+                lp = pdes_step.launch_plan(B, Lc)
+                assert lp.pop("grid") == (p.cluster * -(-B // p.rows),)
+                assert lp == {"cluster": p.cluster, "threads": p.threads,
+                              "rows": p.rows, "dynamic_smem": p.smem,
+                              "static_smem": pdes_step.STATIC_SMEM}
+    elif case == "cluster":
+        for Lc, p in plans:
+            assert p.cluster in (1, 2, 4, tiling.STEP_MAX_CLUSTER), Lc
+            assert p.cluster == 1 or p.rows == 1, Lc
+            assert p.threads <= tiling.STEP_THREADS and p.group % 32 == 0
+            assert p.threads == p.rows * p.group
+        assert max(p.cluster for _, p in plans) == tiling.STEP_MAX_CLUSTER
+    elif case == "cover":
+        for Lc, p in plans:
+            assert p.seg % 2 == 0 and p.tile % 2 == 0 and p.tile <= p.seg
+            assert p.seg * p.cluster >= Lc > p.seg * (p.cluster - 1), Lc
+            assert p.tile <= 2 * tiling.STEP_PAIRS * p.group, Lc
+            assert p.keep == (p.tile == p.seg)
+            assert p.keep == (Lc <= 2 * tiling.STEP_PAIRS * tiling.STEP_THREADS
+                              * tiling.STEP_MAX_CLUSTER), Lc
+    elif case == "smem":
+        for Lc, p in plans:
+            assert p.smem == 4 * p.rows * tiling.step_group_floats(
+                p.seg, p.keep)
+            # the kept τ′ of each row's segment, in whole 16-byte granules
+            assert p.smem == (16 * p.rows * -(-p.seg // 4) if p.keep else 0)
+            assert p.smem + pdes_step.STATIC_SMEM <= tiling.SMEM_PER_BLOCK
+        assert pdes_step.STATIC_SMEM % 16 == 0
+    else:
+        for Lc, cluster, threads, rows in STEP_SHAPES:
+            p = tiling.step_plan(Lc)
+            assert (p.cluster, p.threads, p.rows) == (cluster, threads, rows)
+        assert pdes_step.launch_plan(32, 16)["grid"] == (8,)
+        assert pdes_step.launch_plan(32, 65_536)["grid"] == (256,)
+        assert pdes_step.launch_plan(448, 10_000)["grid"] == (896,)
+        with pytest.raises(ValueError, match="at least one PE"):
+            tiling.step_plan(0)
 
 
 @pytest.mark.parametrize("n_v", N_VS)
