@@ -146,12 +146,27 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` with
    are built: ``python -m repro_torch.analysis --backend all --format
    json -o <file>`` as a subprocess, exit 0 and each backend's report
    equal to ``tests/golden/analysis_<backend>.json``; every kernel's
-   launch plan at L = 10,000 and at ``tiling.MAX_RING_L`` with the
-   registers, static shared bytes and spills of this run's ptxas logs,
-   against one block's budget, and B2's plan (cluster size, rows a block)
-   at 10,000, 65,536 and ``MAX_RING_L``; the six seeded fixtures, each
-   firing its own rule and only it;
-17. the last lines: one JSON object per kernel (times, bound, launches),
+   launch plan at L = 10,000, ``tiling.MAX_RING_L``, 131,072 and
+   ``tiling.MAX_CLUSTER_RING_L`` with the registers, static shared bytes
+   and spills of this run's ptxas logs (the ring kernels' cluster
+   instantiations at the last two), against one block's budget, and B2's
+   plan (cluster size, rows a block) at 10,000, 65,536 and
+   ``MAX_RING_L``; the six seeded fixtures, each firing its own rule and
+   only it;
+17. long rings, split over a thread-block cluster (``tiling.ring_plan``):
+   (a) B1 against its plain version at B = 448 x L = 65,536 (2 blocks a
+   ring) and 131,072 (3), 32 x 524,288 (10, a non-portable cluster) and 8
+   x ``MAX_CLUSTER_RING_L`` (16), over phase 2's five cases with the step
+   counter wrapping, τ/ucount/min/max bitwise and the sums to tolerance;
+   a row's moments bitwise the same at B = 448, 32 and 1 at 131,072; the
+   card's ``cudaOccupancyMaxActiveClusters`` for each cluster launched;
+   (b) B3 the same at B = 8, L = 65,536 and 524,288, and ``ops.simulate``
+   there with the kernels against the plain versions; (c) phase 3's
+   requests through ``SweepService`` at L = 131,072 (1024 + 1024 steps),
+   every response bitwise a direct ``run_window_sweep``, the drain wall
+   and B1's launches; (d) each (a) and (b) shape timed (CUDA events,
+   plain, kernel, kernel, plain) beside its bound;
+18. the last lines: one JSON object per kernel (times, bound, launches),
    then ``{"ok": true, "device": {...}}``.
 
 Every phase asserts; any failure exits non-zero with no result line.
@@ -446,6 +461,22 @@ THREEFRY_KAT = [
 ]
 
 
+#: Phase 17: rings longer than one block's shared memory, each split over
+#: a thread-block cluster (``tiling.ring_plan``).  (B, L) of B1's checks:
+#: clusters of 2, 3, 10 (non-portable; the JAX package's one-row VMEM
+#: budget ends at 524,285) and 16 at the cap (None:
+#: ``tiling.MAX_CLUSTER_RING_L``); B3's through ``ops.simulate``; the rows
+#: of the batch-independence check at ``L_LONG`` (a launch of 32 and one
+#: of 1 out of the 448); the ring, burn-in and timed launches of the
+#: service drain of (c), the paper's large-L regime at 13 times ``L_MAIN``.
+LONG_B1 = ((448, 65_536), (448, 131_072), (32, 524_288), (8, None))
+LONG_B3 = ((8, 65_536), (8, 524_288))
+LONG_ROWS = (slice(400, 432), slice(446, 447))
+L_LONG = 131_072
+BURN_LONG = 1024
+LONG_STEPS_SIM = 2 * K_MAIN + 5
+
+
 def fail(msg: str) -> int:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr)
     return 1
@@ -556,6 +587,23 @@ def _kernel_inputs(torch, rng, B: int, L: int, dev):
             torch.as_tensor(trials[:, None], device=dev))
 
 
+def _hold_kernel(torch, got, want, what) -> float:
+    """A kernel's (tau, moments) against its plain version's: tau, ucount,
+    min and max bitwise, the sums within tolerance; returns the sums' max
+    |err|."""
+    check(torch.equal(got[0], want[0]), f"tau differs: {what}")
+    err = 0.0
+    for key in want[1]:
+        a, b = got[1][key], want[1][key]
+        if key in EXACT_KEYS:
+            check(torch.equal(a, b), f"{key} differs: {what}")
+        else:
+            check(torch.allclose(a, b, rtol=SUM_RTOL, atol=SUM_ATOL),
+                  f"{key} beyond tolerance: {what}")
+        err = max(err, float((a - b).abs().max()))
+    return err
+
+
 def phase_kernel(torch, pm, ref, build, dev, timer=cuda_ms):
     """Kernel against its plain version at the main path's shape."""
     import numpy as np
@@ -574,19 +622,11 @@ def phase_kernel(torch, pm, ref, build, dev, timer=cuda_ms):
             ctr = torch.tensor([[7, step0, 0 if cols else 3, 0]])
             args = (tau, ctr, dcol if cols else None, tcol if cols else None)
             kw = dict(k_steps=k, delta=math.inf if cols else 16.0, **case)
-            t_k, m_k = pm.pdes_multistep_counter(*args, **kw)
-            t_p, m_p = ref.pdes_multistep_counter_ref(*args, **kw)
-            what = f"{case} cols={cols} K={k}"
-            check(torch.equal(t_k, t_p), f"tau differs: {what}")
-            for key in m_p:
-                a, b = m_k[key], m_p[key]
-                if key in EXACT_KEYS:
-                    check(torch.equal(a, b), f"{key} differs: {what}")
-                else:
-                    check(torch.allclose(a, b, rtol=SUM_RTOL, atol=SUM_ATOL),
-                          f"{key} beyond tolerance: {what}")
-                max_err = max(max_err, float((a - b).abs().max()))
-            tau = t_k
+            got = pm.pdes_multistep_counter(*args, **kw)
+            max_err = max(max_err, _hold_kernel(
+                torch, got, ref.pdes_multistep_counter_ref(*args, **kw),
+                f"{case} cols={cols} K={k}"))
+            tau = got[0]
             step0 = (step0 + k) & 0xFFFFFFFF
     print(f"[kernel] tau/ucount/min/max bitwise equal to the plain version "
           f"over {len(cases)} cases x 4 chunks at B={B_MAIN} L={L_MAIN}; "
@@ -644,15 +684,17 @@ def phase_kernel(torch, pm, ref, build, dev, timer=cuda_ms):
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations")
 
 
-def phase_main_path(torch, pm, sweep, api, trace, dev, chunk_ms):
+def phase_main_path(torch, pm, sweep, api, trace, dev, chunk_ms, L=L_MAIN,
+                    burn_in=BURN_MAIN, tag="main"):
     """The service drain on the card, through the kernel.
 
     ``chunk_ms`` is the kernel's time for one K = 16 chunk at B = 448 from
     phase 2: every chunk of this drain has that shape, so launches x
-    ``chunk_ms`` is the kernel's share of the drain.
+    ``chunk_ms`` is the kernel's share of the drain.  Phase 17(c) drives
+    the same requests at a longer ring ``L`` with its own ``burn_in``.
     """
-    common = dict(Ls=(L_MAIN,), n_vs=(N_V_MAIN,), replicas=REPLICAS,
-                  n_steps=STEPS_MAIN, burn_in=BURN_MAIN,
+    common = dict(Ls=(L,), n_vs=(N_V_MAIN,), replicas=REPLICAS,
+                  n_steps=STEPS_MAIN, burn_in=burn_in,
                   backend="pallas_multistep", k_fuse=K_MAIN, seed=0)
     specs = {
         "alice": sweep.WindowSweep(deltas=(1.0, 4.0, 16.0, 64.0), **common),
@@ -675,12 +717,12 @@ def phase_main_path(torch, pm, sweep, api, trace, dev, chunk_ms):
     check(launches > 0, "the main path launched no kernel")
     check(st.n_deduped == 1 and st.n_passes == 1, st)
     check(st.rows_computed == B_MAIN, st)
-    pe_steps = st.engine_row_steps * L_MAIN
-    print(f"[main] drain of {len(responses)} requests: {wall:.3f} s wall, "
+    pe_steps = st.engine_row_steps * L
+    print(f"[{tag}] drain of {len(responses)} requests: {wall:.3f} s wall, "
           f"{st.n_passes} coalesced pass, {st.rows_computed} rows, "
           f"{pe_steps:.4g} PE-steps, {pe_steps / wall:.4g} PE-steps/s, "
           f"{launches} kernel launches")
-    print(f"[main] kernel time {launches} x {chunk_ms:.4f} ms = "
+    print(f"[{tag}] kernel time {launches} x {chunk_ms:.4f} ms = "
           f"{launches * chunk_ms:.1f} ms of {wall * 1e3:.1f} ms wall "
           f"({launches * chunk_ms / (wall * 1e3):.3f} of the drain)")
     tracer = trace.TraceRecorder()
@@ -697,14 +739,14 @@ def phase_main_path(torch, pm, sweep, api, trace, dev, chunk_ms):
             check(math.isfinite(rec.w2) and math.isfinite(rec.rate), rec)
             if math.isfinite(rec.delta):
                 check(rec.spread <= rec.delta + ETA_MAX, rec)
-            print(f"[main] {resp.requester:5s} delta={rec.delta:<5g} "
+            print(f"[{tag}] {resp.requester:5s} delta={rec.delta:<5g} "
                   f"u={rec.u:.6f}+-{rec.u_err:.2g} w2={rec.w2:.5g} "
                   f"spread={rec.spread:.5g} rate={rec.rate:.6f}")
     trace.set_tracer(prev)
     for ev in tracer.events:
-        print(f"[main] direct run_window_sweep span {ev['name']:7s} "
+        print(f"[{tag}] direct run_window_sweep span {ev['name']:7s} "
               f"{ev['dur'] / 1e3:9.3f} ms  {ev.get('args', {})}")
-    print("[main] every response equals a direct run_window_sweep "
+    print(f"[{tag}] every response equals a direct run_window_sweep "
           "bit for bit; u in (0, 1]; spread <= delta + 17.4")
     return launches
 
@@ -738,19 +780,9 @@ def _step_inputs(torch, ops, events, B, Lc, seed, dev):
 def _hold_step(torch, ps, ref, tau_h, bits, base, kw, what) -> float:
     """B2 against its plain version on one input: tau'/ucount/min/max
     bitwise, the sums within tolerance; returns the sums' max |err|."""
-    t_k, m_k = ps.pdes_step(tau_h, bits, base, **kw)
     t_p, _, m_p = ref.pdes_step_ref(tau_h, bits, base, **kw)
-    check(torch.equal(t_k, t_p), f"tau' differs: {what}")
-    err = 0.0
-    for key in m_p:
-        a, b = m_k[key], m_p[key]
-        if key in EXACT_KEYS:
-            check(torch.equal(a, b), f"{key} differs: {what}")
-        else:
-            check(torch.allclose(a, b, rtol=SUM_RTOL, atol=SUM_ATOL),
-                  f"{key} beyond tolerance: {what}")
-        err = max(err, float((a - b).abs().max()))
-    return err
+    return _hold_kernel(torch, ps.pdes_step(tau_h, bits, base, **kw),
+                      (t_p, m_p), what)
 
 
 def phase_step(torch, ps, ref, ops, events, build, dev, timer=cuda_ms,
@@ -1162,19 +1194,11 @@ def phase_bits_kernel(torch, pm, tf, prng, ref, dev, timer=cuda_ms):
         tau, step = tau0, 0
         for k in (K_MAIN, 5):
             bits = tf.threefry_bits(key, step, k, shape, out=buf[:k])
-            t_k, m_k = pm.pdes_multistep(tau, bits, **kw)
-            t_p, m_p = ref.pdes_multistep_ref(tau, bits, **kw)
-            what = f"{kw} K={k}"
-            check(torch.equal(t_k, t_p), f"tau differs: {what}")
-            for name in m_p:
-                a, b = m_k[name], m_p[name]
-                if name in EXACT_KEYS:
-                    check(torch.equal(a, b), f"{name} differs: {what}")
-                else:
-                    check(torch.allclose(a, b, rtol=SUM_RTOL, atol=SUM_ATOL),
-                          f"{name} beyond tolerance: {what}")
-                max_err = max(max_err, float((a - b).abs().max()))
-            tau, step = t_k, step + k
+            got = pm.pdes_multistep(tau, bits, **kw)
+            max_err = max(max_err, _hold_kernel(
+                torch, got, ref.pdes_multistep_ref(tau, bits, **kw),
+                f"{kw} K={k}"))
+            tau, step = got[0], step + k
     print(f"[b3] tau/ucount/min/max bitwise equal to the plain version over "
           f"{len(cases)} cases x chunks K={K_MAIN} and K=5 at B={B_MAIN} "
           f"L={L_MAIN}; max |err| of the sums {max_err:.3g}")
@@ -2990,7 +3014,7 @@ def phase_linter(root):
     from repro_torch.analysis import analyze_probe
     from repro_torch.analysis.fixtures import FIXTURES
     from repro_torch.analysis.rules import vmem
-    from repro_torch.kernels.tiling import MAX_RING_L
+    from repro_torch.kernels.tiling import MAX_CLUSTER_RING_L, MAX_RING_L
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         out = pathlib.Path(tmp) / "analysis.json"
@@ -3011,7 +3035,7 @@ def phase_linter(root):
           f"{len(report['backends'])} backends equal to their goldens, "
           f"{report['n_findings']} findings ({time.perf_counter() - t0:.1f} s)")
     from repro_torch.kernels import pdes_step as ps
-    for L in (10_000, MAX_RING_L):
+    for L in (10_000, MAX_RING_L, L_LONG, MAX_CLUSTER_RING_L):
         for row in vmem.kernel_budgets(L):
             info = row["ptxas"]
             check(info is not None, f"no ptxas log for {row['kernel']}")
@@ -3020,6 +3044,8 @@ def phase_linter(root):
                   or info["static_smem"] == ps.STATIC_SMEM,
                   f"pdes_step's static shared memory: ptxas "
                   f"{info['static_smem']} B, the plan {ps.STATIC_SMEM} B")
+            check(info["static_smem"] <= row["static_smem"],
+                  f"{row['kernel']}'s static shared memory at L={L}")
             print(f"[linter] {row['kernel']} at L={L}: grid {row['grid']}, "
                   f"cluster {row.get('cluster', 1)}, "
                   f"{row['threads']} threads, shared {row['dynamic_smem']} B "
@@ -3045,6 +3071,182 @@ def phase_linter(root):
         check(fired == {rule}, f"fixture {name} fired {sorted(fired)}, "
               f"expected only {rule}")
         print(f"[linter] fixture {name}: fires {rule} and only it")
+
+
+def phase_long_rings(torch, pm, tf, ref, ops, horizon, prng, sweep, api,
+                     trace, build, dev, timer=cuda_ms):
+    """Phase 17: B1 and B3 on rings split over a thread-block cluster, held
+    to their plain versions at ``LONG_B1`` and ``LONG_B3`` (phase 2's five
+    cases, the step counter wrapping), a row's moments bitwise the same at
+    B = 448, 32 and 1, the service's drain at ``L_LONG`` equal to direct
+    runs, and each shape timed beside its bound.  Returns B1's launches in
+    (c), B3's in (b)'s ``simulate`` and the timings."""
+    import numpy as np
+    from repro_torch.kernels.tiling import MAX_CLUSTER_RING_L, ring_plan
+    rng = np.random.default_rng(17)
+    cases = [(1, False, False, True), (10, False, False, True),
+             (10, True, False, True), (10, False, True, True),
+             (10, False, False, False)]
+    shapes = [(B, L or MAX_CLUSTER_RING_L) for B, L in LONG_B1]
+    timings = {}
+
+    # (a) B1 against its plain version, then timed
+    for B, L in shapes:
+        plan = ring_plan(L)
+        tau0, dcol, tcol = _kernel_inputs(torch, rng, B, L, dev)
+        err = 0.0
+        for n_v, rd_mode, border_both, cols in cases:
+            tau, step0 = tau0, 0xFFFFFFF8       # the counter wraps mid-chunk
+            for k in (K_MAIN, 5):
+                ctr = torch.tensor([[7, step0, 0 if cols else 3, 0]])
+                args = (tau, ctr, dcol if cols else None,
+                        tcol if cols else None)
+                kw = dict(k_steps=k, delta=math.inf if cols else 16.0,
+                          n_v=n_v, rd_mode=rd_mode, border_both=border_both)
+                got = pm.pdes_multistep_counter(*args, **kw)
+                err = max(err, _hold_kernel(
+                    torch, got, ref.pdes_multistep_counter_ref(*args, **kw),
+                    f"B1 {B} x {L} {kw}"))
+                tau, step0 = got[0], (step0 + k) & 0xFFFFFFFF
+        if L == L_LONG:      # a ring's result whatever batch it runs in
+            ctr = torch.tensor([[3, 11, 0, 0]])
+            kw = dict(k_steps=K_MAIN, n_v=N_V_MAIN, delta=math.inf)
+            full = pm.pdes_multistep_counter(tau0, ctr, dcol, tcol, **kw)
+            for rows in LONG_ROWS:
+                part = pm.pdes_multistep_counter(tau0[rows], ctr, dcol[rows],
+                                                 tcol[rows], **kw)
+                check(torch.equal(part[0], full[0][rows]),
+                      f"tau of rows {rows} differs in a batch of {B}")
+                for key, v in part[1].items():
+                    check(torch.equal(v, full[1][key][:, rows]),
+                          f"{key} of rows {rows} differs in a batch of {B}")
+            print(f"[long a] B1 at L={L}: rows 400-431 launched as B=32 and "
+                  f"row 446 as B=1 give tau and all six moments bitwise as "
+                  f"in the launch of B={B}")
+        ms = _time_ring(torch, pm, ref, build, tau0, dcol, tcol, timer)
+        timings[("B1", B, L)] = ms
+        print(f"[long a] B1 at B={B} L={L}: plan {plan}, "
+              f"{pm.resident_clusters(L)} clusters on the card at once "
+              f"(cudaOccupancyMaxActiveClusters); tau/ucount/min/max bitwise "
+              f"equal to the plain version over {len(cases)} cases x chunks "
+              f"K={K_MAIN} and K=5; max |err| of the sums {err:.3g}")
+
+    # (b) B3 against its plain version, and through ops.simulate
+    b3_launches = 0
+    for B, L in LONG_B3:
+        tau0 = torch.as_tensor(
+            rng.exponential(4.0, size=(B, L)).astype(np.float32), device=dev)
+        key = prng.key(L, dev)
+        err = 0.0
+        for n_v, rd_mode, border_both, cols in cases:
+            kw = dict(n_v=n_v, delta=16.0 if cols else math.inf,
+                      rd_mode=rd_mode, border_both=border_both)
+            tau, step = tau0, 0
+            for k in (K_MAIN, 5):
+                bits = tf.threefry_bits(key, step, k, (B, L))
+                got = pm.pdes_multistep(tau, bits, **kw)
+                err = max(err, _hold_kernel(
+                    torch, got, ref.pdes_multistep_ref(tau, bits, **kw),
+                    f"B3 {B} x {L} {kw}"))
+                tau, step = got[0], step + k
+        cfg = horizon.PDESConfig(L=L, n_v=N_V_MAIN, delta=DELTA_SIM)
+        st0 = horizon.init_state(cfg, B, dev)
+        sync(torch, dev)
+        pm.bits_launches = 0
+        st_k, out_k = ops.simulate(st0, key, cfg, LONG_STEPS_SIM,
+                                   k_fuse=K_MAIN)
+        sync(torch, dev)
+        b3_launches += pm.bits_launches
+        check(pm.bits_launches == -(-LONG_STEPS_SIM // K_MAIN),
+              f"simulate launched B3 {pm.bits_launches} times")
+        with plain_simulate(ops, ref, tf):
+            st_p, out_p = ops.simulate(st0, key, cfg, LONG_STEPS_SIM,
+                                       k_fuse=K_MAIN)
+        for f in ("tau", "offset", "offset_comp"):
+            check(torch.equal(getattr(st_k, f), getattr(st_p, f)),
+                  f"simulate {f} differs from the plain versions at L={L}")
+        for name in ("u", "gvt"):
+            check(torch.equal(out_k[name], out_p[name]),
+                  f"simulate {name} differs from the plain versions")
+        check(torch.allclose(out_k["w2"], out_p["w2"], rtol=SUM_RTOL,
+                             atol=SUM_ATOL), "simulate w2 beyond tolerance")
+        bits = tf.threefry_bits(key, 0, K_MAIN, (B, L))
+        ms = _time_ring(torch, pm, ref, build, tau0, None, None, timer,
+                        bits=bits)
+        timings[("B3", B, L)] = ms
+        print(f"[long b] B3 at B={B} L={L}: plan {ring_plan(L)}, "
+              f"{pm.resident_clusters(L, bits=True)} clusters on the card at "
+              f"once; tau/ucount/min/max bitwise equal to the plain version "
+              f"over {len(cases)} cases x chunks K={K_MAIN} and K=5 (max "
+              f"|err| of the sums {err:.3g}); ops.simulate over "
+              f"{LONG_STEPS_SIM} steps: tau, offsets, u and gvt bitwise the "
+              f"plain versions', w2 to tolerance, {pm.bits_launches} B3 "
+              f"launches")
+
+    # (c) the service's drain at L_LONG through B1
+    t0 = time.perf_counter()
+    b1_launches = phase_main_path(torch, pm, sweep, api, trace, dev,
+                                  timings[("B1", B_MAIN, L_LONG)]["ms"],
+                                  L=L_LONG, burn_in=BURN_LONG, tag="long c")
+    print(f"[long c] SweepService at L={L_LONG}: {BURN_LONG} + {STEPS_MAIN} "
+          f"steps, {b1_launches} B1 launches; the phase with its direct "
+          f"runs {time.perf_counter() - t0:.2f} s")
+    return b1_launches, b3_launches, timings
+
+
+def _time_ring(torch, pm, ref, build, tau, dcol, tcol, timer, bits=None):
+    """Phase 17(d): one K = 16 chunk of B1 (``bits`` None, with the Δ and
+    trial columns) or B3 (on ``bits``) by CUDA events, plain, kernel,
+    kernel, plain, through the raw launch; the bound from phase 2's (B1)
+    or phase 7's (B3) operation and byte counts, at this run's
+    utilization."""
+    B, L = tau.shape
+    out = torch.empty_like(tau)
+    stats = torch.empty((6, K_MAIN, B), device=tau.device)
+    rule = dict(n_v=N_V_MAIN, rd_mode=False, border_both=False)
+    if bits is None:
+        ctr = torch.tensor([[0, 0, 0, 0]])
+        tbits = build.u32_bits(tcol).reshape(B, 1).contiguous()
+
+        def kern():
+            pm.counter_launch(tau, out, stats, dcol, tbits, (0, 0, 0, 0),
+                              delta=math.inf, **rule)
+
+        def plain():
+            return ref.pdes_multistep_counter_ref(
+                tau, ctr, dcol, tcol, k_steps=K_MAIN, delta=math.inf,
+                n_v=N_V_MAIN)
+    else:
+        def kern():
+            pm.bits_launch(tau, bits, out, stats, delta=DELTA_SIM, **rule)
+
+        def plain():
+            return ref.pdes_multistep_ref(tau, bits, n_v=N_V_MAIN,
+                                          delta=DELTA_SIM)
+    p1 = timer(plain, 1)
+    k1 = timer(kern, 5)
+    k2 = timer(kern, 5)
+    p2 = timer(plain, 1)
+    k_ms, p_ms = min(k1, k2), min(p1, p2)
+    kern()
+    ucount = float(stats[0].sum())
+    pe_steps = B * L * K_MAIN
+    if bits is None:
+        n_bytes = 8 * B * L + 4 * 6 * K_MAIN * B + 8 * B
+        n_ops = OPS_PER_PE_STEP * pe_steps + OPS_PER_UPDATE * ucount
+    else:
+        n_bytes = 8 * pe_steps + 8 * B * L + 4 * 6 * K_MAIN * B
+        n_ops = B3_OPS_PER_PE_STEP * pe_steps + B3_OPS_PER_UPDATE * ucount
+    bytes_ms, ops_ms, bound = _bound(n_bytes, n_ops)
+    print(f"[long d] {'B1' if bits is None else 'B3'} K={K_MAIN} chunk at "
+          f"B={B} L={L}: kernel {k1:.5f} / {k2:.5f} ms, plain {p1:.4f} / "
+          f"{p2:.4f} ms (order plain, kernel, kernel, plain); "
+          f"{pe_steps / (k_ms * 1e-3):.4g} PE-steps/s; bound "
+          f"{bound['bound_ms']:.5f} ms by {bound['bound_by']} ({n_bytes} "
+          f"bytes -> {bytes_ms:.5f} ms, {n_ops:.4g} operations at "
+          f"utilization {ucount / pe_steps:.4f} -> {ops_ms:.5f} ms), "
+          f"kernel at {bound['bound_ms'] / k_ms:.3f} of it")
+    return dict(ms=k_ms, plain_ms=p_ms, **bound)
 
 
 def main() -> int:
@@ -3143,6 +3345,10 @@ def main() -> int:
     t["15 sharding"] = time.perf_counter() - t0 - sum(t.values())
     phase_linter(root)
     t["16 linter"] = time.perf_counter() - t0 - sum(t.values())
+    b1_long, b3_long, _ = phase_long_rings(torch, pm, tf, ref, ops, horizon,
+                                           prng, sweep, api, trace, _build,
+                                           "cuda")
+    t["17 long rings"] = time.perf_counter() - t0 - sum(t.values())
     print("[setup] phase wall: "
           + ", ".join(f"{k} {v:.2f} s" for k, v in t.items()))
 
@@ -3150,7 +3356,7 @@ def main() -> int:
         dict(name="pdes_multistep_counter", route="cuda",
              source="src/repro_torch/kernels/csrc/pdes_multistep_counter.cu",
              replaces="src/repro/kernels/pdes_multistep.py:169",
-             launches=b1_launches + b1_serve + ex_launches["B1"],
+             launches=b1_launches + b1_serve + ex_launches["B1"] + b1_long,
              library_ms=None, **kstats),
         dict(name="pdes_step", route="cuda",
              source="src/repro_torch/kernels/csrc/pdes_step.cu",
@@ -3160,16 +3366,17 @@ def main() -> int:
         dict(name="pdes_multistep", route="cuda",
              source="src/repro_torch/kernels/csrc/pdes_multistep.cu",
              replaces="src/repro/kernels/pdes_multistep.py:129",
-             launches=b3_launches, library_ms=None, **b3stats),
+             launches=b3_launches + b3_long, library_ms=None, **b3stats),
         dict(name="threefry_bits", route="cuda",
              source="src/repro_torch/kernels/csrc/threefry_bits.cu",
              replaces="jax.random.bits (XLA, outside Pallas)",
              launches=gen_launches + ex_launches["threefry_bits"],
              library_ms=None, **gstats)]
     print(f"[launches] B1: phase 3 {b1_launches}, phase 10(a) {b1_serve}, "
-          f"phase 13 {ex_launches['B1']}; B2: phase 5 {b2_launches}, phase "
-          f"9(c) {b2_sharded}, phase 10(d) {b2_serve}, phase 15(d) "
-          f"{b2_core}; generator: phase 8(a) "
+          f"phase 13 {ex_launches['B1']}, phase 17(c) {b1_long}; B2: phase 5 "
+          f"{b2_launches}, phase 9(c) {b2_sharded}, phase 10(d) {b2_serve}, "
+          f"phase 15(d) {b2_core}; B3: phase 8(a) {b3_launches}, phase 17(b) "
+          f"{b3_long}; generator: phase 8(a) "
           f"{gen_launches}, phase 13 {ex_launches['threefry_bits']}")
     print(card)
     print(json.dumps({"kernels": kernels}))

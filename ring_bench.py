@@ -8,6 +8,7 @@ checkout::
     python3 ring_bench.py drain SRC_DIR [SRC_DIR ...]
     python3 ring_bench.py step SRC_DIR [SRC_DIR ...]
     python3 ring_bench.py ablate-step CSRC_DIR
+    python3 ring_bench.py sass OLD_CSRC_DIR NEW_CSRC_DIR
 
 ``ablate`` splits a ring loop's time.  It copies ``CSRC_DIR`` (the
 ``src/repro_torch/kernels/csrc`` of some checkout, for example one unpacked
@@ -16,8 +17,11 @@ with ``git archive 90ddaa1 src/repro_torch/kernels/csrc``) into
 set of text edits; a variant whose text the sources lack is skipped),
 builds B1 and B3 of each with ``nvcc``, and times one K = 16 chunk at
 B = 448, N_V = 10 for L = 10,000 and 1000 with CUDA events, as
-``chip_smoke.py`` times them.  The variants compute other functions: they
-say what a piece of the loop costs and nothing else.
+``chip_smoke.py`` times them; where the sources split a long ring over a
+thread-block cluster, also at the ``CLUSTER_LS`` (``tiling.ring_plan``),
+with the block's warps of ``CLUSTER_WARPS`` in place of the plan's and
+the step's cluster barrier dropped.  The variants compute other
+functions: they say what a piece of the loop costs and nothing else.
 
 ``drain`` times the service drain of ``chip_smoke.py`` phase 3 for the port
 in each ``SRC_DIR`` (a checkout's ``src``), in a process of its own, three
@@ -34,6 +38,12 @@ variant of ``CSRC_DIR``'s ``pdes_step.cu`` per entry of ``STEP_VARIANTS``
 (text edits, or another launch plan than ``tiling.step_plan``'s), each
 launched through its library's C symbol and timed at the main path's and
 a --pdes-core shard's shapes.
+
+``sass`` compiles B1's and B3's sources of two ``csrc`` trees to cubins
+(``nvcc -cubin``, the build's target and optimisation) and compares the
+machine code of their one-block ring kernels (``cuobjdump -sass``, each
+instantiation's instructions with addresses and encodings dropped): what
+shows that a change to the shared loop left the one-block path as it was.
 """
 from __future__ import annotations
 
@@ -44,6 +54,7 @@ import io
 import json
 import math
 import pathlib
+import re
 import shutil
 import subprocess
 import sys
@@ -52,6 +63,10 @@ ROOT = pathlib.Path(__file__).resolve().parent
 OUT = ROOT / "build" / "ring_bench"
 B, K, N_V = 448, 16, 10
 LS = (10_000, 1000)
+#: Ring lengths of ``ablate`` on the cluster path: 2 and 3 blocks a ring.
+CLUSTER_LS = (65_536, 131_072)
+#: Warps of a cluster block that ``ablate`` times beside the plan's.
+CLUSTER_WARPS = (8, 16)
 #: (B, Lc) of ``step``: the main path, a --pdes-core shard, one Δ's
 #: replicas, the commavoid edge strip.
 STEP_SHAPES = ((448, 10_000), (32, 65_536), (64, 10_000), (32, 16))
@@ -104,6 +119,11 @@ VARIANTS = {
     "no decode": {"pdes_ring.cuh": [_NO_DECODE]},
     "site pick -> mask": {"pdes_common.cuh": [_NO_PICK]},
     "one table entry": {"pdes_common.cuh": [_ONE_ENTRY]},
+    # of the cluster loop: the step's cluster barrier replaced by the
+    # block's (the first and the last stay; the sums are then wrong)
+    "no cluster barrier": {"pdes_ring.cuh": [_swap(
+        "    ring_barrier<kCluster>();\n    gvt = ring_reduce",
+        "    __syncthreads();\n    gvt = ring_reduce")]},
 }
 
 
@@ -182,9 +202,12 @@ def _make(csrc: pathlib.Path, name: str, edits: dict,
     return name, libs
 
 
-def _launchers(libs, with_warps: bool):
+def _launchers(libs, extra_ints: int):
+    """B1's and B3's C launchers of ``libs``, taking ``extra_ints`` ints
+    after K: none (the oldest loops), the warps, or the warps, cluster and
+    segment (the cluster loop)."""
     i32, u32, ptr = ctypes.c_int, ctypes.c_uint32, ctypes.c_void_p
-    extra = [i32] if with_warps else []
+    extra = [i32] * extra_ints
     b1 = ctypes.CDLL(str(libs["pdes_multistep_counter"])) \
         .pdes_multistep_counter_launch
     b1.argtypes = ([ptr] * 5 + [i32] * 3 + extra + [u32] * 5
@@ -199,38 +222,46 @@ def ablate(csrc: pathlib.Path) -> dict:
     import torch
     import chip_smoke
     from repro_torch.kernels import tiling
-    with_warps = "ring_launch_check" in (csrc / "pdes_ring.cuh").read_text()
+    ring = (csrc / "pdes_ring.cuh").read_text()
+    cluster = "ring_cluster_launch" in ring
+    extra_ints = 3 if cluster else 1 if "ring_launch_check" in ring else 0
     with concurrent.futures.ThreadPoolExecutor(len(VARIANTS)) as pool:
         built = dict(pool.map(lambda kv: _make(csrc, *kv), VARIANTS.items()))
     dev = torch.device("cuda")
     stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
     gen = torch.Generator().manual_seed(0)
     out = {}
-    for L in LS:
+    for L in LS + (CLUSTER_LS if cluster else ()):
+        plan = tiling.ring_plan(L)
         tau = torch.empty(B, L).exponential_(0.25, generator=gen).to(dev)
         dcol = torch.tensor([1.0, 4.0, 16.0, 64.0, math.inf])[
             torch.arange(B) % 5][:, None].to(dev).contiguous()
         tcol = torch.arange(B, dtype=torch.int32)[:, None].to(dev)
         words = torch.randint(-2**31, 2**31 - 1, (K, B, L, 2),
-                              dtype=torch.int32, generator=gen).to(dev)
+                              dtype=torch.int32, device=dev,
+                              generator=torch.Generator(dev).manual_seed(L))
         tau_out, stats = torch.empty_like(tau), torch.empty(6, K, B,
                                                             device=dev)
-        warps = (tiling.ring_warps(L),) if with_warps else ()
-        for name, libs in built.items():
+        runs = [(name, libs, plan.warps) for name, libs in built.items()]
+        if plan.cluster > 1:
+            runs += [(f"{w} warps", built["as given"], w)
+                     for w in CLUSTER_WARPS]
+        for name, libs, warps in runs:
             if libs is None:
                 print(f"[ablate] {name}: the sources lack its text; skipped")
                 continue
-            b1, b3 = _launchers(libs, with_warps)
+            b1, b3 = _launchers(libs, extra_ints)
+            shape = ((warps, plan.cluster, plan.seg)[:extra_ints])
 
             def run_b1(k=K):
                 err = b1(tau.data_ptr(), tau_out.data_ptr(), stats.data_ptr(),
-                         dcol.data_ptr(), tcol.data_ptr(), B, L, k, *warps,
+                         dcol.data_ptr(), tcol.data_ptr(), B, L, k, *shape,
                          0, 0, 0, 0, N_V, math.inf, 0, 0, stream)
                 assert err == 0, err
 
             def run_b3(k=K):
                 err = b3(tau.data_ptr(), words.data_ptr(), tau_out.data_ptr(),
-                         stats.data_ptr(), B, L, k, *warps, N_V, 16.0, 0, 0,
+                         stats.data_ptr(), B, L, k, *shape, N_V, 16.0, 0, 0,
                          stream)
                 assert err == 0, err
 
@@ -242,7 +273,7 @@ def ablate(csrc: pathlib.Path) -> dict:
                         lambda: [run(1) for _ in range(K)], 5)
                         for _ in range(2))
             out[f"L={L} {name}"] = row
-            print(f"[ablate] L={L} {name:17s} " + ", ".join(
+            print(f"[ablate] L={L} {name:18s} " + ", ".join(
                 f"{k} {v:.5f} ms" for k, v in row.items()), flush=True)
     return out
 
@@ -306,6 +337,51 @@ def ablate_step(csrc: pathlib.Path) -> dict:
     return out
 
 
+#: (source, __global__ function) of the one-block ring kernels
+RING_KERNELS = (("pdes_multistep_counter", "multistep_counter_kernel"),
+                ("pdes_multistep", "multistep_kernel"))
+
+
+def _sass(csrc: pathlib.Path, name: str, tag: str) -> dict:
+    """``{function: [instruction, ...]}`` of ``csrc/<name>.cu``'s cubin, the
+    anonymous namespace's hash taken out of the names."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import _build
+    nvcc = _build._nvcc()
+    cubin = OUT / f"sass_{tag}_{name}.cubin"
+    OUT.mkdir(parents=True, exist_ok=True)
+    subprocess.run([nvcc, *_build.NVCC_FLAGS[:4], "-cubin", "-o", str(cubin),
+                    str(csrc / f"{name}.cu")], check=True)
+    text = subprocess.run(
+        [str(pathlib.Path(nvcc).with_name("cuobjdump")), "-sass", str(cubin)],
+        capture_output=True, text=True, check=True).stdout
+    funcs, cur = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = re.sub(r"_GLOBAL__N__\w+?_cu_[0-9a-f]+", "", m.group(1))
+            funcs[cur] = []
+        elif cur and "/*" in line:
+            ins = re.sub(r"/\*[0-9a-f]{4}\*/|/\* 0x[0-9a-f]+ \*/", "",
+                         line).strip()
+            if ins:
+                funcs[cur].append(ins)
+    return funcs
+
+
+def sass(old: pathlib.Path, new: pathlib.Path) -> dict:
+    out = {}
+    for name, fn in RING_KERNELS:
+        a, b = _sass(old, name, "old"), _sass(new, name, "new")
+        for f in sorted(k for k in a if fn in k):
+            same = a[f] == b.get(f)
+            out[f] = same
+            print(f"[sass] {f}: {len(a[f])} instructions in the old tree, "
+                  f"{len(b.get(f, []))} in the new, identical: {same}",
+                  flush=True)
+    return out
+
+
 def drain_one(src: pathlib.Path) -> list:
     sys.path.insert(0, str(src))
     import torch
@@ -357,7 +433,8 @@ def main(argv) -> int:
         return 1
     sys.path.insert(0, str(ROOT))
     import chip_smoke
-    if argv[:1] in (["ablate"], ["drain"], ["step"], ["ablate-step"]):
+    if argv[:1] in (["ablate"], ["drain"], ["step"], ["ablate-step"],
+                    ["sass"]):
         print(chip_smoke.card_line())
     if argv[:1] == ["ablate"] and len(argv) == 2:
         sys.path.insert(0, str(ROOT / "src"))
@@ -387,6 +464,8 @@ def main(argv) -> int:
     elif argv[:1] == ["ablate-step"] and len(argv) == 2:
         sys.path.insert(0, str(ROOT / "src"))
         print(json.dumps(ablate_step(pathlib.Path(argv[1]).resolve())))
+    elif argv[:1] == ["sass"] and len(argv) == 3:
+        print(json.dumps(sass(*(pathlib.Path(a).resolve() for a in argv[1:]))))
     elif argv[:1] == ["_step"] and len(argv) == 2:
         print(json.dumps(step_one(pathlib.Path(argv[1]).resolve())))
     else:

@@ -17,14 +17,19 @@ compiled kernel's registers, static shared memory and spill bytes
 (``_build.ptxas_info``).  It fires when static plus dynamic shared memory
 passes the budget, or registers times threads pass the 65,536 registers
 of an SM, for each block of a launch (a cluster's blocks each hold their
-own), or when a launch's cluster passes the portable cluster size; spills
-are reported by :func:`kernel_budgets` and do not fire.  Without a log
-(no ``nvcc`` here) the plan's static figure stands.
+own), or when a launch's cluster passes the most its kernel allows (the
+portable 8 for B2; ``tiling.RING_MAX_CLUSTER`` for the ring kernels, whose
+launch allows a non-portable size); spills are reported by
+:func:`kernel_budgets` and do not fire.  A ring kernel's plan over a
+cluster reads the ptxas figures of its cluster instantiation.  Without a
+log (no ``nvcc`` here) the plan's static figure stands.
 """
 from __future__ import annotations
 
 from ...kernels import _build, pdes_multistep, pdes_step, threefry
-from ...kernels.tiling import MAX_RING_L, SMEM_PER_BLOCK, STEP_MAX_CLUSTER
+from ...kernels.tiling import (MAX_CLUSTER_RING_L, MAX_RING_L,
+                               RING_MAX_CLUSTER, SMEM_PER_BLOCK,
+                               STEP_MAX_CLUSTER)
 from ..probes import Probe
 from ..report import Finding
 
@@ -35,7 +40,8 @@ DEFAULT_BUDGET = SMEM_PER_BLOCK       # bytes; one H100 block
 REGISTERS_PER_SM = 65_536
 #: Most blocks of a cluster that every Hopper part schedules
 PORTABLE_CLUSTER = STEP_MAX_CLUSTER
-#: The kernels that keep a whole ring in one block's shared memory
+#: The kernels that keep a whole ring in the shared memory of one block or
+#: of a cluster's blocks
 RING_KERNELS = ("pdes_multistep_counter", "pdes_multistep")
 
 #: kernel -> (CUDA source, __global__ function) of its library
@@ -46,13 +52,25 @@ SOURCES = {
     "pdes_multistep": ("pdes_multistep", "multistep_kernel"),
     "threefry_bits": ("threefry_bits", "threefry_bits_kernel"),
 }
+#: ring kernel -> __global__ function of its cluster instantiation
+CLUSTER_FUNCTIONS = {
+    "pdes_multistep_counter": "multistep_counter_cluster_kernel",
+    "pdes_multistep": "multistep_cluster_kernel",
+}
+
+
+def _ptxas(kernel: str, plan: dict):
+    lib, fn = SOURCES[kernel]
+    if kernel in RING_KERNELS and plan.get("cluster", 1) > 1:
+        fn = CLUSTER_FUNCTIONS[kernel]
+    return _build.ptxas_info(lib, fn)
 
 
 def budget_of(kernel: str, plan: dict, budget: int = DEFAULT_BUDGET) -> dict:
     """The plan of one launch against the budget: the plan's numbers, the
     ptxas figures where a log exists, and ``over`` (what fires).  Each
     block of a cluster is held to the block budget on its own."""
-    info = _build.ptxas_info(*SOURCES[kernel])
+    info = _ptxas(kernel, plan)
     static = plan["static_smem"] if info is None else max(
         plan["static_smem"], info["static_smem"])
     row = {"kernel": kernel, **plan, "static_smem": static,
@@ -66,10 +84,12 @@ def budget_of(kernel: str, plan: dict, budget: int = DEFAULT_BUDGET) -> dict:
         row["over"].append(
             f"{info['registers']} registers x {plan['threads']} threads > "
             f"{REGISTERS_PER_SM}")
-    if plan.get("cluster", 1) > PORTABLE_CLUSTER:
+    most = RING_MAX_CLUSTER if kernel in RING_KERNELS else PORTABLE_CLUSTER
+    if plan.get("cluster", 1) > most:
         row["over"].append(
-            f"cluster of {plan['cluster']} blocks > the portable "
-            f"{PORTABLE_CLUSTER}")
+            f"cluster of {plan['cluster']} blocks > the "
+            + ("ring kernels' " if kernel in RING_KERNELS else "portable ")
+            + f"{most}")
     return row
 
 
@@ -102,6 +122,8 @@ def check(probe: Probe, vmem_budget: int = DEFAULT_BUDGET, **_) -> list:
                         f"{call.plan['threads']} threads: "
                         + "; ".join(row["over"])
                         + (f" (rings above L={MAX_RING_L} need a "
-                           "thread-block cluster)"
+                           f"thread-block cluster, and one of "
+                           f"{RING_MAX_CLUSTER} blocks holds rings up to "
+                           f"L={MAX_CLUSTER_RING_L})"
                            if call.kernel in RING_KERNELS else "")))
     return findings

@@ -15,9 +15,11 @@
 // (K, B, L, 2) uint32 tensor (kernels/threefry.py writes them in this
 // layout).  The window is a static delta (inf turns it off), as the TPU
 // kernel takes it.  The step itself -- decode, GVT, Eq. (1) and Eq. (3),
-// the moments, the ring held once in shared memory (L <= 57,344; the
-// wrapper raises above it) -- is the loop of pdes_ring.cuh, which B1
-// shares, so the two kernels cannot drift apart.
+// the moments, the ring held once in shared memory, in one block up to
+// L = 57,344 and split over a thread-block cluster of up to 16 blocks up to
+// L = 911,360 (kernels/tiling.py ring_plan; the wrapper raises above it) --
+// is the loop of pdes_ring.cuh, which B1 shares, so the two kernels cannot
+// drift apart.
 //
 // Bound on the H100 SXM (published peaks), at ops.simulate's chunk K = 16,
 // B = 448 rings of L = 10,000 PEs (71.7M PE-steps):
@@ -73,24 +75,64 @@ multistep_kernel(const float* __restrict__ tau_in,
                  float* __restrict__ stats, int B, int L, int K, uint32_t n_v,
                  float delta) {
   const int row = blockIdx.x;
-  ring_steps<kRd, kBoth>(tau_in, tau_out, stats, row, B, L, K, n_v, delta,
-                         MemoryEvents{bits, B, L, row});
+  ring_steps<kRd, kBoth, false>(tau_in, tau_out, stats, row, B, L, K, n_v,
+                                delta, MemoryEvents{bits, B, L, row});
+}
+
+// The same on rings split over clusters of `cluster` blocks, `seg` PEs a
+// block: ring `row` is blocks [row cluster, (row + 1) cluster).
+template <bool kRd, bool kBoth>
+__global__ void __launch_bounds__(32 * kRingClusterWarps, 1)
+multistep_cluster_kernel(const float* __restrict__ tau_in,
+                         const uint2* __restrict__ bits,
+                         float* __restrict__ tau_out,
+                         float* __restrict__ stats, int B, int L, int K,
+                         uint32_t n_v, float delta, int cluster, int seg) {
+  const int row = blockIdx.x / cluster;
+  ring_steps<kRd, kBoth, true>(tau_in, tau_out, stats, row, B, L, K, n_v,
+                               delta, MemoryEvents{bits, B, L, row}, cluster,
+                               seg);
 }
 
 }  // namespace
 
+// Launches B3 with kernels/tiling.py::ring_plan(L): `cluster` blocks a
+// ring of `warps` warps and `seg` PEs each (one block, seg == L, where
+// cluster == 1).  Returns a CUDA error code: a plan this kernel cannot run
+// returns cudaErrorInvalidValue, and a launch the card refuses its error.
 extern "C" int pdes_multistep_launch(const float* tau_in, const void* bits,
                                      float* tau_out, float* stats, int B,
-                                     int L, int K, int warps, unsigned n_v,
-                                     float delta, int rd_mode,
-                                     int border_both, void* stream) {
+                                     int L, int K, int warps, int cluster,
+                                     int seg, unsigned n_v, float delta,
+                                     int rd_mode, int border_both,
+                                     void* stream) {
+  if (cluster == 1) {
+    const auto kernel = ring_kernel(rd_mode, border_both,
+                                    multistep_kernel<true, false>,
+                                    multistep_kernel<false, true>,
+                                    multistep_kernel<false, false>);
+    const int smem = ring_launch_check(kernel, B, L, K, warps, 1, seg);
+    if (smem < 0) return -smem;
+    kernel<<<B, 32 * warps, smem, (cudaStream_t)stream>>>(
+        tau_in, (const uint2*)bits, tau_out, stats, B, L, K, n_v, delta);
+    return (int)cudaGetLastError();
+  }
   const auto kernel = ring_kernel(rd_mode, border_both,
-                                  multistep_kernel<true, false>,
-                                  multistep_kernel<false, true>,
-                                  multistep_kernel<false, false>);
-  const int smem = ring_launch_check(kernel, B, L, K, warps);
+                                  multistep_cluster_kernel<true, false>,
+                                  multistep_cluster_kernel<false, true>,
+                                  multistep_cluster_kernel<false, false>);
+  const int smem = ring_launch_check(kernel, B, L, K, warps, cluster, seg);
   if (smem < 0) return -smem;
-  kernel<<<B, 32 * warps, smem, (cudaStream_t)stream>>>(
-      tau_in, (const uint2*)bits, tau_out, stats, B, L, K, n_v, delta);
-  return (int)cudaGetLastError();
+  return ring_cluster_launch(kernel, B, cluster, warps, smem, stream, tau_in,
+                             (const uint2*)bits, tau_out, stats, B, L, K,
+                             (uint32_t)n_v, delta, cluster, seg);
+}
+
+// The clusters of B3's cluster kernel (`cluster` blocks of `warps` warps
+// and `smem` dynamic bytes) that the card holds at once, or minus a CUDA
+// error code.
+extern "C" int pdes_multistep_max_clusters(int cluster, int warps,
+                                           int smem) {
+  return ring_max_clusters(multistep_cluster_kernel<false, false>, cluster,
+                           warps, smem);
 }

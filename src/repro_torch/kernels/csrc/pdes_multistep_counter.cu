@@ -13,8 +13,10 @@
 //   trial_r = trial_col[r] if given, else b0 + r (uint32, wrapping)
 // and its window width delta_col[r] if given, else the static delta (inf =
 // off).  The step itself -- decode, GVT, Eq. (1) and Eq. (3), the moments,
-// the ring held once in shared memory (L <= 57,344; the wrapper raises
-// above it) -- is the loop of pdes_ring.cuh, which B3 shares.
+// the ring held once in shared memory, in one block up to L = 57,344 and
+// split over a thread-block cluster of up to 16 blocks up to L = 911,360
+// (kernels/tiling.py ring_plan; the wrapper raises above it) -- is the loop
+// of pdes_ring.cuh, which B3 shares.
 //
 // Bound on the H100 SXM (published peaks; 132 SMs at 1.98 GHz), at the
 // service's shape B = 448 rings of L = 10,000 PEs, K = 16 steps per launch
@@ -39,6 +41,15 @@
 // site pick by a multiply-high; four rows of a warp stepped at once
 // (kAhead); and 40 KB a ring, so all 448 rings are resident at once, four
 // to an SM.
+//
+// A long ring, B = 448 rings of L = 131,072 PEs over clusters of 3 blocks
+// (the service at the paper's large-L regime; 939.5M PE-steps a K = 16
+// chunk): bytes 470.0 MB (tau in and out), 0.140 ms; operations about
+// 4.1e10 at u = 0.64, 0.61 ms at 67 T/s.  So the operations bound it, as at
+// L = 10,000, and the same issue limit holds: one block of 32 warps an SM
+// (a segment takes most of its shared memory) does the work of four
+// one-block rings of 8, and one cluster barrier a step over a segment of
+// some 44,000 PEs costs little beside it (PERF.md).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -86,8 +97,29 @@ multistep_counter_kernel(const float* __restrict__ tau_in,
   const int row = blockIdx.x;
   const uint32_t trial = trial_col ? trial_col[row] : b0 + (uint32_t)row;
   const float dlt = delta_col ? delta_col[row] : delta;
-  ring_steps<kRd, kBoth>(tau_in, tau_out, stats, row, B, L, K, n_v, dlt,
-                         CounterEvents{seed, step0, trial, l0});
+  ring_steps<kRd, kBoth, false>(tau_in, tau_out, stats, row, B, L, K, n_v,
+                                dlt, CounterEvents{seed, step0, trial, l0});
+}
+
+// The same on rings split over clusters of `cluster` blocks, `seg` PEs a
+// block: ring `row` is blocks [row cluster, (row + 1) cluster).
+template <bool kRd, bool kBoth>
+__global__ void __launch_bounds__(32 * kRingClusterWarps, 1)
+multistep_counter_cluster_kernel(const float* __restrict__ tau_in,
+                                 float* __restrict__ tau_out,
+                                 float* __restrict__ stats,
+                                 const float* __restrict__ delta_col,
+                                 const uint32_t* __restrict__ trial_col,
+                                 int B, int L, int K,
+                                 uint32_t seed, uint32_t step0, uint32_t b0,
+                                 uint32_t l0, uint32_t n_v, float delta,
+                                 int cluster, int seg) {
+  const int row = blockIdx.x / cluster;
+  const uint32_t trial = trial_col ? trial_col[row] : b0 + (uint32_t)row;
+  const float dlt = delta_col ? delta_col[row] : delta;
+  ring_steps<kRd, kBoth, true>(tau_in, tau_out, stats, row, B, L, K, n_v,
+                               dlt, CounterEvents{seed, step0, trial, l0},
+                               cluster, seg);
 }
 
 // eta of every word by the kernels' table decode (`table`) or by the library
@@ -118,21 +150,47 @@ __global__ void site_pick_kernel(const uint32_t* __restrict__ w0,
 
 }  // namespace
 
+// Launches B1 with kernels/tiling.py::ring_plan(L): `cluster` blocks a
+// ring of `warps` warps and `seg` PEs each (one block, seg == L, where
+// cluster == 1).  Returns a CUDA error code: a plan this kernel cannot run
+// returns cudaErrorInvalidValue, and a launch the card refuses its error.
 extern "C" int pdes_multistep_counter_launch(
     const float* tau_in, float* tau_out, float* stats, const float* delta_col,
-    const uint32_t* trial_col, int B, int L, int K, int warps, unsigned seed,
-    unsigned step0, unsigned b0, unsigned l0, unsigned n_v, float delta,
-    int rd_mode, int border_both, void* stream) {
-  const auto kernel = ring_kernel(rd_mode, border_both,
-                                  multistep_counter_kernel<true, false>,
-                                  multistep_counter_kernel<false, true>,
-                                  multistep_counter_kernel<false, false>);
-  const int smem = ring_launch_check(kernel, B, L, K, warps);
+    const uint32_t* trial_col, int B, int L, int K, int warps, int cluster,
+    int seg, unsigned seed, unsigned step0, unsigned b0, unsigned l0,
+    unsigned n_v, float delta, int rd_mode, int border_both, void* stream) {
+  if (cluster == 1) {
+    const auto kernel = ring_kernel(rd_mode, border_both,
+                                    multistep_counter_kernel<true, false>,
+                                    multistep_counter_kernel<false, true>,
+                                    multistep_counter_kernel<false, false>);
+    const int smem = ring_launch_check(kernel, B, L, K, warps, 1, seg);
+    if (smem < 0) return -smem;
+    kernel<<<B, 32 * warps, smem, (cudaStream_t)stream>>>(
+        tau_in, tau_out, stats, delta_col, trial_col, B, L, K, seed, step0,
+        b0, l0, n_v, delta);
+    return (int)cudaGetLastError();
+  }
+  const auto kernel = ring_kernel(
+      rd_mode, border_both, multistep_counter_cluster_kernel<true, false>,
+      multistep_counter_cluster_kernel<false, true>,
+      multistep_counter_cluster_kernel<false, false>);
+  const int smem = ring_launch_check(kernel, B, L, K, warps, cluster, seg);
   if (smem < 0) return -smem;
-  kernel<<<B, 32 * warps, smem, (cudaStream_t)stream>>>(
-      tau_in, tau_out, stats, delta_col, trial_col, B, L, K, seed, step0, b0,
-      l0, n_v, delta);
-  return (int)cudaGetLastError();
+  return ring_cluster_launch(kernel, B, cluster, warps, smem, stream, tau_in,
+                             tau_out, stats, delta_col, trial_col, B, L, K,
+                             (uint32_t)seed, (uint32_t)step0, (uint32_t)b0,
+                             (uint32_t)l0, (uint32_t)n_v, delta, cluster,
+                             seg);
+}
+
+// The clusters of B1's cluster kernel (`cluster` blocks of `warps` warps
+// and `smem` dynamic bytes) that the card holds at once, or minus a CUDA
+// error code.
+extern "C" int pdes_multistep_counter_max_clusters(int cluster, int warps,
+                                                   int smem) {
+  return ring_max_clusters(multistep_counter_cluster_kernel<false, false>,
+                           cluster, warps, smem);
 }
 
 extern "C" int decode_eta_launch(const uint32_t* w1, float* out, long long n,

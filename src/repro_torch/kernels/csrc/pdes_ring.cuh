@@ -45,21 +45,45 @@
 // edge values and mask the lanes past the ring's end; the groups between
 // them carry no test at all.
 //
+// A longer ring (up to kernels/tiling.py MAX_CLUSTER_RING_L) is split over
+// a thread-block cluster of c blocks (kCluster; tiling.ring_plan gives c,
+// the segment `seg`, a multiple of 32, and W): block rank j owns PEs
+// [j seg, min((j + 1) seg, L)) in its shared memory and lays them out as a
+// one-block ring lays out its own, and the events keep their ring-wide PE
+// index.  Warp 0's left neighbour is then rank j - 1's last PE and the last
+// warp's right neighbour rank j + 1's first PE (mod c), read from the
+// neighbour block's parity slot through distributed shared memory; one
+// cluster barrier a step (arrive.release, wait.acquire) takes the place of
+// the block's.  The parity argument below holds across the blocks: a
+// block rewrites slot k & 1 only after barrier k + 1, which every remote
+// reader of step k's slot reaches only after reading it.  A last cluster
+// barrier keeps every block's shared memory alive until rank 0 has read
+// the last sums.  A cluster block takes most of an SM's shared memory, so
+// it runs 32 warps, the warps of four one-block rings (8 or 16 were
+// slower: PERF.md).  The one-block kernels are separate instantiations,
+// which the cluster code does not reach (if constexpr).
+//
 // One barrier a step.  Each warp writes its partials of step k (ucount, min,
 // max, sum, sumsq, the sumabs of step k - 1 and its two edge PEs) into the
 // slot of k's parity, then __syncthreads(); then every warp reduces the W
 // partials itself (warp 0 all of them, the others the min and the sum), so
 // all hold the next GVT and the ring mean without a second barrier, and
-// lane 0 of warp 0 writes the stats.  A slot is written again two steps
-// later, after the barrier that every reader of it has passed.  The sumabs
-// of step k is summed in step k + 1's pass, whose first read of a PE is its
-// tau after step k; one trailing pass after step K - 1, which also writes
-// tau out, gives the last.  Sums are taken in row order per lane, then by a
-// fixed xor tree over the lanes and over the W warps: the order depends on
-// L alone (through W), never on B, the ring's row or its neighbours on the
-// SM, so a ring's moments are the same whatever batch it runs in.
+// lane 0 of warp 0 writes the stats.  On a cluster every block reads the
+// c x W partials after the cluster barrier: each block's W by the same xor
+// tree, then the c block values in rank order 0 ... c - 1, so every block
+// holds the same GVT and mean, and rank 0's warp 0 writes the stats.  A
+// slot is written again two steps later, after the barrier that every
+// reader of it has passed.  The sumabs of step k is summed in step k + 1's
+// pass, whose first read of a PE is its tau after step k; one trailing pass
+// after step K - 1, which also writes tau out, gives the last.  Sums are
+// taken in row order per lane, then by a fixed xor tree over the lanes and
+// over the W warps (and over the c blocks in rank order): the order depends
+// on L alone (through the plan), never on B, the ring's row or its
+// neighbours on the SM, so a ring's moments are the same whatever batch it
+// runs in.
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -68,19 +92,28 @@
 
 namespace {
 
+namespace cg = cooperative_groups;
+
 // Most warps of a ring block (kernels/tiling.py RING_MAX_WARPS).
 constexpr int kRingMaxWarps = 8;
+// Most warps of a block of a ring split over a cluster (tiling.py
+// RING_CLUSTER_WARPS): one such block an SM, so up to 1024 threads.
+constexpr int kRingClusterWarps = 32;
+// Most blocks of a ring's cluster (tiling.py RING_MAX_CLUSTER); above 8 the
+// launch allows a non-portable cluster size.
+constexpr int kRingMaxCluster = 16;
 // Blocks of 8 warps an SM should hold at once: 448 rings of L = 10,000 (40
 // KB of shared memory each) then run in one wave on 132 SMs.
 constexpr int kRingMinBlocks = 4;
 
 // What warp w publishes at the end of a step, read by every warp after the
-// step's barrier (parity slots: see above).
+// step's barrier (parity slots: see above), for blocks of up to kW warps.
+template <int kW>
 struct RingSlot {
-  unsigned cnt[kRingMaxWarps];
-  float mn[kRingMaxWarps], mx[kRingMaxWarps];
-  float sum[kRingMaxWarps], sumsq[kRingMaxWarps], sumabs[kRingMaxWarps];
-  float first[kRingMaxWarps], last[kRingMaxWarps];  // edge PEs' new tau
+  unsigned cnt[kW];
+  float mn[kW], mx[kW];
+  float sum[kW], sumsq[kW], sumabs[kW];
+  float first[kW], last[kW];  // edge PEs' new tau
 };
 
 // The reduction of W (a power of two <= 32) warp partials by `op`, the
@@ -103,32 +136,84 @@ struct Max {
   __device__ float operator()(float a, float b) const { return fmaxf(a, b); }
 };
 
-// Runs the K steps of block `row` (blockDim.x = 32 W).  `dlt` is the row's
+// The barrier of a step: the block's, or on a cluster the cluster's, each
+// block's writes released before it and the others' acquired after it.
+template <bool kCluster>
+__device__ __forceinline__ void ring_barrier() {
+  if constexpr (kCluster) {
+    asm volatile("barrier.cluster.arrive.release;" ::: "memory");
+    asm volatile("barrier.cluster.wait.acquire;" ::: "memory");
+  } else {
+    __syncthreads();
+  }
+}
+
+// The reduction by `op` of the partials `get(slot)` of a ring's blocks:
+// each block's W by slot_reduce, then the c block values in rank order
+// 0 ... c - 1 (one block: its own W).  Every warp of every block ends with
+// the same value.
+template <bool kCluster, class Slot, class Get, class Op>
+__device__ __forceinline__ auto ring_reduce(Slot& s, Get get, int c, int W,
+                                            int lane, Op op) {
+  if constexpr (kCluster) {
+    cg::cluster_group cluster = cg::this_cluster();
+    auto v = slot_reduce(get(*cluster.map_shared_rank(&s, 0)), W, lane, op);
+    for (int r = 1; r < c; ++r)
+      v = op(v, slot_reduce(get(*cluster.map_shared_rank(&s, r)), W, lane,
+                            op));
+    return v;
+  } else {
+    return slot_reduce(get(s), W, lane, op);
+  }
+}
+
+// Runs the K steps of ring `row` (blockDim.x = 32 W).  `dlt` is the row's
 // window width (inf turns the window off: tau <= inf + GVT holds).  kRd and
 // kBoth are the rd_mode and border_both flags, fixed per instantiation so
-// that the hot loop carries no test of them.
-template <bool kRd, bool kBoth, class Events>
+// that the hot loop carries no test of them.  With kCluster the block is
+// rank blockIdx.x % cl of the ring's cluster of cl blocks and holds the
+// segment of `seg` PEs from PE rank * seg; without, the whole ring.
+template <bool kRd, bool kBoth, bool kCluster, class Events>
 __device__ __forceinline__ void ring_steps(const float* __restrict__ tau_in,
                                            float* __restrict__ tau_out,
                                            float* __restrict__ stats,
                                            int row, int B, int L, int K,
                                            uint32_t n_v, float dlt,
-                                           const Events& events) {
+                                           const Events& events, int cl = 1,
+                                           int seg = 0) {
   constexpr int U = Events::kAhead;
+  constexpr int kW = kCluster ? kRingClusterWarps : kRingMaxWarps;
+  using Slot = RingSlot<kW>;
   extern __shared__ float ring[];
-  __shared__ RingSlot slot[2];
+  __shared__ Slot slot[2];
   __shared__ LogEntry tab[128];
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int W = blockDim.x >> 5;
-  const int rows = (L + 31) >> 5;
+  // this block's segment: PEs [base, base + n) of the ring, local index
+  // i at ring-wide PE base + i
+  const int rank = kCluster ? (int)(blockIdx.x % cl) : 0;
+  const int base = kCluster ? rank * seg : 0;
+  const int n = kCluster ? min(seg, L - base) : L;
+  const int rows = (n + 31) >> 5;
   const int r0 = warp * rows / W;
   const int r1 = (warp + 1) * rows / W;
   const int first = 32 * r0;                      // this warp's PEs
-  const int last = min(32 * r1, L) - 1;
+  const int last = min(32 * r1, n) - 1;
   const int wl = warp == 0 ? W - 1 : warp - 1;    // the warps beside it
   const int wr = warp == W - 1 ? 0 : warp + 1;
+  // the slots holding the old tau beside this warp's ends: another
+  // block's (distributed shared memory) at the segment's two ends
+  Slot* lslot = slot;
+  Slot* rslot = slot;
+  if constexpr (kCluster) {
+    cg::cluster_group cluster = cg::this_cluster();
+    if (warp == 0)
+      lslot = cluster.map_shared_rank(slot, rank == 0 ? cl - 1 : rank - 1);
+    if (warp == W - 1)
+      rslot = cluster.map_shared_rank(slot, rank == cl - 1 ? 0 : rank + 1);
+  }
   const SiteDivisor div = site_divisor(n_v);
   const size_t plane = (size_t)K * B;
   // Row slots per step, padded to whole groups of U: the word of slot s is
@@ -136,17 +221,17 @@ __device__ __forceinline__ void ring_steps(const float* __restrict__ tau_in,
   const int S = (r1 - r0 + U - 1) / U * U;
 
   // the words of step 0's first group (rows past the warp's, and lanes
-  // past the ring's end, re-read a word in bounds)
+  // past the segment's end, re-read a word in bounds)
   typename Events::Word buf[U];
 #pragma unroll
   for (int j = 0; j < U; ++j)
-    buf[j] = events.fetch(0, min(first + 32 * min(j, r1 - 1 - r0) + lane,
-                                 L - 1));
+    buf[j] = events.fetch(0, base + min(first + 32 * min(j, r1 - 1 - r0)
+                                        + lane, n - 1));
 
-  // load the decode's table and the ring, take the ring's minimum (the
-  // first step's GVT) and publish the edge PEs, as a step -1 in slot 1
+  // load the decode's table and the segment, take its minimum (the first
+  // step's GVT) and publish the edge PEs, as a step -1 in slot 1
   load_log_table(tab);
-  const float* src = tau_in + (size_t)row * L;
+  const float* src = tau_in + (size_t)row * L + base;
   float mn = INFINITY;
   for (int i = first + lane; i <= last; i += 32) {
     const float t = src[i];
@@ -157,17 +242,19 @@ __device__ __forceinline__ void ring_steps(const float* __restrict__ tau_in,
   }
   mn = warp_min(mn);
   if (lane == 0) slot[1].mn[warp] = mn;
-  __syncthreads();
-  float gvt = slot_reduce(slot[1].mn, W, lane, Min{});
+  ring_barrier<kCluster>();
+  const auto get_mn = [](const Slot& q) { return q.mn; };
+  const auto get_sum = [](const Slot& q) { return q.sum; };
+  float gvt = ring_reduce<kCluster>(slot[1], get_mn, cl, W, lane, Min{});
   float mean = 0.f;  // the ring mean after the previous step
 
   for (int k = 0; k < K; ++k) {
-    const RingSlot& in = slot[(k + 1) & 1];
-    RingSlot& out = slot[k & 1];
+    const int par = (k + 1) & 1;
+    Slot& out = slot[k & 1];
     const auto step = events.step(k);
     const float bound = __fadd_rn(dlt, gvt);
-    const float lft_edge = in.last[wl];   // old tau left of PE `first`
-    const float rgt_edge = in.first[wr];  // old tau right of PE `last`
+    const float lft_edge = lslot[par].last[wl];   // old tau left of `first`
+    const float rgt_edge = rslot[par].first[wr];  // old tau right of `last`
     unsigned cnt = 0;
     float lmn = INFINITY, lmx = -INFINITY, s = 0.f, ss = 0.f, sa = 0.f;
     float pend[U];   // the previous group's new tau, stored one group late
@@ -177,7 +264,7 @@ __device__ __forceinline__ void ring_steps(const float* __restrict__ tau_in,
     // lanes past the ring's end.
     auto pe_step = [&](float c, float l, float r, int i, bool live,
                        const typename Events::Word& w) {
-      const auto ev = events.at(step, w, i);
+      const auto ev = events.at(step, w, base + i);
       bool is_left, is_right;
       site_pick(ev.w0, div, is_left, is_right);
       const bool ok = kRd || causal_ok(c, l, r, is_left, is_right, kBoth);
@@ -239,7 +326,7 @@ __device__ __forceinline__ void ring_steps(const float* __restrict__ tau_in,
       const int jmax = r1 - 1 - r0 - q0;
       const int i0 = 32 * (r0 + q0) + lane;
       auto refill = [&](int j) {
-        buf[j] = events.fetch(kf, min(i0 + 32 * min(j, jmax), L - 1));
+        buf[j] = events.fetch(kf, base + min(i0 + 32 * min(j, jmax), n - 1));
       };
       if (edge) {
 #pragma unroll
@@ -280,15 +367,19 @@ __device__ __forceinline__ void ring_steps(const float* __restrict__ tau_in,
       out.sumsq[warp] = ss;
       out.sumabs[warp] = sa;
     }
-    __syncthreads();
-    gvt = slot_reduce(out.mn, W, lane, Min{});
-    const float sum = slot_reduce(out.sum, W, lane, Add{});
+    ring_barrier<kCluster>();
+    gvt = ring_reduce<kCluster>(out, get_mn, cl, W, lane, Min{});
+    const float sum = ring_reduce<kCluster>(out, get_sum, cl, W, lane, Add{});
     mean = __fdiv_rn(sum, (float)L);
-    if (warp == 0) {
-      const unsigned c = slot_reduce(out.cnt, W, lane, Add{});
-      const float mx = slot_reduce(out.mx, W, lane, Max{});
-      const float sq = slot_reduce(out.sumsq, W, lane, Add{});
-      const float ab = slot_reduce(out.sumabs, W, lane, Add{});
+    if (warp == 0 && rank == 0) {
+      const unsigned c = ring_reduce<kCluster>(
+          out, [](const Slot& q) { return q.cnt; }, cl, W, lane, Add{});
+      const float mx = ring_reduce<kCluster>(
+          out, [](const Slot& q) { return q.mx; }, cl, W, lane, Max{});
+      const float sq = ring_reduce<kCluster>(
+          out, [](const Slot& q) { return q.sumsq; }, cl, W, lane, Add{});
+      const float ab = ring_reduce<kCluster>(
+          out, [](const Slot& q) { return q.sumabs; }, cl, W, lane, Add{});
       if (lane == 0) {
         const size_t at = (size_t)k * B + row;
         stats[0 * plane + at] = (float)c;
@@ -302,7 +393,7 @@ __device__ __forceinline__ void ring_steps(const float* __restrict__ tau_in,
   }
 
   // the last step's sumabs, and tau out
-  float* dst = tau_out + (size_t)row * L;
+  float* dst = tau_out + (size_t)row * L + base;
   float sa = 0.f;
   for (int i = first + lane; i <= last; i += 32) {
     const float t = ring[i];
@@ -310,13 +401,16 @@ __device__ __forceinline__ void ring_steps(const float* __restrict__ tau_in,
     sa = __fadd_rn(sa, fabsf(__fsub_rn(t, mean)));
   }
   sa = warp_sum(sa);
-  RingSlot& out = slot[K & 1];
+  Slot& out = slot[K & 1];
   if (lane == 0) out.sumabs[warp] = sa;
-  __syncthreads();
-  if (warp == 0) {
-    const float ab = slot_reduce(out.sumabs, W, lane, Add{});
+  ring_barrier<kCluster>();
+  if (warp == 0 && rank == 0) {
+    const float ab = ring_reduce<kCluster>(
+        out, [](const Slot& q) { return q.sumabs; }, cl, W, lane, Add{});
     if (lane == 0) stats[5 * plane + (size_t)(K - 1) * B + row] = ab;
   }
+  // no block leaves while rank 0 may still read its shared memory
+  if constexpr (kCluster) ring_barrier<kCluster>();
 }
 
 // The instantiation of a ring kernel for the runtime rule flags (rd_mode
@@ -327,25 +421,103 @@ Kernel ring_kernel(int rd_mode, int border_both, Kernel rd, Kernel both,
   return rd_mode ? rd : border_both ? both : plain;
 }
 
-// Checks a ring kernel's launch shape (kernels/tiling.py::ring_warps gives
-// `warps`) and sets its shared memory: the whole of it to shared memory, so
-// that 4 L-byte rings pack an SM.  Returns the dynamic shared memory in
-// bytes, or minus a CUDA error code (a ring too long for one block).
+// Sets a ring kernel's shared memory (the whole of the carveout to shared
+// memory, so that 4 L-byte rings pack an SM) and, for a cluster past the
+// portable 8 blocks, allows it.
 template <class Kernel>
-int ring_launch_check(Kernel kernel, int B, int L, int K, int warps) {
-  if (B < 1 || L < 1 || K < 1 || warps < 1 || warps > kRingMaxWarps ||
-      (warps & (warps - 1)) != 0 || warps > (L + 31) / 32)
-    return -(int)cudaErrorInvalidValue;
-  const int smem = L * (int)sizeof(float);
+cudaError_t ring_allow(Kernel kernel, int cluster, int smem) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributePreferredSharedMemoryCarveout,
                                (int)cudaSharedmemCarveoutMaxShared);
-  if (err == cudaSuccess) return smem;
-  cudaGetLastError();  // leave no error behind for the next launch's check
-  return -(int)err;
+  if (err == cudaSuccess && cluster > 8)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) cudaGetLastError();  // leave no error behind
+  return err;
+}
+
+// `blocks` blocks of `threads` threads and `smem` dynamic bytes, in
+// clusters of `cluster` blocks along x.
+inline cudaLaunchConfig_t ring_config(int blocks, int cluster, int threads,
+                                      int smem, cudaStream_t stream,
+                                      cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)blocks, 1, 1);
+  cfg.blockDim = dim3((unsigned)threads, 1, 1);
+  cfg.dynamicSmemBytes = (size_t)smem;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = (unsigned)cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// The clusters of `cluster` blocks of a ring kernel, `warps` warps and
+// `smem` dynamic bytes each, that the card holds at once
+// (cudaOccupancyMaxActiveClusters), or minus a CUDA error code.
+template <class Kernel>
+int ring_max_clusters(Kernel kernel, int cluster, int warps, int smem) {
+  cudaError_t err = ring_allow(kernel, cluster, smem);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      ring_config(cluster, cluster, 32 * warps, smem, nullptr, &attr);
+  int n = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveClusters(&n, (void*)kernel, &cfg);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return -(int)err;
+  }
+  return n;
+}
+
+// Checks a ring kernel's launch shape against kernels/tiling.py::ring_plan:
+// `cluster` blocks a ring of `warps` warps, each holding `seg` PEs (the
+// whole ring where cluster == 1; else a multiple of 32, the last segment
+// shorter and at least a row a warp), and sets its attributes.  On a
+// cluster it also asks the card to hold one.  Returns the dynamic shared
+// memory in bytes, or minus a CUDA error code (a segment too long for one
+// block, a cluster the card cannot place).
+template <class Kernel>
+int ring_launch_check(Kernel kernel, int B, int L, int K, int warps,
+                      int cluster, int seg) {
+  const int max_warps = cluster == 1 ? kRingMaxWarps : kRingClusterWarps;
+  if (B < 1 || L < 1 || K < 1 || warps < 1 || warps > max_warps ||
+      (warps & (warps - 1)) != 0 || cluster < 1 ||
+      cluster > kRingMaxCluster || seg < 1 ||
+      (cluster == 1 ? seg != L
+                    : seg % 32 != 0 || (long long)seg * cluster < L ||
+                          (long long)seg * (cluster - 1) >= L) ||
+      warps > (L - seg * (cluster - 1) + 31) / 32)
+    return -(int)cudaErrorInvalidValue;
+  const int smem = seg * (int)sizeof(float);
+  const cudaError_t err = ring_allow(kernel, cluster, smem);
+  if (err != cudaSuccess) return -(int)err;
+  if (cluster > 1) {
+    const int n = ring_max_clusters(kernel, cluster, warps, smem);
+    if (n < 0) return n;
+    if (n < 1) return -(int)cudaErrorInvalidConfiguration;
+  }
+  return smem;
+}
+
+// Launches `kernel` (a cluster instantiation) on B rings of `cluster`
+// blocks each, `args` its arguments; returns a CUDA error code.
+template <class Kernel, class... Args>
+int ring_cluster_launch(Kernel kernel, int B, int cluster, int warps,
+                        int smem, void* stream, Args... args) {
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = ring_config(
+      cluster * B, cluster, 32 * warps, smem, (cudaStream_t)stream, &attr);
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  const cudaError_t last = cudaGetLastError();
+  return (int)(err != cudaSuccess ? err : last);
 }
 
 }  // namespace

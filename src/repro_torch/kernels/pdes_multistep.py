@@ -9,12 +9,16 @@ Ports of ``repro.kernels.pdes_multistep``:
   event words read from device memory one step at a time
   (``csrc/pdes_multistep.cu``).
 
-Both kernels run one block per ring, the ring held once in shared memory
-for all K steps and updated in place, with one block barrier a step and
-``tiling.ring_warps(L)`` warps (``csrc/pdes_ring.cuh``; see the notes in
-the sources for their bounds).  On a CUDA tensor a wrapper launches its
-kernel or raises; on a CPU tensor it runs the plain PyTorch version in
-``ref``.  There is no other path.
+Both kernels hold a ring once in shared memory for all K steps, updated
+in place, as ``tiling.ring_plan(L)`` lays it out (``csrc/pdes_ring.cuh``;
+see the notes in the sources for their bounds): up to
+``tiling.MAX_RING_L`` = 57,344 PEs one block a ring with one block barrier
+a step; longer rings, up to ``tiling.MAX_CLUSTER_RING_L`` = 911,360, split
+over a thread-block cluster of up to 16 blocks, one segment a block, with
+one cluster barrier a step.  Above that the wrappers raise.  On a CUDA
+tensor a wrapper launches its kernel or raises (a launch the card refuses
+raises too); on a CPU tensor it runs the plain PyTorch version in ``ref``,
+which takes any L.  There is no other path.
 
 ``launches`` (B1) and ``bits_launches`` (B3) count kernel launches, so a
 run can show that its main path went through the kernel.
@@ -29,7 +33,7 @@ from ..core import horizon
 from ..core.horizon import MOMENT_KEYS
 from . import _build
 from .ref import ctr_values, pdes_multistep_counter_ref, pdes_multistep_ref
-from .tiling import SMEM_STATIC, check_ring_fits, ring_smem_bytes, ring_warps
+from .tiling import check_ring_fits, ring_plan
 
 #: Kernel launches made by :func:`pdes_multistep_counter` in this process.
 launches = 0
@@ -44,10 +48,13 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load(_LIB)
     f = lib.pdes_multistep_counter_launch
     if f.argtypes is None:
-        f.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+        f.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
                       + [ctypes.c_uint32] * 5 + [ctypes.c_float]
                       + [ctypes.c_int] * 2 + [ctypes.c_void_p])
         f.restype = ctypes.c_int
+        m = lib.pdes_multistep_counter_max_clusters
+        m.argtypes = [ctypes.c_int] * 3
+        m.restype = ctypes.c_int
         g = lib.decode_eta_launch
         g.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
                       ctypes.c_int, ctypes.c_void_p]
@@ -63,23 +70,45 @@ def _bits_lib() -> ctypes.CDLL:
     lib = _build.load(_BITS_LIB)
     f = lib.pdes_multistep_launch
     if f.argtypes is None:
-        f.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+        f.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
                       + [ctypes.c_uint32, ctypes.c_float]
                       + [ctypes.c_int] * 2 + [ctypes.c_void_p])
         f.restype = ctypes.c_int
+        m = lib.pdes_multistep_max_clusters
+        m.argtypes = [ctypes.c_int] * 3
+        m.restype = ctypes.c_int
     return lib
 
 
 def launch_plan(B: int, L: int) -> dict:
     """The launch of B1 or B3 on ``B`` rings of ``L`` PEs (any number of
-    steps: they loop inside the block): one block a ring of
-    ``tiling.ring_warps(L)`` warps, the ring in dynamic shared memory
-    (``csrc/pdes_ring.cuh::ring_launch_check`` sets the same ``4 L``
-    bytes) beside the block's static partials and log table.  The
-    wrappers launch with it and the linter's ``vmem-budget`` rule reads
+    steps: they loop inside the block), from ``tiling.ring_plan(L)``:
+    ``cluster`` blocks a ring (one up to ``tiling.MAX_RING_L``), so
+    ``cluster * B`` blocks of ``threads``, each holding ``seg`` PEs in
+    dynamic shared memory (``csrc/pdes_ring.cuh::ring_launch_check`` sets
+    the same ``4 seg`` bytes) beside its static partials and log table.
+    The wrappers launch with it and the linter's ``vmem-budget`` rule reads
     it, so the two cannot disagree."""
-    return {"grid": (B,), "threads": 32 * ring_warps(L),
-            "dynamic_smem": ring_smem_bytes(L), "static_smem": SMEM_STATIC}
+    p = ring_plan(L)
+    return {"grid": (p.cluster * B,), "cluster": p.cluster,
+            "threads": p.threads, "seg": p.seg,
+            "dynamic_smem": p.dynamic_smem, "static_smem": p.static_smem}
+
+
+def resident_clusters(L: int, *, bits: bool = False) -> int:
+    """Clusters of B1's (``bits``: B3's) launch on rings of ``L`` PEs that
+    the current card holds at once (``cudaOccupancyMaxActiveClusters``; a
+    batch needing more runs in waves).  Only for rings split over a
+    cluster (``L > tiling.MAX_RING_L``)."""
+    p = ring_plan(L)
+    if p.cluster == 1:
+        raise ValueError(f"a ring of L={L} PEs runs in one block, not a "
+                         f"cluster")
+    f = (_bits_lib().pdes_multistep_max_clusters if bits else
+         _lib().pdes_multistep_counter_max_clusters)
+    n = f(p.cluster, p.warps, p.dynamic_smem)
+    _build.check(max(0, -n), "pdes_multistep occupancy")
+    return n
 
 
 def _check_tau(tau) -> None:
@@ -100,16 +129,18 @@ def bits_launch(tau_in, words, tau_out, stats, *, n_v: int, delta: float,
 
     ``words`` is the (K, B, L, 2) int32 tensor of uint32 bit patterns,
     ``tau_out`` (B, L) and ``stats`` (6, K, B) float32 outputs, all
-    contiguous on one CUDA device.  Counts nothing: timing scripts call it
-    to see the kernel alone.
+    contiguous on one CUDA device.  Launches with ``tiling.ring_plan(L)``
+    (:func:`launch_plan`) and raises on a launch the card refuses; nothing
+    falls back.  Counts nothing: timing scripts call it to see the kernel
+    alone.
     """
     K, (B, L) = words.shape[0], tau_in.shape
-    plan = launch_plan(B, L)
+    p = ring_plan(L)
     dev = tau_in.device
     with torch.cuda.device(dev):
         err = _bits_lib().pdes_multistep_launch(
             tau_in.data_ptr(), words.data_ptr(), tau_out.data_ptr(),
-            stats.data_ptr(), plan["grid"][0], L, K, plan["threads"] // 32,
+            stats.data_ptr(), B, L, K, p.warps, p.cluster, p.seg,
             n_v, float(delta),
             int(rd_mode), int(border_both), _build.stream(dev))
     _build.check(err, "pdes_multistep launch")
@@ -120,18 +151,19 @@ def counter_launch(tau_in, tau_out, stats, dcol, tcol, ctr, *, n_v: int,
     """Launch B1 on buffers :func:`pdes_multistep_counter` has checked and
     made: ``dcol`` (B, 1) float32 or None, ``tcol`` (B, 1) int32 uint32
     bits or None, ``ctr`` the four uint32 ``(seed, step0, b0, l0)``, and
-    ``stats`` (6, K, B).  Counts nothing: timing scripts call it to see the
-    kernel alone.
+    ``stats`` (6, K, B).  Launches with ``tiling.ring_plan(L)`` and raises
+    on a launch the card refuses.  Counts nothing: timing scripts call it
+    to see the kernel alone.
     """
     K, (B, L) = stats.shape[1], tau_in.shape
-    plan = launch_plan(B, L)
+    p = ring_plan(L)
     dev = tau_in.device
     with torch.cuda.device(dev):
         err = _lib().pdes_multistep_counter_launch(
             tau_in.data_ptr(), tau_out.data_ptr(), stats.data_ptr(),
             None if dcol is None else dcol.data_ptr(),
             None if tcol is None else tcol.data_ptr(),
-            plan["grid"][0], L, K, plan["threads"] // 32, *ctr, n_v,
+            B, L, K, p.warps, p.cluster, p.seg, *ctr, n_v,
             float(delta), int(rd_mode),
             int(border_both), _build.stream(dev))
     _build.check(err, "pdes_multistep_counter launch")

@@ -1,18 +1,28 @@
 """Block sizing for the Hopper kernels (port of ``repro.kernels.tiling``).
 
 The TPU kernels budget 8 MiB of VMEM per tile; on Hopper the scarce
-resource is a block's shared memory.  The multistep kernels (B1, B3) run
-one block per ring and keep the ring in shared memory for all K steps,
-updated in place: 4 bytes per PE (``csrc/pdes_ring.cuh``), beside a
-static 2.5 KB (the per-warp partials and the decode's log table).  So a ring of ``L`` PEs asks for
-``4 * L`` bytes of dynamic shared memory, and rings longer than
-:data:`MAX_RING_L` would need a split across a thread-block cluster
-(ROADMAP, later work).  At L = 10,000 a ring takes 40 KB, so four or
-five rings share an SM.
+resource is a block's shared memory.  The multistep kernels (B1, B3) keep
+a ring in shared memory for all K steps, updated in place: 4 bytes per PE
+(``csrc/pdes_ring.cuh``).  :func:`ring_plan`, a function of ``L`` alone,
+says how:
 
-The block's warps come from :func:`ring_warps`, a function of ``L``
-alone: the order in which a ring's sums are reduced follows the warps, so
-it must not depend on the batch the ring runs in.
+* up to :data:`MAX_RING_L` PEs (4 L bytes beside a static 2.5 KB of
+  per-warp partials and the decode's log table) one block holds the whole
+  ring, with :func:`ring_warps` warps.  At L = 10,000 a ring takes 40 KB,
+  so four or five rings share an SM;
+* a longer ring is cut into ``cluster`` segments of ``seg`` PEs (a
+  multiple of 32; the last one shorter), one block each, and the blocks
+  of a ring are one thread-block cluster of 2 to :data:`RING_MAX_CLUSTER`
+  blocks (non-portable above 8).  A block then takes most of an SM's
+  shared memory and :data:`RING_CLUSTER_WARPS` warps; the edge PEs cross
+  between neighbouring blocks through distributed shared memory, and one
+  cluster barrier a step takes the place of the block's.  That reaches
+  :data:`MAX_CLUSTER_RING_L` PEs, past the JAX package's one-row VMEM
+  budget of 524,285 (``repro.kernels.tiling.vmem_bytes``).
+
+The order in which a ring's sums are reduced follows the plan (warps, then
+blocks in rank order), so it must not depend on the batch the ring runs
+in.
 
 The one-step kernel (B2) keeps nothing of a row between launches, so a
 row of any length runs; how its work is spread comes from
@@ -65,12 +75,86 @@ def ring_warps(L: int) -> int:
     return w
 
 
+#: Most blocks of a ring's cluster.  Above 8 (the portable size) the launch
+#: allows a non-portable cluster; B2 keeps to ``STEP_MAX_CLUSTER``.  An
+#: H100 80GB HBM3 holds 7 clusters of 16 such blocks at once at the cap's
+#: shared memory, and 7 of 10, 39 of 3, 66 of 2
+#: (``cudaOccupancyMaxActiveClusters``, ``chip_smoke.py`` phase 17).
+RING_MAX_CLUSTER = 16
+#: Warps of a block of a ring split over a cluster: one such block fills an
+#: SM's shared memory, so it brings the warps of four one-block rings
+#: (``kRingClusterWarps`` in ``csrc/pdes_ring.cuh`` sizes its partials).
+RING_CLUSTER_WARPS = 32
+#: Static shared memory of a cluster block: the per-warp partials of up to
+#: 32 warps (2048 bytes) and the decode's log table (2048 bytes), rounded up.
+SMEM_STATIC_CLUSTER = 4608
+#: Longest segment of a cluster block: a multiple of 32 PEs with
+#: 4 * seg + static <= 227 KB.
+MAX_RING_SEG = (SMEM_PER_BLOCK - SMEM_STATIC_CLUSTER) // 128 * 32
+#: Longest ring B1 and B3 take: :data:`RING_MAX_CLUSTER` segments.
+MAX_CLUSTER_RING_L = RING_MAX_CLUSTER * MAX_RING_SEG
+
+
+@dataclasses.dataclass(frozen=True)
+class RingPlan:
+    """How B1 and B3 lay out a ring of ``L`` PEs (``csrc/pdes_ring.cuh``).
+
+    ``cluster`` blocks a ring (1: the whole ring in one block), block rank
+    ``j`` owning PEs ``[j seg, min((j + 1) seg, L))``; ``warps`` warps a
+    block; ``dynamic_smem`` bytes of the ring (4 a PE of the segment) and
+    ``static_smem`` bytes of partials and table a block.
+    """
+    cluster: int
+    seg: int
+    warps: int
+    dynamic_smem: int
+    static_smem: int
+
+    @property
+    def threads(self) -> int:
+        return 32 * self.warps
+
+    @property
+    def fits(self) -> bool:
+        """Whether a block's shared memory holds its part of the ring."""
+        return self.dynamic_smem + self.static_smem <= SMEM_PER_BLOCK
+
+
+def _ring_seg(L: int, cluster: int) -> int:
+    """PEs of each segment but the last: ``ceil(L / cluster)`` rounded up
+    to whole rows of 32."""
+    return 32 * -(-L // (32 * cluster))
+
+
+@functools.lru_cache(maxsize=1024)
+def ring_plan(L: int) -> RingPlan:
+    """The layout of a ring of ``L`` PEs, for any batch.
+
+    One block up to :data:`MAX_RING_L` (as :func:`ring_warps` and
+    :func:`ring_smem_bytes` say); above it the least cluster of 2 to
+    :data:`RING_MAX_CLUSTER` blocks whose segments fit one block, of
+    :data:`RING_CLUSTER_WARPS` warps each.  Above
+    :data:`MAX_CLUSTER_RING_L` the plan of :data:`RING_MAX_CLUSTER` blocks
+    does not fit (``fits`` is False): :func:`check_ring_fits` raises, and
+    the linter's ``vmem-budget`` rule fires on it.
+    """
+    if L <= MAX_RING_L:
+        return RingPlan(1, L, ring_warps(L), ring_smem_bytes(L), SMEM_STATIC)
+    c = 2
+    while c < RING_MAX_CLUSTER and _ring_seg(L, c) > MAX_RING_SEG:
+        c += 1
+    seg = _ring_seg(L, c)
+    return RingPlan(c, seg, RING_CLUSTER_WARPS, 4 * seg, SMEM_STATIC_CLUSTER)
+
+
 def check_ring_fits(L: int) -> None:
-    """Raise if a ring of ``L`` PEs does not fit one block's shared memory."""
-    if L > MAX_RING_L:
+    """Raise if a ring of ``L`` PEs does not fit a cluster of
+    :data:`RING_MAX_CLUSTER` blocks' shared memory."""
+    if not ring_plan(L).fits:
         raise ValueError(
             f"ring of L={L} PEs needs {ring_smem_bytes(L)} bytes of shared "
-            f"memory; one block holds rings up to L={MAX_RING_L}")
+            f"memory; one block holds rings up to L={MAX_RING_L}, a cluster "
+            f"of {RING_MAX_CLUSTER} blocks up to L={MAX_CLUSTER_RING_L}")
 
 
 #: Most threads of a B2 block (``kMaxThreads`` in ``csrc/pdes_step.cu``):

@@ -117,7 +117,8 @@ def test_ptxas_log_parser(tmp_path, monkeypatch):
                          pdes_multistep.launch_plan(4, 10_000))
     assert row["ptxas"] == info and row["over"] == []
     row = vmem.budget_of("pdes_multistep_counter",
-                         pdes_multistep.launch_plan(4, 100_000))
+                         pdes_multistep.launch_plan(
+                             4, tiling.MAX_CLUSTER_RING_L + 1))
     assert len(row["over"]) == 1 and "shared memory" in row["over"][0]
     monkeypatch.setattr(_build, "ptxas_info",
                         lambda *a: dict(info, registers=300))
@@ -139,7 +140,7 @@ class _FakeLib:
         return launch
 
 
-@pytest.mark.parametrize("L", [16, 300, 10_000])
+@pytest.mark.parametrize("L", [16, 300, 10_000, 131_072])
 def test_launch_plan_is_what_the_wrappers_launch(L, monkeypatch):
     """Each wrapper's raw launcher passes its plan's grid and block; the
     sources' launch constants are the plan's."""
@@ -160,12 +161,14 @@ def test_launch_plan_is_what_the_wrappers_launch(L, monkeypatch):
     pdes_multistep.bits_launch(tau, torch.zeros((K, B, L, 2), dtype=torch.int32),
                                tau.clone(), stats, **kw)
     (_, a1), (_, a3) = fake.calls
-    assert a1[5:9] == (plan["grid"][0], L, K, plan["threads"] // 32)
-    assert a3[4:8] == (plan["grid"][0], L, K, plan["threads"] // 32)
-    assert plan["dynamic_smem"] == 4 * L and plan["static_smem"] <= \
-        SMEM_PER_BLOCK
+    shape = (B, L, K, plan["threads"] // 32, plan["cluster"], plan["seg"])
+    assert a1[5:11] == shape and a3[4:10] == shape
+    assert plan["grid"] == (plan["cluster"] * B,)
+    assert plan["dynamic_smem"] == 4 * plan["seg"] and plan["static_smem"] \
+        <= SMEM_PER_BLOCK
     ring = (CSRC / "pdes_ring.cuh").read_text()
-    assert "const int smem = L * (int)sizeof(float);" in ring
+    assert "const int smem = seg * (int)sizeof(float);" in ring
+    assert "cluster * B, cluster, 32 * warps, smem," in ring
     assert "kernel<<<B, 32 * warps, smem" in \
         (CSRC / "pdes_multistep_counter.cu").read_text()
 
@@ -206,7 +209,8 @@ def test_vmem_budget_holds_each_block_of_a_cluster(case):
     cluster split (B2's blocks hold a segment each already)."""
     from repro_torch.analysis.probes import KernelCall, Probe
     from repro_torch.analysis.rules import vmem
-    L = {"ring": 100_000, "step": 65_536, "cluster": 65_536}[case]
+    L = {"ring": tiling.MAX_CLUSTER_RING_L + 1, "step": 65_536,
+         "cluster": 65_536}[case]
     kernel = "pdes_multistep_counter" if case == "ring" else "pdes_step"
     plan = (pdes_multistep.launch_plan(4, L) if case == "ring"
             else pdes_step.launch_plan(32, L))
@@ -227,3 +231,31 @@ def test_vmem_budget_holds_each_block_of_a_cluster(case):
                   kernels=[KernelCall(kernel=kernel, plan=plan, src="x:1")])
     (f,) = vmem.check(probe, vmem_budget=budget)
     assert ("need a thread-block cluster" in f.message) == (case == "ring")
+
+
+@pytest.mark.parametrize("L", [131_072, tiling.MAX_CLUSTER_RING_L + 1])
+def test_vmem_budget_of_a_ring_split_over_a_cluster(L):
+    """A ring over a cluster is held block by block: quiet at 131,072 PEs (3
+    blocks, a non-portable cluster allowed up to 16), and past the cap the
+    finding names both limits."""
+    from repro_torch.analysis.probes import KernelCall, Probe
+    from repro_torch.analysis.rules import vmem
+    plan = pdes_multistep.launch_plan(4, L)
+    assert plan["cluster"] == (3 if L == 131_072 else tiling.RING_MAX_CLUSTER)
+    probe = Probe("p", backend="fixture", graph=None, tau_in=0, tau_out=0,
+                  ring_widths=frozenset(), L_ring=L, delta=1.0,
+                  delta_input=None,
+                  kernels=[KernelCall(kernel=k, plan=plan, src="x:1")
+                           for k in vmem.RING_KERNELS])
+    findings = vmem.check(probe)
+    if L == 131_072:
+        assert findings == []
+        assert vmem.budget_of("pdes_multistep",
+                              dict(plan, cluster=17))["over"] == [
+            "cluster of 17 blocks > the ring kernels' 16"]
+    else:
+        assert [f.op for f in findings] == list(vmem.RING_KERNELS)
+        for f in findings:
+            assert "shared memory" in f.message
+            assert f"L={tiling.MAX_RING_L}" in f.message
+            assert f"L={tiling.MAX_CLUSTER_RING_L}" in f.message

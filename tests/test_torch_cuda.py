@@ -47,7 +47,8 @@ def _inputs(dev, B, L, seed=0):
     (1, False, False, True), (10, False, False, True),
     (10, True, False, True), (3, False, True, True), (2, False, False, False)])
 @pytest.mark.parametrize("B,L", [(16, 1000), (3, 37),
-                                 (2, tiling.MAX_RING_L)])
+                                 (2, tiling.MAX_RING_L), (2, 131_072),
+                                 (1, tiling.MAX_CLUSTER_RING_L)])
 def test_kernel_matches_plain_version(dev, n_v, rd_mode, border_both, cols,
                                       B, L):
     tau, dcol, tcol = _inputs(dev, B, L)
@@ -82,8 +83,13 @@ def test_library_decode_matches_plain_rule_on_all_inputs(dev):
 
 
 #: The ring lengths at the new loop's edges: one PE, a partial row, one
-#: warp's row, a row and one PE, the paper's L, the service's L, the longest.
-EDGE_LS = (1, 31, 32, 33, 1000, 10_000, tiling.MAX_RING_L)
+#: warp's row, a row and one PE, the paper's L, the service's L, the longest
+#: one-block ring; then the shortest ring over a cluster (2 blocks, the last
+#: segment shorter), 2 blocks of whole rows, and the longest ring of 2
+#: blocks and the shortest of 3.
+EDGE_LS = (1, 31, 32, 33, 1000, 10_000, tiling.MAX_RING_L,
+           tiling.MAX_RING_L + 1, 65_536, 2 * tiling.MAX_RING_SEG,
+           2 * tiling.MAX_RING_SEG + 1)
 #: n_v values over every shape of the site pick's multiply-high constants.
 EDGE_N_VS = (1, 2, 3, 10, 1000, 2**31 + 1, 2**32 - 1)
 
@@ -111,7 +117,7 @@ def _assert_same_ring(got, want, row):
         assert torch.equal(got[1][key][:, 0], want[1][key][:, row]), key
 
 
-@pytest.mark.parametrize("L", (1000, 10_000))
+@pytest.mark.parametrize("L", (1000, 10_000, 131_072))
 def test_ring_result_does_not_depend_on_its_batch(dev, L):
     """A ring's tau and all six moments, bit for bit, whatever batch it runs
     in and at whatever row: what lets a coalesced service pass answer each
@@ -165,7 +171,7 @@ def test_kernel_refuses_eta_override_and_long_rings(dev):
             pm.pdes_multistep_counter(tau, ctr, k_steps=1, n_v=1, delta=1.0)
     with pytest.raises(ValueError, match="shared memory"):
         pm.pdes_multistep_counter(
-            torch.zeros(1, tiling.MAX_RING_L + 1, device=dev), ctr,
+            torch.zeros(1, tiling.MAX_CLUSTER_RING_L + 1, device=dev), ctr,
             k_steps=1, n_v=1, delta=1.0)
 
 
@@ -355,7 +361,8 @@ def test_event_bits_on_the_gpu_equal_the_cpu(dev):
     (10, False, False, math.inf), (10, True, False, 4.0),
     (3, False, True, 2.0)])
 @pytest.mark.parametrize("B,L,K", [(16, 1000, 6), (3, 37, 5),
-                                   (2, tiling.MAX_RING_L, 3)])
+                                   (2, tiling.MAX_RING_L, 3),
+                                   (2, 131_072, 3)])
 def test_bits_kernel_matches_plain_version(dev, n_v, rd_mode, border_both,
                                            delta, B, L, K):
     tau, _, _ = _inputs(dev, B, L)
@@ -380,7 +387,7 @@ def test_bits_kernel_refuses_eta_override_and_long_rings(dev):
         with pytest.raises(RuntimeError, match="eta_override"):
             ops.simulate(horizon.init_state(PDESConfig(L=8), 2, dev),
                          prng.key(0, dev), PDESConfig(L=8), 4)
-    L = tiling.MAX_RING_L + 1
+    L = tiling.MAX_CLUSTER_RING_L + 1
     with pytest.raises(ValueError, match="shared memory"):
         pm.pdes_multistep(torch.zeros(1, L, device=dev),
                           torch.zeros(1, 1, L, 2, dtype=torch.int32,
@@ -390,8 +397,8 @@ def test_bits_kernel_refuses_eta_override_and_long_rings(dev):
 def test_bits_kernel_launch_failure_raises(dev, monkeypatch):
     """A refused launch raises; nothing falls back to the plain version."""
     monkeypatch.setattr(pm, "check_ring_fits", lambda L: None)
-    L = tiling.MAX_RING_L + 1000          # more shared memory than a block has
-    assert tiling.ring_smem_bytes(L) > tiling.SMEM_PER_BLOCK
+    L = tiling.MAX_CLUSTER_RING_L + 100_000   # a segment past a block's
+    assert tiling.ring_plan(L).dynamic_smem > tiling.SMEM_PER_BLOCK
     before = pm.bits_launches
     with pytest.raises(RuntimeError, match="CUDA error"):
         pm.pdes_multistep(torch.zeros(1, L, device=dev),

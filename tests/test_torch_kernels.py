@@ -83,6 +83,22 @@ def test_counter_kernel_columns_match_jax(border_both):
                  _jax(tau, ctr, dcol, tcol, **kw))
 
 
+def test_counter_kernel_on_a_ring_past_one_block_matches_jax():
+    """A ring that the card splits over a thread-block cluster (2 blocks at
+    L = 65,600; the JAX kernel takes it as one (bb, L) block): the plain
+    version the kernel is held to on the card against JAX's, with per-row
+    Δ and trial columns."""
+    B, L = 2, 65_600
+    assert tiling.ring_plan(L).cluster == 2
+    tau = _tau(B, L, seed=5)
+    ctr = np.array([[11, 0xFFFFFFFF, 0, 7]], np.uint32)   # step wraps
+    dcol = np.array([[4.0], [np.inf]], np.float32)
+    tcol = np.array([[3], [-9]], np.int64)
+    kw = dict(k_steps=3, n_v=10, delta=math.inf)
+    _assert_same(_port(tau, ctr, dcol, tcol, **kw),
+                 _jax(tau, ctr, dcol, tcol, **kw))
+
+
 def test_trial_col_equals_scalar_b0():
     B, L = 6, 40
     tau = torch.as_tensor(_tau(B, L, seed=2))
@@ -142,8 +158,10 @@ def test_tiling_rules():
     assert tiling.ring_smem_bytes(tiling.MAX_RING_L) + tiling.SMEM_STATIC \
         <= tiling.SMEM_PER_BLOCK
     tiling.check_ring_fits(10_000)
+    tiling.check_ring_fits(tiling.MAX_RING_L + 1)
+    tiling.check_ring_fits(tiling.MAX_CLUSTER_RING_L)
     with pytest.raises(ValueError, match="shared memory"):
-        tiling.check_ring_fits(tiling.MAX_RING_L + 1)
+        tiling.check_ring_fits(tiling.MAX_CLUSTER_RING_L + 1)
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):

@@ -12,7 +12,8 @@ import re
 import numpy as np
 import pytest
 
-from repro_torch.kernels import _build, pdes_step, ref, tiling
+from repro_torch.kernels import (_build, pdes_multistep, pdes_step, ref,
+                                 tiling)
 
 #: n_v values whose multiply-high constants take every shape: 1 (no shift),
 #: powers of two, small odd, the paper's 10, and the two largest classes.
@@ -60,6 +61,69 @@ def test_ring_warps(L, warps):
 def test_ring_warps_rejects_an_empty_ring():
     with pytest.raises(ValueError, match="at least one PE"):
         tiling.ring_warps(0)
+
+
+#: Ring lengths of the ring plan's rules: short rings, the main path, the
+#: longest one-block ring and one past it, the long-ring shapes of
+#: chip_smoke.py phase 17, the JAX package's one-row VMEM budget edge, the
+#: cap.
+RING_LS = (1, 31, 32, 10_000, tiling.MAX_RING_L, tiling.MAX_RING_L + 1,
+           65_536, 131_072, 524_285, 524_288, tiling.MAX_CLUSTER_RING_L)
+
+
+@pytest.mark.parametrize("L", RING_LS)
+def test_ring_plan(L):
+    """B1's and B3's layout, from L alone: one block as before up to
+    MAX_RING_L; above it the least cluster whose segments, whole rows but
+    the last, tile the ring and each fit one block with a row a warp."""
+    p = tiling.ring_plan(L)
+    lp = pdes_multistep.launch_plan(7, L)
+    assert lp == {"grid": (7 * p.cluster,), "cluster": p.cluster,
+                  "threads": 32 * p.warps, "seg": p.seg,
+                  "dynamic_smem": p.dynamic_smem,
+                  "static_smem": p.static_smem}
+    assert p.fits and p.dynamic_smem == 4 * p.seg
+    assert p.dynamic_smem + p.static_smem <= tiling.SMEM_PER_BLOCK
+    if L <= tiling.MAX_RING_L:
+        assert p == tiling.RingPlan(1, L, tiling.ring_warps(L),
+                                    tiling.ring_smem_bytes(L),
+                                    tiling.SMEM_STATIC)
+        return
+    assert 2 <= p.cluster <= tiling.RING_MAX_CLUSTER
+    assert p.warps == tiling.RING_CLUSTER_WARPS
+    assert p.static_smem == tiling.SMEM_STATIC_CLUSTER
+    starts = [j * p.seg for j in range(p.cluster)]
+    ends = [min(s + p.seg, L) for s in starts]
+    assert starts[0] == 0 and ends[-1] == L
+    assert all(e == s for e, s in zip(ends, starts[1:]))
+    lens = [e - s for s, e in zip(starts, ends)]
+    assert all(n % 32 == 0 for n in lens[:-1]) and 0 < lens[-1] <= p.seg
+    assert -(-lens[-1] // 32) >= p.warps          # a row for every warp
+    # the least cluster that fits
+    fewer = p.cluster - 1
+    assert (L > tiling.MAX_RING_L if fewer == 1 else
+            4 * 32 * -(-L // (32 * fewer)) + p.static_smem
+            > tiling.SMEM_PER_BLOCK)
+
+
+def test_ring_plan_raises_above_the_cap():
+    cap = tiling.MAX_CLUSTER_RING_L
+    assert cap >= 524_288
+    assert cap == tiling.RING_MAX_CLUSTER * tiling.MAX_RING_SEG
+    tiling.check_ring_fits(cap)
+    assert not tiling.ring_plan(cap + 1).fits
+    with pytest.raises(ValueError, match=f"L={tiling.MAX_RING_L}, a cluster "
+                       f"of 16 blocks up to L={cap}"):
+        tiling.check_ring_fits(cap + 1)
+    # the cluster block's static shared memory holds two parity slots of 8
+    # per-warp words for its most warps, and the 2 KB log table
+    src = (_build.CSRC / "pdes_ring.cuh").read_text()
+    assert (f"constexpr int kRingClusterWarps = "
+            f"{tiling.RING_CLUSTER_WARPS};") in src
+    assert f"constexpr int kRingMaxCluster = {tiling.RING_MAX_CLUSTER};" \
+        in src
+    assert 2 * 8 * 4 * tiling.RING_CLUSTER_WARPS + 2048 <= \
+        tiling.SMEM_STATIC_CLUSTER
 
 
 #: Row lengths B2's plan is checked at: every Lc to past the longest row
