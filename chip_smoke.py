@@ -146,10 +146,12 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` with
    are built: ``python -m repro_torch.analysis --backend all --format
    json -o <file>`` as a subprocess, exit 0 and each backend's report
    equal to ``tests/golden/analysis_<backend>.json``; every kernel's
-   launch plan at L = 10,000, ``tiling.MAX_RING_L``, 131,072 and
-   ``tiling.MAX_CLUSTER_RING_L`` with the registers, static shared bytes
-   and spills of this run's ptxas logs (the ring kernels' cluster
-   instantiations at the last two), against one block's budget, and B2's
+   launch plan at L = 10,000, ``tiling.MAX_RING_L``, 131,072,
+   ``tiling.MAX_CLUSTER_RING_L``, 2^20 and ``tiling.MAX_GRID_RING_L``
+   with the registers, static shared bytes and spills of this run's ptxas
+   logs (the ring kernels' cluster instantiations at the middle two, their
+   grid instantiations, which must spill nothing, at the last two),
+   against one block's budget, and B2's
    plan (cluster size, rows a block) at 10,000, 65,536 and
    ``MAX_RING_L``; the six seeded fixtures, each firing its own rule and
    only it;
@@ -166,7 +168,22 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` with
    every response bitwise a direct ``run_window_sweep``, the drain wall
    and B1's launches; (d) each (a) and (b) shape timed (CUDA events,
    plain, kernel, kernel, plain) beside its bound;
-18. the last lines: one JSON object per kernel (times, bound, launches),
+18. rings over a cooperative grid (``tiling.ring_plan``'s third tier,
+   the paper's production ring L = 2^20 in 19 blocks): (a) B1 against its
+   plain version at B = 8 x 2^20 (6 rings at once, two waves) and 1 x
+   ``MAX_GRID_RING_L`` (132 blocks) over phase 2's five cases with the
+   step counter wrapping, τ/ucount/min/max bitwise and the sums to
+   tolerance; a row's moments bitwise the same at B = 8, 6 and 1; (b) B3
+   and ``ops.simulate`` at 2 x 2^20 against the plain versions; (c) phase
+   3's requests through ``SweepService`` at L = 2^20 (depth cut to 256 +
+   256 steps), every response bitwise a direct ``run_window_sweep``, the
+   drain wall and B1's launches; (d) the dry run's production core,
+   ``PDESEngine(PDESConfig(L=2^20, n_v=100, delta=100),
+   backend="pallas_multistep")`` with 512 trials for 64 steps: its wall,
+   PE-steps/s and ``max_memory_allocated``, its observables in range and
+   two of its trials run alone equal to theirs bit for bit; (e) each (a)
+   and (b) shape timed beside its bound;
+19. the last lines: one JSON object per kernel (times, bound, launches),
    then ``{"ok": true, "device": {...}}``.
 
 Every phase asserts; any failure exits non-zero with no result line.
@@ -475,6 +492,19 @@ LONG_ROWS = (slice(400, 432), slice(446, 447))
 L_LONG = 131_072
 BURN_LONG = 1024
 LONG_STEPS_SIM = 2 * K_MAIN + 5
+#: Phase 18: rings over a cooperative grid.  The paper's production ring
+#: (``src/repro/launch/dryrun.py:170``, 19 blocks); B1 at 8 of them (6 at
+#: once on 132 SMs, so two waves) and at one ring of the cap (132 blocks),
+#: rows 0-5 (one wave), 6 and 7 (the second) and 0 alone held to the batch
+#: of 8; B3 and ``simulate`` at 2; the service drain at ``L_PROD``, its
+#: depth cut to ``BURN_PROD`` + ``STEPS_PROD``; the production core
+#: (``PDES_CORE``) through the engine.
+L_PROD = 1 << 20
+GRID_B1 = ((8, L_PROD), (1, None))
+GRID_ROWS = (slice(0, 6), slice(6, 7), slice(7, 8), slice(0, 1))
+GRID_B3 = 2
+BURN_PROD = 256
+STEPS_PROD = 256
 
 
 def fail(msg: str) -> int:
@@ -685,33 +715,19 @@ def phase_kernel(torch, pm, ref, build, dev, timer=cuda_ms):
 
 
 def phase_main_path(torch, pm, sweep, api, trace, dev, chunk_ms, L=L_MAIN,
-                    burn_in=BURN_MAIN, tag="main"):
+                    burn_in=BURN_MAIN, tag="main", n_steps=STEPS_MAIN):
     """The service drain on the card, through the kernel.
 
     ``chunk_ms`` is the kernel's time for one K = 16 chunk at B = 448 from
     phase 2: every chunk of this drain has that shape, so launches x
-    ``chunk_ms`` is the kernel's share of the drain.  Phase 17(c) drives
-    the same requests at a longer ring ``L`` with its own ``burn_in``.
+    ``chunk_ms`` is the kernel's share of the drain.  Phases 17(c) and
+    18(c) drive the same requests at a longer ring ``L`` with their own
+    ``burn_in`` and ``n_steps``.
     """
-    common = dict(Ls=(L,), n_vs=(N_V_MAIN,), replicas=REPLICAS,
-                  n_steps=STEPS_MAIN, burn_in=burn_in,
-                  backend="pallas_multistep", k_fuse=K_MAIN, seed=0)
-    specs = {
-        "alice": sweep.WindowSweep(deltas=(1.0, 4.0, 16.0, 64.0), **common),
-        "bob": sweep.WindowSweep(deltas=(4.0, 16.0, math.inf), **common),
-        "carol": sweep.WindowSweep(deltas=(1.0, 4.0, 16.0, 64.0), **common),
-    }
-    svc = api.SweepService(device=dev)
-    for who, spec in specs.items():
-        svc.submit(spec, requester=who)
     sync(torch, dev)
     pm.launches = 0
-    t0 = time.perf_counter()
-    responses = svc.drain()
-    sync(torch, dev)
-    wall = time.perf_counter() - t0
+    responses, st, wall = _drain(torch, sweep, api, dev, L, burn_in, n_steps)
     launches = pm.launches
-    st = svc.stats
     for resp in responses:
         check(resp.error is None, (resp.requester, resp.error))
     check(launches > 0, "the main path launched no kernel")
@@ -749,6 +765,27 @@ def phase_main_path(torch, pm, sweep, api, trace, dev, chunk_ms, L=L_MAIN,
     print(f"[{tag}] every response equals a direct run_window_sweep "
           "bit for bit; u in (0, 1]; spread <= delta + 17.4")
     return launches
+
+
+def _drain(torch, sweep, api, dev, L, burn_in, n_steps):
+    """Phase 3's three requests (alice, bob, carol = alice) at ring ``L``
+    through a new ``SweepService``: ``(responses, stats, wall s)``."""
+    common = dict(Ls=(L,), n_vs=(N_V_MAIN,), replicas=REPLICAS,
+                  n_steps=n_steps, burn_in=burn_in,
+                  backend="pallas_multistep", k_fuse=K_MAIN, seed=0)
+    specs = {
+        "alice": sweep.WindowSweep(deltas=(1.0, 4.0, 16.0, 64.0), **common),
+        "bob": sweep.WindowSweep(deltas=(4.0, 16.0, math.inf), **common),
+        "carol": sweep.WindowSweep(deltas=(1.0, 4.0, 16.0, 64.0), **common),
+    }
+    svc = api.SweepService(device=dev)
+    for who, spec in specs.items():
+        svc.submit(spec, requester=who)
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    responses = svc.drain()
+    sync(torch, dev)
+    return responses, svc.stats, time.perf_counter() - t0
 
 
 def _step_bytes(B: int, Lc: int) -> int:
@@ -3014,7 +3051,8 @@ def phase_linter(root):
     from repro_torch.analysis import analyze_probe
     from repro_torch.analysis.fixtures import FIXTURES
     from repro_torch.analysis.rules import vmem
-    from repro_torch.kernels.tiling import MAX_CLUSTER_RING_L, MAX_RING_L
+    from repro_torch.kernels.tiling import (MAX_CLUSTER_RING_L,
+                                            MAX_GRID_RING_L, MAX_RING_L)
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         out = pathlib.Path(tmp) / "analysis.json"
@@ -3035,11 +3073,15 @@ def phase_linter(root):
           f"{len(report['backends'])} backends equal to their goldens, "
           f"{report['n_findings']} findings ({time.perf_counter() - t0:.1f} s)")
     from repro_torch.kernels import pdes_step as ps
-    for L in (10_000, MAX_RING_L, L_LONG, MAX_CLUSTER_RING_L):
+    for L in (10_000, MAX_RING_L, L_LONG, MAX_CLUSTER_RING_L, L_PROD,
+              MAX_GRID_RING_L):
         for row in vmem.kernel_budgets(L):
             info = row["ptxas"]
             check(info is not None, f"no ptxas log for {row['kernel']}")
             check(not row["over"], f"{row['kernel']} at L={L}: {row['over']}")
+            check(row.get("ring_grid", 1) == 1 or info["spill_stores"] == 0,
+                  f"{row['kernel']}'s grid instantiation spills "
+                  f"{info['spill_stores']} B")
             check(row["kernel"] != "pdes_step"
                   or info["static_smem"] == ps.STATIC_SMEM,
                   f"pdes_step's static shared memory: ptxas "
@@ -3047,8 +3089,9 @@ def phase_linter(root):
             check(info["static_smem"] <= row["static_smem"],
                   f"{row['kernel']}'s static shared memory at L={L}")
             print(f"[linter] {row['kernel']} at L={L}: grid {row['grid']}, "
-                  f"cluster {row.get('cluster', 1)}, "
-                  f"{row['threads']} threads, shared {row['dynamic_smem']} B "
+                  f"cluster {row.get('cluster', 1)}, ring grid "
+                  f"{row.get('ring_grid', 1)}, {row['threads']} threads, "
+                  f"shared {row['dynamic_smem']} B "
                   f"dynamic + {row['static_smem']} B static of "
                   f"{vmem.DEFAULT_BUDGET} B; ptxas: {info['registers']} "
                   f"registers ({info['registers'] * row['threads']} of "
@@ -3084,9 +3127,6 @@ def phase_long_rings(torch, pm, tf, ref, ops, horizon, prng, sweep, api,
     import numpy as np
     from repro_torch.kernels.tiling import MAX_CLUSTER_RING_L, ring_plan
     rng = np.random.default_rng(17)
-    cases = [(1, False, False, True), (10, False, False, True),
-             (10, True, False, True), (10, False, True, True),
-             (10, False, False, False)]
     shapes = [(B, L or MAX_CLUSTER_RING_L) for B, L in LONG_B1]
     timings = {}
 
@@ -3094,32 +3134,9 @@ def phase_long_rings(torch, pm, tf, ref, ops, horizon, prng, sweep, api,
     for B, L in shapes:
         plan = ring_plan(L)
         tau0, dcol, tcol = _kernel_inputs(torch, rng, B, L, dev)
-        err = 0.0
-        for n_v, rd_mode, border_both, cols in cases:
-            tau, step0 = tau0, 0xFFFFFFF8       # the counter wraps mid-chunk
-            for k in (K_MAIN, 5):
-                ctr = torch.tensor([[7, step0, 0 if cols else 3, 0]])
-                args = (tau, ctr, dcol if cols else None,
-                        tcol if cols else None)
-                kw = dict(k_steps=k, delta=math.inf if cols else 16.0,
-                          n_v=n_v, rd_mode=rd_mode, border_both=border_both)
-                got = pm.pdes_multistep_counter(*args, **kw)
-                err = max(err, _hold_kernel(
-                    torch, got, ref.pdes_multistep_counter_ref(*args, **kw),
-                    f"B1 {B} x {L} {kw}"))
-                tau, step0 = got[0], (step0 + k) & 0xFFFFFFFF
+        err = _hold_b1_cases(torch, pm, ref, tau0, dcol, tcol)
         if L == L_LONG:      # a ring's result whatever batch it runs in
-            ctr = torch.tensor([[3, 11, 0, 0]])
-            kw = dict(k_steps=K_MAIN, n_v=N_V_MAIN, delta=math.inf)
-            full = pm.pdes_multistep_counter(tau0, ctr, dcol, tcol, **kw)
-            for rows in LONG_ROWS:
-                part = pm.pdes_multistep_counter(tau0[rows], ctr, dcol[rows],
-                                                 tcol[rows], **kw)
-                check(torch.equal(part[0], full[0][rows]),
-                      f"tau of rows {rows} differs in a batch of {B}")
-                for key, v in part[1].items():
-                    check(torch.equal(v, full[1][key][:, rows]),
-                          f"{key} of rows {rows} differs in a batch of {B}")
+            _hold_rows(torch, pm, tau0, dcol, tcol, LONG_ROWS)
             print(f"[long a] B1 at L={L}: rows 400-431 launched as B=32 and "
                   f"row 446 as B=1 give tau and all six moments bitwise as "
                   f"in the launch of B={B}")
@@ -3128,8 +3145,8 @@ def phase_long_rings(torch, pm, tf, ref, ops, horizon, prng, sweep, api,
         print(f"[long a] B1 at B={B} L={L}: plan {plan}, "
               f"{pm.resident_clusters(L)} clusters on the card at once "
               f"(cudaOccupancyMaxActiveClusters); tau/ucount/min/max bitwise "
-              f"equal to the plain version over {len(cases)} cases x chunks "
-              f"K={K_MAIN} and K=5; max |err| of the sums {err:.3g}")
+              f"equal to the plain version over {len(RING_CASES)} cases x "
+              f"chunks K={K_MAIN} and K=5; max |err| of the sums {err:.3g}")
 
     # (b) B3 against its plain version, and through ops.simulate
     b3_launches = 0
@@ -3137,39 +3154,9 @@ def phase_long_rings(torch, pm, tf, ref, ops, horizon, prng, sweep, api,
         tau0 = torch.as_tensor(
             rng.exponential(4.0, size=(B, L)).astype(np.float32), device=dev)
         key = prng.key(L, dev)
-        err = 0.0
-        for n_v, rd_mode, border_both, cols in cases:
-            kw = dict(n_v=n_v, delta=16.0 if cols else math.inf,
-                      rd_mode=rd_mode, border_both=border_both)
-            tau, step = tau0, 0
-            for k in (K_MAIN, 5):
-                bits = tf.threefry_bits(key, step, k, (B, L))
-                got = pm.pdes_multistep(tau, bits, **kw)
-                err = max(err, _hold_kernel(
-                    torch, got, ref.pdes_multistep_ref(tau, bits, **kw),
-                    f"B3 {B} x {L} {kw}"))
-                tau, step = got[0], step + k
-        cfg = horizon.PDESConfig(L=L, n_v=N_V_MAIN, delta=DELTA_SIM)
-        st0 = horizon.init_state(cfg, B, dev)
-        sync(torch, dev)
-        pm.bits_launches = 0
-        st_k, out_k = ops.simulate(st0, key, cfg, LONG_STEPS_SIM,
-                                   k_fuse=K_MAIN)
-        sync(torch, dev)
-        b3_launches += pm.bits_launches
-        check(pm.bits_launches == -(-LONG_STEPS_SIM // K_MAIN),
-              f"simulate launched B3 {pm.bits_launches} times")
-        with plain_simulate(ops, ref, tf):
-            st_p, out_p = ops.simulate(st0, key, cfg, LONG_STEPS_SIM,
-                                       k_fuse=K_MAIN)
-        for f in ("tau", "offset", "offset_comp"):
-            check(torch.equal(getattr(st_k, f), getattr(st_p, f)),
-                  f"simulate {f} differs from the plain versions at L={L}")
-        for name in ("u", "gvt"):
-            check(torch.equal(out_k[name], out_p[name]),
-                  f"simulate {name} differs from the plain versions")
-        check(torch.allclose(out_k["w2"], out_p["w2"], rtol=SUM_RTOL,
-                             atol=SUM_ATOL), "simulate w2 beyond tolerance")
+        err = _hold_b3_cases(torch, pm, tf, ref, tau0, key)
+        n = _hold_simulate(torch, pm, tf, ref, ops, horizon, key, B, L, dev)
+        b3_launches += n
         bits = tf.threefry_bits(key, 0, K_MAIN, (B, L))
         ms = _time_ring(torch, pm, ref, build, tau0, None, None, timer,
                         bits=bits)
@@ -3177,11 +3164,10 @@ def phase_long_rings(torch, pm, tf, ref, ops, horizon, prng, sweep, api,
         print(f"[long b] B3 at B={B} L={L}: plan {ring_plan(L)}, "
               f"{pm.resident_clusters(L, bits=True)} clusters on the card at "
               f"once; tau/ucount/min/max bitwise equal to the plain version "
-              f"over {len(cases)} cases x chunks K={K_MAIN} and K=5 (max "
+              f"over {len(RING_CASES)} cases x chunks K={K_MAIN} and K=5 (max "
               f"|err| of the sums {err:.3g}); ops.simulate over "
               f"{LONG_STEPS_SIM} steps: tau, offsets, u and gvt bitwise the "
-              f"plain versions', w2 to tolerance, {pm.bits_launches} B3 "
-              f"launches")
+              f"plain versions', w2 to tolerance, {n} B3 launches")
 
     # (c) the service's drain at L_LONG through B1
     t0 = time.perf_counter()
@@ -3194,11 +3180,220 @@ def phase_long_rings(torch, pm, tf, ref, ops, horizon, prng, sweep, api,
     return b1_launches, b3_launches, timings
 
 
-def _time_ring(torch, pm, ref, build, tau, dcol, tcol, timer, bits=None):
-    """Phase 17(d): one K = 16 chunk of B1 (``bits`` None, with the Δ and
-    trial columns) or B3 (on ``bits``) by CUDA events, plain, kernel,
-    kernel, plain, through the raw launch; the bound from phase 2's (B1)
-    or phase 7's (B3) operation and byte counts, at this run's
+#: Phase 2's five cases of the ring kernels: (n_v, rd_mode, border_both,
+#: per-row columns or a scalar b0 and a static Δ).
+RING_CASES = ((1, False, False, True), (10, False, False, True),
+              (10, True, False, True), (10, False, True, True),
+              (10, False, False, False))
+
+
+def _hold_b1_cases(torch, pm, ref, tau0, dcol, tcol) -> float:
+    """B1 against its plain version over ``RING_CASES``, a K = 16 chunk and
+    a K = 5 one each, the step counter wrapping mid-chunk; returns the
+    sums' max |err|."""
+    B, L = tau0.shape
+    err = 0.0
+    for n_v, rd_mode, border_both, cols in RING_CASES:
+        tau, step0 = tau0, 0xFFFFFFF8       # the counter wraps mid-chunk
+        for k in (K_MAIN, 5):
+            ctr = torch.tensor([[7, step0, 0 if cols else 3, 0]])
+            args = (tau, ctr, dcol if cols else None, tcol if cols else None)
+            kw = dict(k_steps=k, delta=math.inf if cols else 16.0, n_v=n_v,
+                      rd_mode=rd_mode, border_both=border_both)
+            got = pm.pdes_multistep_counter(*args, **kw)
+            err = max(err, _hold_kernel(
+                torch, got, ref.pdes_multistep_counter_ref(*args, **kw),
+                f"B1 {B} x {L} {kw}"))
+            tau, step0 = got[0], (step0 + k) & 0xFFFFFFFF
+    return err
+
+
+def _hold_rows(torch, pm, tau0, dcol, tcol, row_sets) -> None:
+    """Each set of rows launched on its own gives tau and all six moments
+    of B1 bitwise as in the launch of the whole batch."""
+    ctr = torch.tensor([[3, 11, 0, 0]])
+    kw = dict(k_steps=K_MAIN, n_v=N_V_MAIN, delta=math.inf)
+    full = pm.pdes_multistep_counter(tau0, ctr, dcol, tcol, **kw)
+    for rows in row_sets:
+        part = pm.pdes_multistep_counter(tau0[rows], ctr, dcol[rows],
+                                         tcol[rows], **kw)
+        check(torch.equal(part[0], full[0][rows]),
+              f"tau of rows {rows} differs in a batch of {tau0.shape[0]}")
+        for key, v in part[1].items():
+            check(torch.equal(v, full[1][key][:, rows]),
+                  f"{key} of rows {rows} differs in a batch of "
+                  f"{tau0.shape[0]}")
+
+
+def _hold_b3_cases(torch, pm, tf, ref, tau0, key) -> float:
+    """B3 against its plain version on generator words over
+    ``RING_CASES``, a K = 16 chunk and a K = 5 one each; returns the sums'
+    max |err|."""
+    B, L = tau0.shape
+    err = 0.0
+    for n_v, rd_mode, border_both, cols in RING_CASES:
+        kw = dict(n_v=n_v, delta=16.0 if cols else math.inf,
+                  rd_mode=rd_mode, border_both=border_both)
+        tau, step = tau0, 0
+        for k in (K_MAIN, 5):
+            bits = tf.threefry_bits(key, step, k, (B, L))
+            got = pm.pdes_multistep(tau, bits, **kw)
+            err = max(err, _hold_kernel(
+                torch, got, ref.pdes_multistep_ref(tau, bits, **kw),
+                f"B3 {B} x {L} {kw}"))
+            tau, step = got[0], step + k
+    return err
+
+
+def _hold_simulate(torch, pm, tf, ref, ops, horizon, key, B, L, dev) -> int:
+    """``ops.simulate`` over ``LONG_STEPS_SIM`` steps with the kernels
+    against the same call with the plain versions: tau, offsets, u and gvt
+    bitwise, w2 to tolerance.  Returns B3's launches in the kernels' run."""
+    cfg = horizon.PDESConfig(L=L, n_v=N_V_MAIN, delta=DELTA_SIM)
+    st0 = horizon.init_state(cfg, B, dev)
+    sync(torch, dev)
+    pm.bits_launches = 0
+    st_k, out_k = ops.simulate(st0, key, cfg, LONG_STEPS_SIM, k_fuse=K_MAIN)
+    sync(torch, dev)
+    launches = pm.bits_launches
+    check(launches == -(-LONG_STEPS_SIM // K_MAIN),
+          f"simulate launched B3 {launches} times")
+    with plain_simulate(ops, ref, tf):
+        st_p, out_p = ops.simulate(st0, key, cfg, LONG_STEPS_SIM,
+                                   k_fuse=K_MAIN)
+    for f in ("tau", "offset", "offset_comp"):
+        check(torch.equal(getattr(st_k, f), getattr(st_p, f)),
+              f"simulate {f} differs from the plain versions at L={L}")
+    for name in ("u", "gvt"):
+        check(torch.equal(out_k[name], out_p[name]),
+              f"simulate {name} differs from the plain versions")
+    check(torch.allclose(out_k["w2"], out_p["w2"], rtol=SUM_RTOL,
+                         atol=SUM_ATOL), "simulate w2 beyond tolerance")
+    return launches
+
+
+def phase_grid_rings(torch, pm, tf, ref, ops, horizon, prng, sweep, api,
+                     trace, engine_mod, build, dev, timer=cuda_ms):
+    """Phase 18: B1 and B3 on rings split over the blocks of a cooperative
+    grid: held to their plain versions at ``GRID_B1`` and ``GRID_B3``
+    (phase 2's five cases, the step counter wrapping), a row's moments
+    bitwise the same in two waves, one wave and alone, ``simulate`` at the
+    production ring, the service's drain at ``L_PROD`` equal to direct
+    runs, the production core through the engine, and each shape timed
+    beside its bound.  Returns B1's launches in (c) and (d), B3's in (b)'s
+    ``simulate`` and the timings."""
+    import numpy as np
+    from repro_torch.kernels.tiling import MAX_GRID_RING_L, ring_plan
+    rng = np.random.default_rng(18)
+    timings = {}
+
+    # (a) B1 against its plain version, a row in any wave, then timed
+    for B, L in [(B, L or MAX_GRID_RING_L) for B, L in GRID_B1]:
+        tau0, dcol, tcol = _kernel_inputs(torch, rng, B, L, dev)
+        err = _hold_b1_cases(torch, pm, ref, tau0, dcol, tcol)
+        if L == L_PROD:
+            _hold_rows(torch, pm, tau0, dcol, tcol, GRID_ROWS)
+            print(f"[grid a] B1 at L={L}: rows 0-5 launched as B=6 (one "
+                  f"wave), rows 6 and 7 (the second wave of B={B}) and row 0 "
+                  f"each as B=1 give tau and all six moments bitwise as in "
+                  f"the launch of B={B}")
+        timings[("B1", B, L)] = _time_ring(torch, pm, ref, build, tau0, dcol,
+                                           tcol, timer, tag="grid e")
+        print(f"[grid a] B1 at B={B} L={L}: plan {ring_plan(L)}, "
+              f"{pm.resident_rings(L)} rings on the card at once; "
+              f"tau/ucount/min/max bitwise equal to the plain version over "
+              f"{len(RING_CASES)} cases x chunks K={K_MAIN} and K=5; max "
+              f"|err| of the sums {err:.3g}")
+
+    # (b) B3 against its plain version, and through ops.simulate
+    B, L = GRID_B3, L_PROD
+    tau0 = torch.as_tensor(
+        rng.exponential(4.0, size=(B, L)).astype(np.float32), device=dev)
+    key = prng.key(18, dev)
+    err = _hold_b3_cases(torch, pm, tf, ref, tau0, key)
+    b3_launches = _hold_simulate(torch, pm, tf, ref, ops, horizon, key, B, L,
+                                 dev)
+    bits = tf.threefry_bits(key, 0, K_MAIN, (B, L))
+    timings[("B3", B, L)] = _time_ring(torch, pm, ref, build, tau0, None,
+                                       None, timer, bits=bits, tag="grid e")
+    print(f"[grid b] B3 at B={B} L={L}: plan {ring_plan(L)}, "
+          f"{pm.resident_rings(L, bits=True)} rings on the card at once; "
+          f"tau/ucount/min/max bitwise equal to the plain version over "
+          f"{len(RING_CASES)} cases x chunks K={K_MAIN} and K=5 (max |err| of "
+          f"the sums {err:.3g}); ops.simulate over {LONG_STEPS_SIM} steps: "
+          f"tau, offsets, u and gvt bitwise the plain versions', w2 to "
+          f"tolerance, {b3_launches} B3 launches")
+
+    # (c) the service's drain at L_PROD through B1, its chunk's kernel time
+    tau = torch.empty((B_MAIN, L_PROD), device=dev).exponential_(0.25)
+    dcol = torch.tensor([1.0, 4.0, 16.0, 64.0, 4.0, 16.0, math.inf],
+                        device=dev).repeat_interleave(REPLICAS)[:, None]
+    tcol = torch.arange(B_MAIN, dtype=torch.int32, device=dev)[:, None]
+    out, stats = torch.empty_like(tau), torch.empty((6, K_MAIN, B_MAIN),
+                                                    device=dev)
+    chunk_ms = timer(lambda: pm.counter_launch(
+        tau, out, stats, dcol, tcol, (0, 0, 0, 0), n_v=N_V_MAIN,
+        delta=math.inf, rd_mode=False, border_both=False), 2)
+    del tau, out
+    t0 = time.perf_counter()
+    b1_launches = phase_main_path(torch, pm, sweep, api, trace, dev, chunk_ms,
+                                  L=L_PROD, burn_in=BURN_PROD,
+                                  n_steps=STEPS_PROD, tag="grid c")
+    print(f"[grid c] SweepService at L={L_PROD}: {BURN_PROD} + {STEPS_PROD} "
+          f"steps (cut from {BURN_MAIN} + {STEPS_MAIN}), {b1_launches} B1 "
+          f"launches; the phase with its direct runs "
+          f"{time.perf_counter() - t0:.2f} s")
+    _, _, warm = _drain(torch, sweep, api, dev, L_PROD, BURN_PROD, STEPS_PROD)
+    print(f"[grid c] the same drain again, warm: {warm:.3f} s wall, "
+          f"{b1_launches} x {chunk_ms:.4f} ms = "
+          f"{b1_launches * chunk_ms / 1e3:.3f} s of B1 in it")
+
+    # (d) the paper's production core on one card, through the engine
+    cfg = horizon.PDESConfig(L=PDES_CORE["L"], n_v=100, delta=100.0)
+    eng = engine_mod.PDESEngine(cfg, backend="pallas_multistep",
+                                k_fuse=K_MAIN, device=dev)
+    n, steps = PDES_CORE["trials"], PDES_CORE["steps"]
+    st0 = eng.init(n)
+    sync(torch, dev)
+    torch.cuda.reset_peak_memory_stats()
+    pm.launches = 0
+    t0 = time.perf_counter()
+    st, rec = eng.run(st0, 0, steps)
+    sync(torch, dev)
+    wall = time.perf_counter() - t0
+    core_launches = pm.launches
+    peak = torch.cuda.max_memory_allocated()
+    check(core_launches == -(-steps // K_MAIN),
+          f"the production core launched B1 {core_launches} times")
+    u = rec.utilization
+    check(bool(((u > 0) & (u <= 1)).all()) and all(
+        bool(torch.isfinite(x).all()) for x in rec),
+          "the production core's observables are out of range")
+    ends = torch.tensor([0, n - 1])
+    small_st, small = eng.run(eng.init(2), 0, steps, trial_base=ends)
+    for f in ("tau", "offset", "offset_comp"):
+        check(torch.equal(getattr(small_st, f), getattr(st, f)[ends]),
+              f"the production core's {f}: trials 0 and {n - 1} alone differ")
+    for f in ("utilization", "gvt"):
+        check(torch.equal(getattr(small, f), getattr(rec, f)[:, ends]),
+              f"the production core's {f}: trials 0 and {n - 1} alone differ")
+    pe_steps = n * PDES_CORE["L"] * steps
+    print(f"[grid d] the production core, PDESEngine(L={PDES_CORE['L']}, "
+          f"n_v=100, delta=100, pallas_multistep), {n} trials x {steps} "
+          f"steps: {wall:.4f} s wall, {pe_steps / wall:.4g} PE-steps/s, "
+          f"{core_launches} B1 launches, max_memory_allocated "
+          f"{peak / 2**30:.3f} GiB; u in (0, 1] and every observable finite; "
+          f"u at the last step {float(u[-1].mean()):.6f}; trials 0 and "
+          f"{n - 1} run alone equal theirs bit for bit")
+    return b1_launches + core_launches, b3_launches, timings
+
+
+def _time_ring(torch, pm, ref, build, tau, dcol, tcol, timer, bits=None,
+               tag="long d"):
+    """Phases 17(d) and 18(e): one K = 16 chunk of B1 (``bits`` None, with
+    the Δ and trial columns) or B3 (on ``bits``) by CUDA events, plain,
+    kernel, kernel, plain, through the raw launch; the bound from phase
+    2's (B1) or phase 7's (B3) operation and byte counts, at this run's
     utilization."""
     B, L = tau.shape
     out = torch.empty_like(tau)
@@ -3238,7 +3433,7 @@ def _time_ring(torch, pm, ref, build, tau, dcol, tcol, timer, bits=None):
         n_bytes = 8 * pe_steps + 8 * B * L + 4 * 6 * K_MAIN * B
         n_ops = B3_OPS_PER_PE_STEP * pe_steps + B3_OPS_PER_UPDATE * ucount
     bytes_ms, ops_ms, bound = _bound(n_bytes, n_ops)
-    print(f"[long d] {'B1' if bits is None else 'B3'} K={K_MAIN} chunk at "
+    print(f"[{tag}] {'B1' if bits is None else 'B3'} K={K_MAIN} chunk at "
           f"B={B} L={L}: kernel {k1:.5f} / {k2:.5f} ms, plain {p1:.4f} / "
           f"{p2:.4f} ms (order plain, kernel, kernel, plain); "
           f"{pe_steps / (k_ms * 1e-3):.4g} PE-steps/s; bound "
@@ -3349,6 +3544,10 @@ def main() -> int:
                                            prng, sweep, api, trace, _build,
                                            "cuda")
     t["17 long rings"] = time.perf_counter() - t0 - sum(t.values())
+    b1_grid, b3_grid, _ = phase_grid_rings(torch, pm, tf, ref, ops, horizon,
+                                           prng, sweep, api, trace,
+                                           engine_mod, _build, "cuda")
+    t["18 grid rings"] = time.perf_counter() - t0 - sum(t.values())
     print("[setup] phase wall: "
           + ", ".join(f"{k} {v:.2f} s" for k, v in t.items()))
 
@@ -3356,7 +3555,8 @@ def main() -> int:
         dict(name="pdes_multistep_counter", route="cuda",
              source="src/repro_torch/kernels/csrc/pdes_multistep_counter.cu",
              replaces="src/repro/kernels/pdes_multistep.py:169",
-             launches=b1_launches + b1_serve + ex_launches["B1"] + b1_long,
+             launches=(b1_launches + b1_serve + ex_launches["B1"] + b1_long
+                       + b1_grid),
              library_ms=None, **kstats),
         dict(name="pdes_step", route="cuda",
              source="src/repro_torch/kernels/csrc/pdes_step.cu",
@@ -3366,18 +3566,20 @@ def main() -> int:
         dict(name="pdes_multistep", route="cuda",
              source="src/repro_torch/kernels/csrc/pdes_multistep.cu",
              replaces="src/repro/kernels/pdes_multistep.py:129",
-             launches=b3_launches + b3_long, library_ms=None, **b3stats),
+             launches=b3_launches + b3_long + b3_grid, library_ms=None,
+             **b3stats),
         dict(name="threefry_bits", route="cuda",
              source="src/repro_torch/kernels/csrc/threefry_bits.cu",
              replaces="jax.random.bits (XLA, outside Pallas)",
              launches=gen_launches + ex_launches["threefry_bits"],
              library_ms=None, **gstats)]
     print(f"[launches] B1: phase 3 {b1_launches}, phase 10(a) {b1_serve}, "
-          f"phase 13 {ex_launches['B1']}, phase 17(c) {b1_long}; B2: phase 5 "
-          f"{b2_launches}, phase 9(c) {b2_sharded}, phase 10(d) {b2_serve}, "
-          f"phase 15(d) {b2_core}; B3: phase 8(a) {b3_launches}, phase 17(b) "
-          f"{b3_long}; generator: phase 8(a) "
-          f"{gen_launches}, phase 13 {ex_launches['threefry_bits']}")
+          f"phase 13 {ex_launches['B1']}, phase 17(c) {b1_long}, phase 18(c, "
+          f"d) {b1_grid}; B2: phase 5 {b2_launches}, phase 9(c) {b2_sharded}, "
+          f"phase 10(d) {b2_serve}, phase 15(d) {b2_core}; B3: phase 8(a) "
+          f"{b3_launches}, phase 17(b) {b3_long}, phase 18(b) {b3_grid}; "
+          f"generator: phase 8(a) {gen_launches}, phase 13 "
+          f"{ex_launches['threefry_bits']}")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

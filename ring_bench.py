@@ -9,6 +9,7 @@ checkout::
     python3 ring_bench.py step SRC_DIR [SRC_DIR ...]
     python3 ring_bench.py ablate-step CSRC_DIR
     python3 ring_bench.py sass OLD_CSRC_DIR NEW_CSRC_DIR
+    python3 ring_bench.py grid
 
 ``ablate`` splits a ring loop's time.  It copies ``CSRC_DIR`` (the
 ``src/repro_torch/kernels/csrc`` of some checkout, for example one unpacked
@@ -41,9 +42,18 @@ a --pdes-core shard's shapes.
 
 ``sass`` compiles B1's and B3's sources of two ``csrc`` trees to cubins
 (``nvcc -cubin``, the build's target and optimisation) and compares the
-machine code of their one-block ring kernels (``cuobjdump -sass``, each
-instantiation's instructions with addresses and encodings dropped): what
-shows that a change to the shared loop left the one-block path as it was.
+machine code of their one-block and cluster ring kernels (``cuobjdump
+-sass``, each instantiation's instructions with addresses and encodings
+dropped): what shows that a change to the shared loop left those paths as
+they were.
+
+``grid`` times B1 and B3 of this checkout at the ``GRID_SHAPES``, whose
+rings ``tiling.ring_plan`` splits over a thread-block cluster, both as the
+plan launches them and over a cooperative grid of as many blocks (the
+grid launchers' C symbols, called with that shape), one K = 16 chunk
+with CUDA events in turns (cluster, grid, grid, cluster), after holding
+the two launches' results equal bit for bit (the same segments, so the
+same sums).  It measures; the package keeps the plan's route.
 """
 from __future__ import annotations
 
@@ -70,6 +80,9 @@ CLUSTER_WARPS = (8, 16)
 #: (B, Lc) of ``step``: the main path, a --pdes-core shard, one Δ's
 #: replicas, the commavoid edge strip.
 STEP_SHAPES = ((448, 10_000), (32, 65_536), (64, 10_000), (32, 16))
+#: (B, L) of ``grid``: rings over clusters of 10 and 16 blocks, which fill
+#: 70 and 112 of the H100's 132 SMs (7 clusters at once, one a GPC).
+GRID_SHAPES = ((32, 524_288), (8, 911_360))
 
 
 def _swap(old: str, new: str):
@@ -337,9 +350,11 @@ def ablate_step(csrc: pathlib.Path) -> dict:
     return out
 
 
-#: (source, __global__ function) of the one-block ring kernels
+#: (source, __global__ function) of the one-block and cluster ring kernels
 RING_KERNELS = (("pdes_multistep_counter", "multistep_counter_kernel"),
-                ("pdes_multistep", "multistep_kernel"))
+                ("pdes_multistep_counter", "multistep_counter_cluster_kernel"),
+                ("pdes_multistep", "multistep_kernel"),
+                ("pdes_multistep", "multistep_cluster_kernel"))
 
 
 def _sass(csrc: pathlib.Path, name: str, tag: str) -> dict:
@@ -370,15 +385,90 @@ def _sass(csrc: pathlib.Path, name: str, tag: str) -> dict:
 
 
 def sass(old: pathlib.Path, new: pathlib.Path) -> dict:
-    out = {}
+    out, cubins = {}, {}
     for name, fn in RING_KERNELS:
-        a, b = _sass(old, name, "old"), _sass(new, name, "new")
+        if name not in cubins:
+            cubins[name] = _sass(old, name, "old"), _sass(new, name, "new")
+        a, b = cubins[name]
         for f in sorted(k for k in a if fn in k):
             same = a[f] == b.get(f)
             out[f] = same
             print(f"[sass] {f}: {len(a[f])} instructions in the old tree, "
                   f"{len(b.get(f, []))} in the new, identical: {same}",
                   flush=True)
+    return out
+
+
+def grid(reps: int = 5) -> dict:
+    import numpy as np
+    import torch
+    import chip_smoke
+    from repro_torch.kernels import _build, tiling
+    from repro_torch.kernels import pdes_multistep as pm
+    dev = torch.device("cuda")
+    b1, b3 = pm._lib(), pm._bits_lib()
+    stream = _build.stream(dev)
+    out = {}
+    for b, L in GRID_SHAPES:
+        cl = tiling.ring_plan(L)
+        g = -(-L // tiling.MAX_RING_SEG)
+        seg = 32 * -(-L // (32 * g))
+        tau, dcol, tcol = chip_smoke._kernel_inputs(
+            torch, np.random.default_rng(L), b, L, dev)
+        tbits = _build.u32_bits(tcol).reshape(b, 1).contiguous()
+        words = torch.randint(-2**31, 2**31 - 1, (K, b, L, 2),
+                              dtype=torch.int32, device=dev,
+                              generator=torch.Generator(dev).manual_seed(L))
+        work = pm._workspace(dev, b, g)       # kept for every launch below
+        res = {}
+
+        def launcher(kern, grid_route):
+            t_out = torch.empty_like(tau)
+            stats = torch.empty(6, K, b, device=dev)
+            res[(kern, grid_route)] = t_out, stats
+            shape = ((g, seg) if grid_route else (cl.cluster, cl.seg))
+            tail = ((work.data_ptr(), work.numel()) if grid_route else ())
+            if kern == "B1":
+                f = (b1.pdes_multistep_counter_grid_launch if grid_route
+                     else b1.pdes_multistep_counter_launch)
+                args = (tau.data_ptr(), t_out.data_ptr(), stats.data_ptr(),
+                        dcol.data_ptr(), tbits.data_ptr(), b, L, K, cl.warps,
+                        *shape, 0, 0, 0, 0, N_V, math.inf, 0, 0, *tail,
+                        stream)
+            else:
+                f = (b3.pdes_multistep_grid_launch if grid_route
+                     else b3.pdes_multistep_launch)
+                args = (tau.data_ptr(), words.data_ptr(), t_out.data_ptr(),
+                        stats.data_ptr(), b, L, K, cl.warps, *shape, N_V,
+                        16.0, 0, 0, *tail, stream)
+
+            def run():
+                err = f(*args)
+                assert err == 0, (kern, grid_route, err)
+            return run
+
+        for kern in ("B1", "B3"):
+            c, gr = launcher(kern, False), launcher(kern, True)
+            c()
+            gr()
+            torch.cuda.synchronize()
+            (ta, sa), (tg, sg) = res[(kern, False)], res[(kern, True)]
+            assert torch.equal(ta, tg) and torch.equal(sa, sg), (kern, L)
+            ms = [min(chip_smoke.cuda_ms(fn, reps) for _ in range(2))
+                  for fn in (c, gr, gr, c)]
+            row = {"cluster_ms": min(ms[0], ms[3]),
+                   "grid_ms": min(ms[1], ms[2]), "cluster": cl.cluster,
+                   "grid": g, "seg": seg}
+            if kern == "B1":
+                row["clusters_at_once"] = pm.resident_clusters(L)
+                row["grid_rings_at_once"] = \
+                    b1.pdes_multistep_counter_max_grid_rings(
+                        g, cl.warps, 4 * seg)
+            out[f"{kern} {b}x{L}"] = row
+            print(f"[grid] {kern} K={K} chunk at B={b} L={L}: cluster of "
+                  f"{cl.cluster} {ms[0]:.5f} / {ms[3]:.5f} ms, grid of {g} "
+                  f"{ms[1]:.5f} / {ms[2]:.5f} ms (order cluster, grid, grid, "
+                  f"cluster); results bitwise equal; {row}", flush=True)
     return out
 
 
@@ -434,7 +524,7 @@ def main(argv) -> int:
     sys.path.insert(0, str(ROOT))
     import chip_smoke
     if argv[:1] in (["ablate"], ["drain"], ["step"], ["ablate-step"],
-                    ["sass"]):
+                    ["sass"], ["grid"]):
         print(chip_smoke.card_line())
     if argv[:1] == ["ablate"] and len(argv) == 2:
         sys.path.insert(0, str(ROOT / "src"))
@@ -466,6 +556,9 @@ def main(argv) -> int:
         print(json.dumps(ablate_step(pathlib.Path(argv[1]).resolve())))
     elif argv[:1] == ["sass"] and len(argv) == 3:
         print(json.dumps(sass(*(pathlib.Path(a).resolve() for a in argv[1:]))))
+    elif argv == ["grid"]:
+        sys.path.insert(0, str(ROOT / "src"))
+        print(json.dumps(grid()))
     elif argv[:1] == ["_step"] and len(argv) == 2:
         print(json.dumps(step_one(pathlib.Path(argv[1]).resolve())))
     else:

@@ -123,11 +123,12 @@ def nondet_reduction():
 
 
 def vmem_blowup():
-    """A ring far beyond one block's shared memory: B1 on 2^20 PEs (4 MiB of
-    ring; ``tiling.check_ring_fits`` would raise at launch, the rule flags
-    it from the launch plan first)."""
+    """A ring beyond the shared memory of all the card's blocks: B1 on 2^23
+    PEs (32 MiB of ring, past ``tiling.MAX_GRID_RING_L``;
+    ``tiling.check_ring_fits`` would raise at launch, the rule flags it
+    from the launch plan first)."""
     from ..kernels import pdes_multistep
-    Lb = 1 << 20
+    Lb = 1 << 23
 
     def fn(tau):
         ctr = torch.tensor([[0, 0, 0, 0]], dtype=torch.int64)

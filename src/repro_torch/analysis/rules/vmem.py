@@ -21,14 +21,16 @@ own), or when a launch's cluster passes the most its kernel allows (the
 portable 8 for B2; ``tiling.RING_MAX_CLUSTER`` for the ring kernels, whose
 launch allows a non-portable size); spills are reported by
 :func:`kernel_budgets` and do not fire.  A ring kernel's plan over a
-cluster reads the ptxas figures of its cluster instantiation.  Without a
-log (no ``nvcc`` here) the plan's static figure stands.
+cluster or a grid reads the ptxas figures of its cluster or grid
+instantiation.  Without a log (no ``nvcc`` here) the plan's static figure
+stands.
 """
 from __future__ import annotations
 
 from ...kernels import _build, pdes_multistep, pdes_step, threefry
-from ...kernels.tiling import (MAX_CLUSTER_RING_L, MAX_RING_L,
-                               RING_MAX_CLUSTER, SMEM_PER_BLOCK,
+from ...kernels.tiling import (MAX_CLUSTER_RING_L, MAX_GRID_RING_L,
+                               MAX_RING_L, RING_MAX_CLUSTER,
+                               RING_MAX_GRID_BLOCKS, SMEM_PER_BLOCK,
                                STEP_MAX_CLUSTER)
 from ..probes import Probe
 from ..report import Finding
@@ -41,7 +43,7 @@ REGISTERS_PER_SM = 65_536
 #: Most blocks of a cluster that every Hopper part schedules
 PORTABLE_CLUSTER = STEP_MAX_CLUSTER
 #: The kernels that keep a whole ring in the shared memory of one block or
-#: of a cluster's blocks
+#: of a cluster's or a cooperative grid's blocks
 RING_KERNELS = ("pdes_multistep_counter", "pdes_multistep")
 
 #: kernel -> (CUDA source, __global__ function) of its library
@@ -57,12 +59,19 @@ CLUSTER_FUNCTIONS = {
     "pdes_multistep_counter": "multistep_counter_cluster_kernel",
     "pdes_multistep": "multistep_cluster_kernel",
 }
+#: ring kernel -> __global__ function of its grid instantiation
+GRID_FUNCTIONS = {
+    "pdes_multistep_counter": "multistep_counter_grid_kernel",
+    "pdes_multistep": "multistep_grid_kernel",
+}
 
 
 def _ptxas(kernel: str, plan: dict):
     lib, fn = SOURCES[kernel]
     if kernel in RING_KERNELS and plan.get("cluster", 1) > 1:
         fn = CLUSTER_FUNCTIONS[kernel]
+    if kernel in RING_KERNELS and plan.get("ring_grid", 1) > 1:
+        fn = GRID_FUNCTIONS[kernel]
     return _build.ptxas_info(lib, fn)
 
 
@@ -124,6 +133,9 @@ def check(probe: Probe, vmem_budget: int = DEFAULT_BUDGET, **_) -> list:
                         + (f" (rings above L={MAX_RING_L} need a "
                            f"thread-block cluster, and one of "
                            f"{RING_MAX_CLUSTER} blocks holds rings up to "
-                           f"L={MAX_CLUSTER_RING_L})"
+                           f"L={MAX_CLUSTER_RING_L}; longer rings need a "
+                           f"cooperative grid, and "
+                           f"{RING_MAX_GRID_BLOCKS} blocks hold rings up to "
+                           f"L={MAX_GRID_RING_L})"
                            if call.kernel in RING_KERNELS else "")))
     return findings

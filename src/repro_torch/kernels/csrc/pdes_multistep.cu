@@ -16,10 +16,11 @@
 // layout).  The window is a static delta (inf turns it off), as the TPU
 // kernel takes it.  The step itself -- decode, GVT, Eq. (1) and Eq. (3),
 // the moments, the ring held once in shared memory, in one block up to
-// L = 57,344 and split over a thread-block cluster of up to 16 blocks up to
-// L = 911,360 (kernels/tiling.py ring_plan; the wrapper raises above it) --
-// is the loop of pdes_ring.cuh, which B1 shares, so the two kernels cannot
-// drift apart.
+// L = 57,344, split over a thread-block cluster of up to 16 blocks up to
+// L = 911,360 and over up to 132 blocks of a cooperative grid up to
+// L = 7,518,720 (kernels/tiling.py ring_plan; the wrapper raises above it)
+// -- is the loop of pdes_ring.cuh, which B1 shares, so the two kernels
+// cannot drift apart.
 //
 // Bound on the H100 SXM (published peaks), at ops.simulate's chunk K = 16,
 // B = 448 rings of L = 10,000 PEs (71.7M PE-steps):
@@ -75,8 +76,9 @@ multistep_kernel(const float* __restrict__ tau_in,
                  float* __restrict__ stats, int B, int L, int K, uint32_t n_v,
                  float delta) {
   const int row = blockIdx.x;
-  ring_steps<kRd, kBoth, false>(tau_in, tau_out, stats, row, B, L, K, n_v,
-                                delta, MemoryEvents{bits, B, L, row});
+  ring_steps<kRd, kBoth, RingTier::kBlock>(tau_in, tau_out, stats, row, B,
+                                           L, K, n_v, delta,
+                                           MemoryEvents{bits, B, L, row});
 }
 
 // The same on rings split over clusters of `cluster` blocks, `seg` PEs a
@@ -89,9 +91,26 @@ multistep_cluster_kernel(const float* __restrict__ tau_in,
                          float* __restrict__ stats, int B, int L, int K,
                          uint32_t n_v, float delta, int cluster, int seg) {
   const int row = blockIdx.x / cluster;
-  ring_steps<kRd, kBoth, true>(tau_in, tau_out, stats, row, B, L, K, n_v,
-                               delta, MemoryEvents{bits, B, L, row}, cluster,
-                               seg);
+  ring_steps<kRd, kBoth, RingTier::kCluster>(
+      tau_in, tau_out, stats, row, B, L, K, n_v, delta,
+      MemoryEvents{bits, B, L, row}, cluster, seg);
+}
+
+// The same on rings split over `grid` blocks of one cooperative launch,
+// `seg` PEs a block: the gridDim.x / grid ring slots take the rows in
+// waves, the blocks of a slot meeting through `work` (pdes_ring.cuh).
+template <bool kRd, bool kBoth>
+__global__ void __launch_bounds__(32 * kRingClusterWarps, 1)
+multistep_grid_kernel(const float* __restrict__ tau_in,
+                      const uint2* __restrict__ bits,
+                      float* __restrict__ tau_out,
+                      float* __restrict__ stats, int B, int L, int K,
+                      uint32_t n_v, float delta, int grid, int seg,
+                      unsigned* work) {
+  for (int row = blockIdx.x / grid; row < B; row += gridDim.x / grid)
+    ring_steps<kRd, kBoth, RingTier::kGrid>(
+        tau_in, tau_out, stats, row, B, L, K, n_v, delta,
+        MemoryEvents{bits, B, L, row}, grid, seg, work);
 }
 
 }  // namespace
@@ -135,4 +154,34 @@ extern "C" int pdes_multistep_max_clusters(int cluster, int warps,
                                            int smem) {
   return ring_max_clusters(multistep_cluster_kernel<false, false>, cluster,
                            warps, smem);
+}
+
+// Launches B3 with a grid plan of kernels/tiling.py::ring_plan(L): `grid`
+// blocks a ring of `warps` warps and `seg` PEs each, as one cooperative
+// launch of the rings the card holds at once, `work` the workspace.
+// Returns a CUDA error code (pdes_ring.cuh ring_grid_launch).
+extern "C" int pdes_multistep_grid_launch(const float* tau_in,
+                                          const void* bits, float* tau_out,
+                                          float* stats, int B, int L, int K,
+                                          int warps, int grid, int seg,
+                                          unsigned n_v, float delta,
+                                          int rd_mode, int border_both,
+                                          void* work, long long work_bytes,
+                                          void* stream) {
+  const auto kernel = ring_kernel(rd_mode, border_both,
+                                  multistep_grid_kernel<true, false>,
+                                  multistep_grid_kernel<false, true>,
+                                  multistep_grid_kernel<false, false>);
+  return ring_grid_launch(kernel, B, L, K, warps, grid, seg, work,
+                          work_bytes, stream, tau_in, (const uint2*)bits,
+                          tau_out, stats, B, L, K, (uint32_t)n_v, delta,
+                          grid, seg);
+}
+
+// The rings of `grid` blocks of B3's grid kernel (`warps` warps and `smem`
+// dynamic bytes a block) that the card holds at once, or minus a CUDA
+// error code.
+extern "C" int pdes_multistep_max_grid_rings(int grid, int warps, int smem) {
+  return ring_max_grid_rings(multistep_grid_kernel<false, false>, grid,
+                             warps, smem);
 }

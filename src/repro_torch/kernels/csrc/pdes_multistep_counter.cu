@@ -13,8 +13,9 @@
 //   trial_r = trial_col[r] if given, else b0 + r (uint32, wrapping)
 // and its window width delta_col[r] if given, else the static delta (inf =
 // off).  The step itself -- decode, GVT, Eq. (1) and Eq. (3), the moments,
-// the ring held once in shared memory, in one block up to L = 57,344 and
+// the ring held once in shared memory, in one block up to L = 57,344,
 // split over a thread-block cluster of up to 16 blocks up to L = 911,360
+// and over up to 132 blocks of a cooperative grid up to L = 7,518,720
 // (kernels/tiling.py ring_plan; the wrapper raises above it) -- is the loop
 // of pdes_ring.cuh, which B3 shares.
 //
@@ -50,6 +51,12 @@
 // (a segment takes most of its shared memory) does the work of four
 // one-block rings of 8, and one cluster barrier a step over a segment of
 // some 44,000 PEs costs little beside it (PERF.md).
+//
+// The paper's production ring, B = 8 rings of L = 2^20 PEs over 19 blocks
+// of a cooperative grid (6 rings at once on 132 SMs, so two waves; 134.2M
+// PE-steps a K = 16 chunk): bytes 67.1 MB, 0.020 ms; operations about
+// 5.9e9 at u = 0.64, 0.087 ms at 67 T/s.  The operations bound it again;
+// the blocks meet through L2 once a step, and 114 of 132 SMs work.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -97,8 +104,9 @@ multistep_counter_kernel(const float* __restrict__ tau_in,
   const int row = blockIdx.x;
   const uint32_t trial = trial_col ? trial_col[row] : b0 + (uint32_t)row;
   const float dlt = delta_col ? delta_col[row] : delta;
-  ring_steps<kRd, kBoth, false>(tau_in, tau_out, stats, row, B, L, K, n_v,
-                                dlt, CounterEvents{seed, step0, trial, l0});
+  ring_steps<kRd, kBoth, RingTier::kBlock>(
+      tau_in, tau_out, stats, row, B, L, K, n_v, dlt,
+      CounterEvents{seed, step0, trial, l0});
 }
 
 // The same on rings split over clusters of `cluster` blocks, `seg` PEs a
@@ -117,9 +125,32 @@ multistep_counter_cluster_kernel(const float* __restrict__ tau_in,
   const int row = blockIdx.x / cluster;
   const uint32_t trial = trial_col ? trial_col[row] : b0 + (uint32_t)row;
   const float dlt = delta_col ? delta_col[row] : delta;
-  ring_steps<kRd, kBoth, true>(tau_in, tau_out, stats, row, B, L, K, n_v,
-                               dlt, CounterEvents{seed, step0, trial, l0},
-                               cluster, seg);
+  ring_steps<kRd, kBoth, RingTier::kCluster>(
+      tau_in, tau_out, stats, row, B, L, K, n_v, dlt,
+      CounterEvents{seed, step0, trial, l0}, cluster, seg);
+}
+
+// The same on rings split over `grid` blocks of one cooperative launch,
+// `seg` PEs a block: the gridDim.x / grid ring slots take the rows in
+// waves, the blocks of a slot meeting through `work` (pdes_ring.cuh).
+template <bool kRd, bool kBoth>
+__global__ void __launch_bounds__(32 * kRingClusterWarps, 1)
+multistep_counter_grid_kernel(const float* __restrict__ tau_in,
+                              float* __restrict__ tau_out,
+                              float* __restrict__ stats,
+                              const float* __restrict__ delta_col,
+                              const uint32_t* __restrict__ trial_col,
+                              int B, int L, int K,
+                              uint32_t seed, uint32_t step0, uint32_t b0,
+                              uint32_t l0, uint32_t n_v, float delta,
+                              int grid, int seg, unsigned* work) {
+  for (int row = blockIdx.x / grid; row < B; row += gridDim.x / grid) {
+    const uint32_t trial = trial_col ? trial_col[row] : b0 + (uint32_t)row;
+    const float dlt = delta_col ? delta_col[row] : delta;
+    ring_steps<kRd, kBoth, RingTier::kGrid>(
+        tau_in, tau_out, stats, row, B, L, K, n_v, dlt,
+        CounterEvents{seed, step0, trial, l0}, grid, seg, work);
+  }
 }
 
 // eta of every word by the kernels' table decode (`table`) or by the library
@@ -191,6 +222,37 @@ extern "C" int pdes_multistep_counter_max_clusters(int cluster, int warps,
                                                    int smem) {
   return ring_max_clusters(multistep_counter_cluster_kernel<false, false>,
                            cluster, warps, smem);
+}
+
+// Launches B1 with a grid plan of kernels/tiling.py::ring_plan(L): `grid`
+// blocks a ring of `warps` warps and `seg` PEs each, as one cooperative
+// launch of the rings the card holds at once, `work` the workspace
+// (pdes_ring.cuh ring_grid_bytes of them).  Returns a CUDA error code
+// (pdes_ring.cuh ring_grid_launch).
+extern "C" int pdes_multistep_counter_grid_launch(
+    const float* tau_in, float* tau_out, float* stats, const float* delta_col,
+    const uint32_t* trial_col, int B, int L, int K, int warps, int grid,
+    int seg, unsigned seed, unsigned step0, unsigned b0, unsigned l0,
+    unsigned n_v, float delta, int rd_mode, int border_both, void* work,
+    long long work_bytes, void* stream) {
+  const auto kernel = ring_kernel(
+      rd_mode, border_both, multistep_counter_grid_kernel<true, false>,
+      multistep_counter_grid_kernel<false, true>,
+      multistep_counter_grid_kernel<false, false>);
+  return ring_grid_launch(kernel, B, L, K, warps, grid, seg, work,
+                          work_bytes, stream, tau_in, tau_out, stats,
+                          delta_col, trial_col, B, L, K, (uint32_t)seed,
+                          (uint32_t)step0, (uint32_t)b0, (uint32_t)l0,
+                          (uint32_t)n_v, delta, grid, seg);
+}
+
+// The rings of `grid` blocks of B1's grid kernel (`warps` warps and `smem`
+// dynamic bytes a block) that the card holds at once, or minus a CUDA
+// error code.
+extern "C" int pdes_multistep_counter_max_grid_rings(int grid, int warps,
+                                                     int smem) {
+  return ring_max_grid_rings(multistep_counter_grid_kernel<false, false>,
+                             grid, warps, smem);
 }
 
 extern "C" int decode_eta_launch(const uint32_t* w1, float* out, long long n,

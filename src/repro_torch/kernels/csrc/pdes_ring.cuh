@@ -63,6 +63,28 @@
 // slower: PERF.md).  The one-block kernels are separate instantiations,
 // which the cluster code does not reach (if constexpr).
 //
+// A ring longer still (up to kernels/tiling.py MAX_GRID_RING_L) is cut
+// the same way into g segments (RingTier::kGrid; tiling.ring_plan's
+// `grid`), one block each, and the g blocks of a ring are ordinary blocks
+// of one cooperative launch, all resident at once: `rings` = gridDim.x / g
+// ring slots, slot q = blockIdx.x / g taking rows q, q + rings, ... in
+// turn (the batch in waves).  They meet through a workspace in global
+// memory (RingGrid, read and written through L2 with ld/st.cg): a block
+// reduces its W warp partials by the xor tree above, and warp 0 publishes
+// that one block partial and its segment's two edge PEs in the ring's
+// parity slot [parity][rank], then meets the ring's other blocks at a
+// barrier (grid_barrier: an arrival counter that only grows, atom.release
+// to arrive, a spin on ld.acquire), takes the neighbours' edge PEs into
+// the block's own shared slot (where the next step's warps 0 and W - 1 read
+// an edge, so the step's loop is the cluster's) and folds the g partials
+// in rank order 0 ... g - 1, which gives the next GVT and, on rank 0, the
+// step's six moments; a second block barrier hands GVT and the mean to
+// the other warps.  The exact window needs the ring's minimum every step,
+// so no step skips the meeting.  The parity argument holds as on a
+// cluster; a last meeting after the last sums keeps the slots valid until
+// rank 0 has read them where another row follows on the slot.  A block
+// partial a step, not 32 warp partials, so a block reads g values a step.
+//
 // One barrier a step.  Each warp writes its partials of step k (ucount, min,
 // max, sum, sumsq, the sumabs of step k - 1 and its two edge PEs) into the
 // slot of k's parity, then __syncthreads(); then every warp reduces the W
@@ -105,6 +127,10 @@ constexpr int kRingMaxCluster = 16;
 // Blocks of 8 warps an SM should hold at once: 448 rings of L = 10,000 (40
 // KB of shared memory each) then run in one wave on 132 SMs.
 constexpr int kRingMinBlocks = 4;
+
+// Where the blocks of a ring meet: one block, a thread-block cluster, or
+// the blocks of a cooperative grid (tiling.ring_plan).
+enum class RingTier { kBlock, kCluster, kGrid };
 
 // What warp w publishes at the end of a step, read by every warp after the
 // step's barrier (parity slots: see above), for blocks of up to kW warps.
@@ -167,22 +193,207 @@ __device__ __forceinline__ auto ring_reduce(Slot& s, Get get, int c, int W,
   }
 }
 
+// What block `rank` of a ring over the grid publishes at a meeting: its
+// partials and its segment's edge PEs' new tau.
+struct GridPart {
+  unsigned cnt;
+  float mn, mx, sum, sumsq, sumabs;
+  float first, last;
+};
+
+// One ring slot of a cooperative launch's workspace: its arrival counter
+// and its parts [parity][rank] (ring_grid lays them out).
+struct RingGrid {
+  unsigned* bar;
+  GridPart* part;
+  bool more;   // another row follows on this slot
+};
+
+// Bytes of the workspace of `rings` slots of `g` blocks: a counter a slot,
+// each on its own 128-byte line, then the parts.
+inline size_t ring_grid_bytes(int rings, int g) {
+  return (size_t)rings * 128 + (size_t)rings * 2 * g * sizeof(GridPart);
+}
+
+// The slot of this block's ring `row` of B in workspace `work` of a launch
+// of rings of `g` blocks.  Built from the kernel's parameters where a
+// meeting needs it, so that nothing of it stays live over the step's loop.
+__device__ __forceinline__ RingGrid ring_grid(unsigned* work, int g, int row,
+                                              int B) {
+  const int rings = gridDim.x / g;
+  const int q = blockIdx.x / g;
+  GridPart* parts = reinterpret_cast<GridPart*>(work + 32 * rings);
+  return {work + 32 * q, parts + (size_t)q * 2 * g, row + rings < B};
+}
+
+// The barrier of a ring's g blocks, met by warp 0 of each: lane 0 arrives
+// (atom.release, ordered after its own stores of the block's part), and
+// every lane spins on ld.acquire until the ring's g blocks have arrived.
+// The counter only grows (zeroed before each launch): arrival n is one of
+// barrier n / g, which is complete at (n / g + 1) g.
+__device__ __forceinline__ void grid_barrier(unsigned* bar, int g, int lane) {
+  unsigned n = 0;
+  if (lane == 0)
+    asm volatile("atom.release.gpu.global.add.u32 %0, [%1], %2;"
+                 : "=r"(n) : "l"(bar), "r"(1u) : "memory");
+  const unsigned done = (__shfl_sync(kFull, n, 0) / (unsigned)g + 1u) *
+                        (unsigned)g;
+  unsigned v;
+  do {
+    asm volatile("ld.acquire.gpu.global.u32 %0, [%1];"
+                 : "=r"(v) : "l"(bar) : "memory");
+  } while (v < done);
+}
+
+// The reduction by `op` of the values `get(part + r)` of a ring's g blocks
+// in an order that does not matter (min, max, a count), every lane ending
+// with the whole.
+template <class T, class Get, class Op>
+__device__ __forceinline__ T grid_tree(const GridPart* part, int g, int lane,
+                                       T v, Get get, Op op) {
+  for (int r = lane; r < g; r += 32) v = op(v, get(part + r));
+  for (int o = 16; o > 0; o >>= 1) v = op(v, __shfl_xor_sync(kFull, v, o));
+  return v;
+}
+
+// The fold by `op` of the values `get(part + r)` in rank order r = 0 ...
+// g - 1 (a float sum), 32 ranks at a time: lane l loads rank 32 j + l,
+// then every lane folds the 32 through shuffles, so all end with the same
+// value.  One value a lane: the meeting runs beside the words B3 keeps in
+// flight over it.
+template <class Get, class Op>
+__device__ __forceinline__ float grid_fold(const GridPart* part, int g,
+                                           int lane, Get get, Op op) {
+  float v = 0.f;
+  for (int j = 0; 32 * j < g; ++j) {
+    const float x = 32 * j + lane < g ? get(part + 32 * j + lane) : 0.f;
+    for (int l = 0; l < 32 && 32 * j + l < g; ++l) {
+      const float y = __shfl_sync(kFull, x, l);
+      v = j == 0 && l == 0 ? y : op(v, y);
+    }
+  }
+  return v;
+}
+
+// What a meeting of a ring over the grid exchanges: the first GVT and the
+// edge PEs (kInit), a step's partials and edge PEs (kStep), the last
+// step's sumabs (kLast).
+enum class Meet { kInit, kStep, kLast };
+
+// A meeting of ring `row` over the grid of `g` blocks a ring (workspace
+// `work`), at the end of a step whose warp partials are in `out`, with
+// parity `par`: warp 0 reduces the block's W
+// partials, publishes them (and the edge PEs), meets the ring's blocks,
+// takes the neighbours' edge PEs into `out` (the left one as the last
+// warp's last PE, the right one as warp 0's first: what the next step's
+// warps 0 and W - 1 read) and the ring's GVT and sum into out.mn[0] and
+// out.sum[0]; rank 0 writes the stats from `st` (stats + k B + row: moment
+// m at st[m plane], the previous step's sumabs at st[5 plane - B] where
+// `prev`; at kLast the sumabs at st[5 plane]).  Every warp waits for it.
+template <Meet kWhat, class Slot>
+__device__ __forceinline__ void grid_meet(Slot& out, unsigned* work, int g,
+                                          int row, int par, int W, int lane,
+                                          int warp, int rank, float* st,
+                                          size_t plane, int B, bool prev) {
+  __syncthreads();
+  if (warp == 0) {
+    const RingGrid rg = ring_grid(work, g, row, B);
+    GridPart* all = rg.part + (size_t)par * g;
+    GridPart* mine = all + rank;
+    if constexpr (kWhat == Meet::kLast) {
+      const float a = slot_reduce(out.sumabs, W, lane, Add{});
+      if (lane == 0) __stcg(&mine->sumabs, a);
+    } else {
+      // each partial stored as it is reduced, so few stay live
+      const float m = slot_reduce(out.mn, W, lane, Min{});
+      if (lane == 0) __stcg(&mine->mn, m);
+      if constexpr (kWhat == Meet::kStep) {
+        const unsigned c = slot_reduce(out.cnt, W, lane, Add{});
+        if (lane == 0) __stcg(&mine->cnt, c);
+        const float x = slot_reduce(out.mx, W, lane, Max{});
+        if (lane == 0) __stcg(&mine->mx, x);
+        const float s = slot_reduce(out.sum, W, lane, Add{});
+        if (lane == 0) __stcg(&mine->sum, s);
+        const float q = slot_reduce(out.sumsq, W, lane, Add{});
+        if (lane == 0) __stcg(&mine->sumsq, q);
+        const float a = slot_reduce(out.sumabs, W, lane, Add{});
+        if (lane == 0) __stcg(&mine->sumabs, a);
+      }
+      if (lane == 0) {
+        __stcg(&mine->first, out.first[0]);
+        __stcg(&mine->last, out.last[W - 1]);
+      }
+    }
+    grid_barrier(rg.bar, g, lane);
+    const auto ld_sumabs = [](const GridPart* p) { return __ldcg(&p->sumabs); };
+    if constexpr (kWhat == Meet::kLast) {
+      if (rank == 0) {
+        const float ab = grid_fold(all, g, lane, ld_sumabs, Add{});
+        if (lane == 0) st[5 * plane] = ab;
+      }
+      if (rg.more) grid_barrier(rg.bar, g, lane);
+    } else {
+      const float mn = grid_tree(
+          all, g, lane, INFINITY,
+          [](const GridPart* p) { return __ldcg(&p->mn); }, Min{});
+      float sum = 0.f;
+      if constexpr (kWhat == Meet::kStep) {
+        sum = grid_fold(all, g, lane,
+                        [](const GridPart* p) { return __ldcg(&p->sum); },
+                        Add{});
+        if (rank == 0) {
+          const unsigned c = grid_tree(
+              all, g, lane, 0u,
+              [](const GridPart* p) { return __ldcg(&p->cnt); }, Add{});
+          const float mx = grid_tree(
+              all, g, lane, -INFINITY,
+              [](const GridPart* p) { return __ldcg(&p->mx); }, Max{});
+          const float sq = grid_fold(
+              all, g, lane,
+              [](const GridPart* p) { return __ldcg(&p->sumsq); }, Add{});
+          const float ab = grid_fold(all, g, lane, ld_sumabs, Add{});
+          if (lane == 0) {
+            st[0 * plane] = (float)c;
+            st[1 * plane] = mn;
+            st[2 * plane] = mx;
+            st[3 * plane] = sum;
+            st[4 * plane] = sq;
+            if (prev) st[5 * plane - B] = ab;
+          }
+        }
+      }
+      if (lane == 0) {
+        out.last[W - 1] = __ldcg(&all[rank == 0 ? g - 1 : rank - 1].last);
+        out.first[0] = __ldcg(&all[rank == g - 1 ? 0 : rank + 1].first);
+        out.mn[0] = mn;
+        out.sum[0] = sum;
+      }
+    }
+  }
+  __syncthreads();
+}
+
 // Runs the K steps of ring `row` (blockDim.x = 32 W).  `dlt` is the row's
 // window width (inf turns the window off: tau <= inf + GVT holds).  kRd and
 // kBoth are the rd_mode and border_both flags, fixed per instantiation so
-// that the hot loop carries no test of them.  With kCluster the block is
-// rank blockIdx.x % cl of the ring's cluster of cl blocks and holds the
-// segment of `seg` PEs from PE rank * seg; without, the whole ring.
-template <bool kRd, bool kBoth, bool kCluster, class Events>
+// that the hot loop carries no test of them.  On a cluster (kTier) the
+// block is rank blockIdx.x % cl of the ring's cl blocks and holds the
+// segment of `seg` PEs from PE rank * seg, and so over the grid, where the
+// blocks meet through the workspace `work`; in one block, the whole ring.
+template <bool kRd, bool kBoth, RingTier kTier, class Events>
 __device__ __forceinline__ void ring_steps(const float* __restrict__ tau_in,
                                            float* __restrict__ tau_out,
                                            float* __restrict__ stats,
                                            int row, int B, int L, int K,
                                            uint32_t n_v, float dlt,
                                            const Events& events, int cl = 1,
-                                           int seg = 0) {
+                                           int seg = 0,
+                                           unsigned* work = nullptr) {
+  constexpr bool kCluster = kTier == RingTier::kCluster;
+  constexpr bool kGrid = kTier == RingTier::kGrid;
+  constexpr bool kSplit = kCluster || kGrid;
   constexpr int U = Events::kAhead;
-  constexpr int kW = kCluster ? kRingClusterWarps : kRingMaxWarps;
+  constexpr int kW = kSplit ? kRingClusterWarps : kRingMaxWarps;
   using Slot = RingSlot<kW>;
   extern __shared__ float ring[];
   __shared__ Slot slot[2];
@@ -193,9 +404,9 @@ __device__ __forceinline__ void ring_steps(const float* __restrict__ tau_in,
   const int W = blockDim.x >> 5;
   // this block's segment: PEs [base, base + n) of the ring, local index
   // i at ring-wide PE base + i
-  const int rank = kCluster ? (int)(blockIdx.x % cl) : 0;
-  const int base = kCluster ? rank * seg : 0;
-  const int n = kCluster ? min(seg, L - base) : L;
+  const int rank = kSplit ? (int)(blockIdx.x % cl) : 0;
+  const int base = kSplit ? rank * seg : 0;
+  const int n = kSplit ? min(seg, L - base) : L;
   const int rows = (n + 31) >> 5;
   const int r0 = warp * rows / W;
   const int r1 = (warp + 1) * rows / W;
@@ -204,7 +415,9 @@ __device__ __forceinline__ void ring_steps(const float* __restrict__ tau_in,
   const int wl = warp == 0 ? W - 1 : warp - 1;    // the warps beside it
   const int wr = warp == W - 1 ? 0 : warp + 1;
   // the slots holding the old tau beside this warp's ends: another
-  // block's (distributed shared memory) at the segment's two ends
+  // block's (distributed shared memory) at the segment's two ends on a
+  // cluster; over the grid the block's own, where the meeting puts the
+  // neighbours' edge PEs
   Slot* lslot = slot;
   Slot* rslot = slot;
   if constexpr (kCluster) {
@@ -242,10 +455,17 @@ __device__ __forceinline__ void ring_steps(const float* __restrict__ tau_in,
   }
   mn = warp_min(mn);
   if (lane == 0) slot[1].mn[warp] = mn;
-  ring_barrier<kCluster>();
   const auto get_mn = [](const Slot& q) { return q.mn; };
   const auto get_sum = [](const Slot& q) { return q.sum; };
-  float gvt = ring_reduce<kCluster>(slot[1], get_mn, cl, W, lane, Min{});
+  float gvt;
+  if constexpr (kGrid) {
+    grid_meet<Meet::kInit>(slot[1], work, cl, row, 1, W, lane, warp, rank,
+                           stats, plane, B, false);
+    gvt = slot[1].mn[0];
+  } else {
+    ring_barrier<kCluster>();
+    gvt = ring_reduce<kCluster>(slot[1], get_mn, cl, W, lane, Min{});
+  }
   float mean = 0.f;  // the ring mean after the previous step
 
   for (int k = 0; k < K; ++k) {
@@ -367,6 +587,13 @@ __device__ __forceinline__ void ring_steps(const float* __restrict__ tau_in,
       out.sumsq[warp] = ss;
       out.sumabs[warp] = sa;
     }
+    if constexpr (kGrid) {
+      grid_meet<Meet::kStep>(out, work, cl, row, k & 1, W, lane, warp, rank,
+                             stats + (size_t)k * B + row, plane, B, k > 0);
+      gvt = out.mn[0];
+      mean = __fdiv_rn(out.sum[0], (float)L);
+      continue;
+    }
     ring_barrier<kCluster>();
     gvt = ring_reduce<kCluster>(out, get_mn, cl, W, lane, Min{});
     const float sum = ring_reduce<kCluster>(out, get_sum, cl, W, lane, Add{});
@@ -403,6 +630,12 @@ __device__ __forceinline__ void ring_steps(const float* __restrict__ tau_in,
   sa = warp_sum(sa);
   Slot& out = slot[K & 1];
   if (lane == 0) out.sumabs[warp] = sa;
+  if constexpr (kGrid) {
+    grid_meet<Meet::kLast>(out, work, cl, row, K & 1, W, lane, warp, rank,
+                           stats + (size_t)(K - 1) * B + row, plane, B,
+                           false);
+    return;
+  }
   ring_barrier<kCluster>();
   if (warp == 0 && rank == 0) {
     const float ab = ring_reduce<kCluster>(
@@ -477,6 +710,20 @@ int ring_max_clusters(Kernel kernel, int cluster, int warps, int smem) {
   return n;
 }
 
+// Whether `blocks` blocks a ring of `warps` warps (at most `max_warps`),
+// each holding `seg` PEs, lay out a ring of L: the whole ring where
+// blocks == 1; else segments of a multiple of 32, the last one shorter and
+// at least a row a warp.
+inline bool ring_shape_ok(int B, int L, int K, int warps, int max_warps,
+                          int blocks, int seg) {
+  return !(B < 1 || L < 1 || K < 1 || warps < 1 || warps > max_warps ||
+           (warps & (warps - 1)) != 0 || blocks < 1 || seg < 1 ||
+           (blocks == 1 ? seg != L
+                        : seg % 32 != 0 || (long long)seg * blocks < L ||
+                              (long long)seg * (blocks - 1) >= L) ||
+           warps > (L - seg * (blocks - 1) + 31) / 32);
+}
+
 // Checks a ring kernel's launch shape against kernels/tiling.py::ring_plan:
 // `cluster` blocks a ring of `warps` warps, each holding `seg` PEs (the
 // whole ring where cluster == 1; else a multiple of 32, the last segment
@@ -488,13 +735,8 @@ template <class Kernel>
 int ring_launch_check(Kernel kernel, int B, int L, int K, int warps,
                       int cluster, int seg) {
   const int max_warps = cluster == 1 ? kRingMaxWarps : kRingClusterWarps;
-  if (B < 1 || L < 1 || K < 1 || warps < 1 || warps > max_warps ||
-      (warps & (warps - 1)) != 0 || cluster < 1 ||
-      cluster > kRingMaxCluster || seg < 1 ||
-      (cluster == 1 ? seg != L
-                    : seg % 32 != 0 || (long long)seg * cluster < L ||
-                          (long long)seg * (cluster - 1) >= L) ||
-      warps > (L - seg * (cluster - 1) + 31) / 32)
+  if (cluster > kRingMaxCluster ||
+      !ring_shape_ok(B, L, K, warps, max_warps, cluster, seg))
     return -(int)cudaErrorInvalidValue;
   const int smem = seg * (int)sizeof(float);
   const cudaError_t err = ring_allow(kernel, cluster, smem);
@@ -516,6 +758,67 @@ int ring_cluster_launch(Kernel kernel, int B, int cluster, int warps,
   const cudaLaunchConfig_t cfg = ring_config(
       cluster * B, cluster, 32 * warps, smem, (cudaStream_t)stream, &attr);
   const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  const cudaError_t last = cudaGetLastError();
+  return (int)(err != cudaSuccess ? err : last);
+}
+
+// The rings of `grid` blocks of a ring kernel's grid instantiation,
+// `warps` warps and `smem` dynamic bytes each, that the card holds at once
+// (its resident blocks over `grid`; a cooperative launch places all its
+// blocks at once or not at all), or minus a CUDA error code.
+template <class Kernel>
+int ring_max_grid_rings(Kernel kernel, int grid, int warps, int smem) {
+  cudaError_t err = ring_allow(kernel, 1, smem);
+  int per_sm = 0, dev = 0, sms = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        32 * warps, smem);
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return -(int)err;
+  }
+  return per_sm * sms / grid;
+}
+
+// Launches `kernel` (a grid instantiation) on B rings of `grid` blocks of
+// `warps` warps, each holding `seg` PEs, as one cooperative launch of as
+// many whole rings as the card holds at once (the kernel walks the batch
+// in waves), its ring slots in `work` (`work_bytes` bytes, the counters
+// zeroed here on `stream`), `args` its arguments up to the workspace.
+// Returns a CUDA error code: cudaErrorInvalidValue for a shape that is not
+// tiling.ring_plan's kind or a workspace too small,
+// cudaErrorCooperativeLaunchTooLarge where the card cannot hold one ring.
+template <class Kernel, class... Args>
+int ring_grid_launch(Kernel kernel, int B, int L, int K, int warps, int grid,
+                     int seg, void* work, long long work_bytes, void* stream,
+                     Args... args) {
+  if (grid < 2 || !ring_shape_ok(B, L, K, warps, kRingClusterWarps, grid, seg))
+    return (int)cudaErrorInvalidValue;
+  const int smem = seg * (int)sizeof(float);
+  int rings = ring_max_grid_rings(kernel, grid, warps, smem);
+  if (rings < 0) return -rings;
+  if (rings < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  if (rings > B) rings = B;
+  if (work == nullptr ||
+      (size_t)work_bytes < ring_grid_bytes(rings, grid))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaMemsetAsync(work, 0, (size_t)rings * 128,
+                                    (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(rings * grid), 1, 1);
+  cfg.blockDim = dim3((unsigned)(32 * warps), 1, 1);
+  cfg.dynamicSmemBytes = (size_t)smem;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeCooperative;
+  attr.val.cooperative = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, args..., (unsigned*)work);
   const cudaError_t last = cudaGetLastError();
   return (int)(err != cudaSuccess ? err : last);
 }

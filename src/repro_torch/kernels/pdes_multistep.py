@@ -15,10 +15,15 @@ see the notes in the sources for their bounds): up to
 ``tiling.MAX_RING_L`` = 57,344 PEs one block a ring with one block barrier
 a step; longer rings, up to ``tiling.MAX_CLUSTER_RING_L`` = 911,360, split
 over a thread-block cluster of up to 16 blocks, one segment a block, with
-one cluster barrier a step.  Above that the wrappers raise.  On a CUDA
-tensor a wrapper launches its kernel or raises (a launch the card refuses
-raises too); on a CPU tensor it runs the plain PyTorch version in ``ref``,
-which takes any L.  There is no other path.
+one cluster barrier a step; longer still, up to
+``tiling.MAX_GRID_RING_L`` = 7,518,720 (the paper's 2^20 takes 19
+blocks), over blocks of one cooperative launch that meet through a small
+workspace in global memory once a step, as many whole rings at once as
+the card holds (:func:`resident_rings`), the batch in waves.  Above that
+the wrappers raise.  On a CUDA tensor a wrapper launches its kernel or
+raises (a launch the card refuses raises too); on a CPU tensor it runs
+the plain PyTorch version in ``ref``, which takes any L.  There is no
+other path.
 
 ``launches`` (B1) and ``bits_launches`` (B3) count kernel launches, so a
 run can show that its main path went through the kernel.
@@ -55,6 +60,13 @@ def _lib() -> ctypes.CDLL:
         m = lib.pdes_multistep_counter_max_clusters
         m.argtypes = [ctypes.c_int] * 3
         m.restype = ctypes.c_int
+        _grid_argtypes(lib.pdes_multistep_counter_grid_launch,
+                       [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+                       + [ctypes.c_uint32] * 5 + [ctypes.c_float]
+                       + [ctypes.c_int] * 2)
+        m = lib.pdes_multistep_counter_max_grid_rings
+        m.argtypes = [ctypes.c_int] * 3
+        m.restype = ctypes.c_int
         g = lib.decode_eta_launch
         g.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
                       ctypes.c_int, ctypes.c_void_p]
@@ -77,21 +89,38 @@ def _bits_lib() -> ctypes.CDLL:
         m = lib.pdes_multistep_max_clusters
         m.argtypes = [ctypes.c_int] * 3
         m.restype = ctypes.c_int
+        _grid_argtypes(lib.pdes_multistep_grid_launch,
+                       [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                       + [ctypes.c_uint32, ctypes.c_float]
+                       + [ctypes.c_int] * 2)
+        m = lib.pdes_multistep_max_grid_rings
+        m.argtypes = [ctypes.c_int] * 3
+        m.restype = ctypes.c_int
     return lib
+
+
+def _grid_argtypes(f, head) -> None:
+    """A grid launcher's arguments: ``head``, then the workspace, its
+    bytes and the stream."""
+    f.argtypes = head + [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
+    f.restype = ctypes.c_int
 
 
 def launch_plan(B: int, L: int) -> dict:
     """The launch of B1 or B3 on ``B`` rings of ``L`` PEs (any number of
     steps: they loop inside the block), from ``tiling.ring_plan(L)``:
-    ``cluster`` blocks a ring (one up to ``tiling.MAX_RING_L``), so
-    ``cluster * B`` blocks of ``threads``, each holding ``seg`` PEs in
-    dynamic shared memory (``csrc/pdes_ring.cuh::ring_launch_check`` sets
-    the same ``4 seg`` bytes) beside its static partials and log table.
-    The wrappers launch with it and the linter's ``vmem-budget`` rule reads
-    it, so the two cannot disagree."""
+    ``cluster`` blocks a ring of a thread-block cluster, or ``ring_grid``
+    blocks a ring of a cooperative grid (both 1 up to
+    ``tiling.MAX_RING_L``), so ``cluster * ring_grid * B`` blocks of
+    ``threads`` (over the grid, the kernel's blocks walk them in waves of
+    the rings the card holds at once), each holding ``seg`` PEs in dynamic
+    shared memory (``csrc/pdes_ring.cuh`` sets the same ``4 seg`` bytes)
+    beside its static partials and log table.  The wrappers launch with it
+    and the linter's ``vmem-budget`` rule reads it, so the two cannot
+    disagree."""
     p = ring_plan(L)
-    return {"grid": (p.cluster * B,), "cluster": p.cluster,
-            "threads": p.threads, "seg": p.seg,
+    return {"grid": (p.blocks * B,), "cluster": p.cluster,
+            "ring_grid": p.grid, "threads": p.threads, "seg": p.seg,
             "dynamic_smem": p.dynamic_smem, "static_smem": p.static_smem}
 
 
@@ -99,16 +128,51 @@ def resident_clusters(L: int, *, bits: bool = False) -> int:
     """Clusters of B1's (``bits``: B3's) launch on rings of ``L`` PEs that
     the current card holds at once (``cudaOccupancyMaxActiveClusters``; a
     batch needing more runs in waves).  Only for rings split over a
-    cluster (``L > tiling.MAX_RING_L``)."""
+    cluster (``tiling.MAX_RING_L < L <= tiling.MAX_CLUSTER_RING_L``)."""
     p = ring_plan(L)
     if p.cluster == 1:
-        raise ValueError(f"a ring of L={L} PEs runs in one block, not a "
+        raise ValueError(f"a ring of L={L} PEs does not run over a "
                          f"cluster")
     f = (_bits_lib().pdes_multistep_max_clusters if bits else
          _lib().pdes_multistep_counter_max_clusters)
     n = f(p.cluster, p.warps, p.dynamic_smem)
     _build.check(max(0, -n), "pdes_multistep occupancy")
     return n
+
+
+def resident_rings(L: int, *, bits: bool = False) -> int:
+    """Rings of ``L`` PEs that B1's (``bits``: B3's) cooperative launch
+    holds at once on the current card: its resident blocks over the
+    plan's ``grid`` (a batch of more runs in waves inside the launch; 0
+    where the card cannot hold one ring, whose launch then raises).  Only
+    for rings split over a cooperative grid (``L >
+    tiling.MAX_CLUSTER_RING_L``)."""
+    p = ring_plan(L)
+    if p.grid == 1:
+        raise ValueError(f"a ring of L={L} PEs does not run over a "
+                         f"cooperative grid")
+    f = (_bits_lib().pdes_multistep_max_grid_rings if bits else
+         _lib().pdes_multistep_counter_max_grid_rings)
+    n = f(p.grid, p.warps, p.dynamic_smem)
+    _build.check(max(0, -n), "pdes_multistep occupancy")
+    return n
+
+
+#: Bytes of the grid workspace of one ring slot: a counter on its own
+#: 128-byte line and two parities of a 32-byte part a block
+#: (``csrc/pdes_ring.cuh::ring_grid_bytes``).
+GRID_SLOT_BYTES = 128
+GRID_PART_BYTES = 32
+
+
+def _workspace(dev: torch.device, B: int, grid: int) -> torch.Tensor:
+    """Room for the ring slots of a cooperative launch of ``B`` rings of
+    ``grid`` blocks (at most ``B`` run at once), from torch's caching
+    allocator on ``dev`` and the current stream (so no ``cudaMalloc`` once
+    a size has been seen); the launcher zeroes the counters before each
+    launch."""
+    return torch.empty(B * (GRID_SLOT_BYTES + 2 * grid * GRID_PART_BYTES),
+                       dtype=torch.uint8, device=dev)
 
 
 def _check_tau(tau) -> None:
@@ -138,11 +202,17 @@ def bits_launch(tau_in, words, tau_out, stats, *, n_v: int, delta: float,
     p = ring_plan(L)
     dev = tau_in.device
     with torch.cuda.device(dev):
-        err = _bits_lib().pdes_multistep_launch(
-            tau_in.data_ptr(), words.data_ptr(), tau_out.data_ptr(),
-            stats.data_ptr(), B, L, K, p.warps, p.cluster, p.seg,
-            n_v, float(delta),
-            int(rd_mode), int(border_both), _build.stream(dev))
+        args = (tau_in.data_ptr(), words.data_ptr(), tau_out.data_ptr(),
+                stats.data_ptr(), B, L, K, p.warps)
+        rule = (n_v, float(delta), int(rd_mode), int(border_both))
+        if p.grid > 1:
+            work = _workspace(dev, B, p.grid)
+            err = _bits_lib().pdes_multistep_grid_launch(
+                *args, p.grid, p.seg, *rule, work.data_ptr(), work.numel(),
+                _build.stream(dev))
+        else:
+            err = _bits_lib().pdes_multistep_launch(
+                *args, p.cluster, p.seg, *rule, _build.stream(dev))
     _build.check(err, "pdes_multistep launch")
 
 
@@ -159,13 +229,18 @@ def counter_launch(tau_in, tau_out, stats, dcol, tcol, ctr, *, n_v: int,
     p = ring_plan(L)
     dev = tau_in.device
     with torch.cuda.device(dev):
-        err = _lib().pdes_multistep_counter_launch(
-            tau_in.data_ptr(), tau_out.data_ptr(), stats.data_ptr(),
-            None if dcol is None else dcol.data_ptr(),
-            None if tcol is None else tcol.data_ptr(),
-            B, L, K, p.warps, p.cluster, p.seg, *ctr, n_v,
-            float(delta), int(rd_mode),
-            int(border_both), _build.stream(dev))
+        args = (tau_in.data_ptr(), tau_out.data_ptr(), stats.data_ptr(),
+                None if dcol is None else dcol.data_ptr(),
+                None if tcol is None else tcol.data_ptr(), B, L, K, p.warps)
+        rule = (*ctr, n_v, float(delta), int(rd_mode), int(border_both))
+        if p.grid > 1:
+            work = _workspace(dev, B, p.grid)
+            err = _lib().pdes_multistep_counter_grid_launch(
+                *args, p.grid, p.seg, *rule, work.data_ptr(), work.numel(),
+                _build.stream(dev))
+        else:
+            err = _lib().pdes_multistep_counter_launch(
+                *args, p.cluster, p.seg, *rule, _build.stream(dev))
     _build.check(err, "pdes_multistep_counter launch")
 
 

@@ -18,11 +18,21 @@ says how:
   between neighbouring blocks through distributed shared memory, and one
   cluster barrier a step takes the place of the block's.  That reaches
   :data:`MAX_CLUSTER_RING_L` PEs, past the JAX package's one-row VMEM
-  budget of 524,285 (``repro.kernels.tiling.vmem_bytes``).
+  budget of 524,285 (``repro.kernels.tiling.vmem_bytes``);
+* a ring longer still is cut the same way into ``grid`` segments, one
+  block each, and the blocks of a ring are ordinary blocks of one
+  cooperative launch: each keeps its segment in shared memory for all K
+  steps, and they exchange their edge PEs and step partials through
+  global memory (L2) and meet once a step at a barrier in global memory.
+  All blocks of a cooperative launch are resident at once, so a ring
+  takes at most the card's resident blocks, one an SM:
+  :data:`MAX_GRID_RING_L` PEs on an H100 (the paper's production ring of
+  2^20 PEs takes 19 blocks).  As many whole rings as fit run at once, and
+  the kernel walks the batch in waves.
 
 The order in which a ring's sums are reduced follows the plan (warps, then
 blocks in rank order), so it must not depend on the batch the ring runs
-in.
+in, nor on how many rings the card holds at once.
 
 The one-step kernel (B2) keeps nothing of a row between launches, so a
 row of any length runs; how its work is spread comes from
@@ -91,17 +101,26 @@ SMEM_STATIC_CLUSTER = 4608
 #: Longest segment of a cluster block: a multiple of 32 PEs with
 #: 4 * seg + static <= 227 KB.
 MAX_RING_SEG = (SMEM_PER_BLOCK - SMEM_STATIC_CLUSTER) // 128 * 32
-#: Longest ring B1 and B3 take: :data:`RING_MAX_CLUSTER` segments.
+#: Longest ring of a cluster: :data:`RING_MAX_CLUSTER` segments.
 MAX_CLUSTER_RING_L = RING_MAX_CLUSTER * MAX_RING_SEG
+#: Most blocks of a ring over a cooperative grid: the H100 SXM's 132 SMs,
+#: at one such block an SM.  A static figure, for the linter and the CPU
+#: tests; the launch asks the card how many blocks it holds at once
+#: (``pdes_multistep.resident_rings``) and refuses a ring that needs more.
+RING_MAX_GRID_BLOCKS = 132
+#: Longest ring B1 and B3 take: :data:`RING_MAX_GRID_BLOCKS` segments.
+MAX_GRID_RING_L = RING_MAX_GRID_BLOCKS * MAX_RING_SEG
 
 
 @dataclasses.dataclass(frozen=True)
 class RingPlan:
     """How B1 and B3 lay out a ring of ``L`` PEs (``csrc/pdes_ring.cuh``).
 
-    ``cluster`` blocks a ring (1: the whole ring in one block), block rank
-    ``j`` owning PEs ``[j seg, min((j + 1) seg, L))``; ``warps`` warps a
-    block; ``dynamic_smem`` bytes of the ring (4 a PE of the segment) and
+    ``cluster`` blocks a ring of one thread-block cluster, or ``grid``
+    blocks a ring of one cooperative launch (both 1: the whole ring in one
+    block; at most one of them above 1), block rank ``j`` owning PEs
+    ``[j seg, min((j + 1) seg, L))``; ``warps`` warps a block;
+    ``dynamic_smem`` bytes of the ring (4 a PE of the segment) and
     ``static_smem`` bytes of partials and table a block.
     """
     cluster: int
@@ -109,10 +128,16 @@ class RingPlan:
     warps: int
     dynamic_smem: int
     static_smem: int
+    grid: int = 1
 
     @property
     def threads(self) -> int:
         return 32 * self.warps
+
+    @property
+    def blocks(self) -> int:
+        """Blocks of one ring."""
+        return self.cluster * self.grid
 
     @property
     def fits(self) -> bool:
@@ -131,30 +156,38 @@ def ring_plan(L: int) -> RingPlan:
     """The layout of a ring of ``L`` PEs, for any batch.
 
     One block up to :data:`MAX_RING_L` (as :func:`ring_warps` and
-    :func:`ring_smem_bytes` say); above it the least cluster of 2 to
-    :data:`RING_MAX_CLUSTER` blocks whose segments fit one block, of
-    :data:`RING_CLUSTER_WARPS` warps each.  Above
-    :data:`MAX_CLUSTER_RING_L` the plan of :data:`RING_MAX_CLUSTER` blocks
-    does not fit (``fits`` is False): :func:`check_ring_fits` raises, and
-    the linter's ``vmem-budget`` rule fires on it.
+    :func:`ring_smem_bytes` say); above it the least number of blocks, of
+    :data:`RING_CLUSTER_WARPS` warps each, whose segments fit one block:
+    a cluster of 2 to :data:`RING_MAX_CLUSTER` blocks up to
+    :data:`MAX_CLUSTER_RING_L`, then ``ceil(L / MAX_RING_SEG)`` blocks of a
+    cooperative grid, with the cluster's static shared memory.  Above
+    :data:`MAX_GRID_RING_L` the plan of :data:`RING_MAX_GRID_BLOCKS`
+    blocks does not fit (``fits`` is False): :func:`check_ring_fits`
+    raises, and the linter's ``vmem-budget`` rule fires on it.
     """
     if L <= MAX_RING_L:
         return RingPlan(1, L, ring_warps(L), ring_smem_bytes(L), SMEM_STATIC)
-    c = 2
-    while c < RING_MAX_CLUSTER and _ring_seg(L, c) > MAX_RING_SEG:
-        c += 1
-    seg = _ring_seg(L, c)
-    return RingPlan(c, seg, RING_CLUSTER_WARPS, 4 * seg, SMEM_STATIC_CLUSTER)
+    n = 2
+    while n < RING_MAX_GRID_BLOCKS and _ring_seg(L, n) > MAX_RING_SEG:
+        n += 1
+    seg = _ring_seg(L, n)
+    if n <= RING_MAX_CLUSTER:
+        return RingPlan(n, seg, RING_CLUSTER_WARPS, 4 * seg,
+                        SMEM_STATIC_CLUSTER)
+    return RingPlan(1, seg, RING_CLUSTER_WARPS, 4 * seg, SMEM_STATIC_CLUSTER,
+                    grid=n)
 
 
 def check_ring_fits(L: int) -> None:
-    """Raise if a ring of ``L`` PEs does not fit a cluster of
-    :data:`RING_MAX_CLUSTER` blocks' shared memory."""
+    """Raise if a ring of ``L`` PEs does not fit the shared memory of
+    :data:`RING_MAX_GRID_BLOCKS` blocks."""
     if not ring_plan(L).fits:
         raise ValueError(
             f"ring of L={L} PEs needs {ring_smem_bytes(L)} bytes of shared "
             f"memory; one block holds rings up to L={MAX_RING_L}, a cluster "
-            f"of {RING_MAX_CLUSTER} blocks up to L={MAX_CLUSTER_RING_L}")
+            f"of {RING_MAX_CLUSTER} blocks up to L={MAX_CLUSTER_RING_L}, "
+            f"{RING_MAX_GRID_BLOCKS} blocks of a cooperative grid up to "
+            f"L={MAX_GRID_RING_L}")
 
 
 #: Most threads of a B2 block (``kMaxThreads`` in ``csrc/pdes_step.cu``):

@@ -118,7 +118,7 @@ def test_ptxas_log_parser(tmp_path, monkeypatch):
     assert row["ptxas"] == info and row["over"] == []
     row = vmem.budget_of("pdes_multistep_counter",
                          pdes_multistep.launch_plan(
-                             4, tiling.MAX_CLUSTER_RING_L + 1))
+                             4, tiling.MAX_GRID_RING_L + 1))
     assert len(row["over"]) == 1 and "shared memory" in row["over"][0]
     monkeypatch.setattr(_build, "ptxas_info",
                         lambda *a: dict(info, registers=300))
@@ -140,10 +140,12 @@ class _FakeLib:
         return launch
 
 
-@pytest.mark.parametrize("L", [16, 300, 10_000, 131_072])
+@pytest.mark.parametrize("L", [16, 300, 10_000, 131_072, 1 << 20])
 def test_launch_plan_is_what_the_wrappers_launch(L, monkeypatch):
     """Each wrapper's raw launcher passes its plan's grid and block; the
-    sources' launch constants are the plan's."""
+    sources' launch constants are the plan's.  A ring over a cooperative
+    grid goes to the grid launchers with the plan's blocks a ring and a
+    workspace of the wrapper's size."""
     fake = _FakeLib()
     monkeypatch.setattr(torch.cuda, "device",
                         lambda dev: contextlib.nullcontext())
@@ -158,17 +160,30 @@ def test_launch_plan_is_what_the_wrappers_launch(L, monkeypatch):
     plan = pdes_multistep.launch_plan(B, L)
     pdes_multistep.counter_launch(tau, tau.clone(), stats, None, None,
                                   (0, 0, 0, 0), **kw)
-    pdes_multistep.bits_launch(tau, torch.zeros((K, B, L, 2), dtype=torch.int32),
+    pdes_multistep.bits_launch(tau, torch.empty((K, B, L, 2),
+                                                dtype=torch.int32),
                                tau.clone(), stats, **kw)
-    (_, a1), (_, a3) = fake.calls
-    shape = (B, L, K, plan["threads"] // 32, plan["cluster"], plan["seg"])
+    (n1, a1), (n3, a3) = fake.calls
+    grid = plan["ring_grid"] > 1
+    assert (n1, n3) == (("pdes_multistep_counter_grid_launch",
+                         "pdes_multistep_grid_launch") if grid else
+                        ("pdes_multistep_counter_launch",
+                         "pdes_multistep_launch"))
+    blocks = plan["cluster"] * plan["ring_grid"]
+    shape = (B, L, K, plan["threads"] // 32, blocks, plan["seg"])
     assert a1[5:11] == shape and a3[4:10] == shape
-    assert plan["grid"] == (plan["cluster"] * B,)
+    assert plan["grid"] == (blocks * B,)
+    assert plan["cluster"] == 1 or plan["ring_grid"] == 1
+    if grid:                # the workspace the launcher's layout needs
+        need = B * (128 + 2 * plan["ring_grid"] * 8 * 4)
+        assert a1[-2] == a3[-2] == need
     assert plan["dynamic_smem"] == 4 * plan["seg"] and plan["static_smem"] \
         <= SMEM_PER_BLOCK
     ring = (CSRC / "pdes_ring.cuh").read_text()
     assert "const int smem = seg * (int)sizeof(float);" in ring
     assert "cluster * B, cluster, 32 * warps, smem," in ring
+    assert "attr.id = cudaLaunchAttributeCooperative;" in ring
+    assert "cfg.gridDim = dim3((unsigned)(rings * grid), 1, 1);" in ring
     assert "kernel<<<B, 32 * warps, smem" in \
         (CSRC / "pdes_multistep_counter.cu").read_text()
 
@@ -209,7 +224,7 @@ def test_vmem_budget_holds_each_block_of_a_cluster(case):
     cluster split (B2's blocks hold a segment each already)."""
     from repro_torch.analysis.probes import KernelCall, Probe
     from repro_torch.analysis.rules import vmem
-    L = {"ring": tiling.MAX_CLUSTER_RING_L + 1, "step": 65_536,
+    L = {"ring": tiling.MAX_GRID_RING_L + 1, "step": 65_536,
          "cluster": 65_536}[case]
     kernel = "pdes_multistep_counter" if case == "ring" else "pdes_step"
     plan = (pdes_multistep.launch_plan(4, L) if case == "ring"
@@ -233,15 +248,19 @@ def test_vmem_budget_holds_each_block_of_a_cluster(case):
     assert ("need a thread-block cluster" in f.message) == (case == "ring")
 
 
-@pytest.mark.parametrize("L", [131_072, tiling.MAX_CLUSTER_RING_L + 1])
-def test_vmem_budget_of_a_ring_split_over_a_cluster(L):
-    """A ring over a cluster is held block by block: quiet at 131,072 PEs (3
-    blocks, a non-portable cluster allowed up to 16), and past the cap the
-    finding names both limits."""
+@pytest.mark.parametrize("L", [131_072, 1 << 20,
+                               tiling.MAX_GRID_RING_L + 1])
+def test_vmem_budget_of_a_ring_split_over_a_cluster(L, monkeypatch):
+    """A ring over a cluster or a cooperative grid is held block by block:
+    quiet at 131,072 PEs (3 blocks, a non-portable cluster allowed up to
+    16) and at the paper's 2^20 (19 blocks of a grid), and past the cap the
+    finding names all three limits."""
     from repro_torch.analysis.probes import KernelCall, Probe
     from repro_torch.analysis.rules import vmem
     plan = pdes_multistep.launch_plan(4, L)
-    assert plan["cluster"] == (3 if L == 131_072 else tiling.RING_MAX_CLUSTER)
+    assert (plan["cluster"], plan["ring_grid"]) == {
+        131_072: (3, 1), 1 << 20: (1, 19)}.get(
+            L, (1, tiling.RING_MAX_GRID_BLOCKS))
     probe = Probe("p", backend="fixture", graph=None, tau_in=0, tau_out=0,
                   ring_widths=frozenset(), L_ring=L, delta=1.0,
                   delta_input=None,
@@ -253,9 +272,20 @@ def test_vmem_budget_of_a_ring_split_over_a_cluster(L):
         assert vmem.budget_of("pdes_multistep",
                               dict(plan, cluster=17))["over"] == [
             "cluster of 17 blocks > the ring kernels' 16"]
+    elif L == 1 << 20:       # read against the grid instantiations' ptxas
+        assert findings == []
+        asked = []
+        monkeypatch.setattr(_build, "ptxas_info",
+                            lambda lib, fn: asked.append((lib, fn)))
+        for k in vmem.RING_KERNELS:
+            vmem.budget_of(k, plan)
+        assert asked == [("pdes_multistep_counter",
+                          "multistep_counter_grid_kernel"),
+                         ("pdes_multistep", "multistep_grid_kernel")]
     else:
         assert [f.op for f in findings] == list(vmem.RING_KERNELS)
         for f in findings:
             assert "shared memory" in f.message
             assert f"L={tiling.MAX_RING_L}" in f.message
             assert f"L={tiling.MAX_CLUSTER_RING_L}" in f.message
+            assert f"L={tiling.MAX_GRID_RING_L}" in f.message

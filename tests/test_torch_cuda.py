@@ -48,7 +48,8 @@ def _inputs(dev, B, L, seed=0):
     (10, True, False, True), (3, False, True, True), (2, False, False, False)])
 @pytest.mark.parametrize("B,L", [(16, 1000), (3, 37),
                                  (2, tiling.MAX_RING_L), (2, 131_072),
-                                 (1, tiling.MAX_CLUSTER_RING_L)])
+                                 (1, tiling.MAX_CLUSTER_RING_L),
+                                 (8, 1 << 20), (1, tiling.MAX_GRID_RING_L)])
 def test_kernel_matches_plain_version(dev, n_v, rd_mode, border_both, cols,
                                       B, L):
     tau, dcol, tcol = _inputs(dev, B, L)
@@ -171,7 +172,7 @@ def test_kernel_refuses_eta_override_and_long_rings(dev):
             pm.pdes_multistep_counter(tau, ctr, k_steps=1, n_v=1, delta=1.0)
     with pytest.raises(ValueError, match="shared memory"):
         pm.pdes_multistep_counter(
-            torch.zeros(1, tiling.MAX_CLUSTER_RING_L + 1, device=dev), ctr,
+            torch.zeros(1, tiling.MAX_GRID_RING_L + 1, device=dev), ctr,
             k_steps=1, n_v=1, delta=1.0)
 
 
@@ -362,7 +363,7 @@ def test_event_bits_on_the_gpu_equal_the_cpu(dev):
     (3, False, True, 2.0)])
 @pytest.mark.parametrize("B,L,K", [(16, 1000, 6), (3, 37, 5),
                                    (2, tiling.MAX_RING_L, 3),
-                                   (2, 131_072, 3)])
+                                   (2, 131_072, 3), (2, 1 << 20, 3)])
 def test_bits_kernel_matches_plain_version(dev, n_v, rd_mode, border_both,
                                            delta, B, L, K):
     tau, _, _ = _inputs(dev, B, L)
@@ -387,7 +388,7 @@ def test_bits_kernel_refuses_eta_override_and_long_rings(dev):
         with pytest.raises(RuntimeError, match="eta_override"):
             ops.simulate(horizon.init_state(PDESConfig(L=8), 2, dev),
                          prng.key(0, dev), PDESConfig(L=8), 4)
-    L = tiling.MAX_CLUSTER_RING_L + 1
+    L = tiling.MAX_GRID_RING_L + 1
     with pytest.raises(ValueError, match="shared memory"):
         pm.pdes_multistep(torch.zeros(1, L, device=dev),
                           torch.zeros(1, 1, L, 2, dtype=torch.int32,
@@ -397,7 +398,7 @@ def test_bits_kernel_refuses_eta_override_and_long_rings(dev):
 def test_bits_kernel_launch_failure_raises(dev, monkeypatch):
     """A refused launch raises; nothing falls back to the plain version."""
     monkeypatch.setattr(pm, "check_ring_fits", lambda L: None)
-    L = tiling.MAX_CLUSTER_RING_L + 100_000   # a segment past a block's
+    L = tiling.MAX_GRID_RING_L + 1_000_000   # a segment past a block's
     assert tiling.ring_plan(L).dynamic_smem > tiling.SMEM_PER_BLOCK
     before = pm.bits_launches
     with pytest.raises(RuntimeError, match="CUDA error"):
@@ -405,6 +406,85 @@ def test_bits_kernel_launch_failure_raises(dev, monkeypatch):
                           torch.zeros(1, 1, L, 2, dtype=torch.int32,
                                       device=dev), n_v=1, delta=1.0)
     assert pm.bits_launches == before
+
+
+def test_grid_ring_result_does_not_depend_on_its_wave(dev):
+    """A ring over a cooperative grid gives the same tau and moments, bit
+    for bit, in the second wave of a batch of 8 (6 rings of 19 blocks at
+    once on 132 SMs), alone in a wave of 6 and as a batch of 1."""
+    L, K = 1 << 20, 5
+    assert pm.resident_rings(L) == pm.resident_rings(L, bits=True) >= 1
+    tau, dcol, tcol = _inputs(dev, 8, L, seed=20)
+    ctr = torch.tensor([[3, 2**32 - 2, 0, 0]])
+    kw1 = dict(k_steps=K, n_v=100, delta=math.inf)
+    bits = threefry.threefry_bits(prng.key(20, dev), 0, K, (8, L))
+    kw3 = dict(n_v=100, delta=100.0)
+    full1 = pm.pdes_multistep_counter(tau, ctr, dcol, tcol, **kw1)
+    full3 = pm.pdes_multistep(tau, bits, **kw3)
+    for rows in (slice(0, 6), slice(2, 8), slice(7, 8), slice(0, 1)):
+        got1 = pm.pdes_multistep_counter(tau[rows], ctr, dcol[rows],
+                                         tcol[rows], **kw1)
+        got3 = pm.pdes_multistep(tau[rows], bits[:, rows].contiguous(),
+                                 **kw3)
+        for r in range(rows.stop - rows.start):
+            for got, full in ((got1, full1), (got3, full3)):
+                _assert_same_ring(
+                    (got[0][r:r + 1],
+                     {k: v[:, r:r + 1] for k, v in got[1].items()}),
+                    full, rows.start + r)
+
+
+def test_grid_launch_the_card_cannot_place_raises(dev, monkeypatch):
+    """A ring of more blocks than the card holds at once: the cooperative
+    launch is refused with a CUDA error, raised, and counted as no launch;
+    nothing hangs and nothing falls back."""
+    seg, g = 50_016, 140          # 196 KB a block: one an SM
+    L = (g - 1) * seg + 40_000
+    plan = tiling.RingPlan(1, seg, tiling.RING_CLUSTER_WARPS, 4 * seg,
+                           tiling.SMEM_STATIC_CLUSTER, grid=g)
+    monkeypatch.setattr(pm, "ring_plan", lambda L: plan)
+    monkeypatch.setattr(pm, "check_ring_fits", lambda L: None)
+    assert pm.resident_rings(L) == 0
+    tau = torch.zeros(1, L, device=dev)
+    b1, b3 = pm.launches, pm.bits_launches
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        pm.pdes_multistep_counter(tau, torch.zeros(1, 4, dtype=torch.int64),
+                                  k_steps=1, n_v=1, delta=1.0)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        pm.pdes_multistep(tau, torch.zeros(1, 1, L, 2, dtype=torch.int32,
+                                           device=dev), n_v=1, delta=1.0)
+    torch.cuda.synchronize()
+    assert (pm.launches, pm.bits_launches) == (b1, b3)
+
+
+def test_engine_service_and_simulate_take_the_production_ring(dev):
+    """The engine's fused path, the sweep service and simulate run a ring
+    of the paper's production length through B1 and B3 on the card."""
+    from repro_torch.experiments.sweep import WindowSweep, run_window_sweep
+    from repro_torch.service.api import SweepService
+    L = 1 << 20
+    spec = WindowSweep(Ls=(L,), n_vs=(100,), deltas=(100.0, math.inf),
+                       replicas=2, n_steps=16, burn_in=16,
+                       backend="pallas_multistep", k_fuse=16, seed=0)
+    svc = SweepService(device=dev)
+    svc.submit(spec, requester="a")
+    before = pm.launches
+    (resp,) = svc.drain()
+    assert resp.error is None and pm.launches > before
+    assert resp.result.as_dict() == run_window_sweep(spec,
+                                                     device=dev).as_dict()
+    cfg = PDESConfig(L=L, n_v=100, delta=100.0)
+    st0 = horizon.init_state(cfg, 2, dev)
+    key = prng.key(1, dev)
+    b3 = pm.bits_launches
+    sk, ok = ops.simulate(st0, key, cfg, 21, k_fuse=16)
+    assert pm.bits_launches == b3 + 2
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(ops, "pdes_multistep", ref.pdes_multistep_ref)
+        sp, op = ops.simulate(st0, key, cfg, 21, k_fuse=16)
+    for f in ("tau", "offset", "offset_comp"):
+        assert torch.equal(getattr(sk, f), getattr(sp, f)), f
+    assert torch.equal(ok["u"], op["u"]) and torch.equal(ok["gvt"], op["gvt"])
 
 
 def test_simulate_kernels_equal_plain_version(dev, monkeypatch):

@@ -100,6 +100,28 @@ def test_bridge_carries_a_jax_state_into_the_port():
                                 device="cpu")
 
 
+def test_engine_run_matches_repro_on_the_production_ring():
+    """The paper's production ring (L = 2^20, n_v = 100, Δ = 100), whose
+    B1 launch on the card is split over a cooperative grid: one trial, 6
+    steps (a chunk of 4 and a remainder of 2), the port's plain version
+    against ``repro``'s ``pallas_multistep`` (interpret mode) at level 2."""
+    Lp, deltas, trials = 1 << 20, np.array([100.0], np.float32), \
+        np.array([3], np.int32)
+    jeng = JEngine(JConfig(L=Lp, n_v=100, delta=100.0),
+                   backend="pallas_multistep", k_fuse=4)
+    js, jstats = jeng.run(jeng.init(1), 7, 6, deltas=jnp.asarray(deltas),
+                          trial_base=jnp.asarray(trials))
+    teng = PDESEngine(PDESConfig(L=Lp, n_v=100, delta=100.0),
+                      backend="pallas_multistep", k_fuse=4, device="cpu")
+    with th.eta_override(jax_eta_table()):
+        ts, tstats = teng.run(teng.init(1), 7, 6,
+                              deltas=torch.as_tensor(deltas),
+                              trial_base=torch.as_tensor(trials))
+    _assert_state(ts, js)
+    assert_stats(tstats, jstats)
+    assert tstats.gvt.shape == (6, 1)
+
+
 def test_backends_agree_within_the_port():
     """reference == pallas_multistep bit for bit, on the port's own decode."""
     cfg = PDESConfig(L=64, n_v=4, delta=10.0)

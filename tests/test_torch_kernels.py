@@ -160,8 +160,11 @@ def test_tiling_rules():
     tiling.check_ring_fits(10_000)
     tiling.check_ring_fits(tiling.MAX_RING_L + 1)
     tiling.check_ring_fits(tiling.MAX_CLUSTER_RING_L)
+    tiling.check_ring_fits(tiling.MAX_CLUSTER_RING_L + 1)
+    tiling.check_ring_fits(1 << 20)
+    tiling.check_ring_fits(tiling.MAX_GRID_RING_L)
     with pytest.raises(ValueError, match="shared memory"):
-        tiling.check_ring_fits(tiling.MAX_CLUSTER_RING_L + 1)
+        tiling.check_ring_fits(tiling.MAX_GRID_RING_L + 1)
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):

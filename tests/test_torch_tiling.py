@@ -66,21 +66,25 @@ def test_ring_warps_rejects_an_empty_ring():
 #: Ring lengths of the ring plan's rules: short rings, the main path, the
 #: longest one-block ring and one past it, the long-ring shapes of
 #: chip_smoke.py phase 17, the JAX package's one-row VMEM budget edge, the
-#: cap.
+#: longest ring of a cluster and one past it, the paper's production ring
+#: (phase 18), 2^22, the cap.
 RING_LS = (1, 31, 32, 10_000, tiling.MAX_RING_L, tiling.MAX_RING_L + 1,
-           65_536, 131_072, 524_285, 524_288, tiling.MAX_CLUSTER_RING_L)
+           65_536, 131_072, 524_285, 524_288, tiling.MAX_CLUSTER_RING_L,
+           tiling.MAX_CLUSTER_RING_L + 1, 1 << 20, 1 << 22,
+           tiling.MAX_GRID_RING_L)
 
 
 @pytest.mark.parametrize("L", RING_LS)
 def test_ring_plan(L):
     """B1's and B3's layout, from L alone: one block as before up to
-    MAX_RING_L; above it the least cluster whose segments, whole rows but
-    the last, tile the ring and each fit one block with a row a warp."""
+    MAX_RING_L; above it the least number of blocks whose segments, whole
+    rows but the last, tile the ring and each fit one block with a row a
+    warp: a cluster of up to 16, then a cooperative grid."""
     p = tiling.ring_plan(L)
     lp = pdes_multistep.launch_plan(7, L)
-    assert lp == {"grid": (7 * p.cluster,), "cluster": p.cluster,
-                  "threads": 32 * p.warps, "seg": p.seg,
-                  "dynamic_smem": p.dynamic_smem,
+    assert lp == {"grid": (7 * p.cluster * p.grid,), "cluster": p.cluster,
+                  "ring_grid": p.grid, "threads": 32 * p.warps,
+                  "seg": p.seg, "dynamic_smem": p.dynamic_smem,
                   "static_smem": p.static_smem}
     assert p.fits and p.dynamic_smem == 4 * p.seg
     assert p.dynamic_smem + p.static_smem <= tiling.SMEM_PER_BLOCK
@@ -89,34 +93,66 @@ def test_ring_plan(L):
                                     tiling.ring_smem_bytes(L),
                                     tiling.SMEM_STATIC)
         return
-    assert 2 <= p.cluster <= tiling.RING_MAX_CLUSTER
+    if L <= tiling.MAX_CLUSTER_RING_L:
+        assert 2 <= p.cluster <= tiling.RING_MAX_CLUSTER and p.grid == 1
+    else:
+        assert p.cluster == 1
+        assert tiling.RING_MAX_CLUSTER < p.grid <= \
+            tiling.RING_MAX_GRID_BLOCKS
+    assert p.blocks == p.cluster * p.grid
     assert p.warps == tiling.RING_CLUSTER_WARPS
     assert p.static_smem == tiling.SMEM_STATIC_CLUSTER
-    starts = [j * p.seg for j in range(p.cluster)]
+    starts = [j * p.seg for j in range(p.blocks)]
     ends = [min(s + p.seg, L) for s in starts]
     assert starts[0] == 0 and ends[-1] == L
     assert all(e == s for e, s in zip(ends, starts[1:]))
     lens = [e - s for s, e in zip(starts, ends)]
     assert all(n % 32 == 0 for n in lens[:-1]) and 0 < lens[-1] <= p.seg
     assert -(-lens[-1] // 32) >= p.warps          # a row for every warp
-    # the least cluster that fits
-    fewer = p.cluster - 1
+    # the least number of blocks that fits
+    fewer = p.blocks - 1
     assert (L > tiling.MAX_RING_L if fewer == 1 else
             4 * 32 * -(-L // (32 * fewer)) + p.static_smem
             > tiling.SMEM_PER_BLOCK)
 
 
+@pytest.mark.parametrize("L", [tiling.MAX_CLUSTER_RING_L + 1, 1 << 20,
+                               1 << 22, tiling.MAX_GRID_RING_L])
+def test_ring_plan_over_the_grid(L):
+    """The grid tier: ceil(L / MAX_RING_SEG) blocks, a function of L alone
+    (the same for every batch), segments of whole rows and a non-empty
+    last one; the paper's production ring takes 19 blocks."""
+    p = tiling.ring_plan(L)
+    assert p.grid == -(-L // tiling.MAX_RING_SEG) and p.cluster == 1
+    assert p.seg % 32 == 0 and p.seg <= tiling.MAX_RING_SEG
+    assert 0 < L - (p.grid - 1) * p.seg <= p.seg
+    for B in (1, 6, 8, 448):
+        lp = pdes_multistep.launch_plan(B, L)
+        assert lp["ring_grid"] == p.grid and lp["seg"] == p.seg
+        assert lp["grid"] == (B * p.grid,)
+    if L == 1 << 20:
+        assert (p.grid, p.seg) == (19, 55_200)
+    if L == tiling.MAX_GRID_RING_L:
+        assert (p.grid, p.seg) == (tiling.RING_MAX_GRID_BLOCKS,
+                                   tiling.MAX_RING_SEG)
+
+
 def test_ring_plan_raises_above_the_cap():
-    cap = tiling.MAX_CLUSTER_RING_L
-    assert cap >= 524_288
-    assert cap == tiling.RING_MAX_CLUSTER * tiling.MAX_RING_SEG
+    cap = tiling.MAX_GRID_RING_L
+    assert cap >= 1 << 22
+    assert tiling.MAX_CLUSTER_RING_L == \
+        tiling.RING_MAX_CLUSTER * tiling.MAX_RING_SEG
+    assert cap == tiling.RING_MAX_GRID_BLOCKS * tiling.MAX_RING_SEG
     tiling.check_ring_fits(cap)
+    tiling.check_ring_fits(tiling.MAX_CLUSTER_RING_L + 1)
     assert not tiling.ring_plan(cap + 1).fits
     with pytest.raises(ValueError, match=f"L={tiling.MAX_RING_L}, a cluster "
-                       f"of 16 blocks up to L={cap}"):
+                       f"of 16 blocks up to L={tiling.MAX_CLUSTER_RING_L}, "
+                       f"132 blocks of a cooperative grid up to L={cap}"):
         tiling.check_ring_fits(cap + 1)
     # the cluster block's static shared memory holds two parity slots of 8
-    # per-warp words for its most warps, and the 2 KB log table
+    # per-warp words for its most warps, and the 2 KB log table; the grid
+    # block's is the same
     src = (_build.CSRC / "pdes_ring.cuh").read_text()
     assert (f"constexpr int kRingClusterWarps = "
             f"{tiling.RING_CLUSTER_WARPS};") in src
@@ -124,6 +160,12 @@ def test_ring_plan_raises_above_the_cap():
         in src
     assert 2 * 8 * 4 * tiling.RING_CLUSTER_WARPS + 2048 <= \
         tiling.SMEM_STATIC_CLUSTER
+    # the workspace the wrapper makes is the launcher's: a 128-byte counter
+    # line a ring slot and two parities of a 32-byte part a block
+    assert "(size_t)rings * 128 + (size_t)rings * 2 * g * sizeof(GridPart)" \
+        in src
+    assert pdes_multistep.GRID_SLOT_BYTES == 128
+    assert pdes_multistep.GRID_PART_BYTES == 8 * 4
 
 
 #: Row lengths B2's plan is checked at: every Lc to past the longest row
