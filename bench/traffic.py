@@ -1,0 +1,124 @@
+"""The benchmark's one traffic generator: rounds of sweep requests as data.
+
+Three data files define what a cell sends, and this module reads them:
+
+* the configuration, ``bench/configs/<config>.json``: the deployment (ring
+  size ``L``, volume load ``n_v``, fuse depth ``k_fuse``, the physics
+  flags, ``steady_frac``) and its Δ menu, ``deltas``;
+* the mix, ``bench/mixes/<traffic>.json``: the engine path (``backend``,
+  ``window``) and one round's requests, one entry a requester, of four
+  kinds::
+
+      {"requester": "alice", "deltas": "a"}              a named Δ set
+      {"requester": "erin", "draw": {"from": "menu", "count": 2}}
+                                                          Δs drawn at random
+      {"requester": "carol", "same_as": "alice"}         a duplicate
+      {"requester": "dave", "extends": "alice", "steps_factor": 2}
+                        the previous round's request, measured longer
+
+* the cell, ``bench/cells/<workload>.json``: the sizes (``replicas`` per
+  Δ, ``burn_in``, ``n_steps``) and the Δ sets the mix names, each drawn
+  from the configuration's menu.
+
+Every round has a stream seed of its own and draws its Δs from a generator
+seeded by (run seed, round), so one seed always gives the same rounds.  A
+request is a plain dict of ``WindowSweep`` fields plus ``requester`` (and
+``extends``, the requester of the previous round it extends).
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+
+#: ``WindowSweep`` fields of a request dict, in the spec's order.
+SPEC_FIELDS = ("Ls", "n_vs", "deltas", "replicas", "n_steps", "burn_in",
+               "backend", "window", "k_fuse", "rd_mode", "border_both",
+               "steady_frac", "seed")
+
+
+def as_delta(x) -> float:
+    """A Δ as the data files spell it: a number, or ``"inf"``."""
+    return math.inf if x == "inf" else float(x)
+
+
+def _rng(seed: int, r: int, warm: bool) -> np.random.Generator:
+    return np.random.default_rng([int(seed) % 2**64, r, int(warm)])
+
+
+def _delta_set(name: str, cell: dict, menu: list) -> list:
+    out = [as_delta(x) for x in cell["deltas"][name]]
+    missing = [d for d in out if d not in menu]
+    if missing:
+        raise ValueError(f"Δ set {name!r} has {missing}, not in the "
+                         f"configuration's menu {menu}")
+    return out
+
+
+def rounds(config: dict, mix: dict, cell: dict, seed: int, *,
+           warm: bool = False):
+    """Yield round after round of request dicts, without end.
+
+    ``warm`` gives the set-up's rounds: another stream, and the cut depth
+    of one chunk (a burn-in of one chunk where the cell burns in at all),
+    at the cell's own rows and chunk.
+    """
+    menu = [as_delta(x) for x in config["deltas"]]
+    k = int(config["k_fuse"])
+    burn = int(cell["burn_in"])
+    steps = int(cell["n_steps"])
+    if warm:
+        burn, steps = (k if burn else 0), k
+    common = dict(Ls=[int(config["L"])], n_vs=[int(config["n_v"])],
+                  replicas=int(cell["replicas"]), burn_in=burn,
+                  backend=mix["backend"], window=mix["window"], k_fuse=k,
+                  rd_mode=bool(config["rd_mode"]),
+                  border_both=bool(config["border_both"]),
+                  steady_frac=float(config["steady_frac"]))
+    prev: dict = {}
+    r = 0
+    while True:
+        rng = _rng(seed, r, warm)
+        stream = int(rng.integers(0, 2**32))
+        cur: dict = {}
+        out = []
+        for entry in mix["requests"]:
+            who = entry["requester"]
+            if "deltas" in entry:
+                q = dict(common, deltas=_delta_set(entry["deltas"], cell,
+                                                   menu),
+                         n_steps=steps, seed=stream)
+            elif "draw" in entry:
+                pool = _delta_set(entry["draw"]["from"], cell, menu)
+                pick = rng.choice(len(pool), size=int(entry["draw"]["count"]),
+                                  replace=False)
+                q = dict(common, deltas=[pool[i] for i in sorted(pick)],
+                         n_steps=steps, seed=stream)
+            elif "same_as" in entry:
+                q = dict(cur[entry["same_as"]])
+            elif "extends" in entry:
+                base = prev.get(entry["extends"])
+                if base is None:          # the first round has none
+                    continue
+                q = dict(base, n_steps=base["n_steps"]
+                         * int(entry["steps_factor"]),
+                         extends=entry["extends"])
+            else:
+                raise ValueError(f"mix entry {entry} has no known kind")
+            q = {f: q[f] for f in SPEC_FIELDS} | (
+                {"extends": q["extends"]} if "extends" in q else {})
+            cur[who] = q
+            out.append(dict(q, requester=who))
+        yield out
+        prev = cur
+        r += 1
+
+
+def rows(q: dict) -> int:
+    """Rows a request asks for: its Δs times its replicas."""
+    return len(q["deltas"]) * q["replicas"] * len(q["Ls"]) * len(q["n_vs"])
+
+
+def pe_steps(q: dict) -> int:
+    """PE-steps a request asks for, burn-in included."""
+    return rows(q) * (q["burn_in"] + q["n_steps"]) * q["Ls"][0]
