@@ -34,6 +34,12 @@ reports ``wa`` as NaN: the absolute width needs the ring mean before the
 deviation reduction, a second all-reduce per step that the
 one-collective-per-chunk layout avoids.  ``gvt`` and ``mean_tau`` come
 back absolute, on the same rebase schedule as the other backends.
+
+Spans (``repro_torch.obs``, inert unless a tracer or the torch profiler
+records): ``engine.run`` around each run, ``engine.chunk`` around each
+chunk of the single-device loop, and ``engine.advance`` around the
+backend's advance within it (for the fused path, the kernel wrapper's
+host work up to B1's launch).  None synchronizes the device.
 """
 from __future__ import annotations
 
@@ -43,6 +49,7 @@ import math
 import torch
 
 from ..device import resolve_device
+from ..obs.trace import span as _span
 from . import horizon
 from .events import counter_bits_block
 from .horizon import PDESConfig, SimState, StepStats
@@ -155,20 +162,23 @@ def _run_single(state: SimState, seed: int, cfg: PDESConfig,
     tau, off, comp, step = state
     pieces, acc = [], None
     for k in [K] * n_chunks + ([rem] if rem else []):
-        tau, moments = advance(tau, step, seed, k, delta_col, trial_base)
-        if mode != "burn":
-            st = horizon.stats_from_moments(moments, off[None, :], L)
-            if mode == "record":
-                pieces.append(st)
-            else:
-                sums = [x.sum(dim=0) for x in st]
-                acc = sums if acc is None else [a + x for a, x in
-                                                zip(acc, sums)]
-        # rebase once per chunk: identical schedule on every backend, so
-        # trajectories stay bitwise comparable
-        shift = torch.amin(tau, dim=-1)
-        tau = tau - shift[:, None]
-        off, comp = horizon._kahan_add(off, comp, shift)
+        with _span("engine.chunk", cat="engine"):
+            with _span("engine.advance", cat="engine"):
+                tau, moments = advance(tau, step, seed, k, delta_col,
+                                       trial_base)
+            if mode != "burn":
+                st = horizon.stats_from_moments(moments, off[None, :], L)
+                if mode == "record":
+                    pieces.append(st)
+                else:
+                    sums = [x.sum(dim=0) for x in st]
+                    acc = sums if acc is None else [a + x for a, x in
+                                                    zip(acc, sums)]
+            # rebase once per chunk: identical schedule on every backend,
+            # so trajectories stay bitwise comparable
+            shift = torch.amin(tau, dim=-1)
+            tau = tau - shift[:, None]
+            off, comp = horizon._kahan_add(off, comp, shift)
         step += k
     out_state = SimState(tau, off, comp, step)
     if mode == "burn":
@@ -285,11 +295,17 @@ class PDESEngine:
             tb.to(device=self.device, dtype=torch.int64)
         state = SimState(state.tau, state.offset, state.offset_comp,
                          int(state.step))
-        if self.ecfg.backend == "sharded":
-            return self._run_sharded(state, seed, n_steps, mode, deltas,
-                                     trial_base)
-        return _run_single(state, seed, self.cfg, self.ecfg, n_steps, mode,
-                           deltas, trial_base)
+        sharded = self.ecfg.backend == "sharded"
+        K = self.dist.k_chunk if sharded \
+            else max(1, min(self.ecfg.k_fuse, n_steps))
+        with _span("engine.run", cat="engine", args={
+                "mode": mode, "B": B, "L": state.tau.shape[1],
+                "n_steps": n_steps, "K": K}):
+            if sharded:
+                return self._run_sharded(state, seed, n_steps, mode, deltas,
+                                         trial_base)
+            return _run_single(state, seed, self.cfg, self.ecfg, n_steps,
+                               mode, deltas, trial_base)
 
     def _run_sharded(self, state, seed, n_steps, mode, deltas, trial_base):
         from . import distributed as D

@@ -21,21 +21,22 @@ from __future__ import annotations
 
 from .metrics import (Counter, Gauge, Histogram, MetricsRegistry,
                       append_jsonl, to_prometheus, write_snapshot)
-from .trace import Span, TraceRecorder, current_tracer, set_tracer, span
+from .trace import (Span, TraceRecorder, current_tracer, set_tracer, span,
+                    span_on)
 
 __all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry",
            "append_jsonl", "to_prometheus", "write_snapshot",
            "Span", "TraceRecorder", "current_tracer", "set_tracer", "span",
-           "Telemetry"]
+           "span_on", "Telemetry"]
 
 
 class Telemetry:
     """A metrics registry plus an optional trace recorder, as one handle.
 
     ``Telemetry()`` gives live metrics only; pass ``tracer=`` to also
-    record spans.  ``spans()`` proxies to the tracer when present and is
-    a no-op context manager otherwise, so instrumented code never
-    branches on tracer presence.
+    record spans.  ``spans()`` proxies to the tracer when present and
+    otherwise annotates a recording torch profiler or does nothing, so
+    instrumented code never branches on tracer presence.
     """
 
     def __init__(self, registry: MetricsRegistry | None = None,
@@ -46,8 +47,6 @@ class Telemetry:
 
     def spans(self, name: str, cat: str = "repro",
               args: dict | None = None):
-        """Span on this bundle's tracer; inert if no tracer attached."""
-        from .trace import _NULL
-        if self.tracer is None:
-            return _NULL
-        return self.tracer.span(name, cat=cat, args=args)
+        """Span on this bundle's tracer (and a recording profiler); yields
+        None if no tracer is attached."""
+        return span_on(self.tracer, name, cat=cat, args=args)

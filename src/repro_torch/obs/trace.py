@@ -18,10 +18,21 @@ it asks for the process-ambient tracer::
         state = eng.burn_in(state, n_burn)
 
 When no tracer is installed (:func:`set_tracer` never called, or called
-with ``None``) the :func:`span` helper is a no-op costing one dict lookup,
-so the hot path stays clean for ordinary library users.  A harness that
+with ``None``) and no torch profiler records, the :func:`span` helper is a
+no-op costing one global lookup and one check of the profiler's state, so
+the hot path stays clean for ordinary library users.  A harness that
 wants a trace installs a recorder around its run and
 :meth:`TraceRecorder.save`\\ s it at exit.
+
+Every span has a second listener: while a ``torch.profiler`` records on
+the calling thread, the span also enters
+``torch.profiler.record_function(<name>)``, so it shows in the exported
+trace as a ``user_annotation`` timed on the profiler's clock, beside the
+host operations and the device work it launched.  The module imports no
+torch: it looks the package up in ``sys.modules`` when a span opens (a
+process that has not imported torch runs no profiler).  A span yields its
+:class:`Span` only when a :class:`TraceRecorder` records it; a span that
+only the profiler sees yields None, like the no-op.
 
 Spans are strictly nested per thread (enter/exit discipline of ``with``).
 Timing spans around asynchronously launched GPU work should only
@@ -33,10 +44,12 @@ from __future__ import annotations
 
 import json
 import os
+import sys
 import threading
 import time
 
-__all__ = ["TraceRecorder", "Span", "set_tracer", "current_tracer", "span"]
+__all__ = ["TraceRecorder", "Span", "set_tracer", "current_tracer", "span",
+           "span_on"]
 
 
 class Span:
@@ -140,19 +153,52 @@ class TraceRecorder:
         os.replace(tmp, path)
 
 
-class _SpanCtx:
-    __slots__ = ("_rec", "_span")
+_profiler_enabled = None        # torch's per-thread check, once imported
 
-    def __init__(self, rec: TraceRecorder, s: Span):
+
+def _profiling() -> bool:
+    """Whether a torch profiler records on the calling thread."""
+    global _profiler_enabled
+    enabled = _profiler_enabled
+    if enabled is None:
+        torch = sys.modules.get("torch")
+        if torch is None:
+            return False
+        enabled = _profiler_enabled = torch._C._autograd._profiler_enabled
+    return enabled()
+
+
+def _annotation(name: str):
+    """An entered ``torch.profiler.record_function(name)``."""
+    rf = sys.modules["torch"].profiler.record_function(name)
+    rf.__enter__()
+    return rf
+
+
+class _SpanCtx:
+    """A span on ``rec`` (None: on the profiler alone, yielding None), and
+    an annotation while a profiler records."""
+
+    __slots__ = ("_rec", "_span", "_rf")
+
+    def __init__(self, rec: TraceRecorder | None, s: Span):
         self._rec = rec
         self._span = s
+        self._rf = None
 
-    def __enter__(self) -> Span:
-        self._rec._open(self._span)
-        return self._span
+    def __enter__(self) -> Span | None:
+        if self._rec is not None:
+            self._rec._open(self._span)
+        if _profiling():
+            self._rf = _annotation(self._span.name)
+        return None if self._rec is None else self._span
 
     def __exit__(self, exc_type, exc, tb) -> bool:
-        self._rec._close(self._span, exc)
+        if self._rf is not None:
+            self._rf.__exit__(exc_type, exc, tb)
+            self._rf = None
+        if self._rec is not None:
+            self._rec._close(self._span, exc)
         return False
 
 
@@ -191,13 +237,24 @@ def current_tracer() -> TraceRecorder | None:
 
 
 def span(name: str, cat: str = "repro", args: dict | None = None):
-    """Span against the ambient tracer; no-op (yields None) if none set.
+    """Span against the ambient tracer and the torch profiler.
 
+    Yields the :class:`Span` when an ambient tracer records it, else None:
+    an annotation while a profiler records, a no-op otherwise.
     Instrumentation sites use the yielded value's truthiness to decide
     whether trace-only work (e.g. ``torch.cuda.synchronize`` for honest
     phase attribution) should run at all.
     """
     t = _ambient
-    if t is None:
-        return _NULL
-    return t.span(name, cat=cat, args=args)
+    if t is not None:
+        return t.span(name, cat=cat, args=args)
+    return _SpanCtx(None, Span(name, cat, {})) if _profiling() else _NULL
+
+
+def span_on(tracer: TraceRecorder | None, name: str, cat: str = "repro",
+            args: dict | None = None):
+    """:func:`span` against ``tracer`` in place of the ambient one (None:
+    the profiler alone)."""
+    if tracer is not None:
+        return tracer.span(name, cat=cat, args=args)
+    return _SpanCtx(None, Span(name, cat, {})) if _profiling() else _NULL

@@ -27,7 +27,12 @@ With a ``telemetry=`` bundle (:class:`repro_torch.obs.Telemetry`) the
 service mirrors its stats into live metrics under ``repro.service``'s
 names, observes the paper's observables (⟨u⟩, ⟨w²⟩, GVT rate, window
 occupancy) per pass, and, with a tracer, emits one ``pass`` span per
-:class:`~.scheduler.PackedPass`.  Strictly off-path: the instruments read
+:class:`~.scheduler.PackedPass`.  Spans below it name the service's and
+the state cache's host work (``service.schedule``, ``service.reduce``,
+``service.flush``, ``service.observe``; ``state_cache.lookup``,
+``.to_host``, ``.put``, ``.assemble``, ``.to_device``); they go to the
+telemetry's tracer and to a recording torch profiler, and none
+synchronizes the device.  Strictly off-path: the instruments read
 only host values a pass has already made (its numpy stats block,
 ``ServiceStats``, the scheduler's ledgers), and post no collective, so
 responses are bit-identical with or without it, on one device and on
@@ -40,7 +45,6 @@ import hashlib
 import json
 import math
 import time
-from contextlib import nullcontext
 
 import numpy as np
 import torch
@@ -53,6 +57,7 @@ from ..device import resolve_device
 from ..experiments.sweep import (SweepResult, WindowSweep, _derive_dist,
                                  _round_up, ens_extent, plan_mesh_sweep,
                                  records_from_reduction, spec_to_dict)
+from ..obs.trace import span_on
 from .scheduler import BatchScheduler, CompatKey, GridJob, PackedPass
 from .state_cache import StateCache
 
@@ -272,6 +277,11 @@ class SweepService:
     ``drain`` forces everything through and returns responses in
     submission order.  Setting ``on_response`` streams every response
     through the callback as soon as it is ready.
+
+    ``state_bytes_to_host`` and ``state_bytes_to_device`` total the bytes
+    the burned-state splice has moved between the service's device and
+    the host (burned rows down, assembled states up); each ``pass`` span
+    carries its pass's share.
     """
 
     def __init__(self, *, device=None, mesh=None, dist=None,
@@ -289,6 +299,8 @@ class SweepService:
                                         quota_rows=quota_rows)
         self.state_cache = StateCache(max_rows=state_cache_rows)
         self.stats = ServiceStats()
+        self.state_bytes_to_host = 0
+        self.state_bytes_to_device = 0
         self.engine_retries = engine_retries
         self.retry_base_s = retry_base_s
         self.retry_cap_s = retry_cap_s
@@ -309,6 +321,11 @@ class SweepService:
         self.telemetry = telemetry
         self._ins = (None if telemetry is None
                      else _ServiceInstruments(telemetry.registry))
+
+    def _span(self, name: str, args: dict | None = None):
+        """A span on the telemetry's tracer and a recording profiler."""
+        tracer = None if self.telemetry is None else self.telemetry.tracer
+        return span_on(tracer, name, cat="service", args=args)
 
     # -- request intake ----------------------------------------------------
 
@@ -383,9 +400,11 @@ class SweepService:
         """
         ins = self._ins
         t0 = time.perf_counter() if ins is not None else 0.0
-        active = self.scheduler.pending_requesters
-        served = {r: n for r, n in self._served_rows.items() if r in active}
-        passes = self.scheduler.take(served, force=force)
+        with self._span("service.schedule"):
+            active = self.scheduler.pending_requesters
+            served = {r: n for r, n in self._served_rows.items()
+                      if r in active}
+            passes = self.scheduler.take(served, force=force)
         if ins is not None:
             ins.phase_seconds.observe(time.perf_counter() - t0,
                                       phase="schedule")
@@ -453,19 +472,20 @@ class SweepService:
         if self.on_response is None:
             return 0
         emitted = 0
-        for rid in list(self._order):
-            if rid not in self._pending:
-                continue
-            resp = self._response_for(rid)
-            if resp is None:
-                continue
-            del self._pending[rid]
-            if resp.error is not None:
-                self.stats.n_errors += 1
-            self.on_response(resp)
-            emitted += 1
-        if emitted:
-            self._order = [r for r in self._order if r in self._pending]
+        with self._span("service.flush"):
+            for rid in list(self._order):
+                if rid not in self._pending:
+                    continue
+                resp = self._response_for(rid)
+                if resp is None:
+                    continue
+                del self._pending[rid]
+                if resp.error is not None:
+                    self.stats.n_errors += 1
+                self.on_response(resp)
+                emitted += 1
+            if emitted:
+                self._order = [r for r in self._order if r in self._pending]
         return emitted
 
     def drain(self) -> list[SweepResponse]:
@@ -504,17 +524,19 @@ class SweepService:
         ins = self._ins
         if ins is None:
             return
-        stats = self.stats.as_dict()
-        for field, counter in ins.totals.items():
-            counter.set_total(stats[field])
-        ins.fairness_throttles.set_total(self.scheduler.fairness_deferrals)
-        ins.quota_throttles.set_total(self.scheduler.quota_deferrals)
-        for requester, rows in self._served_rows.items():
-            ins.served_rows.set_total(rows, requester=requester)
-        ins.queue_depth.set(self.scheduler.n_pending)
-        ins.coalescing_ratio.set(
-            self.stats.rows_requested / max(self.stats.rows_computed, 1))
-        ins.state_cache_rows.set(len(self.state_cache))
+        with self._span("service.observe"):
+            stats = self.stats.as_dict()
+            for field, counter in ins.totals.items():
+                counter.set_total(stats[field])
+            ins.fairness_throttles.set_total(
+                self.scheduler.fairness_deferrals)
+            ins.quota_throttles.set_total(self.scheduler.quota_deferrals)
+            for requester, rows in self._served_rows.items():
+                ins.served_rows.set_total(rows, requester=requester)
+            ins.queue_depth.set(self.scheduler.n_pending)
+            ins.coalescing_ratio.set(
+                self.stats.rows_requested / max(self.stats.rows_computed, 1))
+            ins.state_cache_rows.set(len(self.state_cache))
 
     # -- one coalesced pass -----------------------------------------------
 
@@ -552,14 +574,15 @@ class SweepService:
         trials = np.fromiter((t for t, _ in p.rows), np.int64, B)
         deltas = np.fromiter((d for _, d in p.rows), np.float32, B)
         tvec, drows, n_pad = self._pad_rows(key, trials, deltas)
-        ctx = nullcontext() if self.telemetry is None else \
-            self.telemetry.spans("pass", cat="service", args=dict(
-                dataclasses.asdict(key), n_rows=B, n_pad=n_pad,
-                n_jobs=len(p.jobs),
-                requesters=sorted({j.requester for j in p.jobs})))
-        with ctx as sp:
+        args = None if self.telemetry is None else dict(
+            dataclasses.asdict(key), n_rows=B, n_pad=n_pad,
+            n_jobs=len(p.jobs),
+            requesters=sorted({j.requester for j in p.jobs}))
+        with self._span("pass", args=args) as sp:
             pre_cached = self.stats.rows_from_state_cache
             pre_burned = self.stats.rows_burned
+            pre_host = self.state_bytes_to_host
+            pre_device = self.state_bytes_to_device
             state = self._burned_state(eng, key, p.rows, n_pad, trials,
                                        deltas)
             _, stats = eng.run(state, key.seed, key.n_steps, deltas=drows,
@@ -569,27 +592,35 @@ class SweepService:
             self.stats.n_engine_calls += 1
             self.stats.rows_computed += B
             self.stats.engine_row_steps += (B + n_pad) * key.n_steps
-            arrs = StepStats(*(measurement.to_numpy(a)[:, :B] for a in stats))
             if sp is not None:
                 sp.args.update(
                     rows_from_cache=(self.stats.rows_from_state_cache
                                      - pre_cached),
-                    rows_burned=self.stats.rows_burned - pre_burned)
-            if self._ins is not None:
-                self._observe_pass(p, arrs, deltas)
-            for job, cols in zip(p.jobs, p.cols):
-                idx = np.asarray(cols, np.intp)
-                # fancy indexing yields F-ordered columns; numpy's axis-0
-                # mean sums in a layout-dependent order, so restore C order
-                # to keep the reduction bit-identical to a direct (T, B) run
-                sliced = StepStats(*(np.ascontiguousarray(a[:, idx])
-                                     for a in arrs))
-                red = measurement.sweep_reduce(
-                    sliced, len(job.deltas), job.replicas,
-                    steady_frac=job.steady_frac)
-                self._served_rows[job.requester] = (
-                    self._served_rows.get(job.requester, 0) + len(job.rows))
-                self._finish_job(job, red)
+                    rows_burned=self.stats.rows_burned - pre_burned,
+                    state_bytes_to_host=self.state_bytes_to_host - pre_host,
+                    state_bytes_to_device=(self.state_bytes_to_device
+                                           - pre_device))
+            with self._span("service.reduce"):
+                arrs = StepStats(*(measurement.to_numpy(a)[:, :B]
+                                   for a in stats))
+                if self._ins is not None:
+                    with self._span("service.observe"):
+                        self._observe_pass(p, arrs, deltas)
+                for job, cols in zip(p.jobs, p.cols):
+                    idx = np.asarray(cols, np.intp)
+                    # fancy indexing yields F-ordered columns; numpy's
+                    # axis-0 mean sums in a layout-dependent order, so
+                    # restore C order to keep the reduction bit-identical
+                    # to a direct (T, B) run
+                    sliced = StepStats(*(np.ascontiguousarray(a[:, idx])
+                                         for a in arrs))
+                    red = measurement.sweep_reduce(
+                        sliced, len(job.deltas), job.replicas,
+                        steady_frac=job.steady_frac)
+                    self._served_rows[job.requester] = (
+                        self._served_rows.get(job.requester, 0)
+                        + len(job.rows))
+                    self._finish_job(job, red)
 
     def _observe_pass(self, p: PackedPass, arrs: StepStats,
                       deltas: np.ndarray) -> None:
@@ -621,13 +652,15 @@ class SweepService:
         Rows are independent rings, so cache-missing rows are burned in
         their own sub-pass (padded to the ensemble extent) and spliced next
         to cached rows — bit-identical to burning the whole batch.  The
-        ``n_pad`` pad rows of the pass start from zero.
+        ``n_pad`` pad rows of the pass start from zero.  Counts the bytes
+        of the arrays it moves to the host and to the device.
         """
         B = len(rows)
         if not key.burn:
             return eng.init(B + n_pad)
         skey = key.stream_key
-        cached = [self.state_cache.get(skey + r) for r in rows]
+        with self._span("state_cache.lookup"):
+            cached = [self.state_cache.get(skey + r) for r in rows]
         missing = [i for i, c in enumerate(cached) if c is None]
         self.stats.rows_from_state_cache += B - len(missing)
         if missing:
@@ -638,20 +671,27 @@ class SweepService:
             self.stats.n_engine_calls += 1
             self.stats.rows_burned += len(missing)
             self.stats.engine_row_steps += (len(missing) + m_pad) * key.burn
-            tau_m, off_m, comp_m = (measurement.to_numpy(a)[:len(missing)]
-                                    for a in (sub.tau, sub.offset,
-                                              sub.offset_comp))
-            self.state_cache.put_batch([skey + rows[i] for i in missing],
-                                       tau_m, off_m, comp_m)
-            for j, i in enumerate(missing):
-                cached[i] = (tau_m[j], off_m[j], comp_m[j])
-        tau = np.zeros((B + n_pad, eng.cfg.L), np.float32)
-        off = np.zeros((B + n_pad,), np.float32)
-        comp = np.zeros((B + n_pad,), np.float32)
-        for i, (t, o, c) in enumerate(cached):
-            tau[i], off[i], comp[i] = t, o, c
-        return SimState(*(torch.as_tensor(a, device=self.device)
-                          for a in (tau, off, comp)), key.burn)
+            with self._span("state_cache.to_host"):
+                host = [measurement.to_numpy(a)
+                        for a in (sub.tau, sub.offset, sub.offset_comp)]
+            self.state_bytes_to_host += sum(a.nbytes for a in host)
+            tau_m, off_m, comp_m = (a[:len(missing)] for a in host)
+            with self._span("state_cache.put"):
+                self.state_cache.put_batch([skey + rows[i] for i in missing],
+                                           tau_m, off_m, comp_m)
+                for j, i in enumerate(missing):
+                    cached[i] = (tau_m[j], off_m[j], comp_m[j])
+        with self._span("state_cache.assemble"):
+            tau = np.zeros((B + n_pad, eng.cfg.L), np.float32)
+            off = np.zeros((B + n_pad,), np.float32)
+            comp = np.zeros((B + n_pad,), np.float32)
+            for i, (t, o, c) in enumerate(cached):
+                tau[i], off[i], comp[i] = t, o, c
+        with self._span("state_cache.to_device"):
+            state = SimState(*(torch.as_tensor(a, device=self.device)
+                               for a in (tau, off, comp)), key.burn)
+        self.state_bytes_to_device += tau.nbytes + off.nbytes + comp.nbytes
+        return state
 
     # -- per-request assembly ---------------------------------------------
 

@@ -59,7 +59,7 @@ import time
 from contextlib import nullcontext
 
 from ..obs import Telemetry, write_snapshot
-from ..obs.trace import TraceRecorder
+from ..obs.trace import TraceRecorder, current_tracer, set_tracer
 from .wire import (DEFAULT_MAX_LINE_BYTES, WireError, encode_error,
                    encode_response, read_queue)
 
@@ -90,9 +90,11 @@ class DaemonConfig:
       metrics_dir: live exposition — after every busy round (and at exit)
         the telemetry registry is snapshotted into ``metrics.json`` +
         ``metrics.prom`` here, atomically.  None = no exposition.
-      trace_path: record a span per round and per coalesced pass and save
-        the Chrome-trace JSON here at exit (including right before a
-        ``crash_after_passes`` hard exit).  None = no tracing.
+      trace_path: record a span per round and per coalesced pass, and the
+        library's spans below them (the tracer is the ambient one while
+        the loop runs), and save the Chrome-trace JSON here at exit
+        (including right before a ``crash_after_passes`` hard exit).
+        None = no tracing.
     """
 
     intake_dir: str
@@ -225,6 +227,9 @@ def serve_daemon(cfg: DaemonConfig, *, service=None, log=None
         if writer and cfg.state_cache_path and service.state_cache.dirty:
             service.state_cache.save(cfg.state_cache_path)
 
+    prev_tracer = current_tracer()
+    if tel is not None and tel.tracer is not None:
+        set_tracer(tel.tracer)      # the engine's spans join the trace
     rounds = idle = 0
     try:
         while True:
@@ -331,6 +336,7 @@ def serve_daemon(cfg: DaemonConfig, *, service=None, log=None
             f"state cache over {rounds} round(s)")
         return s
     finally:
+        set_tracer(prev_tracer)
         out_fh.close()
         for sig_, handler in old_handlers.items():
             signal.signal(sig_, handler)

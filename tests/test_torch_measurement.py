@@ -81,7 +81,13 @@ def test_sweep_spans_nest_and_leave_results_unchanged():
     finally:
         trace.set_tracer(prev)
     assert traced == plain
-    assert [e["name"] for e in rec.events] == ["burn", "measure", "reduce"]
-    assert rec.events[0]["args"] == {"L": 16, "n_v": 2, "rows": 6,
-                                     "steps": 8}
+    # the engine's spans nest inside the sweep's phases
+    phases = [e for e in rec.events if not e["name"].startswith("engine.")]
+    assert [e["name"] for e in phases] == ["burn", "measure", "reduce"]
+    assert phases[0]["args"] == {"L": 16, "n_v": 2, "rows": 6, "steps": 8}
+    runs = [e for e in rec.events if e["name"] == "engine.run"]
+    assert [r["args"]["mode"] for r in runs] == ["burn", "record"]
+    for r, ph in zip(runs, phases):
+        assert ph["ts"] <= r["ts"] and \
+            r["ts"] + r["dur"] <= ph["ts"] + ph["dur"] + 1e-3   # rounding
     assert all(e["dur"] >= 0 for e in rec.events)
