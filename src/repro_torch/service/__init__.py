@@ -8,7 +8,9 @@ Modules:
   ``api``          request/response core (``SweepService.submit``/``drain``)
   ``scheduler``    compatibility keying, Δ-grid union packing, admission
                    control, Eq. (3) requester fairness, per-round quotas
-  ``state_cache``  row-granular LRU of burned-in states (same npz format)
+  ``state_cache``  row-granular LRU of burned-in states, kept on the
+                   service's device in front of a host tier (same npz
+                   format)
   ``wire``         versioned JSON schema + fault-tolerant JSONL intake
   ``daemon``       long-running watch-directory serve loop (SIGTERM-clean;
                    on a mesh, rank 0 decides each round for every rank)

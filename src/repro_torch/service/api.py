@@ -28,11 +28,12 @@ service mirrors its stats into live metrics under ``repro.service``'s
 names, observes the paper's observables (⟨u⟩, ⟨w²⟩, GVT rate, window
 occupancy) per pass, and, with a tracer, emits one ``pass`` span per
 :class:`~.scheduler.PackedPass`.  Spans below it name the service's and
-the state cache's host work (``service.schedule``, ``service.reduce``,
+the state cache's work (``service.schedule``, ``service.reduce``,
 ``service.flush``, ``service.observe``; ``state_cache.lookup``,
-``.to_host``, ``.put``, ``.assemble``, ``.to_device``); they go to the
-telemetry's tracer and to a recording torch profiler, and none
-synchronizes the device.  Strictly off-path: the instruments read
+``.put``, ``.assemble``, and ``.to_host`` and ``.to_device`` around the
+rows that cross between the cache's tiers); they go to the telemetry's
+tracer and to a recording torch profiler, and none synchronizes the
+device.  Strictly off-path: the instruments read
 only host values a pass has already made (its numpy stats block,
 ``ServiceStats``, the scheduler's ledgers), and post no collective, so
 responses are bit-identical with or without it, on one device and on
@@ -59,7 +60,7 @@ from ..experiments.sweep import (SweepResult, WindowSweep, _derive_dist,
                                  records_from_reduction, spec_to_dict)
 from ..obs.trace import span_on
 from .scheduler import BatchScheduler, CompatKey, GridJob, PackedPass
-from .state_cache import StateCache
+from .state_cache import StateCache, index_on
 
 __all__ = ["SweepRequest", "SweepResponse", "ServiceStats", "SweepService",
            "canonicalize_spec", "spec_fingerprint"]
@@ -255,6 +256,24 @@ class _ServiceInstruments:
                                "engine (pass execution)", unit="s")
 
 
+#: a ``pass`` span's args from the state cache's counters: its share of
+#: the bytes that crossed between the tiers, and of the rows served from
+#: the device tier, promoted and demoted
+_CACHE_ARGS = {"state_bytes_to_host": "bytes_to_host",
+               "state_bytes_to_device": "bytes_to_device",
+               "rows_from_device_cache": "device_hits",
+               "rows_promoted": "promotions", "rows_demoted": "demotions"}
+
+
+def _cache_budget(device: torch.device) -> int | None:
+    """Device bytes for the burned-state cache's rows: an eighth of a
+    card's memory; None (unbounded) on the CPU, where the device is the
+    host."""
+    if device.type != "cuda":
+        return None
+    return torch.cuda.get_device_properties(device).total_memory // 8
+
+
 class SweepService:
     """Batched request/response front end over the sweep engine.
 
@@ -278,10 +297,12 @@ class SweepService:
     submission order.  Setting ``on_response`` streams every response
     through the callback as soon as it is ready.
 
-    ``state_bytes_to_host`` and ``state_bytes_to_device`` total the bytes
-    the burned-state splice has moved between the service's device and
-    the host (burned rows down, assembled states up); each ``pass`` span
-    carries its pass's share.
+    The burned-state cache keeps its rows on ``device`` (a card gives it
+    an eighth of its memory; on the CPU it is unbounded) in front of a
+    host tier.  ``state_bytes_to_host`` and ``state_bytes_to_device``
+    total the bytes that cross between the two (demotions and ``save``
+    down, promotions up); each ``pass`` span carries its pass's share and
+    its rows from the device tier, promoted and demoted.
     """
 
     def __init__(self, *, device=None, mesh=None, dist=None,
@@ -297,10 +318,10 @@ class SweepService:
                                         max_wait_rounds=max_wait_rounds,
                                         fairness_rows=fairness_rows,
                                         quota_rows=quota_rows)
-        self.state_cache = StateCache(max_rows=state_cache_rows)
+        self.state_cache = StateCache(max_rows=state_cache_rows,
+                                      device=self.device,
+                                      budget_bytes=_cache_budget(self.device))
         self.stats = ServiceStats()
-        self.state_bytes_to_host = 0
-        self.state_bytes_to_device = 0
         self.engine_retries = engine_retries
         self.retry_base_s = retry_base_s
         self.retry_cap_s = retry_cap_s
@@ -321,6 +342,16 @@ class SweepService:
         self.telemetry = telemetry
         self._ins = (None if telemetry is None
                      else _ServiceInstruments(telemetry.registry))
+        self.state_cache.tracer = (None if telemetry is None
+                                   else telemetry.tracer)
+
+    @property
+    def state_bytes_to_host(self) -> int:
+        return self.state_cache.bytes_to_host
+
+    @property
+    def state_bytes_to_device(self) -> int:
+        return self.state_cache.bytes_to_device
 
     def _span(self, name: str, args: dict | None = None):
         """A span on the telemetry's tracer and a recording profiler."""
@@ -579,10 +610,10 @@ class SweepService:
             n_jobs=len(p.jobs),
             requesters=sorted({j.requester for j in p.jobs}))
         with self._span("pass", args=args) as sp:
+            cache = self.state_cache
             pre_cached = self.stats.rows_from_state_cache
             pre_burned = self.stats.rows_burned
-            pre_host = self.state_bytes_to_host
-            pre_device = self.state_bytes_to_device
+            pre = {arg: getattr(cache, c) for arg, c in _CACHE_ARGS.items()}
             state = self._burned_state(eng, key, p.rows, n_pad, trials,
                                        deltas)
             _, stats = eng.run(state, key.seed, key.n_steps, deltas=drows,
@@ -597,9 +628,8 @@ class SweepService:
                     rows_from_cache=(self.stats.rows_from_state_cache
                                      - pre_cached),
                     rows_burned=self.stats.rows_burned - pre_burned,
-                    state_bytes_to_host=self.state_bytes_to_host - pre_host,
-                    state_bytes_to_device=(self.state_bytes_to_device
-                                           - pre_device))
+                    **{arg: getattr(cache, c) - pre[arg]
+                       for arg, c in _CACHE_ARGS.items()})
             with self._span("service.reduce"):
                 arrs = StepStats(*(measurement.to_numpy(a)[:, :B]
                                    for a in stats))
@@ -652,16 +682,21 @@ class SweepService:
         Rows are independent rings, so cache-missing rows are burned in
         their own sub-pass (padded to the ensemble extent) and spliced next
         to cached rows — bit-identical to burning the whole batch.  The
-        ``n_pad`` pad rows of the pass start from zero.  Counts the bytes
-        of the arrays it moves to the host and to the device.
+        ``n_pad`` pad rows of the pass start from zero.  The splice stays
+        on the device: the hits are gathered from the cache and the burned
+        rows copied from the sub-pass into a fresh state, and only then
+        are the burned rows put in the cache, since a put may evict rows
+        of this very pass.  A pass that hit nothing takes the sub-pass's
+        state as its own.
         """
         B = len(rows)
         if not key.burn:
             return eng.init(B + n_pad)
-        skey = key.stream_key
+        cache = self.state_cache
+        keys = [key.stream_key + r for r in rows]
         with self._span("state_cache.lookup"):
-            cached = [self.state_cache.get(skey + r) for r in rows]
-        missing = [i for i, c in enumerate(cached) if c is None]
+            found = cache.lookup(keys)
+        missing = [i for i, f in enumerate(found) if not f]
         self.stats.rows_from_state_cache += B - len(missing)
         if missing:
             m_tvec, m_drows, m_pad = self._pad_rows(key, trials[missing],
@@ -671,27 +706,30 @@ class SweepService:
             self.stats.n_engine_calls += 1
             self.stats.rows_burned += len(missing)
             self.stats.engine_row_steps += (len(missing) + m_pad) * key.burn
-            with self._span("state_cache.to_host"):
-                host = [measurement.to_numpy(a)
-                        for a in (sub.tau, sub.offset, sub.offset_comp)]
-            self.state_bytes_to_host += sum(a.nbytes for a in host)
-            tau_m, off_m, comp_m = (a[:len(missing)] for a in host)
-            with self._span("state_cache.put"):
-                self.state_cache.put_batch([skey + rows[i] for i in missing],
-                                           tau_m, off_m, comp_m)
-                for j, i in enumerate(missing):
-                    cached[i] = (tau_m[j], off_m[j], comp_m[j])
+            burned = tuple(a.to(self.device) for a in sub[:3])
         with self._span("state_cache.assemble"):
-            tau = np.zeros((B + n_pad, eng.cfg.L), np.float32)
-            off = np.zeros((B + n_pad,), np.float32)
-            comp = np.zeros((B + n_pad,), np.float32)
-            for i, (t, o, c) in enumerate(cached):
-                tau[i], off[i], comp[i] = t, o, c
-        with self._span("state_cache.to_device"):
-            state = SimState(*(torch.as_tensor(a, device=self.device)
-                               for a in (tau, off, comp)), key.burn)
-        self.state_bytes_to_device += tau.nbytes + off.nbytes + comp.nbytes
-        return state
+            if len(missing) == B:        # the sub-pass's rows are the pass's
+                arrays = burned
+                for a in arrays:
+                    a[B:] = 0
+            else:
+                arrays = (torch.zeros((B + n_pad, eng.cfg.L),
+                                      dtype=torch.float32, device=self.device),
+                          torch.zeros((B + n_pad,), dtype=torch.float32,
+                                      device=self.device),
+                          torch.zeros((B + n_pad,), dtype=torch.float32,
+                                      device=self.device))
+                hits = [i for i, f in enumerate(found) if f]
+                cache.gather([keys[i] for i in hits], hits, *arrays)
+                if missing:
+                    idx = index_on(missing, self.device)
+                    for dst, src in zip(arrays, burned):
+                        dst.index_copy_(0, idx, src[:len(missing)])
+        if missing:
+            with self._span("state_cache.put"):
+                cache.put_batch([keys[i] for i in missing],
+                                *(a[:len(missing)] for a in burned))
+        return SimState(*arrays, key.burn)
 
     # -- per-request assembly ---------------------------------------------
 

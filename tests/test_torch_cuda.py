@@ -487,6 +487,35 @@ def test_engine_service_and_simulate_take_the_production_ring(dev):
     assert torch.equal(ok["u"], op["u"]) and torch.equal(ok["gvt"], op["gvt"])
 
 
+def test_service_extension_keeps_the_state_cache_on_the_card(dev):
+    """A round of the exact mix and its extension at a small L: the burned
+    rows stay on the card (no byte crosses to the host or back), the
+    extension is gathered from the cache's device tier, and every response
+    equals a direct run bit for bit."""
+    import json
+    from repro_torch.experiments.sweep import WindowSweep, run_window_sweep
+    from repro_torch.service.api import SweepService
+    common = dict(Ls=(1000,), n_vs=(10,), replicas=4, n_steps=64,
+                  burn_in=64, backend="pallas_multistep", k_fuse=16, seed=5)
+    alice = WindowSweep(deltas=(1.0, 4.0, 16.0, 64.0), **common)
+    bob = WindowSweep(deltas=(4.0, 16.0, math.inf), **common)
+    dave = dataclasses.replace(alice, n_steps=128)
+    svc = SweepService(device=dev)
+    for who, spec in (("alice", alice), ("bob", bob), ("carol", alice)):
+        svc.submit(spec, requester=who)
+    responses = svc.drain()
+    svc.submit(dave, requester="dave")
+    responses += svc.drain()
+    assert svc.stats.rows_burned == 28 and svc.stats.n_passes == 2
+    assert svc.stats.rows_from_state_cache == dave.n_trajectories
+    assert svc.state_cache.device_hits == dave.n_trajectories
+    assert svc.state_bytes_to_host == svc.state_bytes_to_device == 0
+    for resp in responses:
+        assert resp.error is None
+        assert json.dumps(resp.result.as_dict()) == json.dumps(
+            run_window_sweep(resp.spec, device=dev).as_dict()), resp.requester
+
+
 def test_simulate_kernels_equal_plain_version(dev, monkeypatch):
     cfg = PDESConfig(L=512, n_v=4, delta=16.0)
     st0 = horizon.init_state(cfg, 8, dev)

@@ -6,7 +6,9 @@
 2. Inside the port, every response equals a direct ``run_window_sweep``
    bit for bit, across coalescing, dedup and the state cache.
 3. A ``StateCache`` saved by ``repro`` loads in the port and serves the
-   same responses.
+   same responses.  The port's cache keeps its rows on the service's
+   device in front of a host tier; under any device budget it hits,
+   misses and evicts as ``repro``'s, and responses stay the same bits.
 4. The port's CLI writes response lines with ``repro``'s keys.
 """
 import dataclasses
@@ -26,7 +28,7 @@ from repro_torch.core import horizon as th
 from repro_torch.experiments import sweep as tsweep
 from repro_torch.experiments.sweep import (WindowSweep, run_window_sweep,
                                            serial_window_sweep)
-from repro_torch.service import (SweepService, decode_request,
+from repro_torch.service import (StateCache, SweepService, decode_request,
                                  decode_response, encode_response)
 from repro_torch.service import __main__ as cli
 
@@ -153,6 +155,134 @@ def test_state_cache_saved_by_repro_serves_the_port(tmp_path):
     svc.state_cache.save(tmp_path / "port.npz")
     assert jsvc.StateCache().load(tmp_path / "port.npz") == \
         first.n_trajectories
+
+
+def _budget(rows, L):
+    """Device bytes for ``rows`` rows of ring length ``L`` (None: all)."""
+    return None if rows is None else rows * 4 * (L + 2)
+
+
+def _cpu_service(budget_rows, **kw):
+    svc = SweepService(device="cpu", **kw)
+    svc.state_cache = StateCache(svc.state_cache.max_rows, device="cpu",
+                                 budget_bytes=_budget(budget_rows, 16))
+    return svc
+
+
+@pytest.mark.parametrize("budget_rows", [0, 1, None],
+                         ids=["no_device_rows", "one_device_row",
+                              "unbounded"])
+def test_two_tier_cache_bit_identical_under_any_budget(budget_rows):
+    first = WindowSweep(deltas=(2.0, 4.0), **COMMON)
+    later = [dataclasses.replace(first, n_steps=48),
+             WindowSweep(deltas=(2.0, 8.0), **COMMON),
+             WindowSweep(deltas=(4.0, 8.0, math.inf), **COMMON)]
+    svc = _cpu_service(budget_rows)
+    svc.submit(first, requester="alice")
+    svc.drain()
+    for i, spec in enumerate(later):
+        svc.submit(spec, requester=f"r{i}")
+        (resp,) = svc.drain()
+        assert resp.result.records == run_window_sweep(
+            spec, device="cpu").records
+    assert svc.stats.rows_from_state_cache == 8 + 4 + 4
+    assert (svc.stats.state_cache_hits, svc.stats.state_cache_misses) == \
+        (16, 8 + 4 + 8)
+    cache = svc.state_cache
+    if budget_rows is None:       # the device tier holds every row
+        assert cache.device_hits == 16 and cache.demotions == 0
+        assert svc.state_bytes_to_host == svc.state_bytes_to_device == 0
+    else:
+        assert cache.demotions > 0 and svc.state_bytes_to_host > 0
+    assert sum(len(sl.slots) for sl in cache._slabs.values()) <= \
+        (len(cache) if budget_rows is None else budget_rows)
+
+
+@pytest.mark.parametrize("budget_rows", [0, 2, None],
+                         ids=["no_device_rows", "two_device_rows",
+                              "unbounded"])
+def test_two_tier_cache_counts_and_orders_as_repro(budget_rows):
+    rng = np.random.default_rng(7)
+    Ls = (8, 24, 40)
+    keys = [("s", L, t) for L in Ls for t in range(5)]
+    ref = jsvc.StateCache(max_rows=6)
+    port = StateCache(max_rows=6, budget_bytes=_budget(budget_rows, 8))
+    for _ in range(300):
+        if rng.random() < 0.5:
+            key = keys[rng.integers(len(keys))]
+            want, got = ref.get(key), port.get(key)
+            assert (want is None) == (got is None), key
+            if want is not None:
+                assert np.array_equal(want[0], got[0].numpy())
+                assert (want[1], want[2]) == (got[1].item(), got[2].item())
+        else:
+            L = Ls[rng.integers(len(Ls))]
+            batch = [keys[i] for i in rng.choice(
+                np.arange(len(keys))[[k[1] == L for k in keys]],
+                size=rng.integers(1, 8))]
+            tau = rng.normal(size=(len(batch), L)).astype(np.float32)
+            off = rng.normal(size=len(batch)).astype(np.float32)
+            comp = rng.normal(size=len(batch)).astype(np.float32)
+            ref.put_batch(batch, tau, off, comp)
+            port.put_batch(batch, torch.from_numpy(tau),
+                           torch.from_numpy(off), torch.from_numpy(comp))
+        assert (port.hits, port.misses, port.evictions) == \
+            (ref.hits, ref.misses, ref.evictions)
+        assert list(port._rows) == list(ref._rows)
+    assert ref.evictions > 0 and ref.hits > 0
+    if budget_rows == 2:
+        assert port.promotions > 0 and port.demotions > 0
+
+
+@pytest.mark.parametrize("budget_rows", [1, None],
+                         ids=["one_device_row", "unbounded"])
+def test_pass_wider_than_the_cache_bit_identical(budget_rows):
+    first = WindowSweep(deltas=(2.0, 4.0), **COMMON)          # 8 rows
+    later = [dataclasses.replace(first, n_steps=48),
+             WindowSweep(deltas=(4.0, 8.0), **COMMON)]
+    svc = _cpu_service(budget_rows, state_cache_rows=3)
+    for i, spec in enumerate([first] + later):
+        svc.submit(spec, requester=f"r{i}")
+        (resp,) = svc.drain()
+        assert resp.result.records == run_window_sweep(
+            spec, device="cpu").records
+    assert len(svc.state_cache) == 3 and svc.stats.state_cache_evictions > 0
+    assert svc.stats.rows_from_state_cache == 3
+
+
+def test_save_from_both_tiers_loads_in_repro_and_back(tmp_path):
+    rng = np.random.default_rng(3)
+    port = StateCache(max_rows=16, budget_bytes=_budget(2, 8))
+    rows = {}
+    for L in (8, 12):
+        keys = [("s", L, float(t)) for t in range(4)] + \
+            [("s", L, math.inf)]
+        tau = rng.normal(size=(len(keys), L)).astype(np.float32)
+        off = rng.normal(size=len(keys)).astype(np.float32)
+        comp = rng.normal(size=len(keys)).astype(np.float32)
+        port.put_batch(keys, torch.from_numpy(tau), torch.from_numpy(off),
+                       torch.from_numpy(comp))
+        rows.update((k, (tau[i], off[i], comp[i]))
+                    for i, k in enumerate(keys))
+    assert port.demotions == 3 + 4 and len(port._host) == 7
+    order = list(port._rows)
+    assert port.save(tmp_path / "port.npz") == 10
+    ref = jsvc.StateCache(max_rows=16)
+    assert ref.load(tmp_path / "port.npz") == 10
+    assert list(ref._rows) == order
+    for key, (tau, off, comp) in rows.items():
+        got = ref._rows[key]
+        assert np.array_equal(got[0], tau) and (got[1], got[2]) == (off,
+                                                                    comp)
+    ref.save(tmp_path / "ref.npz")
+    back = StateCache(max_rows=16, budget_bytes=_budget(2, 8))
+    assert back.load(tmp_path / "ref.npz") == 10
+    assert list(back._rows) == order
+    for key, (tau, off, comp) in rows.items():
+        got = back.get(key)                     # promoted on first hit
+        assert np.array_equal(got[0].numpy(), tau)
+        assert (got[1].item(), got[2].item()) == (off, comp)
+    assert back.promotions > 0 and back.hits == 10
 
 
 def test_engine_failure_is_a_structured_error(monkeypatch):

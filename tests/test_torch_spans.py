@@ -12,7 +12,9 @@ it as a ``user_annotation`` on the caller's thread.  On the CPU:
   the service, the state cache and the engine, nested as the code nests
   them, each chunk's aten operations inside its span; responses are the
   same bits with the profiler on and off;
-* each ``pass`` span carries the bytes its burned-state splice moved;
+* each ``pass`` span carries the bytes its burned-state splice moved
+  between the cache's tiers: none while the device tier holds every row,
+  and ``state_cache.to_host``/``.to_device`` spans only where rows cross;
 * the daemon installs its tracer as the ambient one while it serves, so
   the engine's spans reach its trace file.
 """
@@ -27,7 +29,7 @@ from repro_torch import obs as tobs
 from repro_torch.experiments.sweep import WindowSweep
 from repro_torch.obs import summarize as tsum
 from repro_torch.obs import trace as ttrace
-from repro_torch.service import SweepService
+from repro_torch.service import StateCache, SweepService
 from repro_torch.service.daemon import DaemonConfig, serve_daemon
 from repro_torch.service.wire import encode_request
 
@@ -38,8 +40,9 @@ COMMON = dict(Ls=(L,), n_vs=(2,), replicas=4, n_steps=32, burn_in=16,
 #: every span under ``SweepService.drain``, by layer
 SERVICE = ("service.schedule", "pass", "service.reduce", "service.flush",
            "service.observe")
-STATE_CACHE = ("state_cache.lookup", "state_cache.to_host", "state_cache.put",
-               "state_cache.assemble", "state_cache.to_device")
+STATE_CACHE = ("state_cache.lookup", "state_cache.put", "state_cache.assemble")
+#: spans around rows that cross between the state cache's tiers
+CROSSINGS = ("state_cache.to_host", "state_cache.to_device")
 ENGINE = ("engine.run", "engine.chunk", "engine.advance")
 #: bytes of one row of burned state: τ and the Kahan pair, float32
 ROW_BYTES = 4 * (L + 2)
@@ -65,10 +68,15 @@ def _disjoint(a, b) -> bool:
     return a["ts"] + a["dur"] <= b["ts"] or b["ts"] + b["dur"] <= a["ts"]
 
 
-def _drain(telemetry=None):
+def _drain(telemetry=None, budget_rows=None):
     """Two rounds: a burned pass, then its extension from the state cache
-    and a pass without burn-in; the streamed responses."""
-    svc = SweepService(device="cpu", telemetry=telemetry)
+    and a pass without burn-in; the streamed responses.  ``budget_rows``:
+    the rows the cache's device tier may hold (None: unbounded)."""
+    svc = SweepService(device="cpu")
+    if budget_rows is not None:
+        svc.state_cache = StateCache(device="cpu",
+                                     budget_bytes=budget_rows * ROW_BYTES)
+    svc.attach_telemetry(telemetry)
     got = []
     svc.on_response = got.append
     svc.submit(WindowSweep(deltas=(2.0, 4.0), **COMMON), requester="alice")
@@ -156,6 +164,8 @@ def test_drain_spans_nest_on_the_profiler_clock(with_telemetry, tmp_path):
     for name in wanted:
         assert by.get(name), name
         assert {e["tid"] for e in by[name]} == {tid}, name
+    # the device tier holds every row: nothing crosses to the host
+    assert not any(name in by for name in CROSSINGS)
     passes = by["pass"]
     assert len(passes) == 3
     for e in by["engine.run"] + [e for n in STATE_CACHE for e in by[n]] \
@@ -201,11 +211,49 @@ def test_pass_span_counts_the_bytes_its_splice_moved():
     assert [a["n_rows"] for a in args] == [rows, rows, COMMON["replicas"]]
     moved = [(a["state_bytes_to_host"], a["state_bytes_to_device"])
              for a in args]
-    # burned: every row down and up; extension: up from the cache; no
-    # burn-in: the state starts on the device
-    assert moved == [(rows * ROW_BYTES, rows * ROW_BYTES),
-                     (0, rows * ROW_BYTES), (0, 0)]
+    # the device tier holds every row: the burned rows stay on the
+    # device, the extension gathers them there, the pass without burn-in
+    # starts on the device
+    assert moved == [(0, 0), (0, 0), (0, 0)]
     assert [a["rows_burned"] for a in args] == [rows, 0, 0]
+    assert [a["rows_from_device_cache"] for a in args] == [0, rows, 0]
+    assert [(a["rows_promoted"], a["rows_demoted"]) for a in args] == \
+        [(0, 0)] * 3
+
+
+def test_zero_budget_pass_spans_count_the_crossings():
+    """With no room on the device every burned row is demoted (one copy
+    down) and every hit crosses up; the burned pass itself takes its rows
+    from the sub-pass on the device."""
+    tel = tobs.Telemetry(tracer=tobs.TraceRecorder())
+    _drain(tel, budget_rows=0)
+    args = [e["args"] for e in tel.tracer.events if e["name"] == "pass"]
+    rows = 2 * COMMON["replicas"]
+    moved = [(a["state_bytes_to_host"], a["state_bytes_to_device"])
+             for a in args]
+    assert moved == [(rows * ROW_BYTES, 0), (0, rows * ROW_BYTES), (0, 0)]
+    assert [(a["rows_from_device_cache"], a["rows_promoted"],
+             a["rows_demoted"]) for a in args] == \
+        [(0, 0, rows), (0, 0, 0), (0, 0, 0)]
+
+
+def test_crossing_spans_wrap_the_demotions_and_promotions(tmp_path):
+    """A one-row device tier: the burned pass demotes all but one row
+    inside its ``state_cache.put``, the extension brings them up inside
+    its ``state_cache.assemble``; responses are the same bits."""
+    got, events = _profiled(lambda: _drain(budget_rows=1), tmp_path)
+    assert [r.result.records for r in got] == \
+        [r.result.records for r in _drain()]
+    by = {}
+    for e in events:
+        if e.get("cat") == "user_annotation":
+            by.setdefault(e["name"], []).append(e)
+    assert len(by["state_cache.to_host"]) >= 1
+    assert len(by["state_cache.to_device"]) == 1
+    for e in by["state_cache.to_host"]:
+        assert any(_inside(e, p) for p in by["state_cache.put"])
+    for e in by["state_cache.to_device"]:
+        assert any(_inside(e, a) for a in by["state_cache.assemble"])
 
 
 # ---------------------------------------------------------------------------
