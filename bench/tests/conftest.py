@@ -11,8 +11,10 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parents[2]
 sys.path[:0] = [str(ROOT), str(ROOT / "src")]
 
-#: Ring lengths of the tiny copy, by configuration.
-TINY_L = {"ring10k": 64, "ring1m": 96}
+#: Ring length of the tiny copy of a configuration whose ring one B1 block
+#: holds (``L`` up to ``MAX_RING_L``, 57,344 PEs), and of one whose ring
+#: spans blocks (a cluster or a cooperative grid).
+TINY_L_ONE_BLOCK, TINY_L_SPLIT = 64, 96
 #: A cell whose files are under ``bench/`` but that ``BENCHMARK.json``
 #: leaves out until its runs spread less (PERF.md, Open questions): the
 #: tests run it with the entries that would add it.
@@ -45,24 +47,26 @@ def make_full(dst: pathlib.Path) -> pathlib.Path:
     return dst
 
 
-def make_tiny(dst: pathlib.Path) -> pathlib.Path:
-    """Copy ``BENCHMARK.json`` and ``bench/`` to ``dst``, with rings of
-    ``TINY_L``, 2 replicas and 32 steps; returns ``dst``."""
-    make_full(dst)
-    spec = full_spec()
+def shrink(root: pathlib.Path) -> pathlib.Path:
+    """Cut, in place, every configuration and cell that
+    ``root/BENCHMARK.json`` names to a size the CPU runs in a second:
+    rings of ``TINY_L_ONE_BLOCK`` or ``TINY_L_SPLIT`` PEs by the
+    configuration's own ``L``, 2 replicas and 32 steps; returns ``root``."""
+    from repro_torch.kernels.tiling import MAX_RING_L
+    spec = json.loads((root / "BENCHMARK.json").read_text())
     for c in spec["configs"]:
-        path = dst / c["file"]
+        path = root / c["file"]
         conf = json.loads(path.read_text())
-        conf.update(L=TINY_L[c["name"]], state_cache_rows=256)
+        conf.update(L=TINY_L_ONE_BLOCK if conf["L"] <= MAX_RING_L
+                    else TINY_L_SPLIT, state_cache_rows=256)
         path.write_text(json.dumps(conf))
     for w in spec["workloads"]:
-        path = dst / "bench" / "cells" / f"{w['name']}.json"
+        path = root / "bench" / "cells" / f"{w['name']}.json"
         cell = json.loads(path.read_text())
         cell.update(replicas=2, burn_in=32 if cell["burn_in"] else 0,
                     n_steps=32)
         path.write_text(json.dumps(cell))
-    (dst / "BENCHMARK.json").write_text(json.dumps(spec))
-    return dst
+    return root
 
 
 @pytest.fixture(scope="session")
@@ -72,7 +76,7 @@ def full_root(tmp_path_factory):
 
 @pytest.fixture(scope="session")
 def tiny_root(tmp_path_factory):
-    return make_tiny(tmp_path_factory.mktemp("bench"))
+    return shrink(make_full(tmp_path_factory.mktemp("bench")))
 
 
 @pytest.fixture(scope="session")

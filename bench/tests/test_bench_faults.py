@@ -63,7 +63,7 @@ FAULTS = {"unchanged_state": _unchanged_state,
 
 
 @pytest.mark.parametrize("name", ["exact_mix.ring10k", "stale_mix.ring10k",
-                                  "growth_mix.ring1m"])
+                                  "growth_mix.ring1m", "exact_mix.ring512k"])
 @pytest.mark.parametrize("fault", FAULTS)
 def test_a_broken_path_is_not_correct(tiny_root, name, fault, monkeypatch,
                                       tmp_path):
@@ -74,7 +74,8 @@ def test_a_broken_path_is_not_correct(tiny_root, name, fault, monkeypatch,
 
 
 @pytest.mark.parametrize("name", ["exact_mix.ring10k", "exact_mix.ring1m",
-                                  "stale_mix.ring10k", "growth_mix.ring1m"])
+                                  "stale_mix.ring10k", "growth_mix.ring1m",
+                                  "exact_mix.ring512k"])
 def test_the_control_fails_every_cell(tiny_root, name):
     limits = harness.load_cell(tiny_root, name)["cell"]["limits"]
     for seed in (1, 2, 3):

@@ -25,7 +25,7 @@ def _of(metrics, name):
 
 
 @pytest.mark.parametrize("name", ["exact_mix.ring10k", "stale_mix.ring10k",
-                                  "growth_mix.ring1m"])
+                                  "growth_mix.ring1m", "exact_mix.ring512k"])
 def test_untraced_line(tiny_root, spec, name, tmp_path):
     res = json.loads(json.dumps(_run(tiny_root, name, False, tmp_path)))
     assert list(res) == KEYS + ["checks"]
@@ -45,7 +45,8 @@ def test_untraced_line(tiny_root, spec, name, tmp_path):
         "exact_fields_differ": {"value": 0, "limit": 0}}
 
 
-@pytest.mark.parametrize("name", ["exact_mix.ring10k", "growth_mix.ring1m"])
+@pytest.mark.parametrize("name", ["exact_mix.ring10k", "growth_mix.ring1m",
+                                  "exact_mix.ring512k"])
 def test_traced_line(tiny_root, spec, name, tmp_path):
     res = _run(tiny_root, name, True, tmp_path)
     assert list(res) == KEYS + ["breakdown", "checks"]
