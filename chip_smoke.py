@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # every phase
+    python3 chip_smoke.py stream     # B1 and phase 19 alone
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` with
 ``nvcc`` and drives the port's paths on the card:
@@ -183,7 +184,19 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` with
    PE-steps/s and ``max_memory_allocated``, its observables in range and
    two of its trials run alone equal to theirs bit for bit; (e) each (a)
    and (b) shape timed beside its bound;
-19. the last lines: one JSON object per kernel (times, bound, launches),
+19. rings past shared memory (``tiling.ring_plan``'s stream tier, B1
+   alone): (a) B1 against its plain version at 1 x (``MAX_GRID_RING_L`` +
+   32) (one row of each segment in device memory) and 1 and 2 x 2^23
+   (6,592 PEs of each segment there) over phase 2's five cases with the
+   step counter wrapping, τ/ucount/min/max bitwise and the sums to
+   tolerance, the plan, its bytes in device memory a chunk and the stream
+   instantiation's ptxas figures printed; a row's moments bitwise the
+   same at B = 2 and alone (its second wave against its first); (b) an
+   exact request at 2^23 through ``SweepService``, bitwise a direct
+   ``run_window_sweep``; (c) the (a) shapes of one ring timed beside their
+   bound.  ``python3 chip_smoke.py stream`` builds B1 and runs this phase
+   alone;
+20. the last lines: one JSON object per kernel (times, bound, launches),
    then ``{"ok": true, "device": {...}}``.
 
 Every phase asserts; any failure exits non-zero with no result line.
@@ -505,6 +518,12 @@ GRID_ROWS = (slice(0, 6), slice(6, 7), slice(7, 8), slice(0, 1))
 GRID_B3 = 2
 BURN_PROD = 256
 STEPS_PROD = 256
+#: Phase 19: rings past one card's shared memory (B1's stream tier).  (B,
+#: L) of B1's checks (None: one row past ``tiling.MAX_GRID_RING_L``); the
+#: rows held to the batch at ``L_STREAM``; the service request there.
+L_STREAM = 1 << 23
+STREAM_B1 = ((1, None), (1, L_STREAM), (2, L_STREAM))
+STREAM_ROWS = (slice(0, 1), slice(1, 2))
 
 
 def fail(msg: str) -> int:
@@ -3388,6 +3407,71 @@ def phase_grid_rings(torch, pm, tf, ref, ops, horizon, prng, sweep, api,
     return b1_launches + core_launches, b3_launches, timings
 
 
+def phase_stream_rings(torch, pm, ref, sweep, api, build, dev,
+                       timer=cuda_ms):
+    """Phase 19: B1 on rings past the shared memory of the card's blocks
+    (the stream tier): held to its plain version at ``STREAM_B1`` (phase
+    2's five cases, the step counter wrapping), a row's moments bitwise
+    the same in its batch and alone, an exact request through the service
+    at ``L_STREAM`` equal to a direct run, and each ring timed beside its
+    bound.  Returns B1's launches in (b) and the timings."""
+    import json as _json
+    import numpy as np
+    from repro_torch.kernels.tiling import MAX_GRID_RING_L, ring_plan
+    rng = np.random.default_rng(19)
+    timings = {}
+    info = build.ptxas_info("pdes_multistep_counter",
+                            "multistep_counter_stream_kernel")
+    print(f"[stream a] ptxas, multistep_counter_stream_kernel: {info}")
+
+    # (a) B1 against its plain version, a row in either wave, then timed
+    for B, L in [(B, L or MAX_GRID_RING_L + 32) for B, L in STREAM_B1]:
+        p = ring_plan(L)
+        check(p.tier == "stream", f"L={L} is not on the stream tier: {p}")
+        tau0, dcol, tcol = _kernel_inputs(torch, rng, B, L, dev)
+        err = _hold_b1_cases(torch, pm, ref, tau0, dcol, tcol)
+        if B > 1:
+            _hold_rows(torch, pm, tau0, dcol, tcol, STREAM_ROWS)
+            print(f"[stream a] B1 at L={L}: each row launched alone gives "
+                  f"tau and all six moments bitwise as in the launch of "
+                  f"B={B} (one ring on the card at a time: row 1 is the "
+                  f"second wave there)")
+        else:
+            timings[("B1", B, L)] = _time_ring(torch, pm, ref, build, tau0,
+                                               dcol, tcol, timer,
+                                               tag="stream c")
+        print(f"[stream a] B1 at B={B} L={L}: plan {p}, {p.keep} PEs of "
+              f"each segment in shared memory and {p.offchip_seg} in device "
+              f"memory ({p.offchip_pes(L)} of the ring, "
+              f"{pm.offchip_bytes_of(B, L, K_MAIN)} bytes a K={K_MAIN} chunk "
+              f"read and written there), {pm.resident_rings(L)} rings on "
+              f"the card at once; tau/ucount/min/max bitwise equal to the "
+              f"plain version over {len(RING_CASES)} cases x chunks "
+              f"K={K_MAIN} and K=5; max |err| of the sums {err:.3g}")
+        del tau0, dcol, tcol
+
+    # (b) an exact request through the service at L_STREAM
+    spec = sweep.WindowSweep(Ls=(L_STREAM,), n_vs=(N_V_MAIN,),
+                             deltas=(4.0, math.inf), replicas=2, n_steps=32,
+                             burn_in=16, backend="pallas_multistep",
+                             k_fuse=K_MAIN, seed=19)
+    svc = api.SweepService(device=dev, state_cache_rows=8)
+    svc.submit(spec, requester="a")
+    before = pm.launches
+    t0 = time.perf_counter()
+    (resp,) = svc.drain()
+    wall = time.perf_counter() - t0
+    launches = pm.launches - before
+    check(resp.error is None, f"the service's stream request: {resp.error}")
+    direct = sweep.run_window_sweep(spec, device=dev).as_dict()
+    check(_json.dumps(resp.result.as_dict()) == _json.dumps(direct),
+          "the service's answer at L_STREAM differs from a direct run")
+    print(f"[stream b] SweepService at L={L_STREAM}: {spec.burn_in} + "
+          f"{spec.n_steps} steps x {spec.n_trajectories} rows, {launches} "
+          f"B1 launches, {wall:.3f} s wall; bitwise a direct run")
+    return launches, timings
+
+
 def _time_ring(torch, pm, ref, build, tau, dcol, tcol, timer, bits=None,
                tag="long d"):
     """Phases 17(d) and 18(e): one K = 16 chunk of B1 (``bits`` None, with
@@ -3478,6 +3562,13 @@ def main() -> int:
 
     card = card_line()
     print(card)
+    if sys.argv[1:] == ["stream"]:      # B1's stream tier alone
+        _build.build("pdes_multistep_counter")
+        launches, _ = phase_stream_rings(torch, pm, ref, sweep, api, _build,
+                                         "cuda")
+        print(card)
+        print(json.dumps({"ok": True, "phase": 19, "b1_launches": launches}))
+        return 0
     print(f"[setup] python {sys.version.split()[0]}, torch {torch.__version__},"
           f" CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)} x "
           f"{torch.cuda.device_count()}")
@@ -3548,6 +3639,9 @@ def main() -> int:
                                            prng, sweep, api, trace,
                                            engine_mod, _build, "cuda")
     t["18 grid rings"] = time.perf_counter() - t0 - sum(t.values())
+    b1_stream, _ = phase_stream_rings(torch, pm, ref, sweep, api, _build,
+                                      "cuda")
+    t["19 stream rings"] = time.perf_counter() - t0 - sum(t.values())
     print("[setup] phase wall: "
           + ", ".join(f"{k} {v:.2f} s" for k, v in t.items()))
 
@@ -3556,7 +3650,7 @@ def main() -> int:
              source="src/repro_torch/kernels/csrc/pdes_multistep_counter.cu",
              replaces="src/repro/kernels/pdes_multistep.py:169",
              launches=(b1_launches + b1_serve + ex_launches["B1"] + b1_long
-                       + b1_grid),
+                       + b1_grid + b1_stream),
              library_ms=None, **kstats),
         dict(name="pdes_step", route="cuda",
              source="src/repro_torch/kernels/csrc/pdes_step.cu",
@@ -3575,7 +3669,8 @@ def main() -> int:
              library_ms=None, **gstats)]
     print(f"[launches] B1: phase 3 {b1_launches}, phase 10(a) {b1_serve}, "
           f"phase 13 {ex_launches['B1']}, phase 17(c) {b1_long}, phase 18(c, "
-          f"d) {b1_grid}; B2: phase 5 {b2_launches}, phase 9(c) {b2_sharded}, "
+          f"d) {b1_grid}, phase 19(b) {b1_stream}; B2: phase 5 {b2_launches}, "
+          f"phase 9(c) {b2_sharded}, "
           f"phase 10(d) {b2_serve}, phase 15(d) {b2_core}; B3: phase 8(a) "
           f"{b3_launches}, phase 17(b) {b3_long}, phase 18(b) {b3_grid}; "
           f"generator: phase 8(a) {gen_launches}, phase 13 "

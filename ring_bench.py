@@ -42,7 +42,7 @@ a --pdes-core shard's shapes.
 
 ``sass`` compiles B1's and B3's sources of two ``csrc`` trees to cubins
 (``nvcc -cubin``, the build's target and optimisation) and compares the
-machine code of their one-block and cluster ring kernels (``cuobjdump
+machine code of their one-block, cluster and grid ring kernels (``cuobjdump
 -sass``, each instantiation's instructions with addresses and encodings
 dropped): what shows that a change to the shared loop left those paths as
 they were.
@@ -350,11 +350,14 @@ def ablate_step(csrc: pathlib.Path) -> dict:
     return out
 
 
-#: (source, __global__ function) of the one-block and cluster ring kernels
+#: (source, __global__ function) of the one-block, cluster and grid ring
+#: kernels
 RING_KERNELS = (("pdes_multistep_counter", "multistep_counter_kernel"),
                 ("pdes_multistep_counter", "multistep_counter_cluster_kernel"),
+                ("pdes_multistep_counter", "multistep_counter_grid_kernel"),
                 ("pdes_multistep", "multistep_kernel"),
-                ("pdes_multistep", "multistep_cluster_kernel"))
+                ("pdes_multistep", "multistep_cluster_kernel"),
+                ("pdes_multistep", "multistep_grid_kernel"))
 
 
 def _sass(csrc: pathlib.Path, name: str, tag: str) -> dict:

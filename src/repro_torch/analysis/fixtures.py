@@ -123,17 +123,18 @@ def nondet_reduction():
 
 
 def vmem_blowup():
-    """A ring beyond the shared memory of all the card's blocks: B1 on 2^23
-    PEs (32 MiB of ring, past ``tiling.MAX_GRID_RING_L``;
+    """A ring beyond the shared memory of all the card's blocks: B3 on 2^23
+    PEs (32 MiB of ring, past ``tiling.MAX_GRID_RING_L``, where B3, unlike
+    B1, has no tier that keeps part of a segment in device memory;
     ``tiling.check_ring_fits`` would raise at launch, the rule flags it
     from the launch plan first)."""
     from ..kernels import pdes_multistep
     Lb = 1 << 23
 
     def fn(tau):
-        ctr = torch.tensor([[0, 0, 0, 0]], dtype=torch.int64)
-        out, _ = pdes_multistep.pdes_multistep_counter(
-            tau, ctr, k_steps=1, n_v=4, delta=DEFAULT_DELTA)
+        bits = torch.zeros((1, *tau.shape, 2), dtype=torch.int32)
+        out, _ = pdes_multistep.pdes_multistep(tau, bits, n_v=4,
+                                               delta=DEFAULT_DELTA)
         return out
 
     g, calls = trace(fn, torch.zeros((1, Lb)))

@@ -123,6 +123,11 @@ def _ring_plan(tau, *a, **kw):
     return pdes_multistep.launch_plan(*tau.shape)
 
 
+def _b3_plan(tau, *a, **kw):
+    from ..kernels import pdes_multistep
+    return pdes_multistep.launch_plan(*tau.shape, bits=True)
+
+
 def _b2_plan(tau_h, *a, **kw):
     from ..kernels import pdes_step
     return pdes_step.launch_plan(tau_h.shape[0], tau_h.shape[1] - 2)
@@ -134,10 +139,10 @@ _WRAPPERS = (
     ("repro_torch.kernels.pdes_multistep", "pdes_multistep_counter",
      "pdes_multistep_counter", _ring_plan),
     ("repro_torch.kernels.pdes_multistep", "pdes_multistep",
-     "pdes_multistep", _ring_plan),
+     "pdes_multistep", _b3_plan),
     ("repro_torch.kernels.ops", "pdes_step", "pdes_step", _b2_plan),
     ("repro_torch.kernels.ops", "pdes_multistep", "pdes_multistep",
-     _ring_plan),
+     _b3_plan),
 )
 
 

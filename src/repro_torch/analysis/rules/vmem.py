@@ -22,16 +22,16 @@ portable 8 for B2; ``tiling.RING_MAX_CLUSTER`` for the ring kernels, whose
 launch allows a non-portable size); spills are reported by
 :func:`kernel_budgets` and do not fire.  A ring kernel's plan over a
 cluster or a grid reads the ptxas figures of its cluster or grid
-instantiation.  Without a log (no ``nvcc`` here) the plan's static figure
-stands.
+instantiation (B1's stream tier: its stream instantiation).  Without a
+log (no ``nvcc`` here) the plan's static figure stands.
 """
 from __future__ import annotations
 
 from ...kernels import _build, pdes_multistep, pdes_step, threefry
 from ...kernels.tiling import (MAX_CLUSTER_RING_L, MAX_GRID_RING_L,
-                               MAX_RING_L, RING_MAX_CLUSTER,
-                               RING_MAX_GRID_BLOCKS, SMEM_PER_BLOCK,
-                               STEP_MAX_CLUSTER)
+                               MAX_RING_L, MAX_RING_SEG, MAX_STREAM_RING_L,
+                               RING_MAX_CLUSTER, RING_MAX_GRID_BLOCKS,
+                               SMEM_PER_BLOCK, STEP_MAX_CLUSTER)
 from ..probes import Probe
 from ..report import Finding
 
@@ -64,6 +64,8 @@ GRID_FUNCTIONS = {
     "pdes_multistep_counter": "multistep_counter_grid_kernel",
     "pdes_multistep": "multistep_grid_kernel",
 }
+#: __global__ function of B1's stream tier (B3 has none)
+STREAM_FUNCTION = "multistep_counter_stream_kernel"
 
 
 def _ptxas(kernel: str, plan: dict):
@@ -72,6 +74,8 @@ def _ptxas(kernel: str, plan: dict):
         fn = CLUSTER_FUNCTIONS[kernel]
     if kernel in RING_KERNELS and plan.get("ring_grid", 1) > 1:
         fn = GRID_FUNCTIONS[kernel]
+    if kernel == "pdes_multistep_counter" and plan.get("tier") == "stream":
+        fn = STREAM_FUNCTION
     return _build.ptxas_info(lib, fn)
 
 
@@ -108,10 +112,11 @@ def kernel_budgets(L: int = 10_000, budget: int = DEFAULT_BUDGET,
     ``K`` steps) against the budget, with its ptxas figures (registers,
     static shared bytes, spills) where built: what ``chip_smoke.py``
     phase 16 prints."""
-    ring = pdes_multistep.launch_plan(B, L)
-    return [budget_of("pdes_multistep_counter", ring, budget),
+    return [budget_of("pdes_multistep_counter",
+                      pdes_multistep.launch_plan(B, L), budget),
             budget_of("pdes_step", pdes_step.launch_plan(B, L), budget),
-            budget_of("pdes_multistep", ring, budget),
+            budget_of("pdes_multistep",
+                      pdes_multistep.launch_plan(B, L, bits=True), budget),
             budget_of("threefry_bits", threefry.launch_plan(K, B * L),
                       budget)]
 
@@ -136,6 +141,11 @@ def check(probe: Probe, vmem_budget: int = DEFAULT_BUDGET, **_) -> list:
                            f"L={MAX_CLUSTER_RING_L}; longer rings need a "
                            f"cooperative grid, and "
                            f"{RING_MAX_GRID_BLOCKS} blocks hold rings up to "
-                           f"L={MAX_GRID_RING_L})"
+                           f"L={MAX_GRID_RING_L}"
+                           + (f"; B1's blocks keep all but {MAX_RING_SEG} "
+                              f"PEs of each segment in device memory up to "
+                              f"L={MAX_STREAM_RING_L})"
+                              if call.kernel == "pdes_multistep_counter"
+                              else "; B3 takes no ring past it)")
                            if call.kernel in RING_KERNELS else "")))
     return findings

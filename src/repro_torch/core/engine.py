@@ -36,7 +36,8 @@ one-collective-per-chunk layout avoids.  ``gvt`` and ``mean_tau`` come
 back absolute, on the same rebase schedule as the other backends.
 
 Spans (``repro_torch.obs``, inert unless a tracer or the torch profiler
-records): ``engine.run`` around each run, ``engine.chunk`` around each
+records): ``engine.run`` around each run (on the fused path its args name
+B1's tier, ``tiling.ring_plan(L).tier``), ``engine.chunk`` around each
 chunk of the single-device loop, and ``engine.advance`` around the
 backend's advance within it (for the fused path, the kernel wrapper's
 host work up to B1's launch).  None synchronizes the device.
@@ -298,9 +299,12 @@ class PDESEngine:
         sharded = self.ecfg.backend == "sharded"
         K = self.dist.k_chunk if sharded \
             else max(1, min(self.ecfg.k_fuse, n_steps))
-        with _span("engine.run", cat="engine", args={
-                "mode": mode, "B": B, "L": state.tau.shape[1],
-                "n_steps": n_steps, "K": K}):
+        L = state.tau.shape[1]
+        args = {"mode": mode, "B": B, "L": L, "n_steps": n_steps, "K": K}
+        if self.ecfg.backend == "pallas_multistep":
+            from ..kernels.tiling import ring_plan
+            args["tier"] = ring_plan(L).tier
+        with _span("engine.run", cat="engine", args=args):
             if sharded:
                 return self._run_sharded(state, seed, n_steps, mode, deltas,
                                          trial_base)

@@ -172,7 +172,7 @@ extern "C" int pdes_multistep_grid_launch(const float* tau_in,
                                   multistep_grid_kernel<true, false>,
                                   multistep_grid_kernel<false, true>,
                                   multistep_grid_kernel<false, false>);
-  return ring_grid_launch(kernel, B, L, K, warps, grid, seg, work,
+  return ring_grid_launch(kernel, B, L, K, warps, grid, seg, seg, work,
                           work_bytes, stream, tau_in, (const uint2*)bits,
                           tau_out, stats, B, L, K, (uint32_t)n_v, delta,
                           grid, seg);

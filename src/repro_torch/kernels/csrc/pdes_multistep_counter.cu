@@ -14,10 +14,12 @@
 // and its window width delta_col[r] if given, else the static delta (inf =
 // off).  The step itself -- decode, GVT, Eq. (1) and Eq. (3), the moments,
 // the ring held once in shared memory, in one block up to L = 57,344,
-// split over a thread-block cluster of up to 16 blocks up to L = 911,360
-// and over up to 132 blocks of a cooperative grid up to L = 7,518,720
-// (kernels/tiling.py ring_plan; the wrapper raises above it) -- is the loop
-// of pdes_ring.cuh, which B3 shares.
+// split over a thread-block cluster of up to 16 blocks up to L = 911,360,
+// over up to 132 blocks of a cooperative grid up to L = 7,518,720, and over
+// 132 such blocks that keep the rest of their segments in device memory up
+// to L = 2,147,481,600 (kernels/tiling.py ring_plan; the wrapper raises
+// above it) -- is the loop of pdes_ring.cuh, which B3 shares up to the
+// grid tier.
 //
 // Bound on the H100 SXM (published peaks; 132 SMs at 1.98 GHz), at the
 // service's shape B = 448 rings of L = 10,000 PEs, K = 16 steps per launch
@@ -57,6 +59,15 @@
 // PE-steps a K = 16 chunk): bytes 67.1 MB, 0.020 ms; operations about
 // 5.9e9 at u = 0.64, 0.087 ms at 67 T/s.  The operations bound it again;
 // the blocks meet through L2 once a step, and 114 of 132 SMs work.
+//
+// A ring past shared memory, B = 14 rings of L = 2^23 PEs over the stream
+// tier's 132 blocks of 63,552 PEs (one ring at a time, so 14 waves; 1.88e9
+// PE-steps a K = 16 chunk): each block keeps 56,960 PEs in shared memory
+// and 6,592 (10.4%) in device memory, which 4 of its 32 warps read and
+// write each step: 8 bytes a PE-step there, 0.83 a PE-step of the ring,
+// 1.56 GB a chunk that stays in L2 (the device rows of one ring are 3.5
+// MB), against 0.94 GB of tau in and out a chunk.  Operations about 8.2e10
+// at u = 0.64, 1.2 ms at 67 T/s: still the bound.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -153,6 +164,29 @@ multistep_counter_grid_kernel(const float* __restrict__ tau_in,
   }
 }
 
+// The same on rings of the stream tier: `grid` blocks of one cooperative
+// launch, `seg` PEs a block, the first `keep` in shared memory and the rest
+// in tau_out (pdes_ring.cuh).
+template <bool kRd, bool kBoth>
+__global__ void __launch_bounds__(32 * kRingClusterWarps, 1)
+multistep_counter_stream_kernel(const float* __restrict__ tau_in,
+                                float* __restrict__ tau_out,
+                                float* __restrict__ stats,
+                                const float* __restrict__ delta_col,
+                                const uint32_t* __restrict__ trial_col,
+                                int B, int L, int K,
+                                uint32_t seed, uint32_t step0, uint32_t b0,
+                                uint32_t l0, uint32_t n_v, float delta,
+                                int grid, int seg, int keep, unsigned* work) {
+  for (int row = blockIdx.x / grid; row < B; row += gridDim.x / grid) {
+    const uint32_t trial = trial_col ? trial_col[row] : b0 + (uint32_t)row;
+    const float dlt = delta_col ? delta_col[row] : delta;
+    ring_steps<kRd, kBoth, RingTier::kStream>(
+        tau_in, tau_out, stats, row, B, L, K, n_v, dlt,
+        CounterEvents{seed, step0, trial, l0}, grid, seg, work, keep);
+  }
+}
+
 // eta of every word by the kernels' table decode (`table`) or by the library
 // log that B2 takes: a check of both on all inputs, not a path of the engine.
 __global__ void decode_eta_kernel(const uint32_t* __restrict__ w1,
@@ -239,7 +273,7 @@ extern "C" int pdes_multistep_counter_grid_launch(
       rd_mode, border_both, multistep_counter_grid_kernel<true, false>,
       multistep_counter_grid_kernel<false, true>,
       multistep_counter_grid_kernel<false, false>);
-  return ring_grid_launch(kernel, B, L, K, warps, grid, seg, work,
+  return ring_grid_launch(kernel, B, L, K, warps, grid, seg, seg, work,
                           work_bytes, stream, tau_in, tau_out, stats,
                           delta_col, trial_col, B, L, K, (uint32_t)seed,
                           (uint32_t)step0, (uint32_t)b0, (uint32_t)l0,
@@ -252,6 +286,35 @@ extern "C" int pdes_multistep_counter_grid_launch(
 extern "C" int pdes_multistep_counter_max_grid_rings(int grid, int warps,
                                                      int smem) {
   return ring_max_grid_rings(multistep_counter_grid_kernel<false, false>,
+                             grid, warps, smem);
+}
+
+// Launches B1 with a stream plan of kernels/tiling.py::ring_plan(L): as the
+// grid launcher, each block keeping `keep` of its `seg` PEs in shared
+// memory.  Returns a CUDA error code (pdes_ring.cuh ring_grid_launch).
+extern "C" int pdes_multistep_counter_stream_launch(
+    const float* tau_in, float* tau_out, float* stats, const float* delta_col,
+    const uint32_t* trial_col, int B, int L, int K, int warps, int grid,
+    int seg, int keep, unsigned seed, unsigned step0, unsigned b0,
+    unsigned l0, unsigned n_v, float delta, int rd_mode, int border_both,
+    void* work, long long work_bytes, void* stream) {
+  const auto kernel = ring_kernel(
+      rd_mode, border_both, multistep_counter_stream_kernel<true, false>,
+      multistep_counter_stream_kernel<false, true>,
+      multistep_counter_stream_kernel<false, false>);
+  return ring_grid_launch(kernel, B, L, K, warps, grid, seg, keep, work,
+                          work_bytes, stream, tau_in, tau_out, stats,
+                          delta_col, trial_col, B, L, K, (uint32_t)seed,
+                          (uint32_t)step0, (uint32_t)b0, (uint32_t)l0,
+                          (uint32_t)n_v, delta, grid, seg, keep);
+}
+
+// The rings of `grid` blocks of B1's stream kernel (`warps` warps and
+// `smem` dynamic bytes a block) that the card holds at once, or minus a
+// CUDA error code.
+extern "C" int pdes_multistep_counter_max_stream_rings(int grid, int warps,
+                                                       int smem) {
+  return ring_max_grid_rings(multistep_counter_stream_kernel<false, false>,
                              grid, warps, smem);
 }
 

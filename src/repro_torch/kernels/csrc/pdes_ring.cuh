@@ -85,6 +85,22 @@
 // rank 0 has read them where another row follows on the slot.  A block
 // partial a step, not 32 warp partials, so a block reads g values a step.
 //
+// B1 takes a ring longer still (up to kernels/tiling.py MAX_STREAM_RING_L;
+// RingTier::kStream, tiling.ring_plan's `stream` tier) over the grid's g =
+// 132 blocks as above, but a segment no longer fits a block's shared
+// memory: a block keeps its first `keep` PEs (tiling.MAX_RING_SEG, whole
+// rows) there and the rest in device memory, in its part of the output
+// ring, updated in place as the shared part is.  Its first wk warps own the
+// kr = keep / 32 shared rows and the other W - wk warps the rows past them
+// (stream_warps: as many as their share of the rows, rounded up, at least
+// one and at most W - 1), each split as above, so every warp's rows lie in
+// one memory, which it reads and writes through one pointer; the edge PEs,
+// the meeting and the sums are the grid tier's.  A warp of device rows
+// reads its group's tau from L2 (or L1) and stores it back one group late,
+// as in shared memory: __syncwarp orders a warp's global accesses as it
+// does its shared ones.  A segment no longer than `keep` (the last one may
+// be) takes no device warps.
+//
 // One barrier a step.  Each warp writes its partials of step k (ucount, min,
 // max, sum, sumsq, the sumabs of step k - 1 and its two edge PEs) into the
 // slot of k's parity, then __syncthreads(); then every warp reduces the W
@@ -130,7 +146,7 @@ constexpr int kRingMinBlocks = 4;
 
 // Where the blocks of a ring meet: one block, a thread-block cluster, or
 // the blocks of a cooperative grid (tiling.ring_plan).
-enum class RingTier { kBlock, kCluster, kGrid };
+enum class RingTier { kBlock, kCluster, kGrid, kStream };
 
 // What warp w publishes at the end of a step, read by every warp after the
 // step's barrier (parity slots: see above), for blocks of up to kW warps.
@@ -373,6 +389,14 @@ __device__ __forceinline__ void grid_meet(Slot& out, unsigned* work, int g,
   __syncthreads();
 }
 
+// Warps of a stream-tier block that own its kr shared rows of `rows`: all
+// W where the segment fits shared memory; else W less the device rows'
+// share of the warps, rounded up, at least one and at most W - 1.
+__device__ __forceinline__ int stream_warps(int rows, int kr, int W) {
+  if (kr >= rows) return W;
+  return W - min(W - 1, max(1, (W * (rows - kr) + rows - 1) / rows));
+}
+
 // Runs the K steps of ring `row` (blockDim.x = 32 W).  `dlt` is the row's
 // window width (inf turns the window off: tau <= inf + GVT holds).  kRd and
 // kBoth are the rd_mode and border_both flags, fixed per instantiation so
@@ -380,6 +404,8 @@ __device__ __forceinline__ void grid_meet(Slot& out, unsigned* work, int g,
 // block is rank blockIdx.x % cl of the ring's cl blocks and holds the
 // segment of `seg` PEs from PE rank * seg, and so over the grid, where the
 // blocks meet through the workspace `work`; in one block, the whole ring.
+// On the stream tier the block keeps the first `keep` PEs of its segment in
+// shared memory and the rest in tau_out.
 template <bool kRd, bool kBoth, RingTier kTier, class Events>
 __device__ __forceinline__ void ring_steps(const float* __restrict__ tau_in,
                                            float* __restrict__ tau_out,
@@ -388,14 +414,16 @@ __device__ __forceinline__ void ring_steps(const float* __restrict__ tau_in,
                                            uint32_t n_v, float dlt,
                                            const Events& events, int cl = 1,
                                            int seg = 0,
-                                           unsigned* work = nullptr) {
+                                           unsigned* work = nullptr,
+                                           int keep = 0) {
   constexpr bool kCluster = kTier == RingTier::kCluster;
-  constexpr bool kGrid = kTier == RingTier::kGrid;
+  constexpr bool kStream = kTier == RingTier::kStream;
+  constexpr bool kGrid = kTier == RingTier::kGrid || kStream;  // meets so
   constexpr bool kSplit = kCluster || kGrid;
   constexpr int U = Events::kAhead;
   constexpr int kW = kSplit ? kRingClusterWarps : kRingMaxWarps;
   using Slot = RingSlot<kW>;
-  extern __shared__ float ring[];
+  extern __shared__ float ring_smem[];
   __shared__ Slot slot[2];
   __shared__ LogEntry tab[128];
 
@@ -408,8 +436,17 @@ __device__ __forceinline__ void ring_steps(const float* __restrict__ tau_in,
   const int base = kSplit ? rank * seg : 0;
   const int n = kSplit ? min(seg, L - base) : L;
   const int rows = (n + 31) >> 5;
-  const int r0 = warp * rows / W;
-  const int r1 = (warp + 1) * rows / W;
+  // rows [0, kr) in shared memory, owned by warps [0, wk); on the stream
+  // tier the rows past them in device memory, owned by the other warps
+  const int kr = kStream ? min(rows, keep >> 5) : rows;
+  const int wk = kStream ? stream_warps(rows, kr, W) : W;
+  const bool dev_rows = kStream && warp >= wk;
+  const int r0 = dev_rows ? kr + (warp - wk) * (rows - kr) / (W - wk)
+                          : warp * kr / wk;
+  const int r1 = dev_rows ? kr + (warp + 1 - wk) * (rows - kr) / (W - wk)
+                          : (warp + 1) * kr / wk;
+  float* const ring =
+      dev_rows ? tau_out + (size_t)row * L + base : ring_smem;
   const int first = 32 * r0;                      // this warp's PEs
   const int last = min(32 * r1, n) - 1;
   const int wl = warp == 0 ? W - 1 : warp - 1;    // the warps beside it
@@ -624,7 +661,7 @@ __device__ __forceinline__ void ring_steps(const float* __restrict__ tau_in,
   float sa = 0.f;
   for (int i = first + lane; i <= last; i += 32) {
     const float t = ring[i];
-    dst[i] = t;
+    if (!dev_rows) dst[i] = t;   // device rows are in tau_out already
     sa = __fadd_rn(sa, fabsf(__fsub_rn(t, mean)));
   }
   sa = warp_sum(sa);
@@ -783,21 +820,24 @@ int ring_max_grid_rings(Kernel kernel, int grid, int warps, int smem) {
   return per_sm * sms / grid;
 }
 
-// Launches `kernel` (a grid instantiation) on B rings of `grid` blocks of
-// `warps` warps, each holding `seg` PEs, as one cooperative launch of as
-// many whole rings as the card holds at once (the kernel walks the batch
-// in waves), its ring slots in `work` (`work_bytes` bytes, the counters
-// zeroed here on `stream`), `args` its arguments up to the workspace.
-// Returns a CUDA error code: cudaErrorInvalidValue for a shape that is not
-// tiling.ring_plan's kind or a workspace too small,
-// cudaErrorCooperativeLaunchTooLarge where the card cannot hold one ring.
+// Launches `kernel` (a grid or stream instantiation) on B rings of `grid`
+// blocks of `warps` warps, each owning `seg` PEs and keeping the first
+// `keep` of them in shared memory (all, keep == seg, but on the stream
+// tier), as one cooperative launch of as many whole rings as the card holds
+// at once (the kernel walks the batch in waves), its ring slots in `work`
+// (`work_bytes` bytes, the counters zeroed here on `stream`), `args` its
+// arguments up to the workspace.  Returns a CUDA error code:
+// cudaErrorInvalidValue for a shape that is not tiling.ring_plan's kind or
+// a workspace too small, cudaErrorCooperativeLaunchTooLarge where the card
+// cannot hold one ring.
 template <class Kernel, class... Args>
 int ring_grid_launch(Kernel kernel, int B, int L, int K, int warps, int grid,
-                     int seg, void* work, long long work_bytes, void* stream,
-                     Args... args) {
-  if (grid < 2 || !ring_shape_ok(B, L, K, warps, kRingClusterWarps, grid, seg))
+                     int seg, int keep, void* work, long long work_bytes,
+                     void* stream, Args... args) {
+  if (grid < 2 || !ring_shape_ok(B, L, K, warps, kRingClusterWarps, grid, seg)
+      || keep > seg || keep < 32 * warps || (keep < seg && keep % 32 != 0))
     return (int)cudaErrorInvalidValue;
-  const int smem = seg * (int)sizeof(float);
+  const int smem = keep * (int)sizeof(float);
   int rings = ring_max_grid_rings(kernel, grid, warps, smem);
   if (rings < 0) return -rings;
   if (rings < 1) return (int)cudaErrorCooperativeLaunchTooLarge;

@@ -20,13 +20,17 @@ one cluster barrier a step; longer still, up to
 blocks), over blocks of one cooperative launch that meet through a small
 workspace in global memory once a step, as many whole rings at once as
 the card holds (:func:`resident_rings`), the batch in waves.  Above that
-the wrappers raise.  On a CUDA tensor a wrapper launches its kernel or
-raises (a launch the card refuses raises too); on a CPU tensor it runs
-the plain PyTorch version in ``ref``, which takes any L.  There is no
-other path.
+B3 raises; B1 runs up to ``tiling.MAX_STREAM_RING_L`` on the same 132
+blocks, each keeping ``tiling.MAX_RING_SEG`` PEs of its segment in shared
+memory and the rest in device memory (the stream tier), and raises past
+it.  On a CUDA tensor a wrapper launches its kernel or raises (a launch
+the card refuses raises too); on a CPU tensor it runs the plain PyTorch
+version in ``ref``, which takes any L.  There is no other path.
 
 ``launches`` (B1) and ``bits_launches`` (B3) count kernel launches, so a
-run can show that its main path went through the kernel.
+run can show that its main path went through the kernel;
+``offchip_bytes`` counts the bytes of tau that B1's stream-tier launches
+read and write in device memory (:func:`offchip_bytes_of`).
 """
 from __future__ import annotations
 
@@ -44,6 +48,9 @@ from .tiling import check_ring_fits, ring_plan
 launches = 0
 #: Kernel launches made by :func:`pdes_multistep` in this process.
 bits_launches = 0
+#: Bytes of tau that :func:`pdes_multistep_counter`'s launches in this
+#: process read and wrote in device memory on the stream tier.
+offchip_bytes = 0
 
 _LIB = "pdes_multistep_counter"
 _BITS_LIB = "pdes_multistep"
@@ -65,6 +72,13 @@ def _lib() -> ctypes.CDLL:
                        + [ctypes.c_uint32] * 5 + [ctypes.c_float]
                        + [ctypes.c_int] * 2)
         m = lib.pdes_multistep_counter_max_grid_rings
+        m.argtypes = [ctypes.c_int] * 3
+        m.restype = ctypes.c_int
+        _grid_argtypes(lib.pdes_multistep_counter_stream_launch,
+                       [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+                       + [ctypes.c_uint32] * 5 + [ctypes.c_float]
+                       + [ctypes.c_int] * 2)
+        m = lib.pdes_multistep_counter_max_stream_rings
         m.argtypes = [ctypes.c_int] * 3
         m.restype = ctypes.c_int
         g = lib.decode_eta_launch
@@ -106,22 +120,33 @@ def _grid_argtypes(f, head) -> None:
     f.restype = ctypes.c_int
 
 
-def launch_plan(B: int, L: int) -> dict:
-    """The launch of B1 or B3 on ``B`` rings of ``L`` PEs (any number of
-    steps: they loop inside the block), from ``tiling.ring_plan(L)``:
+def launch_plan(B: int, L: int, *, bits: bool = False) -> dict:
+    """The launch of B1 (``bits``: B3) on ``B`` rings of ``L`` PEs (any
+    number of steps: they loop inside the block), from
+    ``tiling.ring_plan(L)`` (B3's without the stream tier): its ``tier``,
     ``cluster`` blocks a ring of a thread-block cluster, or ``ring_grid``
     blocks a ring of a cooperative grid (both 1 up to
     ``tiling.MAX_RING_L``), so ``cluster * ring_grid * B`` blocks of
     ``threads`` (over the grid, the kernel's blocks walk them in waves of
-    the rings the card holds at once), each holding ``seg`` PEs in dynamic
-    shared memory (``csrc/pdes_ring.cuh`` sets the same ``4 seg`` bytes)
-    beside its static partials and log table.  The wrappers launch with it
-    and the linter's ``vmem-budget`` rule reads it, so the two cannot
-    disagree."""
-    p = ring_plan(L)
+    the rings the card holds at once), each owning ``seg`` PEs, of which
+    it holds ``dynamic_smem / 4`` in dynamic shared memory beside its
+    static partials and log table, and ``offchip_seg`` (the stream tier)
+    in device memory.  The wrappers launch with it and the linter's
+    ``vmem-budget`` rule reads it, so the two cannot disagree."""
+    p = ring_plan(L, stream=not bits)
     return {"grid": (p.blocks * B,), "cluster": p.cluster,
             "ring_grid": p.grid, "threads": p.threads, "seg": p.seg,
-            "dynamic_smem": p.dynamic_smem, "static_smem": p.static_smem}
+            "dynamic_smem": p.dynamic_smem, "static_smem": p.static_smem,
+            "tier": p.tier, "offchip_seg": p.offchip_seg}
+
+
+def offchip_bytes_of(B: int, L: int, K: int) -> int:
+    """Bytes of tau that one B1 launch of ``K`` steps on ``B`` rings of
+    ``L`` PEs reads and writes in device memory on the stream tier: each
+    block's device rows read and written once a step (0 on the other
+    tiers; the first copy in and the neighbours' reads, which L1 serves,
+    left out)."""
+    return 8 * B * K * ring_plan(L).offchip_pes(L)
 
 
 def resident_clusters(L: int, *, bits: bool = False) -> int:
@@ -146,12 +171,14 @@ def resident_rings(L: int, *, bits: bool = False) -> int:
     plan's ``grid`` (a batch of more runs in waves inside the launch; 0
     where the card cannot hold one ring, whose launch then raises).  Only
     for rings split over a cooperative grid (``L >
-    tiling.MAX_CLUSTER_RING_L``)."""
-    p = ring_plan(L)
+    tiling.MAX_CLUSTER_RING_L``), the stream tier's included."""
+    p = ring_plan(L, stream=not bits)
     if p.grid == 1:
         raise ValueError(f"a ring of L={L} PEs does not run over a "
                          f"cooperative grid")
     f = (_bits_lib().pdes_multistep_max_grid_rings if bits else
+         _lib().pdes_multistep_counter_max_stream_rings
+         if p.tier == "stream" else
          _lib().pdes_multistep_counter_max_grid_rings)
     n = f(p.grid, p.warps, p.dynamic_smem)
     _build.check(max(0, -n), "pdes_multistep occupancy")
@@ -199,7 +226,7 @@ def bits_launch(tau_in, words, tau_out, stats, *, n_v: int, delta: float,
     alone.
     """
     K, (B, L) = words.shape[0], tau_in.shape
-    p = ring_plan(L)
+    p = ring_plan(L, stream=False)
     dev = tau_in.device
     with torch.cuda.device(dev):
         args = (tau_in.data_ptr(), words.data_ptr(), tau_out.data_ptr(),
@@ -223,7 +250,8 @@ def counter_launch(tau_in, tau_out, stats, dcol, tcol, ctr, *, n_v: int,
     bits or None, ``ctr`` the four uint32 ``(seed, step0, b0, l0)``, and
     ``stats`` (6, K, B).  Launches with ``tiling.ring_plan(L)`` and raises
     on a launch the card refuses.  Counts nothing: timing scripts call it
-    to see the kernel alone.
+    to see the kernel alone.  On the stream tier ``tau_out`` holds the
+    device rows while the kernel runs.
     """
     K, (B, L) = stats.shape[1], tau_in.shape
     p = ring_plan(L)
@@ -235,9 +263,14 @@ def counter_launch(tau_in, tau_out, stats, dcol, tcol, ctr, *, n_v: int,
         rule = (*ctr, n_v, float(delta), int(rd_mode), int(border_both))
         if p.grid > 1:
             work = _workspace(dev, B, p.grid)
-            err = _lib().pdes_multistep_counter_grid_launch(
-                *args, p.grid, p.seg, *rule, work.data_ptr(), work.numel(),
-                _build.stream(dev))
+            if p.tier == "stream":
+                err = _lib().pdes_multistep_counter_stream_launch(
+                    *args, p.grid, p.seg, p.keep, *rule, work.data_ptr(),
+                    work.numel(), _build.stream(dev))
+            else:
+                err = _lib().pdes_multistep_counter_grid_launch(
+                    *args, p.grid, p.seg, *rule, work.data_ptr(),
+                    work.numel(), _build.stream(dev))
         else:
             err = _lib().pdes_multistep_counter_launch(
                 *args, p.cluster, p.seg, *rule, _build.stream(dev))
@@ -279,7 +312,7 @@ def pdes_multistep(tau, bits, *, n_v: int, delta: float,
     if tau.device.type != "cuda":
         raise ValueError(f"unsupported device {tau.device}")
     _refuse_eta_override()
-    check_ring_fits(L)
+    check_ring_fits(L, stream=False)
     K = bits.shape[0]
     dev = tau.device
     if bits.dtype != torch.int32:
@@ -315,7 +348,7 @@ def pdes_multistep_counter(tau, ctr, delta_col=None, trial_col=None, *,
       (tau (B, L), dict of six (K, B) moment planes in ``MOMENT_KEYS``
       order), each step's moments measured after its update.
     """
-    global launches
+    global launches, offchip_bytes
     _check_tau(tau)
     B, L = tau.shape
     if k_steps < 1:
@@ -348,6 +381,7 @@ def pdes_multistep_counter(tau, ctr, delta_col=None, trial_col=None, *,
                    n_v=n_v, delta=delta, rd_mode=rd_mode,
                    border_both=border_both)
     launches += 1
+    offchip_bytes += offchip_bytes_of(B, L, k_steps)
     return tau_out, dict(zip(MOMENT_KEYS, stats.unbind(0)))
 
 

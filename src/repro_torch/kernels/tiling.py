@@ -28,7 +28,15 @@ says how:
   takes at most the card's resident blocks, one an SM:
   :data:`MAX_GRID_RING_L` PEs on an H100 (the paper's production ring of
   2^20 PEs takes 19 blocks).  As many whole rings as fit run at once, and
-  the kernel walks the batch in waves.
+  the kernel walks the batch in waves;
+* B1 alone goes further (the stream tier): a ring longer still is cut
+  into :data:`RING_MAX_GRID_BLOCKS` segments of one cooperative launch as
+  before, each block keeps the first :data:`MAX_RING_SEG` PEs of its
+  segment in shared memory and the rest in device memory (its part of
+  the output ring, updated in place), and the warps that own those rows
+  walk them there each step.  That reaches :data:`MAX_STREAM_RING_L`
+  PEs, the longest ring whose PE indices a 32-bit int holds.  B3 stops
+  at :data:`MAX_GRID_RING_L`.
 
 The order in which a ring's sums are reduced follows the plan (warps, then
 blocks in rank order), so it must not depend on the batch the ring runs
@@ -108,8 +116,16 @@ MAX_CLUSTER_RING_L = RING_MAX_CLUSTER * MAX_RING_SEG
 #: tests; the launch asks the card how many blocks it holds at once
 #: (``pdes_multistep.resident_rings``) and refuses a ring that needs more.
 RING_MAX_GRID_BLOCKS = 132
-#: Longest ring B1 and B3 take: :data:`RING_MAX_GRID_BLOCKS` segments.
+#: Longest ring of the grid tier, and of B3: :data:`RING_MAX_GRID_BLOCKS`
+#: segments that each fit a block's shared memory.
 MAX_GRID_RING_L = RING_MAX_GRID_BLOCKS * MAX_RING_SEG
+#: Longest segment of a block of B1's stream tier: a multiple of 32 PEs
+#: with :data:`RING_MAX_GRID_BLOCKS` of them under 2^31, so that every PE
+#: index of the ring is a 32-bit int in the kernel.
+MAX_STREAM_SEG = (2**31 - 1) // RING_MAX_GRID_BLOCKS // 32 * 32
+#: Longest ring B1 takes: :data:`RING_MAX_GRID_BLOCKS` segments of the
+#: stream tier (2,147,481,600 PEs, 8 GiB of tau a row).
+MAX_STREAM_RING_L = RING_MAX_GRID_BLOCKS * MAX_STREAM_SEG
 
 
 @dataclasses.dataclass(frozen=True)
@@ -120,8 +136,9 @@ class RingPlan:
     blocks a ring of one cooperative launch (both 1: the whole ring in one
     block; at most one of them above 1), block rank ``j`` owning PEs
     ``[j seg, min((j + 1) seg, L))``; ``warps`` warps a block;
-    ``dynamic_smem`` bytes of the ring (4 a PE of the segment) and
-    ``static_smem`` bytes of partials and table a block.
+    ``dynamic_smem`` bytes of the ring kept in shared memory (4 a PE: the
+    ``keep`` first PEs of the segment, all of it but on the stream tier)
+    and ``static_smem`` bytes of partials and table a block.
     """
     cluster: int
     seg: int
@@ -144,6 +161,33 @@ class RingPlan:
         """Whether a block's shared memory holds its part of the ring."""
         return self.dynamic_smem + self.static_smem <= SMEM_PER_BLOCK
 
+    @property
+    def keep(self) -> int:
+        """PEs of a block's segment held in shared memory (the first ones)."""
+        return self.dynamic_smem // 4
+
+    @property
+    def offchip_seg(self) -> int:
+        """PEs of a whole segment that its block keeps in device memory:
+        ``seg - keep`` on the stream tier, else 0."""
+        return max(0, self.seg - self.keep)
+
+    @property
+    def tier(self) -> str:
+        """``block``, ``cluster``, ``grid`` or ``stream``."""
+        if self.grid > 1:
+            return "stream" if self.offchip_seg else "grid"
+        return "cluster" if self.cluster > 1 else "block"
+
+    def offchip_pes(self, L: int) -> int:
+        """PEs of a ring of ``L`` that its blocks keep in device memory:
+        each block's segment past its first ``keep`` PEs (the last
+        segment is shorter)."""
+        if not self.offchip_seg:
+            return 0
+        last = L - (self.blocks - 1) * self.seg
+        return (self.blocks - 1) * self.offchip_seg + max(0, last - self.keep)
+
 
 def _ring_seg(L: int, cluster: int) -> int:
     """PEs of each segment but the last: ``ceil(L / cluster)`` rounded up
@@ -152,7 +196,7 @@ def _ring_seg(L: int, cluster: int) -> int:
 
 
 @functools.lru_cache(maxsize=1024)
-def ring_plan(L: int) -> RingPlan:
+def ring_plan(L: int, *, stream: bool = True) -> RingPlan:
     """The layout of a ring of ``L`` PEs, for any batch.
 
     One block up to :data:`MAX_RING_L` (as :func:`ring_warps` and
@@ -161,9 +205,14 @@ def ring_plan(L: int) -> RingPlan:
     a cluster of 2 to :data:`RING_MAX_CLUSTER` blocks up to
     :data:`MAX_CLUSTER_RING_L`, then ``ceil(L / MAX_RING_SEG)`` blocks of a
     cooperative grid, with the cluster's static shared memory.  Above
-    :data:`MAX_GRID_RING_L` the plan of :data:`RING_MAX_GRID_BLOCKS`
-    blocks does not fit (``fits`` is False): :func:`check_ring_fits`
-    raises, and the linter's ``vmem-budget`` rule fires on it.
+    :data:`MAX_GRID_RING_L`, B1's plan (``stream``) is the stream tier:
+    :data:`RING_MAX_GRID_BLOCKS` blocks whose segments pass
+    :data:`MAX_RING_SEG`, each keeping that many PEs in shared memory, up
+    to :data:`MAX_STREAM_RING_L`.  Past its kernel's limit (B3's,
+    ``stream=False``: :data:`MAX_GRID_RING_L`) the plan of
+    :data:`RING_MAX_GRID_BLOCKS` blocks that hold their whole segments
+    does not fit (``fits`` is False): :func:`check_ring_fits` raises, and
+    the linter's ``vmem-budget`` rule fires on it.
     """
     if L <= MAX_RING_L:
         return RingPlan(1, L, ring_warps(L), ring_smem_bytes(L), SMEM_STATIC)
@@ -174,20 +223,27 @@ def ring_plan(L: int) -> RingPlan:
     if n <= RING_MAX_CLUSTER:
         return RingPlan(n, seg, RING_CLUSTER_WARPS, 4 * seg,
                         SMEM_STATIC_CLUSTER)
-    return RingPlan(1, seg, RING_CLUSTER_WARPS, 4 * seg, SMEM_STATIC_CLUSTER,
+    keep = seg
+    if stream and MAX_RING_SEG < seg <= MAX_STREAM_SEG:
+        keep = MAX_RING_SEG
+    return RingPlan(1, seg, RING_CLUSTER_WARPS, 4 * keep, SMEM_STATIC_CLUSTER,
                     grid=n)
 
 
-def check_ring_fits(L: int) -> None:
-    """Raise if a ring of ``L`` PEs does not fit the shared memory of
-    :data:`RING_MAX_GRID_BLOCKS` blocks."""
-    if not ring_plan(L).fits:
+def check_ring_fits(L: int, *, stream: bool = True) -> None:
+    """Raise if B1 (B3 where not ``stream``) cannot lay out a ring of
+    ``L`` PEs: past :data:`MAX_STREAM_RING_L` (:data:`MAX_GRID_RING_L`)."""
+    if not ring_plan(L, stream=stream).fits:
         raise ValueError(
             f"ring of L={L} PEs needs {ring_smem_bytes(L)} bytes of shared "
             f"memory; one block holds rings up to L={MAX_RING_L}, a cluster "
             f"of {RING_MAX_CLUSTER} blocks up to L={MAX_CLUSTER_RING_L}, "
             f"{RING_MAX_GRID_BLOCKS} blocks of a cooperative grid up to "
-            f"L={MAX_GRID_RING_L}")
+            f"L={MAX_GRID_RING_L}"
+            + (f", and {RING_MAX_GRID_BLOCKS} blocks that keep all but "
+               f"{MAX_RING_SEG} PEs of each segment in device memory up to "
+               f"L={MAX_STREAM_RING_L}" if stream else " (this kernel takes "
+               f"no ring past shared memory)"))
 
 
 #: Most threads of a B2 block (``kMaxThreads`` in ``csrc/pdes_step.cu``):

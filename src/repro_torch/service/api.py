@@ -58,6 +58,8 @@ from ..device import resolve_device
 from ..experiments.sweep import (SweepResult, WindowSweep, _derive_dist,
                                  _round_up, ens_extent, plan_mesh_sweep,
                                  records_from_reduction, spec_to_dict)
+from ..kernels import pdes_multistep
+from ..kernels.tiling import ring_plan
 from ..obs.trace import span_on
 from .scheduler import BatchScheduler, CompatKey, GridJob, PackedPass
 from .state_cache import StateCache, index_on
@@ -302,7 +304,10 @@ class SweepService:
     host tier.  ``state_bytes_to_host`` and ``state_bytes_to_device``
     total the bytes that cross between the two (demotions and ``save``
     down, promotions up); each ``pass`` span carries its pass's share and
-    its rows from the device tier, promoted and demoted.
+    its rows from the device tier, promoted and demoted, and, on the
+    fused path, B1's tier (``b1_tier``) and the bytes of tau its launches
+    read and wrote in device memory on the stream tier
+    (``b1_offchip_bytes``, counted from the plan).
     """
 
     def __init__(self, *, device=None, mesh=None, dist=None,
@@ -609,7 +614,11 @@ class SweepService:
             dataclasses.asdict(key), n_rows=B, n_pad=n_pad,
             n_jobs=len(p.jobs),
             requesters=sorted({j.requester for j in p.jobs}))
+        fused = key.backend == "pallas_multistep"
+        if args is not None and fused:
+            args["b1_tier"] = ring_plan(key.L).tier
         with self._span("pass", args=args) as sp:
+            pre_offchip = pdes_multistep.offchip_bytes
             cache = self.state_cache
             pre_cached = self.stats.rows_from_state_cache
             pre_burned = self.stats.rows_burned
@@ -624,6 +633,9 @@ class SweepService:
             self.stats.rows_computed += B
             self.stats.engine_row_steps += (B + n_pad) * key.n_steps
             if sp is not None:
+                if fused:
+                    sp.args["b1_offchip_bytes"] = (pdes_multistep.offchip_bytes
+                                                   - pre_offchip)
                 sp.args.update(
                     rows_from_cache=(self.stats.rows_from_state_cache
                                      - pre_cached),

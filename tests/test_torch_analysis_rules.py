@@ -118,7 +118,7 @@ def test_ptxas_log_parser(tmp_path, monkeypatch):
     assert row["ptxas"] == info and row["over"] == []
     row = vmem.budget_of("pdes_multistep_counter",
                          pdes_multistep.launch_plan(
-                             4, tiling.MAX_GRID_RING_L + 1))
+                             4, tiling.MAX_STREAM_RING_L + 1))
     assert len(row["over"]) == 1 and "shared memory" in row["over"][0]
     monkeypatch.setattr(_build, "ptxas_info",
                         lambda *a: dict(info, registers=300))
@@ -217,6 +217,39 @@ def test_launch_plan_is_what_the_wrappers_launch(L, monkeypatch):
     assert plan["grid"] == (-(-B * L // 1024), K)
 
 
+@pytest.mark.parametrize("L", [tiling.MAX_GRID_RING_L + 32, 1 << 23])
+def test_stream_launch_is_the_plans(L, monkeypatch):
+    """B1's raw launcher sends a ring of the stream tier to the stream
+    launcher with the plan's blocks, segment and the PEs it keeps in
+    shared memory, and the grid's workspace; the source sizes the blocks'
+    shared memory from those kept PEs; the wrapper counts the launch's
+    bytes in device memory from the plan."""
+    fake = _FakeLib()
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(_build, "stream", lambda dev: None)
+    monkeypatch.setattr(pdes_multistep, "_lib", lambda: fake)
+    B, K = 2, 3
+    tau = torch.zeros((B, L))
+    plan = pdes_multistep.launch_plan(B, L)
+    p = tiling.ring_plan(L)
+    pdes_multistep.counter_launch(tau, tau.clone(), torch.zeros((6, K, B)),
+                                  None, None, (0, 0, 0, 0), n_v=4, delta=1.0,
+                                  rd_mode=False, border_both=False)
+    ((name, args),) = fake.calls
+    assert name == "pdes_multistep_counter_stream_launch"
+    assert args[5:12] == (B, L, K, plan["threads"] // 32, plan["ring_grid"],
+                          plan["seg"], plan["dynamic_smem"] // 4)
+    assert plan["seg"] - plan["dynamic_smem"] // 4 == plan["offchip_seg"] > 0
+    assert args[-2] == B * (128 + 2 * plan["ring_grid"] * 8 * 4)
+    ring = (CSRC / "pdes_ring.cuh").read_text()
+    assert "const int smem = keep * (int)sizeof(float);" in ring
+    assert "grid, seg, keep, work," in \
+        (CSRC / "pdes_multistep_counter.cu").read_text()
+    assert pdes_multistep.offchip_bytes_of(B, L, K) == \
+        8 * B * K * p.offchip_pes(L)
+
+
 @pytest.mark.parametrize("case", ["ring", "step", "cluster"])
 def test_vmem_budget_holds_each_block_of_a_cluster(case):
     """Each block of a launch is held to one block's budget, a cluster to
@@ -224,7 +257,7 @@ def test_vmem_budget_holds_each_block_of_a_cluster(case):
     cluster split (B2's blocks hold a segment each already)."""
     from repro_torch.analysis.probes import KernelCall, Probe
     from repro_torch.analysis.rules import vmem
-    L = {"ring": tiling.MAX_GRID_RING_L + 1, "step": 65_536,
+    L = {"ring": tiling.MAX_STREAM_RING_L + 1, "step": 65_536,
          "cluster": 65_536}[case]
     kernel = "pdes_multistep_counter" if case == "ring" else "pdes_step"
     plan = (pdes_multistep.launch_plan(4, L) if case == "ring"
@@ -249,24 +282,29 @@ def test_vmem_budget_holds_each_block_of_a_cluster(case):
 
 
 @pytest.mark.parametrize("L", [131_072, 1 << 20,
-                               tiling.MAX_GRID_RING_L + 1])
+                               tiling.MAX_GRID_RING_L + 1,
+                               tiling.MAX_STREAM_RING_L + 1])
 def test_vmem_budget_of_a_ring_split_over_a_cluster(L, monkeypatch):
     """A ring over a cluster or a cooperative grid is held block by block:
     quiet at 131,072 PEs (3 blocks, a non-portable cluster allowed up to
-    16) and at the paper's 2^20 (19 blocks of a grid), and past the cap the
-    finding names all three limits."""
+    16) and at the paper's 2^20 (19 blocks of a grid); past the grid's cap
+    B1 is quiet on its stream tier and B3 fires, and past the stream
+    tier's both fire; each finding names every limit of its kernel."""
     from repro_torch.analysis.probes import KernelCall, Probe
     from repro_torch.analysis.rules import vmem
-    plan = pdes_multistep.launch_plan(4, L)
-    assert (plan["cluster"], plan["ring_grid"]) == {
-        131_072: (3, 1), 1 << 20: (1, 19)}.get(
-            L, (1, tiling.RING_MAX_GRID_BLOCKS))
+    plans = {k: pdes_multistep.launch_plan(4, L, bits=k == "pdes_multistep")
+             for k in vmem.RING_KERNELS}
+    for plan in plans.values():
+        assert (plan["cluster"], plan["ring_grid"]) == {
+            131_072: (3, 1), 1 << 20: (1, 19)}.get(
+                L, (1, tiling.RING_MAX_GRID_BLOCKS))
     probe = Probe("p", backend="fixture", graph=None, tau_in=0, tau_out=0,
                   ring_widths=frozenset(), L_ring=L, delta=1.0,
                   delta_input=None,
-                  kernels=[KernelCall(kernel=k, plan=plan, src="x:1")
+                  kernels=[KernelCall(kernel=k, plan=plans[k], src="x:1")
                            for k in vmem.RING_KERNELS])
     findings = vmem.check(probe)
+    plan = plans["pdes_multistep_counter"]
     if L == 131_072:
         assert findings == []
         assert vmem.budget_of("pdes_multistep",
@@ -283,9 +321,22 @@ def test_vmem_budget_of_a_ring_split_over_a_cluster(L, monkeypatch):
                           "multistep_counter_grid_kernel"),
                          ("pdes_multistep", "multistep_grid_kernel")]
     else:
-        assert [f.op for f in findings] == list(vmem.RING_KERNELS)
+        fire = (["pdes_multistep"] if L == tiling.MAX_GRID_RING_L + 1
+                else list(vmem.RING_KERNELS))
+        assert [f.op for f in findings] == fire
         for f in findings:
             assert "shared memory" in f.message
             assert f"L={tiling.MAX_RING_L}" in f.message
             assert f"L={tiling.MAX_CLUSTER_RING_L}" in f.message
             assert f"L={tiling.MAX_GRID_RING_L}" in f.message
+            assert (f"L={tiling.MAX_STREAM_RING_L}" in f.message) == (
+                f.op == "pdes_multistep_counter")
+        if L == tiling.MAX_GRID_RING_L + 1:  # B1's stream instantiation
+            asked = []
+            monkeypatch.setattr(_build, "ptxas_info",
+                                lambda lib, fn: asked.append((lib, fn)))
+            assert plan["tier"] == "stream"
+            assert vmem.budget_of("pdes_multistep_counter", plan)["over"] \
+                == []
+            assert asked == [("pdes_multistep_counter",
+                              "multistep_counter_stream_kernel")]

@@ -49,7 +49,9 @@ def _inputs(dev, B, L, seed=0):
 @pytest.mark.parametrize("B,L", [(16, 1000), (3, 37),
                                  (2, tiling.MAX_RING_L), (2, 131_072),
                                  (1, tiling.MAX_CLUSTER_RING_L),
-                                 (8, 1 << 20), (1, tiling.MAX_GRID_RING_L)])
+                                 (8, 1 << 20), (1, tiling.MAX_GRID_RING_L),
+                                 (1, tiling.MAX_GRID_RING_L + 32),
+                                 (1, 1 << 23), (2, 1 << 23)])
 def test_kernel_matches_plain_version(dev, n_v, rd_mode, border_both, cols,
                                       B, L):
     tau, dcol, tcol = _inputs(dev, B, L)
@@ -170,10 +172,10 @@ def test_kernel_refuses_eta_override_and_long_rings(dev):
     with horizon.eta_override(table):
         with pytest.raises(RuntimeError, match="eta_override"):
             pm.pdes_multistep_counter(tau, ctr, k_steps=1, n_v=1, delta=1.0)
+    too_long = torch.zeros(1, 1, device=dev).expand(
+        1, tiling.MAX_STREAM_RING_L + 1)      # a view: no 8 GiB of zeros
     with pytest.raises(ValueError, match="shared memory"):
-        pm.pdes_multistep_counter(
-            torch.zeros(1, tiling.MAX_GRID_RING_L + 1, device=dev), ctr,
-            k_steps=1, n_v=1, delta=1.0)
+        pm.pdes_multistep_counter(too_long, ctr, k_steps=1, n_v=1, delta=1.0)
 
 
 def test_engine_backends_agree_on_the_gpu(dev):
@@ -397,9 +399,10 @@ def test_bits_kernel_refuses_eta_override_and_long_rings(dev):
 
 def test_bits_kernel_launch_failure_raises(dev, monkeypatch):
     """A refused launch raises; nothing falls back to the plain version."""
-    monkeypatch.setattr(pm, "check_ring_fits", lambda L: None)
+    monkeypatch.setattr(pm, "check_ring_fits", lambda L, **kw: None)
     L = tiling.MAX_GRID_RING_L + 1_000_000   # a segment past a block's
-    assert tiling.ring_plan(L).dynamic_smem > tiling.SMEM_PER_BLOCK
+    assert tiling.ring_plan(L, stream=False).dynamic_smem > \
+        tiling.SMEM_PER_BLOCK
     before = pm.bits_launches
     with pytest.raises(RuntimeError, match="CUDA error"):
         pm.pdes_multistep(torch.zeros(1, L, device=dev),
@@ -442,8 +445,8 @@ def test_grid_launch_the_card_cannot_place_raises(dev, monkeypatch):
     L = (g - 1) * seg + 40_000
     plan = tiling.RingPlan(1, seg, tiling.RING_CLUSTER_WARPS, 4 * seg,
                            tiling.SMEM_STATIC_CLUSTER, grid=g)
-    monkeypatch.setattr(pm, "ring_plan", lambda L: plan)
-    monkeypatch.setattr(pm, "check_ring_fits", lambda L: None)
+    monkeypatch.setattr(pm, "ring_plan", lambda L, **kw: plan)
+    monkeypatch.setattr(pm, "check_ring_fits", lambda L, **kw: None)
     assert pm.resident_rings(L) == 0
     tau = torch.zeros(1, L, device=dev)
     b1, b3 = pm.launches, pm.bits_launches
@@ -455,6 +458,65 @@ def test_grid_launch_the_card_cannot_place_raises(dev, monkeypatch):
                                            device=dev), n_v=1, delta=1.0)
     torch.cuda.synchronize()
     assert (pm.launches, pm.bits_launches) == (b1, b3)
+
+
+def test_stream_ring_result_does_not_depend_on_its_batch_or_wave(dev):
+    """A ring of the stream tier (2^23 PEs: 132 blocks, 6,592 PEs of each
+    segment in device memory, one ring on the card at a time) gives the
+    same tau and moments, bit for bit, as the third wave of a batch of 3,
+    as the first, and alone; and each equals the plain version's."""
+    L, K = 1 << 23, 5
+    assert tiling.ring_plan(L).tier == "stream"
+    assert pm.resident_rings(L) >= 1
+    tau, dcol, tcol = _inputs(dev, 3, L, seed=23)
+    ctr = torch.tensor([[7, 2**32 - 3, 0, 0]])
+    kw = dict(k_steps=K, n_v=100, delta=math.inf)
+    full = pm.pdes_multistep_counter(tau, ctr, dcol, tcol, **kw)
+    _assert_step_equal(full, ref.pdes_multistep_counter_ref(
+        tau, ctr, dcol, tcol, **kw))
+    for rows in (slice(2, 3), slice(0, 1), slice(1, 3)):
+        got = pm.pdes_multistep_counter(tau[rows], ctr, dcol[rows],
+                                        tcol[rows], **kw)
+        for r in range(rows.stop - rows.start):
+            _assert_same_ring(
+                (got[0][r:r + 1],
+                 {k: v[:, r:r + 1] for k, v in got[1].items()}),
+                full, rows.start + r)
+
+
+def test_service_takes_an_exact_request_past_shared_memory(dev, monkeypatch):
+    """The sweep service answers an exact request at L = 2^23 through B1's
+    stream tier: as a direct run does, bit for bit; with the exact fields
+    of a run whose chunks take B1's plain version; and its pass spans
+    name the tier and count the launches' bytes in device memory from
+    the plan."""
+    import json
+    from repro_torch import obs as tobs
+    from repro_torch.experiments.sweep import WindowSweep, run_window_sweep
+    from repro_torch.service.api import SweepService
+    L = 1 << 23
+    spec = WindowSweep(Ls=(L,), n_vs=(100,), deltas=(100.0, math.inf),
+                       replicas=2, n_steps=32, burn_in=16,
+                       backend="pallas_multistep", k_fuse=16, seed=3)
+    svc = SweepService(device=dev, state_cache_rows=8)
+    tel = tobs.Telemetry(tracer=tobs.TraceRecorder())
+    svc.attach_telemetry(tel)
+    svc.submit(spec, requester="a")
+    before = pm.launches
+    (resp,) = svc.drain()
+    assert resp.error is None and pm.launches == before + 3
+    direct = run_window_sweep(spec, device=dev).as_dict()
+    assert json.dumps(resp.result.as_dict()) == json.dumps(direct)
+    (args,) = [e["args"] for e in tel.tracer.events if e["name"] == "pass"]
+    assert args["b1_tier"] == "stream"
+    assert args["b1_offchip_bytes"] == 3 * pm.offchip_bytes_of(4, L, 16)
+    with monkeypatch.context() as mp:
+        mp.setattr(pm, "pdes_multistep_counter",
+                   ref.pdes_multistep_counter_ref)
+        plain = run_window_sweep(spec, device=dev).as_dict()
+    for got, want in zip(direct["records"], plain["records"]):
+        for f in ("u", "u_err", "rate", "rate_err"):
+            assert got[f] == want[f], f
 
 
 def test_engine_service_and_simulate_take_the_production_ring(dev):

@@ -163,8 +163,12 @@ def test_tiling_rules():
     tiling.check_ring_fits(tiling.MAX_CLUSTER_RING_L + 1)
     tiling.check_ring_fits(1 << 20)
     tiling.check_ring_fits(tiling.MAX_GRID_RING_L)
+    tiling.check_ring_fits(tiling.MAX_GRID_RING_L + 1)      # B1's stream tier
+    tiling.check_ring_fits(tiling.MAX_STREAM_RING_L)
     with pytest.raises(ValueError, match="shared memory"):
-        tiling.check_ring_fits(tiling.MAX_GRID_RING_L + 1)
+        tiling.check_ring_fits(tiling.MAX_STREAM_RING_L + 1)
+    with pytest.raises(ValueError, match="shared memory"):   # B3's cap
+        tiling.check_ring_fits(tiling.MAX_GRID_RING_L + 1, stream=False)
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):

@@ -221,6 +221,48 @@ def test_pass_span_counts_the_bytes_its_splice_moved():
         [(0, 0)] * 3
 
 
+def test_spans_name_b1s_tier_and_count_its_device_bytes(monkeypatch):
+    """The fused path's ``engine.run`` and ``pass`` spans name B1's tier
+    (a ring of 16 PEs: one block), and each ``pass`` carries the bytes in
+    device memory of every B1 launch it made, its burn-in's included: the
+    growth of ``pdes_multistep.offchip_bytes`` over the pass (here a
+    stand-in that counts 1000 bytes a row-step; the CPU launches
+    nothing)."""
+    from repro_torch.kernels import pdes_multistep as pm
+    plain = pm.pdes_multistep_counter
+
+    def counted(tau, *a, k_steps, **kw):
+        out = plain(tau, *a, k_steps=k_steps, **kw)
+        pm.offchip_bytes += 1000 * tau.shape[0] * k_steps
+        return out
+
+    monkeypatch.setattr(pm, "pdes_multistep_counter", counted)
+    tel = tobs.Telemetry(tracer=tobs.TraceRecorder())
+    prev = ttrace.set_tracer(tel.tracer)     # the engine's spans too
+    try:
+        _drain(tel)
+    finally:
+        ttrace.set_tracer(prev)
+    events = tel.tracer.events
+    runs = [e["args"] for e in events if e["name"] == "engine.run"]
+    assert runs and all(a["tier"] == "block" for a in runs)
+    args = [e["args"] for e in events if e["name"] == "pass"]
+    assert [a["b1_tier"] for a in args] == ["block"] * 3
+    assert [a["b1_offchip_bytes"] for a in args] == [
+        1000 * (a["rows_burned"] * a["burn"] + a["n_rows"] * a["n_steps"])
+        for a in args]
+    assert args[0]["rows_burned"] > 0
+    _drain(tobs.Telemetry(tracer=tobs.TraceRecorder()))
+    assert pm.offchip_bytes > 0
+    monkeypatch.setattr(pm, "pdes_multistep_counter", plain)
+    before = pm.offchip_bytes
+    tel = tobs.Telemetry(tracer=tobs.TraceRecorder())
+    _drain(tel)
+    assert pm.offchip_bytes == before        # the CPU's plain version
+    assert [e["args"]["b1_offchip_bytes"] for e in tel.tracer.events
+            if e["name"] == "pass"] == [0, 0, 0]
+
+
 def test_zero_budget_pass_spans_count_the_crossings():
     """With no room on the device every burned row is demoted (one copy
     down) and every hit crosses up; the burned pass itself takes its rows

@@ -85,8 +85,14 @@ def test_ring_plan(L):
     assert lp == {"grid": (7 * p.cluster * p.grid,), "cluster": p.cluster,
                   "ring_grid": p.grid, "threads": 32 * p.warps,
                   "seg": p.seg, "dynamic_smem": p.dynamic_smem,
-                  "static_smem": p.static_smem}
-    assert p.fits and p.dynamic_smem == 4 * p.seg
+                  "static_smem": p.static_smem, "tier": p.tier,
+                  "offchip_seg": 0}
+    assert lp == pdes_multistep.launch_plan(7, L, bits=True)   # B3's too
+    assert p == tiling.ring_plan(L, stream=False)
+    assert p.tier == ("block" if L <= tiling.MAX_RING_L else "cluster"
+                      if L <= tiling.MAX_CLUSTER_RING_L else "grid")
+    assert p.fits and p.dynamic_smem == 4 * p.seg and p.keep == p.seg
+    assert p.offchip_pes(L) == 0
     assert p.dynamic_smem + p.static_smem <= tiling.SMEM_PER_BLOCK
     if L <= tiling.MAX_RING_L:
         assert p == tiling.RingPlan(1, L, tiling.ring_warps(L),
@@ -138,17 +144,27 @@ def test_ring_plan_over_the_grid(L):
 
 
 def test_ring_plan_raises_above_the_cap():
-    cap = tiling.MAX_GRID_RING_L
-    assert cap >= 1 << 22
+    """B1's cap is the stream tier's: past the grid's, B1 lays a ring out
+    up to MAX_STREAM_RING_L and raises only past it, naming all four
+    limits (B3 keeps the grid's cap: the next test)."""
+    cap = tiling.MAX_STREAM_RING_L
+    assert tiling.MAX_GRID_RING_L >= 1 << 22
     assert tiling.MAX_CLUSTER_RING_L == \
         tiling.RING_MAX_CLUSTER * tiling.MAX_RING_SEG
-    assert cap == tiling.RING_MAX_GRID_BLOCKS * tiling.MAX_RING_SEG
+    assert tiling.MAX_GRID_RING_L == \
+        tiling.RING_MAX_GRID_BLOCKS * tiling.MAX_RING_SEG
+    assert cap == tiling.RING_MAX_GRID_BLOCKS * tiling.MAX_STREAM_SEG
+    assert cap < 2**31 <= cap + tiling.RING_MAX_GRID_BLOCKS * 32
     tiling.check_ring_fits(cap)
+    tiling.check_ring_fits(tiling.MAX_GRID_RING_L + 1)
     tiling.check_ring_fits(tiling.MAX_CLUSTER_RING_L + 1)
     assert not tiling.ring_plan(cap + 1).fits
     with pytest.raises(ValueError, match=f"L={tiling.MAX_RING_L}, a cluster "
                        f"of 16 blocks up to L={tiling.MAX_CLUSTER_RING_L}, "
-                       f"132 blocks of a cooperative grid up to L={cap}"):
+                       f"132 blocks of a cooperative grid up to "
+                       f"L={tiling.MAX_GRID_RING_L}, and 132 blocks that "
+                       f"keep all but {tiling.MAX_RING_SEG} PEs of each "
+                       f"segment in device memory up to L={cap}"):
         tiling.check_ring_fits(cap + 1)
     # the cluster block's static shared memory holds two parity slots of 8
     # per-warp words for its most warps, and the 2 KB log table; the grid
@@ -167,6 +183,85 @@ def test_ring_plan_raises_above_the_cap():
     assert pdes_multistep.GRID_SLOT_BYTES == 128
     assert pdes_multistep.GRID_PART_BYTES == 8 * 4
 
+
+def test_b3_raises_above_the_grid_cap():
+    """B3 has no stream tier: its plan past MAX_GRID_RING_L is the grid's
+    132 blocks holding whole segments, which do not fit, and its check
+    raises there, naming the three limits of shared memory."""
+    cap = tiling.MAX_GRID_RING_L
+    tiling.check_ring_fits(cap, stream=False)
+    for L in (cap + 1, 1 << 23):
+        p = tiling.ring_plan(L, stream=False)
+        assert not p.fits and p.tier == "grid" and p.offchip_seg == 0
+        assert p.dynamic_smem == 4 * p.seg
+        assert p.dynamic_smem + p.static_smem > tiling.SMEM_PER_BLOCK
+        lp = pdes_multistep.launch_plan(4, L, bits=True)
+        assert lp["dynamic_smem"] == p.dynamic_smem and lp["tier"] == "grid"
+        with pytest.raises(ValueError, match=f"132 blocks of a cooperative "
+                           f"grid up to L={cap} \\(this kernel takes no "
+                           f"ring past shared memory\\)"):
+            tiling.check_ring_fits(L, stream=False)
+
+
+#: The stream tier's rings: one row past the grid's cap, the cell
+#: exact_mix.ring8m's 2^23, twice that, and the tier's own limit.
+STREAM_LS = (tiling.MAX_GRID_RING_L + 32, 1 << 23, 1 << 24,
+             tiling.MAX_STREAM_RING_L)
+
+
+@pytest.mark.parametrize("L", STREAM_LS)
+def test_ring_plan_on_the_stream_tier(L):
+    """Past the grid's cap B1 keeps the grid's 132 blocks of whole-row
+    segments, and each keeps its first MAX_RING_SEG PEs in shared memory
+    and the rest in device memory: a function of L alone, which
+    launch_plan reports for every batch."""
+    p = tiling.ring_plan(L)
+    assert p.tier == "stream" and p.fits
+    assert (p.cluster, p.grid) == (1, tiling.RING_MAX_GRID_BLOCKS)
+    assert p.seg == 32 * -(-L // (32 * tiling.RING_MAX_GRID_BLOCKS))
+    assert tiling.MAX_RING_SEG < p.seg <= tiling.MAX_STREAM_SEG
+    assert p.keep == tiling.MAX_RING_SEG and p.dynamic_smem == 4 * p.keep
+    assert p.warps == tiling.RING_CLUSTER_WARPS
+    assert p.static_smem == tiling.SMEM_STATIC_CLUSTER
+    assert p.offchip_seg == p.seg - p.keep
+    last = L - (p.grid - 1) * p.seg
+    assert 0 < last <= p.seg
+    assert p.offchip_pes(L) == (p.grid - 1) * p.offchip_seg + max(
+        0, last - p.keep)
+    # a row for every warp: each part of a segment holds the warps its
+    # stream_warps split gives it (csrc/pdes_ring.cuh)
+    assert p.keep // 32 >= p.warps and -(-last // 32) >= p.warps
+    tiling.ring_plan.cache_clear()
+    assert tiling.ring_plan(L) == p
+    for B in (1, 3, 14):
+        lp = pdes_multistep.launch_plan(B, L)
+        assert lp == {"grid": (B * p.grid,), "cluster": 1,
+                      "ring_grid": p.grid, "threads": 32 * p.warps,
+                      "seg": p.seg, "dynamic_smem": p.dynamic_smem,
+                      "static_smem": p.static_smem, "tier": "stream",
+                      "offchip_seg": p.offchip_seg}
+        assert pdes_multistep.offchip_bytes_of(B, L, 16) == \
+            8 * B * 16 * p.offchip_pes(L)
+    if L == tiling.MAX_GRID_RING_L + 32:     # one row of device memory
+        assert (p.seg, p.offchip_seg, p.offchip_pes(L)) == (56_992, 32,
+                                                           131 * 32)
+    if L == 1 << 23:                          # the cell exact_mix.ring8m
+        assert (p.seg, p.offchip_seg, p.offchip_pes(L)) == (63_552, 6_592,
+                                                           869_888)
+        assert 8 * p.offchip_pes(L) / L == 0.82958984375
+    if L == tiling.MAX_STREAM_RING_L:
+        assert p.seg == tiling.MAX_STREAM_SEG and last == p.seg
+
+
+def test_ring_plan_below_the_stream_tier_is_unchanged():
+    """Up to the grid's cap B1's plan is the one B3 keeps, for every class
+    of L (the stream tier adds rings and changes none)."""
+    for L in (1, 10_000, tiling.MAX_RING_L + 1, tiling.MAX_CLUSTER_RING_L,
+              tiling.MAX_CLUSTER_RING_L + 1, 1 << 20, 1 << 22,
+              tiling.MAX_GRID_RING_L - 1, tiling.MAX_GRID_RING_L):
+        assert tiling.ring_plan(L) == tiling.ring_plan(L, stream=False)
+        assert tiling.ring_plan(L).offchip_seg == 0
+    assert pdes_multistep.offchip_bytes_of(14, 1 << 20, 16) == 0
 
 #: Row lengths B2's plan is checked at: every Lc to past the longest row
 #: one cluster keeps on chip, then a stride and every class boundary up to
