@@ -147,22 +147,23 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` with
    are built: ``python -m repro_torch.analysis --backend all --format
    json -o <file>`` as a subprocess, exit 0 and each backend's report
    equal to ``tests/golden/analysis_<backend>.json``; every kernel's
-   launch plan at L = 10,000, ``tiling.MAX_RING_L``, 131,072,
+   launch plan at L = 10,000, ``tiling.MAX_RING_L``, 65,536, 131,072,
    ``tiling.MAX_CLUSTER_RING_L``, 2^20 and ``tiling.MAX_GRID_RING_L``
    with the registers, static shared bytes and spills of this run's ptxas
-   logs (the ring kernels' cluster instantiations at the middle two, their
-   grid instantiations, which must spill nothing, at the last two),
+   logs (the ring kernels' cluster instantiations at 65,536, their grid
+   instantiations, which must spill nothing, at the last four),
    against one block's budget, and B2's
    plan (cluster size, rows a block) at 10,000, 65,536 and
    ``MAX_RING_L``; the six seeded fixtures, each firing its own rule and
    only it;
-17. long rings, split over a thread-block cluster (``tiling.ring_plan``):
+17. long rings of 2 to 16 blocks (``tiling.ring_plan``: a thread-block
+   cluster at 2 blocks, the cooperative grid from 3):
    (a) B1 against its plain version at B = 448 x L = 65,536 (2 blocks a
-   ring) and 131,072 (3), 32 x 524,288 (10, a non-portable cluster) and 8
-   x ``MAX_CLUSTER_RING_L`` (16), over phase 2's five cases with the step
+   ring) and 131,072 (3), 32 x 524,288 (10) and 8 x
+   ``MAX_CLUSTER_RING_L`` (16), over phase 2's five cases with the step
    counter wrapping, τ/ucount/min/max bitwise and the sums to tolerance;
    a row's moments bitwise the same at B = 448, 32 and 1 at 131,072; the
-   card's ``cudaOccupancyMaxActiveClusters`` for each cluster launched;
+   rings the card holds at once on each plan's tier;
    (b) B3 the same at B = 8, L = 65,536 and 524,288, and ``ops.simulate``
    there with the kernels against the plain versions; (c) phase 3's
    requests through ``SweepService`` at L = 131,072 (1024 + 1024 steps),
@@ -491,14 +492,15 @@ THREEFRY_KAT = [
 ]
 
 
-#: Phase 17: rings longer than one block's shared memory, each split over
-#: a thread-block cluster (``tiling.ring_plan``).  (B, L) of B1's checks:
-#: clusters of 2, 3, 10 (non-portable; the JAX package's one-row VMEM
-#: budget ends at 524,285) and 16 at the cap (None:
-#: ``tiling.MAX_CLUSTER_RING_L``); B3's through ``ops.simulate``; the rows
-#: of the batch-independence check at ``L_LONG`` (a launch of 32 and one
-#: of 1 out of the 448); the ring, burn-in and timed launches of the
-#: service drain of (c), the paper's large-L regime at 13 times ``L_MAIN``.
+#: Phase 17: rings longer than one block's shared memory, of 2 to 16
+#: blocks (``tiling.ring_plan``: a cluster at 2, the cooperative grid from
+#: 3).  (B, L) of B1's checks: 2, 3, 10 (the JAX package's one-row VMEM
+#: budget ends at 524,285) and 16 blocks at the cluster kernels' cap
+#: (None: ``tiling.MAX_CLUSTER_RING_L``); B3's through ``ops.simulate``;
+#: the rows of the batch-independence check at ``L_LONG`` (a launch of 32
+#: and one of 1 out of the 448); the ring, burn-in and timed launches of
+#: the service drain of (c), the paper's large-L regime at 13 times
+#: ``L_MAIN``.
 LONG_B1 = ((448, 65_536), (448, 131_072), (32, 524_288), (8, None))
 LONG_B3 = ((8, 65_536), (8, 524_288))
 LONG_ROWS = (slice(400, 432), slice(446, 447))
@@ -3092,8 +3094,8 @@ def phase_linter(root):
           f"{len(report['backends'])} backends equal to their goldens, "
           f"{report['n_findings']} findings ({time.perf_counter() - t0:.1f} s)")
     from repro_torch.kernels import pdes_step as ps
-    for L in (10_000, MAX_RING_L, L_LONG, MAX_CLUSTER_RING_L, L_PROD,
-              MAX_GRID_RING_L):
+    for L in (10_000, MAX_RING_L, 65_536, L_LONG, MAX_CLUSTER_RING_L,
+              L_PROD, MAX_GRID_RING_L):
         for row in vmem.kernel_budgets(L):
             info = row["ptxas"]
             check(info is not None, f"no ptxas log for {row['kernel']}")
@@ -3137,12 +3139,13 @@ def phase_linter(root):
 
 def phase_long_rings(torch, pm, tf, ref, ops, horizon, prng, sweep, api,
                      trace, build, dev, timer=cuda_ms):
-    """Phase 17: B1 and B3 on rings split over a thread-block cluster, held
-    to their plain versions at ``LONG_B1`` and ``LONG_B3`` (phase 2's five
-    cases, the step counter wrapping), a row's moments bitwise the same at
-    B = 448, 32 and 1, the service's drain at ``L_LONG`` equal to direct
-    runs, and each shape timed beside its bound.  Returns B1's launches in
-    (c), B3's in (b)'s ``simulate`` and the timings."""
+    """Phase 17: B1 and B3 on rings of 2 to 16 blocks (a thread-block
+    cluster at 2, the cooperative grid from 3), held to their plain
+    versions at ``LONG_B1`` and ``LONG_B3`` (phase 2's five cases, the
+    step counter wrapping), a row's moments bitwise the same at B = 448, 32
+    and 1, the service's drain at ``L_LONG`` equal to direct runs, and each
+    shape timed beside its bound.  Returns B1's launches in (c), B3's in
+    (b)'s ``simulate`` and the timings."""
     import numpy as np
     from repro_torch.kernels.tiling import MAX_CLUSTER_RING_L, ring_plan
     rng = np.random.default_rng(17)
@@ -3162,8 +3165,8 @@ def phase_long_rings(torch, pm, tf, ref, ops, horizon, prng, sweep, api,
         ms = _time_ring(torch, pm, ref, build, tau0, dcol, tcol, timer)
         timings[("B1", B, L)] = ms
         print(f"[long a] B1 at B={B} L={L}: plan {plan}, "
-              f"{pm.resident_clusters(L)} clusters on the card at once "
-              f"(cudaOccupancyMaxActiveClusters); tau/ucount/min/max bitwise "
+              f"{pm.rings_at_once(L)} rings on the card at once on the "
+              f"{plan.tier} tier; tau/ucount/min/max bitwise "
               f"equal to the plain version over {len(RING_CASES)} cases x "
               f"chunks K={K_MAIN} and K=5; max |err| of the sums {err:.3g}")
 
@@ -3181,7 +3184,7 @@ def phase_long_rings(torch, pm, tf, ref, ops, horizon, prng, sweep, api,
                         bits=bits)
         timings[("B3", B, L)] = ms
         print(f"[long b] B3 at B={B} L={L}: plan {ring_plan(L)}, "
-              f"{pm.resident_clusters(L, bits=True)} clusters on the card at "
+              f"{pm.rings_at_once(L, bits=True)} rings on the card at "
               f"once; tau/ucount/min/max bitwise equal to the plain version "
               f"over {len(RING_CASES)} cases x chunks K={K_MAIN} and K=5 (max "
               f"|err| of the sums {err:.3g}); ops.simulate over "

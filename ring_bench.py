@@ -42,18 +42,22 @@ a --pdes-core shard's shapes.
 
 ``sass`` compiles B1's and B3's sources of two ``csrc`` trees to cubins
 (``nvcc -cubin``, the build's target and optimisation) and compares the
-machine code of their one-block, cluster and grid ring kernels (``cuobjdump
--sass``, each instantiation's instructions with addresses and encodings
-dropped): what shows that a change to the shared loop left those paths as
-they were.
+machine code of their one-block, cluster, grid and stream ring kernels
+(``cuobjdump -sass``, each instantiation's instructions with addresses and
+encodings dropped): what shows that a change to the shared loop left those
+paths as they were.
 
-``grid`` times B1 and B3 of this checkout at the ``GRID_SHAPES``, whose
-rings ``tiling.ring_plan`` splits over a thread-block cluster, both as the
-plan launches them and over a cooperative grid of as many blocks (the
-grid launchers' C symbols, called with that shape), one K = 16 chunk
-with CUDA events in turns (cluster, grid, grid, cluster), after holding
-the two launches' results equal bit for bit (the same segments, so the
-same sums).  It measures; the package keeps the plan's route.
+``grid`` times B1 and B3 of this checkout on one ring length for each
+block count from 2 to 16 (``GRID_NS``), both on the cluster launcher
+(a thread-block cluster of that many blocks) and on the grid launcher (a
+cooperative grid of as many blocks), the same segments on both and the
+shape given to the C symbols explicitly, whatever ``tiling.ring_plan``
+routes the length to.  Each batch holds twice the rings of the launcher
+that holds more at once, so both run at least two waves.  It holds the two
+launches' results equal bit for bit first (the same segments, so the same
+sums), then times one K = 16 chunk with CUDA events in turns (cluster,
+grid, grid, cluster).  ``tiling.ring_plan``'s rule of which block counts
+take the grid follows this table (``PERF.md``).
 """
 from __future__ import annotations
 
@@ -80,9 +84,10 @@ CLUSTER_WARPS = (8, 16)
 #: (B, Lc) of ``step``: the main path, a --pdes-core shard, one Δ's
 #: replicas, the commavoid edge strip.
 STEP_SHAPES = ((448, 10_000), (32, 65_536), (64, 10_000), (32, 16))
-#: (B, L) of ``grid``: rings over clusters of 10 and 16 blocks, which fill
-#: 70 and 112 of the H100's 132 SMs (7 clusters at once, one a GPC).
-GRID_SHAPES = ((32, 524_288), (8, 911_360))
+#: Block counts of ``grid``: every ring the cluster kernels take.  Its ring
+#: of n blocks is the longest, n * ``tiling.MAX_RING_SEG`` PEs, but at 10
+#: blocks the cell exact_mix.ring512k's 2^19.
+GRID_NS = tuple(range(2, 17))
 
 
 def _swap(old: str, new: str):
@@ -350,11 +355,12 @@ def ablate_step(csrc: pathlib.Path) -> dict:
     return out
 
 
-#: (source, __global__ function) of the one-block, cluster and grid ring
-#: kernels
+#: (source, __global__ function) of the one-block, cluster, grid and stream
+#: ring kernels
 RING_KERNELS = (("pdes_multistep_counter", "multistep_counter_kernel"),
                 ("pdes_multistep_counter", "multistep_counter_cluster_kernel"),
                 ("pdes_multistep_counter", "multistep_counter_grid_kernel"),
+                ("pdes_multistep_counter", "multistep_counter_stream_kernel"),
                 ("pdes_multistep", "multistep_kernel"),
                 ("pdes_multistep", "multistep_cluster_kernel"),
                 ("pdes_multistep", "multistep_grid_kernel"))
@@ -411,38 +417,48 @@ def grid(reps: int = 5) -> dict:
     dev = torch.device("cuda")
     b1, b3 = pm._lib(), pm._bits_lib()
     stream = _build.stream(dev)
+    warps = tiling.RING_CLUSTER_WARPS
     out = {}
-    for b, L in GRID_SHAPES:
-        cl = tiling.ring_plan(L)
-        g = -(-L // tiling.MAX_RING_SEG)
-        seg = 32 * -(-L // (32 * g))
+    for L in (524_288 if n == 10 else n * tiling.MAX_RING_SEG
+              for n in GRID_NS):
+        p = tiling.cluster_plan(L)
+        n, seg = p.cluster, p.seg
+        assert p.fits, (L, p)
+        at_once = {"B1": (b1.pdes_multistep_counter_max_clusters(
+                              n, warps, 4 * seg),
+                          b1.pdes_multistep_counter_max_grid_rings(
+                              n, warps, 4 * seg)),
+                   "B3": (b3.pdes_multistep_max_clusters(n, warps, 4 * seg),
+                          b3.pdes_multistep_max_grid_rings(n, warps,
+                                                           4 * seg))}
+        assert min(min(v) for v in at_once.values()) >= 1, (L, at_once)
+        b = 2 * max(max(v) for v in at_once.values())   # two waves or more
         tau, dcol, tcol = chip_smoke._kernel_inputs(
             torch, np.random.default_rng(L), b, L, dev)
         tbits = _build.u32_bits(tcol).reshape(b, 1).contiguous()
         words = torch.randint(-2**31, 2**31 - 1, (K, b, L, 2),
                               dtype=torch.int32, device=dev,
                               generator=torch.Generator(dev).manual_seed(L))
-        work = pm._workspace(dev, b, g)       # kept for every launch below
+        work = pm._workspace(dev, b, n)       # kept for every launch below
         res = {}
 
         def launcher(kern, grid_route):
             t_out = torch.empty_like(tau)
             stats = torch.empty(6, K, b, device=dev)
             res[(kern, grid_route)] = t_out, stats
-            shape = ((g, seg) if grid_route else (cl.cluster, cl.seg))
-            tail = ((work.data_ptr(), work.numel()) if grid_route else ())
+            tail = (work.data_ptr(), work.numel()) if grid_route else ()
             if kern == "B1":
                 f = (b1.pdes_multistep_counter_grid_launch if grid_route
                      else b1.pdes_multistep_counter_launch)
                 args = (tau.data_ptr(), t_out.data_ptr(), stats.data_ptr(),
-                        dcol.data_ptr(), tbits.data_ptr(), b, L, K, cl.warps,
-                        *shape, 0, 0, 0, 0, N_V, math.inf, 0, 0, *tail,
+                        dcol.data_ptr(), tbits.data_ptr(), b, L, K, warps,
+                        n, seg, 0, 0, 0, 0, N_V, math.inf, 0, 0, *tail,
                         stream)
             else:
                 f = (b3.pdes_multistep_grid_launch if grid_route
                      else b3.pdes_multistep_launch)
                 args = (tau.data_ptr(), words.data_ptr(), t_out.data_ptr(),
-                        stats.data_ptr(), b, L, K, cl.warps, *shape, N_V,
+                        stats.data_ptr(), b, L, K, warps, n, seg, N_V,
                         16.0, 0, 0, *tail, stream)
 
             def run():
@@ -459,19 +475,26 @@ def grid(reps: int = 5) -> dict:
             assert torch.equal(ta, tg) and torch.equal(sa, sg), (kern, L)
             ms = [min(chip_smoke.cuda_ms(fn, reps) for _ in range(2))
                   for fn in (c, gr, gr, c)]
-            row = {"cluster_ms": min(ms[0], ms[3]),
-                   "grid_ms": min(ms[1], ms[2]), "cluster": cl.cluster,
-                   "grid": g, "seg": seg}
-            if kern == "B1":
-                row["clusters_at_once"] = pm.resident_clusters(L)
-                row["grid_rings_at_once"] = \
-                    b1.pdes_multistep_counter_max_grid_rings(
-                        g, cl.warps, 4 * seg)
-            out[f"{kern} {b}x{L}"] = row
-            print(f"[grid] {kern} K={K} chunk at B={b} L={L}: cluster of "
-                  f"{cl.cluster} {ms[0]:.5f} / {ms[3]:.5f} ms, grid of {g} "
-                  f"{ms[1]:.5f} / {ms[2]:.5f} ms (order cluster, grid, grid, "
-                  f"cluster); results bitwise equal; {row}", flush=True)
+            clusters, rings = at_once[kern]
+            row = {"n": n, "L": L, "B": b, "seg": seg,
+                   "cluster_ms": min(ms[0], ms[3]),
+                   "grid_ms": min(ms[1], ms[2]),
+                   "clusters_at_once": clusters, "grid_rings_at_once": rings,
+                   "cluster_waves": -(-b // clusters),
+                   "grid_waves": -(-b // rings)}
+            row["grid_speedup"] = row["cluster_ms"] / row["grid_ms"]
+            row["wave_speedup"] = (row["cluster_ms"] / row["cluster_waves"]) \
+                / (row["grid_ms"] / row["grid_waves"])
+            out[f"{kern} n={n}"] = row
+            print(f"[grid] {kern} K={K} chunk at B={b} L={L} (n={n}, seg="
+                  f"{seg}): cluster {ms[0]:.5f} / {ms[3]:.5f} ms in "
+                  f"{row['cluster_waves']} waves of {clusters}, grid "
+                  f"{ms[1]:.5f} / {ms[2]:.5f} ms in {row['grid_waves']} waves "
+                  f"of {rings} (order cluster, grid, grid, cluster); grid "
+                  f"{row['grid_speedup']:.3f} times as fast, "
+                  f"{row['wave_speedup']:.3f} a wave; results bitwise equal",
+                  flush=True)
+        del tau, words, work, res
     return out
 
 

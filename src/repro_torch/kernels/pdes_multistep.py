@@ -30,11 +30,15 @@ version in ``ref``, which takes any L.  There is no other path.
 ``launches`` (B1) and ``bits_launches`` (B3) count kernel launches, so a
 run can show that its main path went through the kernel;
 ``offchip_bytes`` counts the bytes of tau that B1's stream-tier launches
-read and write in device memory (:func:`offchip_bytes_of`).
+read and write in device memory (:func:`offchip_bytes_of`);
+``block_chunks`` and ``sm_chunks`` count how much of the card B1's
+launches on a split ring (cluster, grid or stream tier) hold
+(:func:`count_card_share`).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -42,7 +46,7 @@ from ..core import horizon
 from ..core.horizon import MOMENT_KEYS
 from . import _build
 from .ref import ctr_values, pdes_multistep_counter_ref, pdes_multistep_ref
-from .tiling import check_ring_fits, ring_plan
+from .tiling import check_ring_fits, cluster_plan, ring_plan
 
 #: Kernel launches made by :func:`pdes_multistep_counter` in this process.
 launches = 0
@@ -51,6 +55,12 @@ bits_launches = 0
 #: Bytes of tau that :func:`pdes_multistep_counter`'s launches in this
 #: process read and wrote in device memory on the stream tier.
 offchip_bytes = 0
+#: Block-steps of B1's launches on a split ring in this process: K steps
+#: times B rings times the plan's blocks a ring.
+block_chunks = 0
+#: SM-steps the card gave those launches: K steps times the waves of the
+#: rings it holds at once (:func:`rings_at_once`) times its SMs.
+sm_chunks = 0
 
 _LIB = "pdes_multistep_counter"
 _BITS_LIB = "pdes_multistep"
@@ -150,14 +160,12 @@ def offchip_bytes_of(B: int, L: int, K: int) -> int:
 
 
 def resident_clusters(L: int, *, bits: bool = False) -> int:
-    """Clusters of B1's (``bits``: B3's) launch on rings of ``L`` PEs that
-    the current card holds at once (``cudaOccupancyMaxActiveClusters``; a
-    batch needing more runs in waves).  Only for rings split over a
-    cluster (``tiling.MAX_RING_L < L <= tiling.MAX_CLUSTER_RING_L``)."""
-    p = ring_plan(L)
-    if p.cluster == 1:
-        raise ValueError(f"a ring of L={L} PEs does not run over a "
-                         f"cluster")
+    """Clusters of B1's (``bits``: B3's) cluster kernel on rings of ``L``
+    PEs, in the shape ``tiling.cluster_plan(L)`` gives whatever tier
+    ``ring_plan`` routes them to, that the current card holds at once
+    (``cudaOccupancyMaxActiveClusters``; a batch needing more runs in
+    waves).  Only for rings of 2 to ``tiling.RING_MAX_CLUSTER`` blocks."""
+    p = cluster_plan(L)
     f = (_bits_lib().pdes_multistep_max_clusters if bits else
          _lib().pdes_multistep_counter_max_clusters)
     n = f(p.cluster, p.warps, p.dynamic_smem)
@@ -183,6 +191,40 @@ def resident_rings(L: int, *, bits: bool = False) -> int:
     n = f(p.grid, p.warps, p.dynamic_smem)
     _build.check(max(0, -n), "pdes_multistep occupancy")
     return n
+
+
+@functools.lru_cache(maxsize=256)
+def rings_at_once(L: int, *, bits: bool = False) -> int:
+    """Rings of ``L`` PEs that B1's (``bits``: B3's) launch holds on the
+    current card at once on its plan's split tier: :func:`resident_clusters`
+    on the cluster tier, :func:`resident_rings` on the grid and stream
+    tiers (the card's occupancy, asked once a length)."""
+    if ring_plan(L, stream=not bits).tier == "cluster":
+        return resident_clusters(L, bits=bits)
+    return resident_rings(L, bits=bits)
+
+
+@functools.lru_cache(maxsize=16)
+def card_sms(dev: torch.device) -> int:
+    """Streaming multiprocessors of CUDA device ``dev``."""
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def count_card_share(B: int, L: int, K: int, dev: torch.device) -> None:
+    """Count a B1 launch of ``K`` steps on ``B`` rings of ``L`` PEs on CUDA
+    device ``dev`` (the current device) into :data:`block_chunks` and
+    :data:`sm_chunks` where its plan splits a ring over blocks (one such
+    block an SM): the blocks it runs, and the card's SMs times the waves
+    of :func:`rings_at_once` its batch takes.  Their ratio is the share of
+    the card's SMs the launch holds, each wave taken at one wave's time.
+    Asks the card nothing once a length is known, so it never waits for
+    the device."""
+    global block_chunks, sm_chunks
+    blocks = ring_plan(L).blocks
+    if blocks == 1:
+        return
+    block_chunks += K * B * blocks
+    sm_chunks += K * -(-B // rings_at_once(L)) * card_sms(dev)
 
 
 #: Bytes of the grid workspace of one ring slot: a counter on its own
@@ -382,6 +424,8 @@ def pdes_multistep_counter(tau, ctr, delta_col=None, trial_col=None, *,
                    border_both=border_both)
     launches += 1
     offchip_bytes += offchip_bytes_of(B, L, k_steps)
+    with torch.cuda.device(dev):
+        count_card_share(B, L, k_steps, dev)
     return tau_out, dict(zip(MOMENT_KEYS, stats.unbind(0)))
 
 

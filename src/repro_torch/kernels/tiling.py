@@ -10,25 +10,27 @@ says how:
   per-warp partials and the decode's log table) one block holds the whole
   ring, with :func:`ring_warps` warps.  At L = 10,000 a ring takes 40 KB,
   so four or five rings share an SM;
-* a longer ring is cut into ``cluster`` segments of ``seg`` PEs (a
-  multiple of 32; the last one shorter), one block each, and the blocks
-  of a ring are one thread-block cluster of 2 to :data:`RING_MAX_CLUSTER`
-  blocks (non-portable above 8).  A block then takes most of an SM's
-  shared memory and :data:`RING_CLUSTER_WARPS` warps; the edge PEs cross
-  between neighbouring blocks through distributed shared memory, and one
-  cluster barrier a step takes the place of the block's.  That reaches
-  :data:`MAX_CLUSTER_RING_L` PEs, past the JAX package's one-row VMEM
-  budget of 524,285 (``repro.kernels.tiling.vmem_bytes``);
-* a ring longer still is cut the same way into ``grid`` segments, one
-  block each, and the blocks of a ring are ordinary blocks of one
-  cooperative launch: each keeps its segment in shared memory for all K
-  steps, and they exchange their edge PEs and step partials through
-  global memory (L2) and meet once a step at a barrier in global memory.
-  All blocks of a cooperative launch are resident at once, so a ring
-  takes at most the card's resident blocks, one an SM:
-  :data:`MAX_GRID_RING_L` PEs on an H100 (the paper's production ring of
-  2^20 PEs takes 19 blocks).  As many whole rings as fit run at once, and
-  the kernel walks the batch in waves;
+* a longer ring is cut into the least number of segments of ``seg`` PEs
+  (a multiple of 32; the last one shorter) that each fit one block
+  (:func:`ring_blocks`), one block each of :data:`RING_CLUSTER_WARPS`
+  warps, which takes most of an SM's shared memory.  A ring of two blocks
+  is one thread-block cluster: the edge PEs cross between the blocks
+  through distributed shared memory, and one cluster barrier a step takes
+  the place of the block's.  The cluster kernels take up to
+  :data:`RING_MAX_CLUSTER` blocks (non-portable above 8), rings of up to
+  :data:`MAX_CLUSTER_RING_L` PEs (:func:`cluster_plan`), but from
+  :data:`RING_MIN_GRID_BLOCKS` blocks on a ring takes the grid tier,
+  which holds more of them at once;
+* there the blocks of a ring are ordinary blocks of one cooperative
+  launch: each keeps its segment in shared memory for all K steps, and
+  they exchange their edge PEs and step partials through global memory
+  (L2) and meet once a step at a barrier in global memory.  All blocks of
+  a cooperative launch are resident at once, so a ring takes at most the
+  card's resident blocks, one an SM: :data:`MAX_GRID_RING_L` PEs on an
+  H100 (the paper's production ring of 2^20 PEs takes 19 blocks).  As
+  many whole rings as fit run at once, and the kernel walks the batch in
+  waves.  Both tiers cut the same segments and sum in the same order, so
+  a ring gives the same bits on either;
 * B1 alone goes further (the stream tier): a ring longer still is cut
   into :data:`RING_MAX_GRID_BLOCKS` segments of one cooperative launch as
   before, each block keeps the first :data:`MAX_RING_SEG` PEs of its
@@ -99,6 +101,13 @@ def ring_warps(L: int) -> int:
 #: shared memory, and 7 of 10, 39 of 3, 66 of 2
 #: (``cudaOccupancyMaxActiveClusters``, ``chip_smoke.py`` phase 17).
 RING_MAX_CLUSTER = 16
+#: Fewest blocks of a ring that :func:`ring_plan` sends to the cooperative
+#: grid rather than a cluster.  At 2 blocks the card holds 66 rings either
+#: way and the cluster's barrier is the faster (B1 3.7%, B3 1.8% a K = 16
+#: chunk); from 3 blocks the grid holds more rings at once (44 against 39
+#: clusters, 13 against 7 at 10 blocks) and B1 and B3 run 1.46 to 2.77
+#: times as fast there at two waves (``ring_bench.py grid`` on an H100).
+RING_MIN_GRID_BLOCKS = 3
 #: Warps of a block of a ring split over a cluster: one such block fills an
 #: SM's shared memory, so it brings the warps of four one-block rings
 #: (``kRingClusterWarps`` in ``csrc/pdes_ring.cuh`` sizes its partials).
@@ -195,16 +204,42 @@ def _ring_seg(L: int, cluster: int) -> int:
     return 32 * -(-L // (32 * cluster))
 
 
+def ring_blocks(L: int) -> int:
+    """Blocks of a ring of ``L`` PEs: 1 up to :data:`MAX_RING_L`; above it
+    the least number, at least 2 and at most :data:`RING_MAX_GRID_BLOCKS`,
+    whose segments fit one block of :data:`RING_CLUSTER_WARPS` warps."""
+    if L <= MAX_RING_L:
+        return 1
+    n = 2
+    while n < RING_MAX_GRID_BLOCKS and _ring_seg(L, n) > MAX_RING_SEG:
+        n += 1
+    return n
+
+
+def cluster_plan(L: int) -> RingPlan:
+    """The cluster tier's layout of a ring of ``L`` PEs, whatever tier
+    :func:`ring_plan` routes it to: :func:`ring_blocks` blocks of one
+    thread-block cluster, the segments the grid tier would cut.  Only for
+    rings of 2 to :data:`RING_MAX_CLUSTER` blocks."""
+    n = ring_blocks(L)
+    if not 2 <= n <= RING_MAX_CLUSTER:
+        raise ValueError(f"a ring of L={L} PEs takes {n} blocks; a cluster "
+                         f"holds 2 to {RING_MAX_CLUSTER}")
+    seg = _ring_seg(L, n)
+    return RingPlan(n, seg, RING_CLUSTER_WARPS, 4 * seg, SMEM_STATIC_CLUSTER)
+
+
 @functools.lru_cache(maxsize=1024)
 def ring_plan(L: int, *, stream: bool = True) -> RingPlan:
     """The layout of a ring of ``L`` PEs, for any batch.
 
     One block up to :data:`MAX_RING_L` (as :func:`ring_warps` and
     :func:`ring_smem_bytes` say); above it the least number of blocks, of
-    :data:`RING_CLUSTER_WARPS` warps each, whose segments fit one block:
-    a cluster of 2 to :data:`RING_MAX_CLUSTER` blocks up to
-    :data:`MAX_CLUSTER_RING_L`, then ``ceil(L / MAX_RING_SEG)`` blocks of a
-    cooperative grid, with the cluster's static shared memory.  Above
+    :data:`RING_CLUSTER_WARPS` warps each, whose segments fit one block
+    (:func:`ring_blocks`): a cluster where that is fewer than
+    :data:`RING_MIN_GRID_BLOCKS` (:func:`cluster_plan`), else
+    ``ceil(L / MAX_RING_SEG)`` blocks of a cooperative grid, with the
+    cluster's static shared memory and the same segments.  Above
     :data:`MAX_GRID_RING_L`, B1's plan (``stream``) is the stream tier:
     :data:`RING_MAX_GRID_BLOCKS` blocks whose segments pass
     :data:`MAX_RING_SEG`, each keeping that many PEs in shared memory, up
@@ -216,13 +251,10 @@ def ring_plan(L: int, *, stream: bool = True) -> RingPlan:
     """
     if L <= MAX_RING_L:
         return RingPlan(1, L, ring_warps(L), ring_smem_bytes(L), SMEM_STATIC)
-    n = 2
-    while n < RING_MAX_GRID_BLOCKS and _ring_seg(L, n) > MAX_RING_SEG:
-        n += 1
+    n = ring_blocks(L)
+    if n < RING_MIN_GRID_BLOCKS:
+        return cluster_plan(L)
     seg = _ring_seg(L, n)
-    if n <= RING_MAX_CLUSTER:
-        return RingPlan(n, seg, RING_CLUSTER_WARPS, 4 * seg,
-                        SMEM_STATIC_CLUSTER)
     keep = seg
     if stream and MAX_RING_SEG < seg <= MAX_STREAM_SEG:
         keep = MAX_RING_SEG

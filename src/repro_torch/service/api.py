@@ -265,6 +265,10 @@ _CACHE_ARGS = {"state_bytes_to_host": "bytes_to_host",
                "state_bytes_to_device": "bytes_to_device",
                "rows_from_device_cache": "device_hits",
                "rows_promoted": "promotions", "rows_demoted": "demotions"}
+#: ``pass`` span arguments of the fused path: the pass's growth in each
+#: counter of ``kernels.pdes_multistep``
+_B1_ARGS = {"b1_offchip_bytes": "offchip_bytes",
+            "b1_block_chunks": "block_chunks", "b1_sm_chunks": "sm_chunks"}
 
 
 def _cache_budget(device: torch.device) -> int | None:
@@ -305,9 +309,12 @@ class SweepService:
     total the bytes that cross between the two (demotions and ``save``
     down, promotions up); each ``pass`` span carries its pass's share and
     its rows from the device tier, promoted and demoted, and, on the
-    fused path, B1's tier (``b1_tier``) and the bytes of tau its launches
+    fused path, B1's tier (``b1_tier``), the bytes of tau its launches
     read and wrote in device memory on the stream tier
-    (``b1_offchip_bytes``, counted from the plan).
+    (``b1_offchip_bytes``, counted from the plan), and on a split ring the
+    block-steps its launches ran and the SM-steps of the card they held
+    (``b1_block_chunks``, ``b1_sm_chunks``: their growth in
+    ``pdes_multistep.block_chunks`` and ``sm_chunks``).
     """
 
     def __init__(self, *, device=None, mesh=None, dist=None,
@@ -618,7 +625,8 @@ class SweepService:
         if args is not None and fused:
             args["b1_tier"] = ring_plan(key.L).tier
         with self._span("pass", args=args) as sp:
-            pre_offchip = pdes_multistep.offchip_bytes
+            pre_b1 = {arg: getattr(pdes_multistep, c)
+                      for arg, c in _B1_ARGS.items()}
             cache = self.state_cache
             pre_cached = self.stats.rows_from_state_cache
             pre_burned = self.stats.rows_burned
@@ -634,8 +642,9 @@ class SweepService:
             self.stats.engine_row_steps += (B + n_pad) * key.n_steps
             if sp is not None:
                 if fused:
-                    sp.args["b1_offchip_bytes"] = (pdes_multistep.offchip_bytes
-                                                   - pre_offchip)
+                    sp.args.update({arg: getattr(pdes_multistep, c)
+                                    - pre_b1[arg]
+                                    for arg, c in _B1_ARGS.items()})
                 sp.args.update(
                     rows_from_cache=(self.stats.rows_from_state_cache
                                      - pre_cached),

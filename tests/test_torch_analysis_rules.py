@@ -281,13 +281,15 @@ def test_vmem_budget_holds_each_block_of_a_cluster(case):
     assert ("need a thread-block cluster" in f.message) == (case == "ring")
 
 
-@pytest.mark.parametrize("L", [131_072, 1 << 20,
+@pytest.mark.parametrize("L", [65_536, 131_072, 1 << 20,
                                tiling.MAX_GRID_RING_L + 1,
                                tiling.MAX_STREAM_RING_L + 1])
 def test_vmem_budget_of_a_ring_split_over_a_cluster(L, monkeypatch):
-    """A ring over a cluster or a cooperative grid is held block by block:
-    quiet at 131,072 PEs (3 blocks, a non-portable cluster allowed up to
-    16) and at the paper's 2^20 (19 blocks of a grid); past the grid's cap
+    """A ring over a cluster or a cooperative grid is held block by block,
+    against the ptxas figures of the instantiation its plan launches:
+    quiet at 65,536 PEs (a cluster of 2 blocks, up to 16 allowed), at
+    131,072 (3 blocks, which the plan sends to the grid) and at the
+    paper's 2^20 (19 blocks of a grid); past the grid's cap
     B1 is quiet on its stream tier and B3 fires, and past the stream
     tier's both fire; each finding names every limit of its kernel."""
     from repro_torch.analysis.probes import KernelCall, Probe
@@ -296,7 +298,7 @@ def test_vmem_budget_of_a_ring_split_over_a_cluster(L, monkeypatch):
              for k in vmem.RING_KERNELS}
     for plan in plans.values():
         assert (plan["cluster"], plan["ring_grid"]) == {
-            131_072: (3, 1), 1 << 20: (1, 19)}.get(
+            65_536: (2, 1), 131_072: (1, 3), 1 << 20: (1, 19)}.get(
                 L, (1, tiling.RING_MAX_GRID_BLOCKS))
     probe = Probe("p", backend="fixture", graph=None, tau_in=0, tau_out=0,
                   ring_widths=frozenset(), L_ring=L, delta=1.0,
@@ -305,21 +307,22 @@ def test_vmem_budget_of_a_ring_split_over_a_cluster(L, monkeypatch):
                            for k in vmem.RING_KERNELS])
     findings = vmem.check(probe)
     plan = plans["pdes_multistep_counter"]
-    if L == 131_072:
+    if L == 65_536:
         assert findings == []
         assert vmem.budget_of("pdes_multistep",
                               dict(plan, cluster=17))["over"] == [
             "cluster of 17 blocks > the ring kernels' 16"]
-    elif L == 1 << 20:       # read against the grid instantiations' ptxas
+    if L <= 1 << 20:          # read against the launched instantiations
         assert findings == []
         asked = []
         monkeypatch.setattr(_build, "ptxas_info",
                             lambda lib, fn: asked.append((lib, fn)))
         for k in vmem.RING_KERNELS:
             vmem.budget_of(k, plan)
+        tier = "cluster" if L == 65_536 else "grid"
         assert asked == [("pdes_multistep_counter",
-                          "multistep_counter_grid_kernel"),
-                         ("pdes_multistep", "multistep_grid_kernel")]
+                          f"multistep_counter_{tier}_kernel"),
+                         ("pdes_multistep", f"multistep_{tier}_kernel")]
     else:
         fire = (["pdes_multistep"] if L == tiling.MAX_GRID_RING_L + 1
                 else list(vmem.RING_KERNELS))

@@ -7,6 +7,7 @@ the division-free site pick and the table-driven η decode, each repeated
 in Python the way the kernels compute them and held against ``%`` and
 the plain decode rule.
 """
+import dataclasses
 import re
 
 import numpy as np
@@ -66,8 +67,8 @@ def test_ring_warps_rejects_an_empty_ring():
 #: Ring lengths of the ring plan's rules: short rings, the main path, the
 #: longest one-block ring and one past it, the long-ring shapes of
 #: chip_smoke.py phase 17, the JAX package's one-row VMEM budget edge, the
-#: longest ring of a cluster and one past it, the paper's production ring
-#: (phase 18), 2^22, the cap.
+#: longest ring of the cluster kernels (16 blocks) and one past it, the
+#: paper's production ring (phase 18), 2^22, the cap.
 RING_LS = (1, 31, 32, 10_000, tiling.MAX_RING_L, tiling.MAX_RING_L + 1,
            65_536, 131_072, 524_285, 524_288, tiling.MAX_CLUSTER_RING_L,
            tiling.MAX_CLUSTER_RING_L + 1, 1 << 20, 1 << 22,
@@ -79,7 +80,7 @@ def test_ring_plan(L):
     """B1's and B3's layout, from L alone: one block as before up to
     MAX_RING_L; above it the least number of blocks whose segments, whole
     rows but the last, tile the ring and each fit one block with a row a
-    warp: a cluster of up to 16, then a cooperative grid."""
+    warp: a cluster of 2, then a cooperative grid from 3 blocks."""
     p = tiling.ring_plan(L)
     lp = pdes_multistep.launch_plan(7, L)
     assert lp == {"grid": (7 * p.cluster * p.grid,), "cluster": p.cluster,
@@ -90,7 +91,7 @@ def test_ring_plan(L):
     assert lp == pdes_multistep.launch_plan(7, L, bits=True)   # B3's too
     assert p == tiling.ring_plan(L, stream=False)
     assert p.tier == ("block" if L <= tiling.MAX_RING_L else "cluster"
-                      if L <= tiling.MAX_CLUSTER_RING_L else "grid")
+                      if L <= 2 * tiling.MAX_RING_SEG else "grid")
     assert p.fits and p.dynamic_smem == 4 * p.seg and p.keep == p.seg
     assert p.offchip_pes(L) == 0
     assert p.dynamic_smem + p.static_smem <= tiling.SMEM_PER_BLOCK
@@ -99,11 +100,11 @@ def test_ring_plan(L):
                                     tiling.ring_smem_bytes(L),
                                     tiling.SMEM_STATIC)
         return
-    if L <= tiling.MAX_CLUSTER_RING_L:
-        assert 2 <= p.cluster <= tiling.RING_MAX_CLUSTER and p.grid == 1
+    if L <= 2 * tiling.MAX_RING_SEG:
+        assert (p.cluster, p.grid) == (2, 1)
     else:
         assert p.cluster == 1
-        assert tiling.RING_MAX_CLUSTER < p.grid <= \
+        assert tiling.RING_MIN_GRID_BLOCKS <= p.grid <= \
             tiling.RING_MAX_GRID_BLOCKS
     assert p.blocks == p.cluster * p.grid
     assert p.warps == tiling.RING_CLUSTER_WARPS
@@ -120,6 +121,53 @@ def test_ring_plan(L):
     assert (L > tiling.MAX_RING_L if fewer == 1 else
             4 * 32 * -(-L // (32 * fewer)) + p.static_smem
             > tiling.SMEM_PER_BLOCK)
+
+
+#: One ring length for each block count n of the cluster kernels' range,
+#: 2 to 16 (``ring_bench.py grid``'s: n full segments, at n = 10 the cell
+#: exact_mix.ring512k's 2^19), and the edges of the cluster tier's range.
+ROUTE_LS = tuple(524_288 if n == 10 else n * tiling.MAX_RING_SEG
+                 for n in range(2, tiling.RING_MAX_CLUSTER + 1)) + (
+    tiling.MAX_RING_L + 1, 2 * tiling.MAX_RING_SEG + 1)
+
+
+@pytest.mark.parametrize("L", ROUTE_LS)
+def test_ring_plan_routes_by_block_count(L):
+    """A ring of 2 blocks stays a cluster; from 3 blocks it takes the
+    cooperative grid (ring_bench.py grid on an H100: the grid holds more
+    rings at once and runs B1 and B3 1.46 to 2.77 times as fast).  Either
+    way the blocks and segments are the ones the cluster tier cuts
+    (tiling.cluster_plan), so a ring's bits do not change; B1's plan is
+    B3's."""
+    n = tiling.ring_blocks(L)
+    old = tiling.cluster_plan(L)
+    assert old == tiling.RingPlan(n, tiling._ring_seg(L, n),
+                                  tiling.RING_CLUSTER_WARPS, 4 * old.seg,
+                                  tiling.SMEM_STATIC_CLUSTER)
+    assert 2 <= n <= tiling.RING_MAX_CLUSTER and old.fits
+    assert (n - 1) * tiling.MAX_RING_SEG < L <= n * tiling.MAX_RING_SEG
+    p = tiling.ring_plan(L)
+    assert p == tiling.ring_plan(L, stream=False)
+    if n < tiling.RING_MIN_GRID_BLOCKS:
+        assert p.tier == "cluster" and p == old
+    else:
+        assert p.tier == "grid"
+        assert p == dataclasses.replace(old, cluster=1, grid=n)
+    assert (p.blocks, p.seg, p.warps, p.dynamic_smem, p.static_smem) == (
+        n, old.seg, old.warps, old.dynamic_smem, old.static_smem)
+    for bits in (False, True):
+        lp = pdes_multistep.launch_plan(28, L, bits=bits)
+        assert lp["grid"] == (28 * n,) and lp["tier"] == p.tier
+    if L == 524_288:              # the cell exact_mix.ring512k
+        assert (p.tier, p.grid, p.seg) == ("grid", 10, 52_448)
+
+
+def test_cluster_plan_takes_the_cluster_kernels_range_alone():
+    with pytest.raises(ValueError, match="takes 1 blocks"):
+        tiling.cluster_plan(tiling.MAX_RING_L)
+    with pytest.raises(ValueError, match="takes 17 blocks"):
+        tiling.cluster_plan(tiling.MAX_CLUSTER_RING_L + 1)
+    assert tiling.cluster_plan(tiling.MAX_CLUSTER_RING_L).cluster == 16
 
 
 @pytest.mark.parametrize("L", [tiling.MAX_CLUSTER_RING_L + 1, 1 << 20,
@@ -383,3 +431,32 @@ def test_table_decode_equals_plain_rule_on_all_inputs():
         got = ref.neg_log_emulated(x)
         np.testing.assert_array_equal(got.view(np.uint32),
                                       want.view(np.uint32))
+
+
+@pytest.mark.parametrize("L,B,at_once,blocks", [
+    (10_000, 448, None, 1), (65_536, 448, 66, 2), (1 << 19, 28, 13, 10),
+    (1 << 19, 16, 13, 10), (1 << 20, 28, 6, 19), (1 << 23, 14, 1, 132)])
+def test_card_share_counts_split_launches(L, B, at_once, blocks,
+                                          monkeypatch):
+    """B1's launches on a split ring count K x B x blocks block-steps and
+    K x waves x SMs SM-steps, the waves those of the rings the card holds
+    at once (stubbed here: the CPU has no card); a one-block ring counts
+    nothing and asks the card nothing."""
+    monkeypatch.setattr(pdes_multistep, "rings_at_once",
+                        lambda n: {L: at_once}[n])
+    monkeypatch.setattr(pdes_multistep, "card_sms",
+                        lambda dev: {"card": 132}[dev])
+    monkeypatch.setattr(pdes_multistep, "block_chunks", 7)
+    monkeypatch.setattr(pdes_multistep, "sm_chunks", 9)
+    assert tiling.ring_plan(L).blocks == blocks
+    pdes_multistep.count_card_share(B, L, 16, "card")
+    pdes_multistep.count_card_share(B, L, 5, "card")
+    if blocks == 1:
+        assert (pdes_multistep.block_chunks, pdes_multistep.sm_chunks) == \
+            (7, 9)
+        return
+    waves = -(-B // at_once)
+    assert pdes_multistep.block_chunks == 7 + 21 * B * blocks
+    assert pdes_multistep.sm_chunks == 9 + 21 * waves * 132
+    if (L, B) == (1 << 19, 28):   # 3 waves of 13 rings of 10 blocks
+        assert 21 * B * blocks / (21 * waves * 132) == 280 / 396
