@@ -148,19 +148,19 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` with
    json -o <file>`` as a subprocess, exit 0 and each backend's report
    equal to ``tests/golden/analysis_<backend>.json``; every kernel's
    launch plan at L = 10,000, ``tiling.MAX_RING_L``, 65,536, 131,072,
-   ``tiling.MAX_CLUSTER_RING_L``, 2^20 and ``tiling.MAX_GRID_RING_L``
-   with the registers, static shared bytes and spills of this run's ptxas
-   logs (the ring kernels' cluster instantiations at 65,536, their grid
-   instantiations, which must spill nothing, at the last four),
+   911,360 (16 blocks), 2^20 and ``tiling.MAX_GRID_RING_L`` with the
+   registers, static shared bytes and spills of this run's ptxas logs
+   (the ring kernels' grid instantiations, which must spill nothing, at
+   the last five),
    against one block's budget, and B2's
    plan (cluster size, rows a block) at 10,000, 65,536 and
    ``MAX_RING_L``; the six seeded fixtures, each firing its own rule and
    only it;
-17. long rings of 2 to 16 blocks (``tiling.ring_plan``: a thread-block
-   cluster at 2 blocks, the cooperative grid from 3):
+17. long rings of 2 to 16 blocks over the cooperative grid
+   (``tiling.ring_plan``):
    (a) B1 against its plain version at B = 448 x L = 65,536 (2 blocks a
-   ring) and 131,072 (3), 32 x 524,288 (10) and 8 x
-   ``MAX_CLUSTER_RING_L`` (16), over phase 2's five cases with the step
+   ring) and 131,072 (3), 32 x 524,288 (10) and 8 x 911,360 (16), over
+   phase 2's five cases with the step
    counter wrapping, τ/ucount/min/max bitwise and the sums to tolerance;
    a row's moments bitwise the same at B = 448, 32 and 1 at 131,072; the
    rings the card holds at once on each plan's tier;
@@ -493,15 +493,15 @@ THREEFRY_KAT = [
 
 
 #: Phase 17: rings longer than one block's shared memory, of 2 to 16
-#: blocks (``tiling.ring_plan``: a cluster at 2, the cooperative grid from
-#: 3).  (B, L) of B1's checks: 2, 3, 10 (the JAX package's one-row VMEM
-#: budget ends at 524,285) and 16 blocks at the cluster kernels' cap
-#: (None: ``tiling.MAX_CLUSTER_RING_L``); B3's through ``ops.simulate``;
+#: blocks of the cooperative grid (``tiling.ring_plan``).  (B, L) of B1's
+#: checks: 2, 3, 10 (the JAX package's one-row VMEM budget ends at
+#: 524,285) and 16 blocks (16 x ``tiling.MAX_RING_SEG``); B3's through
+#: ``ops.simulate``;
 #: the rows of the batch-independence check at ``L_LONG`` (a launch of 32
 #: and one of 1 out of the 448); the ring, burn-in and timed launches of
 #: the service drain of (c), the paper's large-L regime at 13 times
 #: ``L_MAIN``.
-LONG_B1 = ((448, 65_536), (448, 131_072), (32, 524_288), (8, None))
+LONG_B1 = ((448, 65_536), (448, 131_072), (32, 524_288), (8, 911_360))
 LONG_B3 = ((8, 65_536), (8, 524_288))
 LONG_ROWS = (slice(400, 432), slice(446, 447))
 L_LONG = 131_072
@@ -3072,8 +3072,7 @@ def phase_linter(root):
     from repro_torch.analysis import analyze_probe
     from repro_torch.analysis.fixtures import FIXTURES
     from repro_torch.analysis.rules import vmem
-    from repro_torch.kernels.tiling import (MAX_CLUSTER_RING_L,
-                                            MAX_GRID_RING_L, MAX_RING_L)
+    from repro_torch.kernels.tiling import MAX_GRID_RING_L, MAX_RING_L
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         out = pathlib.Path(tmp) / "analysis.json"
@@ -3094,8 +3093,8 @@ def phase_linter(root):
           f"{len(report['backends'])} backends equal to their goldens, "
           f"{report['n_findings']} findings ({time.perf_counter() - t0:.1f} s)")
     from repro_torch.kernels import pdes_step as ps
-    for L in (10_000, MAX_RING_L, 65_536, L_LONG, MAX_CLUSTER_RING_L,
-              L_PROD, MAX_GRID_RING_L):
+    for L in (10_000, MAX_RING_L, 65_536, L_LONG, LONG_B1[-1][1], L_PROD,
+              MAX_GRID_RING_L):
         for row in vmem.kernel_budgets(L):
             info = row["ptxas"]
             check(info is not None, f"no ptxas log for {row['kernel']}")
@@ -3139,22 +3138,22 @@ def phase_linter(root):
 
 def phase_long_rings(torch, pm, tf, ref, ops, horizon, prng, sweep, api,
                      trace, build, dev, timer=cuda_ms):
-    """Phase 17: B1 and B3 on rings of 2 to 16 blocks (a thread-block
-    cluster at 2, the cooperative grid from 3), held to their plain
+    """Phase 17: B1 and B3 on rings of 2 to 16 blocks of the cooperative
+    grid, held to their plain
     versions at ``LONG_B1`` and ``LONG_B3`` (phase 2's five cases, the
     step counter wrapping), a row's moments bitwise the same at B = 448, 32
     and 1, the service's drain at ``L_LONG`` equal to direct runs, and each
     shape timed beside its bound.  Returns B1's launches in (c), B3's in
     (b)'s ``simulate`` and the timings."""
     import numpy as np
-    from repro_torch.kernels.tiling import MAX_CLUSTER_RING_L, ring_plan
+    from repro_torch.kernels.tiling import ring_plan
     rng = np.random.default_rng(17)
-    shapes = [(B, L or MAX_CLUSTER_RING_L) for B, L in LONG_B1]
     timings = {}
 
     # (a) B1 against its plain version, then timed
-    for B, L in shapes:
+    for B, L in LONG_B1:
         plan = ring_plan(L)
+        check(plan.tier == "grid", f"B1's plan at L={L}: {plan}")
         tau0, dcol, tcol = _kernel_inputs(torch, rng, B, L, dev)
         err = _hold_b1_cases(torch, pm, ref, tau0, dcol, tcol)
         if L == L_LONG:      # a ring's result whatever batch it runs in

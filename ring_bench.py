@@ -9,7 +9,6 @@ checkout::
     python3 ring_bench.py step SRC_DIR [SRC_DIR ...]
     python3 ring_bench.py ablate-step CSRC_DIR
     python3 ring_bench.py sass OLD_CSRC_DIR NEW_CSRC_DIR
-    python3 ring_bench.py grid
 
 ``ablate`` splits a ring loop's time.  It copies ``CSRC_DIR`` (the
 ``src/repro_torch/kernels/csrc`` of some checkout, for example one unpacked
@@ -18,11 +17,8 @@ with ``git archive 90ddaa1 src/repro_torch/kernels/csrc``) into
 set of text edits; a variant whose text the sources lack is skipped),
 builds B1 and B3 of each with ``nvcc``, and times one K = 16 chunk at
 B = 448, N_V = 10 for L = 10,000 and 1000 with CUDA events, as
-``chip_smoke.py`` times them; where the sources split a long ring over a
-thread-block cluster, also at the ``CLUSTER_LS`` (``tiling.ring_plan``),
-with the block's warps of ``CLUSTER_WARPS`` in place of the plan's and
-the step's cluster barrier dropped.  The variants compute other
-functions: they say what a piece of the loop costs and nothing else.
+``chip_smoke.py`` times them.  The variants compute other functions: they
+say what a piece of the loop costs and nothing else.
 
 ``drain`` times the service drain of ``chip_smoke.py`` phase 3 for the port
 in each ``SRC_DIR`` (a checkout's ``src``), in a process of its own, three
@@ -42,22 +38,10 @@ a --pdes-core shard's shapes.
 
 ``sass`` compiles B1's and B3's sources of two ``csrc`` trees to cubins
 (``nvcc -cubin``, the build's target and optimisation) and compares the
-machine code of their one-block, cluster, grid and stream ring kernels
+machine code of their one-block, grid and stream ring kernels
 (``cuobjdump -sass``, each instantiation's instructions with addresses and
 encodings dropped): what shows that a change to the shared loop left those
 paths as they were.
-
-``grid`` times B1 and B3 of this checkout on one ring length for each
-block count from 2 to 16 (``GRID_NS``), both on the cluster launcher
-(a thread-block cluster of that many blocks) and on the grid launcher (a
-cooperative grid of as many blocks), the same segments on both and the
-shape given to the C symbols explicitly, whatever ``tiling.ring_plan``
-routes the length to.  Each batch holds twice the rings of the launcher
-that holds more at once, so both run at least two waves.  It holds the two
-launches' results equal bit for bit first (the same segments, so the same
-sums), then times one K = 16 chunk with CUDA events in turns (cluster,
-grid, grid, cluster).  ``tiling.ring_plan``'s rule of which block counts
-take the grid follows this table (``PERF.md``).
 """
 from __future__ import annotations
 
@@ -77,17 +61,9 @@ ROOT = pathlib.Path(__file__).resolve().parent
 OUT = ROOT / "build" / "ring_bench"
 B, K, N_V = 448, 16, 10
 LS = (10_000, 1000)
-#: Ring lengths of ``ablate`` on the cluster path: 2 and 3 blocks a ring.
-CLUSTER_LS = (65_536, 131_072)
-#: Warps of a cluster block that ``ablate`` times beside the plan's.
-CLUSTER_WARPS = (8, 16)
 #: (B, Lc) of ``step``: the main path, a --pdes-core shard, one Δ's
 #: replicas, the commavoid edge strip.
 STEP_SHAPES = ((448, 10_000), (32, 65_536), (64, 10_000), (32, 16))
-#: Block counts of ``grid``: every ring the cluster kernels take.  Its ring
-#: of n blocks is the longest, n * ``tiling.MAX_RING_SEG`` PEs, but at 10
-#: blocks the cell exact_mix.ring512k's 2^19.
-GRID_NS = tuple(range(2, 17))
 
 
 def _swap(old: str, new: str):
@@ -137,11 +113,6 @@ VARIANTS = {
     "no decode": {"pdes_ring.cuh": [_NO_DECODE]},
     "site pick -> mask": {"pdes_common.cuh": [_NO_PICK]},
     "one table entry": {"pdes_common.cuh": [_ONE_ENTRY]},
-    # of the cluster loop: the step's cluster barrier replaced by the
-    # block's (the first and the last stay; the sums are then wrong)
-    "no cluster barrier": {"pdes_ring.cuh": [_swap(
-        "    ring_barrier<kCluster>();\n    gvt = ring_reduce",
-        "    __syncthreads();\n    gvt = ring_reduce")]},
 }
 
 
@@ -222,17 +193,19 @@ def _make(csrc: pathlib.Path, name: str, edits: dict,
 
 def _launchers(libs, extra_ints: int):
     """B1's and B3's C launchers of ``libs``, taking ``extra_ints`` ints
-    after K: none (the oldest loops), the warps, or the warps, cluster and
-    segment (the cluster loop)."""
+    after K: none (the oldest loops), the warps, or the warps, grid,
+    segment and kept PEs (one launcher a kernel, which also takes the
+    workspace and its bytes before the stream)."""
     i32, u32, ptr = ctypes.c_int, ctypes.c_uint32, ctypes.c_void_p
     extra = [i32] * extra_ints
+    work = [ptr, ctypes.c_longlong] if extra_ints == 4 else []
     b1 = ctypes.CDLL(str(libs["pdes_multistep_counter"])) \
         .pdes_multistep_counter_launch
     b1.argtypes = ([ptr] * 5 + [i32] * 3 + extra + [u32] * 5
-                   + [ctypes.c_float, i32, i32, ptr])
+                   + [ctypes.c_float, i32, i32] + work + [ptr])
     b3 = ctypes.CDLL(str(libs["pdes_multistep"])).pdes_multistep_launch
     b3.argtypes = ([ptr] * 4 + [i32] * 3 + extra + [u32, ctypes.c_float]
-                   + [i32, i32, ptr])
+                   + [i32, i32] + work + [ptr])
     return b1, b3
 
 
@@ -241,15 +214,16 @@ def ablate(csrc: pathlib.Path) -> dict:
     import chip_smoke
     from repro_torch.kernels import tiling
     ring = (csrc / "pdes_ring.cuh").read_text()
-    cluster = "ring_cluster_launch" in ring
-    extra_ints = 3 if cluster else 1 if "ring_launch_check" in ring else 0
+    extra_ints = (4 if "ring_block_launch" in ring
+                  else 1 if "ring_launch_check" in ring else 0)
+    work = (None, 0) if extra_ints == 4 else ()  # one block reads none
     with concurrent.futures.ThreadPoolExecutor(len(VARIANTS)) as pool:
         built = dict(pool.map(lambda kv: _make(csrc, *kv), VARIANTS.items()))
     dev = torch.device("cuda")
     stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
     gen = torch.Generator().manual_seed(0)
     out = {}
-    for L in LS + (CLUSTER_LS if cluster else ()):
+    for L in LS:
         plan = tiling.ring_plan(L)
         tau = torch.empty(B, L).exponential_(0.25, generator=gen).to(dev)
         dcol = torch.tensor([1.0, 4.0, 16.0, 64.0, math.inf])[
@@ -260,27 +234,23 @@ def ablate(csrc: pathlib.Path) -> dict:
                               generator=torch.Generator(dev).manual_seed(L))
         tau_out, stats = torch.empty_like(tau), torch.empty(6, K, B,
                                                             device=dev)
-        runs = [(name, libs, plan.warps) for name, libs in built.items()]
-        if plan.cluster > 1:
-            runs += [(f"{w} warps", built["as given"], w)
-                     for w in CLUSTER_WARPS]
-        for name, libs, warps in runs:
+        for name, libs in built.items():
             if libs is None:
                 print(f"[ablate] {name}: the sources lack its text; skipped")
                 continue
             b1, b3 = _launchers(libs, extra_ints)
-            shape = ((warps, plan.cluster, plan.seg)[:extra_ints])
+            shape = (plan.warps, plan.grid, plan.seg, plan.keep)[:extra_ints]
 
             def run_b1(k=K):
                 err = b1(tau.data_ptr(), tau_out.data_ptr(), stats.data_ptr(),
                          dcol.data_ptr(), tcol.data_ptr(), B, L, k, *shape,
-                         0, 0, 0, 0, N_V, math.inf, 0, 0, stream)
+                         0, 0, 0, 0, N_V, math.inf, 0, 0, *work, stream)
                 assert err == 0, err
 
             def run_b3(k=K):
                 err = b3(tau.data_ptr(), words.data_ptr(), tau_out.data_ptr(),
                          stats.data_ptr(), B, L, k, *shape, N_V, 16.0, 0, 0,
-                         stream)
+                         *work, stream)
                 assert err == 0, err
 
             row = {}
@@ -355,14 +325,12 @@ def ablate_step(csrc: pathlib.Path) -> dict:
     return out
 
 
-#: (source, __global__ function) of the one-block, cluster, grid and stream
-#: ring kernels
+#: (source, __global__ function) of the one-block, grid and stream ring
+#: kernels: 15 instantiations, each for three rule flags
 RING_KERNELS = (("pdes_multistep_counter", "multistep_counter_kernel"),
-                ("pdes_multistep_counter", "multistep_counter_cluster_kernel"),
                 ("pdes_multistep_counter", "multistep_counter_grid_kernel"),
                 ("pdes_multistep_counter", "multistep_counter_stream_kernel"),
                 ("pdes_multistep", "multistep_kernel"),
-                ("pdes_multistep", "multistep_cluster_kernel"),
                 ("pdes_multistep", "multistep_grid_kernel"))
 
 
@@ -405,96 +373,6 @@ def sass(old: pathlib.Path, new: pathlib.Path) -> dict:
             print(f"[sass] {f}: {len(a[f])} instructions in the old tree, "
                   f"{len(b.get(f, []))} in the new, identical: {same}",
                   flush=True)
-    return out
-
-
-def grid(reps: int = 5) -> dict:
-    import numpy as np
-    import torch
-    import chip_smoke
-    from repro_torch.kernels import _build, tiling
-    from repro_torch.kernels import pdes_multistep as pm
-    dev = torch.device("cuda")
-    b1, b3 = pm._lib(), pm._bits_lib()
-    stream = _build.stream(dev)
-    warps = tiling.RING_CLUSTER_WARPS
-    out = {}
-    for L in (524_288 if n == 10 else n * tiling.MAX_RING_SEG
-              for n in GRID_NS):
-        p = tiling.cluster_plan(L)
-        n, seg = p.cluster, p.seg
-        assert p.fits, (L, p)
-        at_once = {"B1": (b1.pdes_multistep_counter_max_clusters(
-                              n, warps, 4 * seg),
-                          b1.pdes_multistep_counter_max_grid_rings(
-                              n, warps, 4 * seg)),
-                   "B3": (b3.pdes_multistep_max_clusters(n, warps, 4 * seg),
-                          b3.pdes_multistep_max_grid_rings(n, warps,
-                                                           4 * seg))}
-        assert min(min(v) for v in at_once.values()) >= 1, (L, at_once)
-        b = 2 * max(max(v) for v in at_once.values())   # two waves or more
-        tau, dcol, tcol = chip_smoke._kernel_inputs(
-            torch, np.random.default_rng(L), b, L, dev)
-        tbits = _build.u32_bits(tcol).reshape(b, 1).contiguous()
-        words = torch.randint(-2**31, 2**31 - 1, (K, b, L, 2),
-                              dtype=torch.int32, device=dev,
-                              generator=torch.Generator(dev).manual_seed(L))
-        work = pm._workspace(dev, b, n)       # kept for every launch below
-        res = {}
-
-        def launcher(kern, grid_route):
-            t_out = torch.empty_like(tau)
-            stats = torch.empty(6, K, b, device=dev)
-            res[(kern, grid_route)] = t_out, stats
-            tail = (work.data_ptr(), work.numel()) if grid_route else ()
-            if kern == "B1":
-                f = (b1.pdes_multistep_counter_grid_launch if grid_route
-                     else b1.pdes_multistep_counter_launch)
-                args = (tau.data_ptr(), t_out.data_ptr(), stats.data_ptr(),
-                        dcol.data_ptr(), tbits.data_ptr(), b, L, K, warps,
-                        n, seg, 0, 0, 0, 0, N_V, math.inf, 0, 0, *tail,
-                        stream)
-            else:
-                f = (b3.pdes_multistep_grid_launch if grid_route
-                     else b3.pdes_multistep_launch)
-                args = (tau.data_ptr(), words.data_ptr(), t_out.data_ptr(),
-                        stats.data_ptr(), b, L, K, warps, n, seg, N_V,
-                        16.0, 0, 0, *tail, stream)
-
-            def run():
-                err = f(*args)
-                assert err == 0, (kern, grid_route, err)
-            return run
-
-        for kern in ("B1", "B3"):
-            c, gr = launcher(kern, False), launcher(kern, True)
-            c()
-            gr()
-            torch.cuda.synchronize()
-            (ta, sa), (tg, sg) = res[(kern, False)], res[(kern, True)]
-            assert torch.equal(ta, tg) and torch.equal(sa, sg), (kern, L)
-            ms = [min(chip_smoke.cuda_ms(fn, reps) for _ in range(2))
-                  for fn in (c, gr, gr, c)]
-            clusters, rings = at_once[kern]
-            row = {"n": n, "L": L, "B": b, "seg": seg,
-                   "cluster_ms": min(ms[0], ms[3]),
-                   "grid_ms": min(ms[1], ms[2]),
-                   "clusters_at_once": clusters, "grid_rings_at_once": rings,
-                   "cluster_waves": -(-b // clusters),
-                   "grid_waves": -(-b // rings)}
-            row["grid_speedup"] = row["cluster_ms"] / row["grid_ms"]
-            row["wave_speedup"] = (row["cluster_ms"] / row["cluster_waves"]) \
-                / (row["grid_ms"] / row["grid_waves"])
-            out[f"{kern} n={n}"] = row
-            print(f"[grid] {kern} K={K} chunk at B={b} L={L} (n={n}, seg="
-                  f"{seg}): cluster {ms[0]:.5f} / {ms[3]:.5f} ms in "
-                  f"{row['cluster_waves']} waves of {clusters}, grid "
-                  f"{ms[1]:.5f} / {ms[2]:.5f} ms in {row['grid_waves']} waves "
-                  f"of {rings} (order cluster, grid, grid, cluster); grid "
-                  f"{row['grid_speedup']:.3f} times as fast, "
-                  f"{row['wave_speedup']:.3f} a wave; results bitwise equal",
-                  flush=True)
-        del tau, words, work, res
     return out
 
 
@@ -550,7 +428,7 @@ def main(argv) -> int:
     sys.path.insert(0, str(ROOT))
     import chip_smoke
     if argv[:1] in (["ablate"], ["drain"], ["step"], ["ablate-step"],
-                    ["sass"], ["grid"]):
+                    ["sass"]):
         print(chip_smoke.card_line())
     if argv[:1] == ["ablate"] and len(argv) == 2:
         sys.path.insert(0, str(ROOT / "src"))
@@ -582,9 +460,6 @@ def main(argv) -> int:
         print(json.dumps(ablate_step(pathlib.Path(argv[1]).resolve())))
     elif argv[:1] == ["sass"] and len(argv) == 3:
         print(json.dumps(sass(*(pathlib.Path(a).resolve() for a in argv[1:]))))
-    elif argv == ["grid"]:
-        sys.path.insert(0, str(ROOT / "src"))
-        print(json.dumps(grid()))
     elif argv[:1] == ["_step"] and len(argv) == 2:
         print(json.dumps(step_one(pathlib.Path(argv[1]).resolve())))
     else:

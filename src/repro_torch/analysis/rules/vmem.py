@@ -16,21 +16,18 @@ Where the kernel was built here, ``kernels/_build.py`` kept ``nvcc``'s
 compiled kernel's registers, static shared memory and spill bytes
 (``_build.ptxas_info``).  It fires when static plus dynamic shared memory
 passes the budget, or registers times threads pass the 65,536 registers
-of an SM, for each block of a launch (a cluster's blocks each hold their
-own), or when a launch's cluster passes the most its kernel allows (the
-portable 8 for B2; ``tiling.RING_MAX_CLUSTER`` for the ring kernels, whose
-launch allows a non-portable size); spills are reported by
-:func:`kernel_budgets` and do not fire.  A ring kernel's plan over a
-cluster or a grid reads the ptxas figures of its cluster or grid
+of an SM, for each block of a launch (a cluster's or a cooperative grid's
+blocks each hold their own), or when B2's cluster passes the portable 8;
+spills are reported by :func:`kernel_budgets` and do not fire.  A ring
+kernel's plan over a grid reads the ptxas figures of its grid
 instantiation (B1's stream tier: its stream instantiation).  Without a
 log (no ``nvcc`` here) the plan's static figure stands.
 """
 from __future__ import annotations
 
 from ...kernels import _build, pdes_multistep, pdes_step, threefry
-from ...kernels.tiling import (MAX_CLUSTER_RING_L, MAX_GRID_RING_L,
-                               MAX_RING_L, MAX_RING_SEG, MAX_STREAM_RING_L,
-                               RING_MAX_CLUSTER, RING_MAX_GRID_BLOCKS,
+from ...kernels.tiling import (MAX_GRID_RING_L, MAX_RING_L, MAX_RING_SEG,
+                               MAX_STREAM_RING_L, RING_MAX_GRID_BLOCKS,
                                SMEM_PER_BLOCK, STEP_MAX_CLUSTER)
 from ..probes import Probe
 from ..report import Finding
@@ -43,7 +40,7 @@ REGISTERS_PER_SM = 65_536
 #: Most blocks of a cluster that every Hopper part schedules
 PORTABLE_CLUSTER = STEP_MAX_CLUSTER
 #: The kernels that keep a whole ring in the shared memory of one block or
-#: of a cluster's or a cooperative grid's blocks
+#: of a cooperative grid's blocks
 RING_KERNELS = ("pdes_multistep_counter", "pdes_multistep")
 
 #: kernel -> (CUDA source, __global__ function) of its library
@@ -53,11 +50,6 @@ SOURCES = {
     "pdes_step": ("pdes_step", "pdes_step_kernel"),
     "pdes_multistep": ("pdes_multistep", "multistep_kernel"),
     "threefry_bits": ("threefry_bits", "threefry_bits_kernel"),
-}
-#: ring kernel -> __global__ function of its cluster instantiation
-CLUSTER_FUNCTIONS = {
-    "pdes_multistep_counter": "multistep_counter_cluster_kernel",
-    "pdes_multistep": "multistep_cluster_kernel",
 }
 #: ring kernel -> __global__ function of its grid instantiation
 GRID_FUNCTIONS = {
@@ -70,8 +62,6 @@ STREAM_FUNCTION = "multistep_counter_stream_kernel"
 
 def _ptxas(kernel: str, plan: dict):
     lib, fn = SOURCES[kernel]
-    if kernel in RING_KERNELS and plan.get("cluster", 1) > 1:
-        fn = CLUSTER_FUNCTIONS[kernel]
     if kernel in RING_KERNELS and plan.get("ring_grid", 1) > 1:
         fn = GRID_FUNCTIONS[kernel]
     if kernel == "pdes_multistep_counter" and plan.get("tier") == "stream":
@@ -82,7 +72,7 @@ def _ptxas(kernel: str, plan: dict):
 def budget_of(kernel: str, plan: dict, budget: int = DEFAULT_BUDGET) -> dict:
     """The plan of one launch against the budget: the plan's numbers, the
     ptxas figures where a log exists, and ``over`` (what fires).  Each
-    block of a cluster is held to the block budget on its own."""
+    block of a cluster or a grid is held to the block budget on its own."""
     info = _ptxas(kernel, plan)
     static = plan["static_smem"] if info is None else max(
         plan["static_smem"], info["static_smem"])
@@ -97,12 +87,9 @@ def budget_of(kernel: str, plan: dict, budget: int = DEFAULT_BUDGET) -> dict:
         row["over"].append(
             f"{info['registers']} registers x {plan['threads']} threads > "
             f"{REGISTERS_PER_SM}")
-    most = RING_MAX_CLUSTER if kernel in RING_KERNELS else PORTABLE_CLUSTER
-    if plan.get("cluster", 1) > most:
-        row["over"].append(
-            f"cluster of {plan['cluster']} blocks > the "
-            + ("ring kernels' " if kernel in RING_KERNELS else "portable ")
-            + f"{most}")
+    if plan.get("cluster", 1) > PORTABLE_CLUSTER:
+        row["over"].append(f"cluster of {plan['cluster']} blocks > the "
+                           f"portable {PORTABLE_CLUSTER}")
     return row
 
 
@@ -136,9 +123,6 @@ def check(probe: Probe, vmem_budget: int = DEFAULT_BUDGET, **_) -> list:
                         f"{call.plan['threads']} threads: "
                         + "; ".join(row["over"])
                         + (f" (rings above L={MAX_RING_L} need a "
-                           f"thread-block cluster, and one of "
-                           f"{RING_MAX_CLUSTER} blocks holds rings up to "
-                           f"L={MAX_CLUSTER_RING_L}; longer rings need a "
                            f"cooperative grid, and "
                            f"{RING_MAX_GRID_BLOCKS} blocks hold rings up to "
                            f"L={MAX_GRID_RING_L}"

@@ -16,8 +16,7 @@
 // layout).  The window is a static delta (inf turns it off), as the TPU
 // kernel takes it.  The step itself -- decode, GVT, Eq. (1) and Eq. (3),
 // the moments, the ring held once in shared memory, in one block up to
-// L = 57,344, split over a thread-block cluster of up to 16 blocks up to
-// L = 911,360 and over up to 132 blocks of a cooperative grid up to
+// L = 57,344 and over up to 132 blocks of a cooperative grid up to
 // L = 7,518,720 (kernels/tiling.py ring_plan; the wrapper raises above it)
 // -- is the loop of pdes_ring.cuh, which B1 shares, so the two kernels
 // cannot drift apart.
@@ -81,26 +80,11 @@ multistep_kernel(const float* __restrict__ tau_in,
                                            MemoryEvents{bits, B, L, row});
 }
 
-// The same on rings split over clusters of `cluster` blocks, `seg` PEs a
-// block: ring `row` is blocks [row cluster, (row + 1) cluster).
-template <bool kRd, bool kBoth>
-__global__ void __launch_bounds__(32 * kRingClusterWarps, 1)
-multistep_cluster_kernel(const float* __restrict__ tau_in,
-                         const uint2* __restrict__ bits,
-                         float* __restrict__ tau_out,
-                         float* __restrict__ stats, int B, int L, int K,
-                         uint32_t n_v, float delta, int cluster, int seg) {
-  const int row = blockIdx.x / cluster;
-  ring_steps<kRd, kBoth, RingTier::kCluster>(
-      tau_in, tau_out, stats, row, B, L, K, n_v, delta,
-      MemoryEvents{bits, B, L, row}, cluster, seg);
-}
-
 // The same on rings split over `grid` blocks of one cooperative launch,
 // `seg` PEs a block: the gridDim.x / grid ring slots take the rows in
 // waves, the blocks of a slot meeting through `work` (pdes_ring.cuh).
 template <bool kRd, bool kBoth>
-__global__ void __launch_bounds__(32 * kRingClusterWarps, 1)
+__global__ void __launch_bounds__(32 * kRingSplitWarps, 1)
 multistep_grid_kernel(const float* __restrict__ tau_in,
                       const uint2* __restrict__ bits,
                       float* __restrict__ tau_out,
@@ -115,73 +99,48 @@ multistep_grid_kernel(const float* __restrict__ tau_in,
 
 }  // namespace
 
-// Launches B3 with kernels/tiling.py::ring_plan(L): `cluster` blocks a
-// ring of `warps` warps and `seg` PEs each (one block, seg == L, where
-// cluster == 1).  Returns a CUDA error code: a plan this kernel cannot run
-// returns cudaErrorInvalidValue, and a launch the card refuses its error.
+// Launches B3 with kernels/tiling.py::ring_plan(L, stream=False): `grid`
+// blocks a ring of `warps` warps and `seg` PEs each, all of them kept in
+// shared memory (keep == seg).  One block (grid == 1, seg == L) takes the
+// block instantiation; more take the grid one, as one cooperative launch
+// of the rings the card holds at once, `work` the workspace (unread on one
+// block).  Returns a CUDA error code: a plan this kernel cannot run returns
+// cudaErrorInvalidValue, and a launch the card refuses its error
+// (pdes_ring.cuh ring_block_launch, ring_grid_launch).
 extern "C" int pdes_multistep_launch(const float* tau_in, const void* bits,
                                      float* tau_out, float* stats, int B,
-                                     int L, int K, int warps, int cluster,
-                                     int seg, unsigned n_v, float delta,
-                                     int rd_mode, int border_both,
-                                     void* stream) {
-  if (cluster == 1) {
-    const auto kernel = ring_kernel(rd_mode, border_both,
-                                    multistep_kernel<true, false>,
-                                    multistep_kernel<false, true>,
-                                    multistep_kernel<false, false>);
-    const int smem = ring_launch_check(kernel, B, L, K, warps, 1, seg);
-    if (smem < 0) return -smem;
-    kernel<<<B, 32 * warps, smem, (cudaStream_t)stream>>>(
-        tau_in, (const uint2*)bits, tau_out, stats, B, L, K, n_v, delta);
-    return (int)cudaGetLastError();
-  }
-  const auto kernel = ring_kernel(rd_mode, border_both,
-                                  multistep_cluster_kernel<true, false>,
-                                  multistep_cluster_kernel<false, true>,
-                                  multistep_cluster_kernel<false, false>);
-  const int smem = ring_launch_check(kernel, B, L, K, warps, cluster, seg);
-  if (smem < 0) return -smem;
-  return ring_cluster_launch(kernel, B, cluster, warps, smem, stream, tau_in,
-                             (const uint2*)bits, tau_out, stats, B, L, K,
-                             (uint32_t)n_v, delta, cluster, seg);
+                                     int L, int K, int warps, int grid,
+                                     int seg, int keep, unsigned n_v,
+                                     float delta, int rd_mode,
+                                     int border_both, void* work,
+                                     long long work_bytes, void* stream) {
+  if (keep != seg) return (int)cudaErrorInvalidValue;  // no stream tier
+  if (grid == 1)
+    return ring_block_launch(
+        ring_kernel(rd_mode, border_both, multistep_kernel<true, false>,
+                    multistep_kernel<false, true>,
+                    multistep_kernel<false, false>),
+        B, L, K, warps, seg, keep, stream, tau_in, (const uint2*)bits,
+        tau_out, stats, B, L, K, (uint32_t)n_v, delta);
+  return ring_grid_launch(
+      ring_kernel(rd_mode, border_both, multistep_grid_kernel<true, false>,
+                  multistep_grid_kernel<false, true>,
+                  multistep_grid_kernel<false, false>),
+      B, L, K, warps, grid, seg, seg, work, work_bytes, stream, tau_in,
+      (const uint2*)bits, tau_out, stats, B, L, K, (uint32_t)n_v, delta, grid,
+      seg);
 }
 
-// The clusters of B3's cluster kernel (`cluster` blocks of `warps` warps
-// and `smem` dynamic bytes) that the card holds at once, or minus a CUDA
-// error code.
-extern "C" int pdes_multistep_max_clusters(int cluster, int warps,
-                                           int smem) {
-  return ring_max_clusters(multistep_cluster_kernel<false, false>, cluster,
-                           warps, smem);
-}
-
-// Launches B3 with a grid plan of kernels/tiling.py::ring_plan(L): `grid`
-// blocks a ring of `warps` warps and `seg` PEs each, as one cooperative
-// launch of the rings the card holds at once, `work` the workspace.
-// Returns a CUDA error code (pdes_ring.cuh ring_grid_launch).
-extern "C" int pdes_multistep_grid_launch(const float* tau_in,
-                                          const void* bits, float* tau_out,
-                                          float* stats, int B, int L, int K,
-                                          int warps, int grid, int seg,
-                                          unsigned n_v, float delta,
-                                          int rd_mode, int border_both,
-                                          void* work, long long work_bytes,
-                                          void* stream) {
-  const auto kernel = ring_kernel(rd_mode, border_both,
-                                  multistep_grid_kernel<true, false>,
-                                  multistep_grid_kernel<false, true>,
-                                  multistep_grid_kernel<false, false>);
-  return ring_grid_launch(kernel, B, L, K, warps, grid, seg, seg, work,
-                          work_bytes, stream, tau_in, (const uint2*)bits,
-                          tau_out, stats, B, L, K, (uint32_t)n_v, delta,
-                          grid, seg);
-}
-
-// The rings of `grid` blocks of B3's grid kernel (`warps` warps and `smem`
-// dynamic bytes a block) that the card holds at once, or minus a CUDA
-// error code.
-extern "C" int pdes_multistep_max_grid_rings(int grid, int warps, int smem) {
-  return ring_max_grid_rings(multistep_grid_kernel<false, false>, grid,
-                             warps, smem);
+// The rings of B3's plan (`grid` blocks of `warps` warps, `seg` PEs each,
+// all `keep` == seg in shared memory) that the card holds at once, on the
+// instantiation pdes_multistep_launch takes for it, or minus a CUDA error
+// code.
+extern "C" int pdes_multistep_max_rings(int grid, int warps, int seg,
+                                        int keep) {
+  if (keep != seg) return -(int)cudaErrorInvalidValue;
+  const int smem = keep * (int)sizeof(float);
+  if (grid == 1)
+    return ring_max_rings(multistep_kernel<false, false>, grid, warps, smem);
+  return ring_max_rings(multistep_grid_kernel<false, false>, grid, warps,
+                        smem);
 }

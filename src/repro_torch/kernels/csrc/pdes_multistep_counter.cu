@@ -14,7 +14,6 @@
 // and its window width delta_col[r] if given, else the static delta (inf =
 // off).  The step itself -- decode, GVT, Eq. (1) and Eq. (3), the moments,
 // the ring held once in shared memory, in one block up to L = 57,344,
-// split over a thread-block cluster of up to 16 blocks up to L = 911,360,
 // over up to 132 blocks of a cooperative grid up to L = 7,518,720, and over
 // 132 such blocks that keep the rest of their segments in device memory up
 // to L = 2,147,481,600 (kernels/tiling.py ring_plan; the wrapper raises
@@ -45,14 +44,14 @@
 // (kAhead); and 40 KB a ring, so all 448 rings are resident at once, four
 // to an SM.
 //
-// A long ring, B = 448 rings of L = 131,072 PEs over clusters of 3 blocks
-// (the service at the paper's large-L regime; 939.5M PE-steps a K = 16
-// chunk): bytes 470.0 MB (tau in and out), 0.140 ms; operations about
-// 4.1e10 at u = 0.64, 0.61 ms at 67 T/s.  So the operations bound it, as at
-// L = 10,000, and the same issue limit holds: one block of 32 warps an SM
-// (a segment takes most of its shared memory) does the work of four
-// one-block rings of 8, and one cluster barrier a step over a segment of
-// some 44,000 PEs costs little beside it (PERF.md).
+// A long ring, B = 448 rings of L = 131,072 PEs over 3 blocks of a
+// cooperative grid (the service at the paper's large-L regime; 939.5M
+// PE-steps a K = 16 chunk): bytes 470.0 MB (tau in and out), 0.140 ms;
+// operations about 4.1e10 at u = 0.64, 0.61 ms at 67 T/s.  So the
+// operations bound it, as at L = 10,000, and the same issue limit holds:
+// one block of 32 warps an SM (a segment takes most of its shared memory)
+// does the work of four one-block rings of 8, and one meeting a step over
+// a segment of some 44,000 PEs costs little beside it (PERF.md).
 //
 // The paper's production ring, B = 8 rings of L = 2^20 PEs over 19 blocks
 // of a cooperative grid (6 rings at once on 132 SMs, so two waves; 134.2M
@@ -120,32 +119,11 @@ multistep_counter_kernel(const float* __restrict__ tau_in,
       CounterEvents{seed, step0, trial, l0});
 }
 
-// The same on rings split over clusters of `cluster` blocks, `seg` PEs a
-// block: ring `row` is blocks [row cluster, (row + 1) cluster).
-template <bool kRd, bool kBoth>
-__global__ void __launch_bounds__(32 * kRingClusterWarps, 1)
-multistep_counter_cluster_kernel(const float* __restrict__ tau_in,
-                                 float* __restrict__ tau_out,
-                                 float* __restrict__ stats,
-                                 const float* __restrict__ delta_col,
-                                 const uint32_t* __restrict__ trial_col,
-                                 int B, int L, int K,
-                                 uint32_t seed, uint32_t step0, uint32_t b0,
-                                 uint32_t l0, uint32_t n_v, float delta,
-                                 int cluster, int seg) {
-  const int row = blockIdx.x / cluster;
-  const uint32_t trial = trial_col ? trial_col[row] : b0 + (uint32_t)row;
-  const float dlt = delta_col ? delta_col[row] : delta;
-  ring_steps<kRd, kBoth, RingTier::kCluster>(
-      tau_in, tau_out, stats, row, B, L, K, n_v, dlt,
-      CounterEvents{seed, step0, trial, l0}, cluster, seg);
-}
-
 // The same on rings split over `grid` blocks of one cooperative launch,
 // `seg` PEs a block: the gridDim.x / grid ring slots take the rows in
 // waves, the blocks of a slot meeting through `work` (pdes_ring.cuh).
 template <bool kRd, bool kBoth>
-__global__ void __launch_bounds__(32 * kRingClusterWarps, 1)
+__global__ void __launch_bounds__(32 * kRingSplitWarps, 1)
 multistep_counter_grid_kernel(const float* __restrict__ tau_in,
                               float* __restrict__ tau_out,
                               float* __restrict__ stats,
@@ -168,7 +146,7 @@ multistep_counter_grid_kernel(const float* __restrict__ tau_in,
 // launch, `seg` PEs a block, the first `keep` in shared memory and the rest
 // in tau_out (pdes_ring.cuh).
 template <bool kRd, bool kBoth>
-__global__ void __launch_bounds__(32 * kRingClusterWarps, 1)
+__global__ void __launch_bounds__(32 * kRingSplitWarps, 1)
 multistep_counter_stream_kernel(const float* __restrict__ tau_in,
                                 float* __restrict__ tau_out,
                                 float* __restrict__ stats,
@@ -215,107 +193,66 @@ __global__ void site_pick_kernel(const uint32_t* __restrict__ w0,
 
 }  // namespace
 
-// Launches B1 with kernels/tiling.py::ring_plan(L): `cluster` blocks a
-// ring of `warps` warps and `seg` PEs each (one block, seg == L, where
-// cluster == 1).  Returns a CUDA error code: a plan this kernel cannot run
-// returns cudaErrorInvalidValue, and a launch the card refuses its error.
+// Launches B1 with kernels/tiling.py::ring_plan(L): `grid` blocks a ring of
+// `warps` warps and `seg` PEs each, of which a block keeps the first `keep`
+// in shared memory.  One block (grid == 1, seg == keep == L) takes the
+// block instantiation; more take one cooperative launch of the rings the
+// card holds at once, `work` the workspace (pdes_ring.cuh ring_grid_bytes
+// of them; unread on one block): the grid instantiation where keep == seg,
+// else the stream one.  Returns a CUDA error code: a plan this kernel
+// cannot run returns cudaErrorInvalidValue, and a launch the card refuses
+// its error (pdes_ring.cuh ring_block_launch, ring_grid_launch).
 extern "C" int pdes_multistep_counter_launch(
-    const float* tau_in, float* tau_out, float* stats, const float* delta_col,
-    const uint32_t* trial_col, int B, int L, int K, int warps, int cluster,
-    int seg, unsigned seed, unsigned step0, unsigned b0, unsigned l0,
-    unsigned n_v, float delta, int rd_mode, int border_both, void* stream) {
-  if (cluster == 1) {
-    const auto kernel = ring_kernel(rd_mode, border_both,
-                                    multistep_counter_kernel<true, false>,
-                                    multistep_counter_kernel<false, true>,
-                                    multistep_counter_kernel<false, false>);
-    const int smem = ring_launch_check(kernel, B, L, K, warps, 1, seg);
-    if (smem < 0) return -smem;
-    kernel<<<B, 32 * warps, smem, (cudaStream_t)stream>>>(
-        tau_in, tau_out, stats, delta_col, trial_col, B, L, K, seed, step0,
-        b0, l0, n_v, delta);
-    return (int)cudaGetLastError();
-  }
-  const auto kernel = ring_kernel(
-      rd_mode, border_both, multistep_counter_cluster_kernel<true, false>,
-      multistep_counter_cluster_kernel<false, true>,
-      multistep_counter_cluster_kernel<false, false>);
-  const int smem = ring_launch_check(kernel, B, L, K, warps, cluster, seg);
-  if (smem < 0) return -smem;
-  return ring_cluster_launch(kernel, B, cluster, warps, smem, stream, tau_in,
-                             tau_out, stats, delta_col, trial_col, B, L, K,
-                             (uint32_t)seed, (uint32_t)step0, (uint32_t)b0,
-                             (uint32_t)l0, (uint32_t)n_v, delta, cluster,
-                             seg);
-}
-
-// The clusters of B1's cluster kernel (`cluster` blocks of `warps` warps
-// and `smem` dynamic bytes) that the card holds at once, or minus a CUDA
-// error code.
-extern "C" int pdes_multistep_counter_max_clusters(int cluster, int warps,
-                                                   int smem) {
-  return ring_max_clusters(multistep_counter_cluster_kernel<false, false>,
-                           cluster, warps, smem);
-}
-
-// Launches B1 with a grid plan of kernels/tiling.py::ring_plan(L): `grid`
-// blocks a ring of `warps` warps and `seg` PEs each, as one cooperative
-// launch of the rings the card holds at once, `work` the workspace
-// (pdes_ring.cuh ring_grid_bytes of them).  Returns a CUDA error code
-// (pdes_ring.cuh ring_grid_launch).
-extern "C" int pdes_multistep_counter_grid_launch(
-    const float* tau_in, float* tau_out, float* stats, const float* delta_col,
-    const uint32_t* trial_col, int B, int L, int K, int warps, int grid,
-    int seg, unsigned seed, unsigned step0, unsigned b0, unsigned l0,
-    unsigned n_v, float delta, int rd_mode, int border_both, void* work,
-    long long work_bytes, void* stream) {
-  const auto kernel = ring_kernel(
-      rd_mode, border_both, multistep_counter_grid_kernel<true, false>,
-      multistep_counter_grid_kernel<false, true>,
-      multistep_counter_grid_kernel<false, false>);
-  return ring_grid_launch(kernel, B, L, K, warps, grid, seg, seg, work,
-                          work_bytes, stream, tau_in, tau_out, stats,
-                          delta_col, trial_col, B, L, K, (uint32_t)seed,
-                          (uint32_t)step0, (uint32_t)b0, (uint32_t)l0,
-                          (uint32_t)n_v, delta, grid, seg);
-}
-
-// The rings of `grid` blocks of B1's grid kernel (`warps` warps and `smem`
-// dynamic bytes a block) that the card holds at once, or minus a CUDA
-// error code.
-extern "C" int pdes_multistep_counter_max_grid_rings(int grid, int warps,
-                                                     int smem) {
-  return ring_max_grid_rings(multistep_counter_grid_kernel<false, false>,
-                             grid, warps, smem);
-}
-
-// Launches B1 with a stream plan of kernels/tiling.py::ring_plan(L): as the
-// grid launcher, each block keeping `keep` of its `seg` PEs in shared
-// memory.  Returns a CUDA error code (pdes_ring.cuh ring_grid_launch).
-extern "C" int pdes_multistep_counter_stream_launch(
     const float* tau_in, float* tau_out, float* stats, const float* delta_col,
     const uint32_t* trial_col, int B, int L, int K, int warps, int grid,
     int seg, int keep, unsigned seed, unsigned step0, unsigned b0,
     unsigned l0, unsigned n_v, float delta, int rd_mode, int border_both,
     void* work, long long work_bytes, void* stream) {
-  const auto kernel = ring_kernel(
-      rd_mode, border_both, multistep_counter_stream_kernel<true, false>,
-      multistep_counter_stream_kernel<false, true>,
-      multistep_counter_stream_kernel<false, false>);
-  return ring_grid_launch(kernel, B, L, K, warps, grid, seg, keep, work,
-                          work_bytes, stream, tau_in, tau_out, stats,
-                          delta_col, trial_col, B, L, K, (uint32_t)seed,
-                          (uint32_t)step0, (uint32_t)b0, (uint32_t)l0,
-                          (uint32_t)n_v, delta, grid, seg, keep);
+  if (grid == 1)
+    return ring_block_launch(
+        ring_kernel(rd_mode, border_both,
+                    multistep_counter_kernel<true, false>,
+                    multistep_counter_kernel<false, true>,
+                    multistep_counter_kernel<false, false>),
+        B, L, K, warps, seg, keep, stream, tau_in, tau_out, stats, delta_col,
+        trial_col, B, L, K, (uint32_t)seed, (uint32_t)step0, (uint32_t)b0,
+        (uint32_t)l0, (uint32_t)n_v, delta);
+  if (keep == seg)
+    return ring_grid_launch(
+        ring_kernel(rd_mode, border_both,
+                    multistep_counter_grid_kernel<true, false>,
+                    multistep_counter_grid_kernel<false, true>,
+                    multistep_counter_grid_kernel<false, false>),
+        B, L, K, warps, grid, seg, seg, work, work_bytes, stream, tau_in,
+        tau_out, stats, delta_col, trial_col, B, L, K, (uint32_t)seed,
+        (uint32_t)step0, (uint32_t)b0, (uint32_t)l0, (uint32_t)n_v, delta,
+        grid, seg);
+  return ring_grid_launch(
+      ring_kernel(rd_mode, border_both,
+                  multistep_counter_stream_kernel<true, false>,
+                  multistep_counter_stream_kernel<false, true>,
+                  multistep_counter_stream_kernel<false, false>),
+      B, L, K, warps, grid, seg, keep, work, work_bytes, stream, tau_in,
+      tau_out, stats, delta_col, trial_col, B, L, K, (uint32_t)seed,
+      (uint32_t)step0, (uint32_t)b0, (uint32_t)l0, (uint32_t)n_v, delta, grid,
+      seg, keep);
 }
 
-// The rings of `grid` blocks of B1's stream kernel (`warps` warps and
-// `smem` dynamic bytes a block) that the card holds at once, or minus a
-// CUDA error code.
-extern "C" int pdes_multistep_counter_max_stream_rings(int grid, int warps,
-                                                       int smem) {
-  return ring_max_grid_rings(multistep_counter_stream_kernel<false, false>,
-                             grid, warps, smem);
+// The rings of B1's plan (`grid` blocks of `warps` warps, `seg` PEs each,
+// the first `keep` in shared memory) that the card holds at once, on the
+// instantiation pdes_multistep_counter_launch takes for it, or minus a CUDA
+// error code.
+extern "C" int pdes_multistep_counter_max_rings(int grid, int warps, int seg,
+                                                int keep) {
+  const int smem = keep * (int)sizeof(float);
+  if (grid == 1)
+    return ring_max_rings(multistep_counter_kernel<false, false>, grid, warps,
+                          smem);
+  if (keep == seg)
+    return ring_max_rings(multistep_counter_grid_kernel<false, false>, grid,
+                          warps, smem);
+  return ring_max_rings(multistep_counter_stream_kernel<false, false>, grid,
+                        warps, smem);
 }
 
 extern "C" int decode_eta_launch(const uint32_t* w1, float* out, long long n,

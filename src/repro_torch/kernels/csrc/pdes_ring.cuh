@@ -45,45 +45,35 @@
 // edge values and mask the lanes past the ring's end; the groups between
 // them carry no test at all.
 //
-// A longer ring (up to kernels/tiling.py MAX_CLUSTER_RING_L) is split over
-// a thread-block cluster of c blocks (kCluster; tiling.ring_plan gives c,
-// the segment `seg`, a multiple of 32, and W): block rank j owns PEs
+// A longer ring (up to kernels/tiling.py MAX_GRID_RING_L) is cut into g
+// segments (RingTier::kGrid; tiling.ring_plan gives g, the segment `seg`, a
+// multiple of 32, and W), one block each: block rank j owns PEs
 // [j seg, min((j + 1) seg, L)) in its shared memory and lays them out as a
 // one-block ring lays out its own, and the events keep their ring-wide PE
-// index.  Warp 0's left neighbour is then rank j - 1's last PE and the last
-// warp's right neighbour rank j + 1's first PE (mod c), read from the
-// neighbour block's parity slot through distributed shared memory; one
-// cluster barrier a step (arrive.release, wait.acquire) takes the place of
-// the block's.  The parity argument below holds across the blocks: a
-// block rewrites slot k & 1 only after barrier k + 1, which every remote
-// reader of step k's slot reaches only after reading it.  A last cluster
-// barrier keeps every block's shared memory alive until rank 0 has read
-// the last sums.  A cluster block takes most of an SM's shared memory, so
-// it runs 32 warps, the warps of four one-block rings (8 or 16 were
-// slower: PERF.md).  The one-block kernels are separate instantiations,
-// which the cluster code does not reach (if constexpr).
-//
-// A ring longer still (up to kernels/tiling.py MAX_GRID_RING_L) is cut
-// the same way into g segments (RingTier::kGrid; tiling.ring_plan's
-// `grid`), one block each, and the g blocks of a ring are ordinary blocks
-// of one cooperative launch, all resident at once: `rings` = gridDim.x / g
-// ring slots, slot q = blockIdx.x / g taking rows q, q + rings, ... in
-// turn (the batch in waves).  They meet through a workspace in global
-// memory (RingGrid, read and written through L2 with ld/st.cg): a block
-// reduces its W warp partials by the xor tree above, and warp 0 publishes
-// that one block partial and its segment's two edge PEs in the ring's
-// parity slot [parity][rank], then meets the ring's other blocks at a
-// barrier (grid_barrier: an arrival counter that only grows, atom.release
-// to arrive, a spin on ld.acquire), takes the neighbours' edge PEs into
-// the block's own shared slot (where the next step's warps 0 and W - 1 read
-// an edge, so the step's loop is the cluster's) and folds the g partials
-// in rank order 0 ... g - 1, which gives the next GVT and, on rank 0, the
-// step's six moments; a second block barrier hands GVT and the mean to
-// the other warps.  The exact window needs the ring's minimum every step,
-// so no step skips the meeting.  The parity argument holds as on a
-// cluster; a last meeting after the last sums keeps the slots valid until
-// rank 0 has read them where another row follows on the slot.  A block
-// partial a step, not 32 warp partials, so a block reads g values a step.
+// index.  A split block takes most of an SM's shared memory, so it runs 32
+// warps, the warps of four one-block rings.  The g blocks of a ring are
+// ordinary blocks of one cooperative launch, all resident at once: `rings`
+// = gridDim.x / g ring slots, slot q = blockIdx.x / g taking rows q,
+// q + rings, ... in turn (the batch in waves).  They meet through a
+// workspace in global memory (RingGrid, read and written through L2 with
+// ld/st.cg): a block reduces its W warp partials by the xor tree above, and
+// warp 0 publishes that one block partial and its segment's two edge PEs in
+// the ring's parity slot [parity][rank], then meets the ring's other blocks
+// at a barrier (grid_barrier: an arrival counter that only grows,
+// atom.release to arrive, a spin on ld.acquire), takes the neighbours' edge
+// PEs into the block's own shared slot (where the next step's warps 0 and
+// W - 1 read an edge, so the step's loop is the one-block ring's) and folds
+// the g partials in rank order 0 ... g - 1, which gives the next GVT and,
+// on rank 0, the step's six moments; a second block barrier hands GVT and
+// the mean to the other warps.  The exact window needs the ring's minimum
+// every step, so no step skips the meeting.  The parity argument below
+// (one barrier a step) holds across the blocks: a block rewrites slot
+// k & 1 only after meeting k + 1, which every reader of step k's slot
+// reaches only after reading it; a last meeting after the last sums keeps
+// the slots valid until rank 0 has read them where another row follows on
+// the slot.  A block partial a step, not 32 warp partials, so a block reads
+// g values a step.  The one-block kernels are separate instantiations,
+// which the grid code does not reach (if constexpr).
 //
 // B1 takes a ring longer still (up to kernels/tiling.py MAX_STREAM_RING_L;
 // RingTier::kStream, tiling.ring_plan's `stream` tier) over the grid's g =
@@ -106,22 +96,18 @@
 // slot of k's parity, then __syncthreads(); then every warp reduces the W
 // partials itself (warp 0 all of them, the others the min and the sum), so
 // all hold the next GVT and the ring mean without a second barrier, and
-// lane 0 of warp 0 writes the stats.  On a cluster every block reads the
-// c x W partials after the cluster barrier: each block's W by the same xor
-// tree, then the c block values in rank order 0 ... c - 1, so every block
-// holds the same GVT and mean, and rank 0's warp 0 writes the stats.  A
-// slot is written again two steps later, after the barrier that every
-// reader of it has passed.  The sumabs of step k is summed in step k + 1's
-// pass, whose first read of a PE is its tau after step k; one trailing pass
-// after step K - 1, which also writes tau out, gives the last.  Sums are
+// lane 0 of warp 0 writes the stats.  A slot is written again two steps
+// later, after the barrier that every reader of it has passed.  The sumabs
+// of step k is summed in step k + 1's pass, whose first read of a PE is its
+// tau after step k; one trailing pass after step K - 1, which also writes
+// tau out, gives the last.  Sums are
 // taken in row order per lane, then by a fixed xor tree over the lanes and
-// over the W warps (and over the c blocks in rank order): the order depends
+// over the W warps (and over the g blocks in rank order): the order depends
 // on L alone (through the plan), never on B, the ring's row or its
 // neighbours on the SM, so a ring's moments are the same whatever batch it
 // runs in.
 #pragma once
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -130,23 +116,19 @@
 
 namespace {
 
-namespace cg = cooperative_groups;
-
 // Most warps of a ring block (kernels/tiling.py RING_MAX_WARPS).
 constexpr int kRingMaxWarps = 8;
-// Most warps of a block of a ring split over a cluster (tiling.py
-// RING_CLUSTER_WARPS): one such block an SM, so up to 1024 threads.
-constexpr int kRingClusterWarps = 32;
-// Most blocks of a ring's cluster (tiling.py RING_MAX_CLUSTER); above 8 the
-// launch allows a non-portable cluster size.
-constexpr int kRingMaxCluster = 16;
+// Most warps of a block of a ring split over blocks (tiling.py
+// RING_SPLIT_WARPS): one such block an SM, so up to 1024 threads.
+constexpr int kRingSplitWarps = 32;
 // Blocks of 8 warps an SM should hold at once: 448 rings of L = 10,000 (40
 // KB of shared memory each) then run in one wave on 132 SMs.
 constexpr int kRingMinBlocks = 4;
 
-// Where the blocks of a ring meet: one block, a thread-block cluster, or
-// the blocks of a cooperative grid (tiling.ring_plan).
-enum class RingTier { kBlock, kCluster, kGrid, kStream };
+// Where the blocks of a ring meet: one block, or the blocks of a
+// cooperative grid that keep their segments in shared memory or, on the
+// stream tier, part of them in device memory (tiling.ring_plan).
+enum class RingTier { kBlock, kGrid, kStream };
 
 // What warp w publishes at the end of a step, read by every warp after the
 // step's barrier (parity slots: see above), for blocks of up to kW warps.
@@ -177,37 +159,6 @@ struct Min {
 struct Max {
   __device__ float operator()(float a, float b) const { return fmaxf(a, b); }
 };
-
-// The barrier of a step: the block's, or on a cluster the cluster's, each
-// block's writes released before it and the others' acquired after it.
-template <bool kCluster>
-__device__ __forceinline__ void ring_barrier() {
-  if constexpr (kCluster) {
-    asm volatile("barrier.cluster.arrive.release;" ::: "memory");
-    asm volatile("barrier.cluster.wait.acquire;" ::: "memory");
-  } else {
-    __syncthreads();
-  }
-}
-
-// The reduction by `op` of the partials `get(slot)` of a ring's blocks:
-// each block's W by slot_reduce, then the c block values in rank order
-// 0 ... c - 1 (one block: its own W).  Every warp of every block ends with
-// the same value.
-template <bool kCluster, class Slot, class Get, class Op>
-__device__ __forceinline__ auto ring_reduce(Slot& s, Get get, int c, int W,
-                                            int lane, Op op) {
-  if constexpr (kCluster) {
-    cg::cluster_group cluster = cg::this_cluster();
-    auto v = slot_reduce(get(*cluster.map_shared_rank(&s, 0)), W, lane, op);
-    for (int r = 1; r < c; ++r)
-      v = op(v, slot_reduce(get(*cluster.map_shared_rank(&s, r)), W, lane,
-                            op));
-    return v;
-  } else {
-    return slot_reduce(get(s), W, lane, op);
-  }
-}
 
 // What block `rank` of a ring over the grid publishes at a meeting: its
 // partials and its segment's edge PEs' new tau.
@@ -400,10 +351,10 @@ __device__ __forceinline__ int stream_warps(int rows, int kr, int W) {
 // Runs the K steps of ring `row` (blockDim.x = 32 W).  `dlt` is the row's
 // window width (inf turns the window off: tau <= inf + GVT holds).  kRd and
 // kBoth are the rd_mode and border_both flags, fixed per instantiation so
-// that the hot loop carries no test of them.  On a cluster (kTier) the
-// block is rank blockIdx.x % cl of the ring's cl blocks and holds the
-// segment of `seg` PEs from PE rank * seg, and so over the grid, where the
-// blocks meet through the workspace `work`; in one block, the whole ring.
+// that the hot loop carries no test of them.  Over the grid (kTier) the
+// block is rank blockIdx.x % g of the ring's g blocks, holds the segment of
+// `seg` PEs from PE rank * seg and meets the others through the workspace
+// `work`; in one block, the whole ring.
 // On the stream tier the block keeps the first `keep` PEs of its segment in
 // shared memory and the rest in tau_out.
 template <bool kRd, bool kBoth, RingTier kTier, class Events>
@@ -412,16 +363,14 @@ __device__ __forceinline__ void ring_steps(const float* __restrict__ tau_in,
                                            float* __restrict__ stats,
                                            int row, int B, int L, int K,
                                            uint32_t n_v, float dlt,
-                                           const Events& events, int cl = 1,
+                                           const Events& events, int g = 1,
                                            int seg = 0,
                                            unsigned* work = nullptr,
                                            int keep = 0) {
-  constexpr bool kCluster = kTier == RingTier::kCluster;
   constexpr bool kStream = kTier == RingTier::kStream;
   constexpr bool kGrid = kTier == RingTier::kGrid || kStream;  // meets so
-  constexpr bool kSplit = kCluster || kGrid;
   constexpr int U = Events::kAhead;
-  constexpr int kW = kSplit ? kRingClusterWarps : kRingMaxWarps;
+  constexpr int kW = kGrid ? kRingSplitWarps : kRingMaxWarps;
   using Slot = RingSlot<kW>;
   extern __shared__ float ring_smem[];
   __shared__ Slot slot[2];
@@ -432,9 +381,9 @@ __device__ __forceinline__ void ring_steps(const float* __restrict__ tau_in,
   const int W = blockDim.x >> 5;
   // this block's segment: PEs [base, base + n) of the ring, local index
   // i at ring-wide PE base + i
-  const int rank = kSplit ? (int)(blockIdx.x % cl) : 0;
-  const int base = kSplit ? rank * seg : 0;
-  const int n = kSplit ? min(seg, L - base) : L;
+  const int rank = kGrid ? (int)(blockIdx.x % g) : 0;
+  const int base = kGrid ? rank * seg : 0;
+  const int n = kGrid ? min(seg, L - base) : L;
   const int rows = (n + 31) >> 5;
   // rows [0, kr) in shared memory, owned by warps [0, wk); on the stream
   // tier the rows past them in device memory, owned by the other warps
@@ -451,19 +400,6 @@ __device__ __forceinline__ void ring_steps(const float* __restrict__ tau_in,
   const int last = min(32 * r1, n) - 1;
   const int wl = warp == 0 ? W - 1 : warp - 1;    // the warps beside it
   const int wr = warp == W - 1 ? 0 : warp + 1;
-  // the slots holding the old tau beside this warp's ends: another
-  // block's (distributed shared memory) at the segment's two ends on a
-  // cluster; over the grid the block's own, where the meeting puts the
-  // neighbours' edge PEs
-  Slot* lslot = slot;
-  Slot* rslot = slot;
-  if constexpr (kCluster) {
-    cg::cluster_group cluster = cg::this_cluster();
-    if (warp == 0)
-      lslot = cluster.map_shared_rank(slot, rank == 0 ? cl - 1 : rank - 1);
-    if (warp == W - 1)
-      rslot = cluster.map_shared_rank(slot, rank == cl - 1 ? 0 : rank + 1);
-  }
   const SiteDivisor div = site_divisor(n_v);
   const size_t plane = (size_t)K * B;
   // Row slots per step, padded to whole groups of U: the word of slot s is
@@ -492,16 +428,14 @@ __device__ __forceinline__ void ring_steps(const float* __restrict__ tau_in,
   }
   mn = warp_min(mn);
   if (lane == 0) slot[1].mn[warp] = mn;
-  const auto get_mn = [](const Slot& q) { return q.mn; };
-  const auto get_sum = [](const Slot& q) { return q.sum; };
   float gvt;
   if constexpr (kGrid) {
-    grid_meet<Meet::kInit>(slot[1], work, cl, row, 1, W, lane, warp, rank,
+    grid_meet<Meet::kInit>(slot[1], work, g, row, 1, W, lane, warp, rank,
                            stats, plane, B, false);
     gvt = slot[1].mn[0];
   } else {
-    ring_barrier<kCluster>();
-    gvt = ring_reduce<kCluster>(slot[1], get_mn, cl, W, lane, Min{});
+    __syncthreads();
+    gvt = slot_reduce(slot[1].mn, W, lane, Min{});
   }
   float mean = 0.f;  // the ring mean after the previous step
 
@@ -510,8 +444,10 @@ __device__ __forceinline__ void ring_steps(const float* __restrict__ tau_in,
     Slot& out = slot[k & 1];
     const auto step = events.step(k);
     const float bound = __fadd_rn(dlt, gvt);
-    const float lft_edge = lslot[par].last[wl];   // old tau left of `first`
-    const float rgt_edge = rslot[par].first[wr];  // old tau right of `last`
+    // old tau beside this warp's ends (over the grid the meeting put the
+    // neighbour blocks' edge PEs there)
+    const float lft_edge = slot[par].last[wl];   // left of `first`
+    const float rgt_edge = slot[par].first[wr];  // right of `last`
     unsigned cnt = 0;
     float lmn = INFINITY, lmx = -INFINITY, s = 0.f, ss = 0.f, sa = 0.f;
     float pend[U];   // the previous group's new tau, stored one group late
@@ -625,25 +561,21 @@ __device__ __forceinline__ void ring_steps(const float* __restrict__ tau_in,
       out.sumabs[warp] = sa;
     }
     if constexpr (kGrid) {
-      grid_meet<Meet::kStep>(out, work, cl, row, k & 1, W, lane, warp, rank,
+      grid_meet<Meet::kStep>(out, work, g, row, k & 1, W, lane, warp, rank,
                              stats + (size_t)k * B + row, plane, B, k > 0);
       gvt = out.mn[0];
       mean = __fdiv_rn(out.sum[0], (float)L);
       continue;
     }
-    ring_barrier<kCluster>();
-    gvt = ring_reduce<kCluster>(out, get_mn, cl, W, lane, Min{});
-    const float sum = ring_reduce<kCluster>(out, get_sum, cl, W, lane, Add{});
+    __syncthreads();
+    gvt = slot_reduce(out.mn, W, lane, Min{});
+    const float sum = slot_reduce(out.sum, W, lane, Add{});
     mean = __fdiv_rn(sum, (float)L);
-    if (warp == 0 && rank == 0) {
-      const unsigned c = ring_reduce<kCluster>(
-          out, [](const Slot& q) { return q.cnt; }, cl, W, lane, Add{});
-      const float mx = ring_reduce<kCluster>(
-          out, [](const Slot& q) { return q.mx; }, cl, W, lane, Max{});
-      const float sq = ring_reduce<kCluster>(
-          out, [](const Slot& q) { return q.sumsq; }, cl, W, lane, Add{});
-      const float ab = ring_reduce<kCluster>(
-          out, [](const Slot& q) { return q.sumabs; }, cl, W, lane, Add{});
+    if (warp == 0) {
+      const unsigned c = slot_reduce(out.cnt, W, lane, Add{});
+      const float mx = slot_reduce(out.mx, W, lane, Max{});
+      const float sq = slot_reduce(out.sumsq, W, lane, Add{});
+      const float ab = slot_reduce(out.sumabs, W, lane, Add{});
       if (lane == 0) {
         const size_t at = (size_t)k * B + row;
         stats[0 * plane + at] = (float)c;
@@ -668,19 +600,16 @@ __device__ __forceinline__ void ring_steps(const float* __restrict__ tau_in,
   Slot& out = slot[K & 1];
   if (lane == 0) out.sumabs[warp] = sa;
   if constexpr (kGrid) {
-    grid_meet<Meet::kLast>(out, work, cl, row, K & 1, W, lane, warp, rank,
+    grid_meet<Meet::kLast>(out, work, g, row, K & 1, W, lane, warp, rank,
                            stats + (size_t)(K - 1) * B + row, plane, B,
                            false);
     return;
   }
-  ring_barrier<kCluster>();
-  if (warp == 0 && rank == 0) {
-    const float ab = ring_reduce<kCluster>(
-        out, [](const Slot& q) { return q.sumabs; }, cl, W, lane, Add{});
+  __syncthreads();
+  if (warp == 0) {
+    const float ab = slot_reduce(out.sumabs, W, lane, Add{});
     if (lane == 0) stats[5 * plane + (size_t)(K - 1) * B + row] = ab;
   }
-  // no block leaves while rank 0 may still read its shared memory
-  if constexpr (kCluster) ring_barrier<kCluster>();
 }
 
 // The instantiation of a ring kernel for the runtime rule flags (rd_mode
@@ -692,59 +621,17 @@ Kernel ring_kernel(int rd_mode, int border_both, Kernel rd, Kernel both,
 }
 
 // Sets a ring kernel's shared memory (the whole of the carveout to shared
-// memory, so that 4 L-byte rings pack an SM) and, for a cluster past the
-// portable 8 blocks, allows it.
+// memory, so that 4 L-byte rings pack an SM).
 template <class Kernel>
-cudaError_t ring_allow(Kernel kernel, int cluster, int smem) {
+cudaError_t ring_allow(Kernel kernel, int smem) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributePreferredSharedMemoryCarveout,
                                (int)cudaSharedmemCarveoutMaxShared);
-  if (err == cudaSuccess && cluster > 8)
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (err != cudaSuccess) cudaGetLastError();  // leave no error behind
   return err;
-}
-
-// `blocks` blocks of `threads` threads and `smem` dynamic bytes, in
-// clusters of `cluster` blocks along x.
-inline cudaLaunchConfig_t ring_config(int blocks, int cluster, int threads,
-                                      int smem, cudaStream_t stream,
-                                      cudaLaunchAttribute* attr) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)blocks, 1, 1);
-  cfg.blockDim = dim3((unsigned)threads, 1, 1);
-  cfg.dynamicSmemBytes = (size_t)smem;
-  cfg.stream = stream;
-  attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = (unsigned)cluster;
-  attr->val.clusterDim.y = 1;
-  attr->val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cfg;
-}
-
-// The clusters of `cluster` blocks of a ring kernel, `warps` warps and
-// `smem` dynamic bytes each, that the card holds at once
-// (cudaOccupancyMaxActiveClusters), or minus a CUDA error code.
-template <class Kernel>
-int ring_max_clusters(Kernel kernel, int cluster, int warps, int smem) {
-  cudaError_t err = ring_allow(kernel, cluster, smem);
-  cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg =
-      ring_config(cluster, cluster, 32 * warps, smem, nullptr, &attr);
-  int n = 0;
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveClusters(&n, (void*)kernel, &cfg);
-  if (err != cudaSuccess) {
-    cudaGetLastError();
-    return -(int)err;
-  }
-  return n;
 }
 
 // Whether `blocks` blocks a ring of `warps` warps (at most `max_warps`),
@@ -761,51 +648,29 @@ inline bool ring_shape_ok(int B, int L, int K, int warps, int max_warps,
            warps > (L - seg * (blocks - 1) + 31) / 32);
 }
 
-// Checks a ring kernel's launch shape against kernels/tiling.py::ring_plan:
-// `cluster` blocks a ring of `warps` warps, each holding `seg` PEs (the
-// whole ring where cluster == 1; else a multiple of 32, the last segment
-// shorter and at least a row a warp), and sets its attributes.  On a
-// cluster it also asks the card to hold one.  Returns the dynamic shared
-// memory in bytes, or minus a CUDA error code (a segment too long for one
-// block, a cluster the card cannot place).
-template <class Kernel>
-int ring_launch_check(Kernel kernel, int B, int L, int K, int warps,
-                      int cluster, int seg) {
-  const int max_warps = cluster == 1 ? kRingMaxWarps : kRingClusterWarps;
-  if (cluster > kRingMaxCluster ||
-      !ring_shape_ok(B, L, K, warps, max_warps, cluster, seg))
-    return -(int)cudaErrorInvalidValue;
-  const int smem = seg * (int)sizeof(float);
-  const cudaError_t err = ring_allow(kernel, cluster, smem);
-  if (err != cudaSuccess) return -(int)err;
-  if (cluster > 1) {
-    const int n = ring_max_clusters(kernel, cluster, warps, smem);
-    if (n < 0) return n;
-    if (n < 1) return -(int)cudaErrorInvalidConfiguration;
-  }
-  return smem;
-}
-
-// Launches `kernel` (a cluster instantiation) on B rings of `cluster`
-// blocks each, `args` its arguments; returns a CUDA error code.
+// Launches `kernel` (a block instantiation) on B rings of one block of
+// `warps` warps, each holding its whole ring (seg == keep == L), `args` its
+// arguments.  Returns a CUDA error code: cudaErrorInvalidValue for a shape
+// that is not tiling.ring_plan's.
 template <class Kernel, class... Args>
-int ring_cluster_launch(Kernel kernel, int B, int cluster, int warps,
-                        int smem, void* stream, Args... args) {
-  cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = ring_config(
-      cluster * B, cluster, 32 * warps, smem, (cudaStream_t)stream, &attr);
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
-  const cudaError_t last = cudaGetLastError();
-  return (int)(err != cudaSuccess ? err : last);
+int ring_block_launch(Kernel kernel, int B, int L, int K, int warps, int seg,
+                      int keep, void* stream, Args... args) {
+  if (keep != seg || !ring_shape_ok(B, L, K, warps, kRingMaxWarps, 1, seg))
+    return (int)cudaErrorInvalidValue;
+  const int smem = seg * (int)sizeof(float);
+  const cudaError_t err = ring_allow(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<B, 32 * warps, smem, (cudaStream_t)stream>>>(args...);
+  return (int)cudaGetLastError();
 }
 
-// The rings of `grid` blocks of a ring kernel's grid instantiation,
-// `warps` warps and `smem` dynamic bytes each, that the card holds at once
-// (its resident blocks over `grid`; a cooperative launch places all its
-// blocks at once or not at all), or minus a CUDA error code.
+// The rings of `grid` blocks of a ring kernel, `warps` warps and `smem`
+// dynamic bytes each, that the card holds at once (its resident blocks
+// over `grid`; a cooperative launch places all its blocks at once or not
+// at all), or minus a CUDA error code.
 template <class Kernel>
-int ring_max_grid_rings(Kernel kernel, int grid, int warps, int smem) {
-  cudaError_t err = ring_allow(kernel, 1, smem);
+int ring_max_rings(Kernel kernel, int grid, int warps, int smem) {
+  cudaError_t err = ring_allow(kernel, smem);
   int per_sm = 0, dev = 0, sms = 0;
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
@@ -834,11 +699,11 @@ template <class Kernel, class... Args>
 int ring_grid_launch(Kernel kernel, int B, int L, int K, int warps, int grid,
                      int seg, int keep, void* work, long long work_bytes,
                      void* stream, Args... args) {
-  if (grid < 2 || !ring_shape_ok(B, L, K, warps, kRingClusterWarps, grid, seg)
+  if (grid < 2 || !ring_shape_ok(B, L, K, warps, kRingSplitWarps, grid, seg)
       || keep > seg || keep < 32 * warps || (keep < seg && keep % 32 != 0))
     return (int)cudaErrorInvalidValue;
   const int smem = keep * (int)sizeof(float);
-  int rings = ring_max_grid_rings(kernel, grid, warps, smem);
+  int rings = ring_max_rings(kernel, grid, warps, smem);
   if (rings < 0) return -rings;
   if (rings < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
   if (rings > B) rings = B;

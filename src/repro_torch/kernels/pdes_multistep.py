@@ -13,13 +13,11 @@ Both kernels hold a ring once in shared memory for all K steps, updated
 in place, as ``tiling.ring_plan(L)`` lays it out (``csrc/pdes_ring.cuh``;
 see the notes in the sources for their bounds): up to
 ``tiling.MAX_RING_L`` = 57,344 PEs one block a ring with one block barrier
-a step; longer rings, up to ``tiling.MAX_CLUSTER_RING_L`` = 911,360, split
-over a thread-block cluster of up to 16 blocks, one segment a block, with
-one cluster barrier a step; longer still, up to
-``tiling.MAX_GRID_RING_L`` = 7,518,720 (the paper's 2^20 takes 19
-blocks), over blocks of one cooperative launch that meet through a small
-workspace in global memory once a step, as many whole rings at once as
-the card holds (:func:`resident_rings`), the batch in waves.  Above that
+a step; longer rings, up to ``tiling.MAX_GRID_RING_L`` = 7,518,720 (the
+paper's 2^20 takes 19 blocks), one segment a block over blocks of one
+cooperative launch that meet through a small workspace in global memory
+once a step, as many whole rings at once as the card holds
+(:func:`resident_rings`), the batch in waves.  Above that
 B3 raises; B1 runs up to ``tiling.MAX_STREAM_RING_L`` on the same 132
 blocks, each keeping ``tiling.MAX_RING_SEG`` PEs of its segment in shared
 memory and the rest in device memory (the stream tier), and raises past
@@ -32,7 +30,7 @@ run can show that its main path went through the kernel;
 ``offchip_bytes`` counts the bytes of tau that B1's stream-tier launches
 read and write in device memory (:func:`offchip_bytes_of`);
 ``block_chunks`` and ``sm_chunks`` count how much of the card B1's
-launches on a split ring (cluster, grid or stream tier) hold
+launches on a split ring (grid or stream tier) hold
 (:func:`count_card_share`).
 """
 from __future__ import annotations
@@ -46,7 +44,7 @@ from ..core import horizon
 from ..core.horizon import MOMENT_KEYS
 from . import _build
 from .ref import ctr_values, pdes_multistep_counter_ref, pdes_multistep_ref
-from .tiling import check_ring_fits, cluster_plan, ring_plan
+from .tiling import check_ring_fits, ring_plan
 
 #: Kernel launches made by :func:`pdes_multistep_counter` in this process.
 launches = 0
@@ -66,30 +64,20 @@ _LIB = "pdes_multistep_counter"
 _BITS_LIB = "pdes_multistep"
 
 
+#: A ring launcher's last arguments: the workspace, its bytes, the stream.
+_WORK_STREAM = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load(_LIB)
     f = lib.pdes_multistep_counter_launch
     if f.argtypes is None:
-        f.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+        f.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
                       + [ctypes.c_uint32] * 5 + [ctypes.c_float]
-                      + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+                      + [ctypes.c_int] * 2 + _WORK_STREAM)
         f.restype = ctypes.c_int
-        m = lib.pdes_multistep_counter_max_clusters
-        m.argtypes = [ctypes.c_int] * 3
-        m.restype = ctypes.c_int
-        _grid_argtypes(lib.pdes_multistep_counter_grid_launch,
-                       [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
-                       + [ctypes.c_uint32] * 5 + [ctypes.c_float]
-                       + [ctypes.c_int] * 2)
-        m = lib.pdes_multistep_counter_max_grid_rings
-        m.argtypes = [ctypes.c_int] * 3
-        m.restype = ctypes.c_int
-        _grid_argtypes(lib.pdes_multistep_counter_stream_launch,
-                       [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
-                       + [ctypes.c_uint32] * 5 + [ctypes.c_float]
-                       + [ctypes.c_int] * 2)
-        m = lib.pdes_multistep_counter_max_stream_rings
-        m.argtypes = [ctypes.c_int] * 3
+        m = lib.pdes_multistep_counter_max_rings
+        m.argtypes = [ctypes.c_int] * 4
         m.restype = ctypes.c_int
         g = lib.decode_eta_launch
         g.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
@@ -106,46 +94,31 @@ def _bits_lib() -> ctypes.CDLL:
     lib = _build.load(_BITS_LIB)
     f = lib.pdes_multistep_launch
     if f.argtypes is None:
-        f.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+        f.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
                       + [ctypes.c_uint32, ctypes.c_float]
-                      + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+                      + [ctypes.c_int] * 2 + _WORK_STREAM)
         f.restype = ctypes.c_int
-        m = lib.pdes_multistep_max_clusters
-        m.argtypes = [ctypes.c_int] * 3
-        m.restype = ctypes.c_int
-        _grid_argtypes(lib.pdes_multistep_grid_launch,
-                       [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-                       + [ctypes.c_uint32, ctypes.c_float]
-                       + [ctypes.c_int] * 2)
-        m = lib.pdes_multistep_max_grid_rings
-        m.argtypes = [ctypes.c_int] * 3
+        m = lib.pdes_multistep_max_rings
+        m.argtypes = [ctypes.c_int] * 4
         m.restype = ctypes.c_int
     return lib
-
-
-def _grid_argtypes(f, head) -> None:
-    """A grid launcher's arguments: ``head``, then the workspace, its
-    bytes and the stream."""
-    f.argtypes = head + [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
-    f.restype = ctypes.c_int
 
 
 def launch_plan(B: int, L: int, *, bits: bool = False) -> dict:
     """The launch of B1 (``bits``: B3) on ``B`` rings of ``L`` PEs (any
     number of steps: they loop inside the block), from
     ``tiling.ring_plan(L)`` (B3's without the stream tier): its ``tier``,
-    ``cluster`` blocks a ring of a thread-block cluster, or ``ring_grid``
-    blocks a ring of a cooperative grid (both 1 up to
-    ``tiling.MAX_RING_L``), so ``cluster * ring_grid * B`` blocks of
-    ``threads`` (over the grid, the kernel's blocks walk them in waves of
+    ``ring_grid`` blocks a ring of a cooperative grid (1 up to
+    ``tiling.MAX_RING_L``), so ``ring_grid * B`` blocks of ``threads``
+    (over the grid, the kernel's blocks walk them in waves of
     the rings the card holds at once), each owning ``seg`` PEs, of which
     it holds ``dynamic_smem / 4`` in dynamic shared memory beside its
     static partials and log table, and ``offchip_seg`` (the stream tier)
     in device memory.  The wrappers launch with it and the linter's
     ``vmem-budget`` rule reads it, so the two cannot disagree."""
     p = ring_plan(L, stream=not bits)
-    return {"grid": (p.blocks * B,), "cluster": p.cluster,
-            "ring_grid": p.grid, "threads": p.threads, "seg": p.seg,
+    return {"grid": (p.blocks * B,), "ring_grid": p.grid,
+            "threads": p.threads, "seg": p.seg,
             "dynamic_smem": p.dynamic_smem, "static_smem": p.static_smem,
             "tier": p.tier, "offchip_seg": p.offchip_seg}
 
@@ -159,48 +132,23 @@ def offchip_bytes_of(B: int, L: int, K: int) -> int:
     return 8 * B * K * ring_plan(L).offchip_pes(L)
 
 
-def resident_clusters(L: int, *, bits: bool = False) -> int:
-    """Clusters of B1's (``bits``: B3's) cluster kernel on rings of ``L``
-    PEs, in the shape ``tiling.cluster_plan(L)`` gives whatever tier
-    ``ring_plan`` routes them to, that the current card holds at once
-    (``cudaOccupancyMaxActiveClusters``; a batch needing more runs in
-    waves).  Only for rings of 2 to ``tiling.RING_MAX_CLUSTER`` blocks."""
-    p = cluster_plan(L)
-    f = (_bits_lib().pdes_multistep_max_clusters if bits else
-         _lib().pdes_multistep_counter_max_clusters)
-    n = f(p.cluster, p.warps, p.dynamic_smem)
-    _build.check(max(0, -n), "pdes_multistep occupancy")
-    return n
-
-
 def resident_rings(L: int, *, bits: bool = False) -> int:
-    """Rings of ``L`` PEs that B1's (``bits``: B3's) cooperative launch
-    holds at once on the current card: its resident blocks over the
-    plan's ``grid`` (a batch of more runs in waves inside the launch; 0
-    where the card cannot hold one ring, whose launch then raises).  Only
-    for rings split over a cooperative grid (``L >
-    tiling.MAX_CLUSTER_RING_L``), the stream tier's included."""
+    """Rings of ``L`` PEs that B1's (``bits``: B3's) launch holds at once
+    on the current card: its resident blocks over the plan's ``grid``, for
+    the instantiation the plan launches (over a grid, a batch of more runs
+    in waves inside the launch; 0 where the card cannot hold one ring,
+    whose launch then raises)."""
     p = ring_plan(L, stream=not bits)
-    if p.grid == 1:
-        raise ValueError(f"a ring of L={L} PEs does not run over a "
-                         f"cooperative grid")
-    f = (_bits_lib().pdes_multistep_max_grid_rings if bits else
-         _lib().pdes_multistep_counter_max_stream_rings
-         if p.tier == "stream" else
-         _lib().pdes_multistep_counter_max_grid_rings)
-    n = f(p.grid, p.warps, p.dynamic_smem)
+    f = (_bits_lib().pdes_multistep_max_rings if bits else
+         _lib().pdes_multistep_counter_max_rings)
+    n = f(p.grid, p.warps, p.seg, p.keep)
     _build.check(max(0, -n), "pdes_multistep occupancy")
     return n
 
 
 @functools.lru_cache(maxsize=256)
 def rings_at_once(L: int, *, bits: bool = False) -> int:
-    """Rings of ``L`` PEs that B1's (``bits``: B3's) launch holds on the
-    current card at once on its plan's split tier: :func:`resident_clusters`
-    on the cluster tier, :func:`resident_rings` on the grid and stream
-    tiers (the card's occupancy, asked once a length)."""
-    if ring_plan(L, stream=not bits).tier == "cluster":
-        return resident_clusters(L, bits=bits)
+    """:func:`resident_rings`, asked of the card once a length."""
     return resident_rings(L, bits=bits)
 
 
@@ -244,6 +192,12 @@ def _workspace(dev: torch.device, B: int, grid: int) -> torch.Tensor:
                        dtype=torch.uint8, device=dev)
 
 
+def _work_args(work) -> tuple:
+    """A launcher's workspace arguments: its pointer and bytes (none on
+    one block)."""
+    return (None, 0) if work is None else (work.data_ptr(), work.numel())
+
+
 def _check_tau(tau) -> None:
     if tau.ndim != 2 or tau.dtype != torch.float32:
         raise ValueError(f"tau must be (B, L) float32, got "
@@ -271,17 +225,12 @@ def bits_launch(tau_in, words, tau_out, stats, *, n_v: int, delta: float,
     p = ring_plan(L, stream=False)
     dev = tau_in.device
     with torch.cuda.device(dev):
-        args = (tau_in.data_ptr(), words.data_ptr(), tau_out.data_ptr(),
-                stats.data_ptr(), B, L, K, p.warps)
-        rule = (n_v, float(delta), int(rd_mode), int(border_both))
-        if p.grid > 1:
-            work = _workspace(dev, B, p.grid)
-            err = _bits_lib().pdes_multistep_grid_launch(
-                *args, p.grid, p.seg, *rule, work.data_ptr(), work.numel(),
-                _build.stream(dev))
-        else:
-            err = _bits_lib().pdes_multistep_launch(
-                *args, p.cluster, p.seg, *rule, _build.stream(dev))
+        work = _workspace(dev, B, p.grid) if p.grid > 1 else None
+        err = _bits_lib().pdes_multistep_launch(
+            tau_in.data_ptr(), words.data_ptr(), tau_out.data_ptr(),
+            stats.data_ptr(), B, L, K, p.warps, p.grid, p.seg, p.keep, n_v,
+            float(delta), int(rd_mode), int(border_both),
+            *_work_args(work), _build.stream(dev))
     _build.check(err, "pdes_multistep launch")
 
 
@@ -299,23 +248,13 @@ def counter_launch(tau_in, tau_out, stats, dcol, tcol, ctr, *, n_v: int,
     p = ring_plan(L)
     dev = tau_in.device
     with torch.cuda.device(dev):
-        args = (tau_in.data_ptr(), tau_out.data_ptr(), stats.data_ptr(),
-                None if dcol is None else dcol.data_ptr(),
-                None if tcol is None else tcol.data_ptr(), B, L, K, p.warps)
-        rule = (*ctr, n_v, float(delta), int(rd_mode), int(border_both))
-        if p.grid > 1:
-            work = _workspace(dev, B, p.grid)
-            if p.tier == "stream":
-                err = _lib().pdes_multistep_counter_stream_launch(
-                    *args, p.grid, p.seg, p.keep, *rule, work.data_ptr(),
-                    work.numel(), _build.stream(dev))
-            else:
-                err = _lib().pdes_multistep_counter_grid_launch(
-                    *args, p.grid, p.seg, *rule, work.data_ptr(),
-                    work.numel(), _build.stream(dev))
-        else:
-            err = _lib().pdes_multistep_counter_launch(
-                *args, p.cluster, p.seg, *rule, _build.stream(dev))
+        work = _workspace(dev, B, p.grid) if p.grid > 1 else None
+        err = _lib().pdes_multistep_counter_launch(
+            tau_in.data_ptr(), tau_out.data_ptr(), stats.data_ptr(),
+            None if dcol is None else dcol.data_ptr(),
+            None if tcol is None else tcol.data_ptr(), B, L, K, p.warps,
+            p.grid, p.seg, p.keep, *ctr, n_v, float(delta), int(rd_mode),
+            int(border_both), *_work_args(work), _build.stream(dev))
     _build.check(err, "pdes_multistep_counter launch")
 
 

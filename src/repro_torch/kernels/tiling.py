@@ -12,25 +12,16 @@ says how:
   so four or five rings share an SM;
 * a longer ring is cut into the least number of segments of ``seg`` PEs
   (a multiple of 32; the last one shorter) that each fit one block
-  (:func:`ring_blocks`), one block each of :data:`RING_CLUSTER_WARPS`
-  warps, which takes most of an SM's shared memory.  A ring of two blocks
-  is one thread-block cluster: the edge PEs cross between the blocks
-  through distributed shared memory, and one cluster barrier a step takes
-  the place of the block's.  The cluster kernels take up to
-  :data:`RING_MAX_CLUSTER` blocks (non-portable above 8), rings of up to
-  :data:`MAX_CLUSTER_RING_L` PEs (:func:`cluster_plan`), but from
-  :data:`RING_MIN_GRID_BLOCKS` blocks on a ring takes the grid tier,
-  which holds more of them at once;
-* there the blocks of a ring are ordinary blocks of one cooperative
-  launch: each keeps its segment in shared memory for all K steps, and
-  they exchange their edge PEs and step partials through global memory
-  (L2) and meet once a step at a barrier in global memory.  All blocks of
-  a cooperative launch are resident at once, so a ring takes at most the
-  card's resident blocks, one an SM: :data:`MAX_GRID_RING_L` PEs on an
-  H100 (the paper's production ring of 2^20 PEs takes 19 blocks).  As
-  many whole rings as fit run at once, and the kernel walks the batch in
-  waves.  Both tiers cut the same segments and sum in the same order, so
-  a ring gives the same bits on either;
+  (:func:`ring_blocks`), one block each of :data:`RING_SPLIT_WARPS` warps,
+  which takes most of an SM's shared memory, and the blocks of a ring are
+  ordinary blocks of one cooperative launch (the grid tier): each keeps
+  its segment in shared memory for all K steps, and they exchange their
+  edge PEs and step partials through global memory (L2) and meet once a
+  step at a barrier in global memory.  All blocks of a cooperative launch
+  are resident at once, so a ring takes at most the card's resident
+  blocks, one an SM: :data:`MAX_GRID_RING_L` PEs on an H100 (the paper's
+  production ring of 2^20 PEs takes 19 blocks).  As many whole rings as
+  fit run at once, and the kernel walks the batch in waves;
 * B1 alone goes further (the stream tier): a ring longer still is cut
   into :data:`RING_MAX_GRID_BLOCKS` segments of one cooperative launch as
   before, each block keeps the first :data:`MAX_RING_SEG` PEs of its
@@ -95,31 +86,17 @@ def ring_warps(L: int) -> int:
     return w
 
 
-#: Most blocks of a ring's cluster.  Above 8 (the portable size) the launch
-#: allows a non-portable cluster; B2 keeps to ``STEP_MAX_CLUSTER``.  An
-#: H100 80GB HBM3 holds 7 clusters of 16 such blocks at once at the cap's
-#: shared memory, and 7 of 10, 39 of 3, 66 of 2
-#: (``cudaOccupancyMaxActiveClusters``, ``chip_smoke.py`` phase 17).
-RING_MAX_CLUSTER = 16
-#: Fewest blocks of a ring that :func:`ring_plan` sends to the cooperative
-#: grid rather than a cluster.  At 2 blocks the card holds 66 rings either
-#: way and the cluster's barrier is the faster (B1 3.7%, B3 1.8% a K = 16
-#: chunk); from 3 blocks the grid holds more rings at once (44 against 39
-#: clusters, 13 against 7 at 10 blocks) and B1 and B3 run 1.46 to 2.77
-#: times as fast there at two waves (``ring_bench.py grid`` on an H100).
-RING_MIN_GRID_BLOCKS = 3
-#: Warps of a block of a ring split over a cluster: one such block fills an
+#: Warps of a block of a ring split over blocks: one such block fills an
 #: SM's shared memory, so it brings the warps of four one-block rings
-#: (``kRingClusterWarps`` in ``csrc/pdes_ring.cuh`` sizes its partials).
-RING_CLUSTER_WARPS = 32
-#: Static shared memory of a cluster block: the per-warp partials of up to
-#: 32 warps (2048 bytes) and the decode's log table (2048 bytes), rounded up.
-SMEM_STATIC_CLUSTER = 4608
-#: Longest segment of a cluster block: a multiple of 32 PEs with
+#: (``kRingSplitWarps`` in ``csrc/pdes_ring.cuh`` sizes its partials).
+RING_SPLIT_WARPS = 32
+#: Static shared memory of a block of a split ring: the per-warp partials
+#: of up to 32 warps (2048 bytes) and the decode's log table (2048 bytes),
+#: rounded up.
+SMEM_STATIC_SPLIT = 4608
+#: Longest segment of a block of a split ring: a multiple of 32 PEs with
 #: 4 * seg + static <= 227 KB.
-MAX_RING_SEG = (SMEM_PER_BLOCK - SMEM_STATIC_CLUSTER) // 128 * 32
-#: Longest ring of a cluster: :data:`RING_MAX_CLUSTER` segments.
-MAX_CLUSTER_RING_L = RING_MAX_CLUSTER * MAX_RING_SEG
+MAX_RING_SEG = (SMEM_PER_BLOCK - SMEM_STATIC_SPLIT) // 128 * 32
 #: Most blocks of a ring over a cooperative grid: the H100 SXM's 132 SMs,
 #: at one such block an SM.  A static figure, for the linter and the CPU
 #: tests; the launch asks the card how many blocks it holds at once
@@ -141,20 +118,18 @@ MAX_STREAM_RING_L = RING_MAX_GRID_BLOCKS * MAX_STREAM_SEG
 class RingPlan:
     """How B1 and B3 lay out a ring of ``L`` PEs (``csrc/pdes_ring.cuh``).
 
-    ``cluster`` blocks a ring of one thread-block cluster, or ``grid``
-    blocks a ring of one cooperative launch (both 1: the whole ring in one
-    block; at most one of them above 1), block rank ``j`` owning PEs
+    ``grid`` blocks a ring of one cooperative launch (1: the whole ring
+    in one block), block rank ``j`` owning PEs
     ``[j seg, min((j + 1) seg, L))``; ``warps`` warps a block;
     ``dynamic_smem`` bytes of the ring kept in shared memory (4 a PE: the
     ``keep`` first PEs of the segment, all of it but on the stream tier)
     and ``static_smem`` bytes of partials and table a block.
     """
-    cluster: int
+    grid: int
     seg: int
     warps: int
     dynamic_smem: int
     static_smem: int
-    grid: int = 1
 
     @property
     def threads(self) -> int:
@@ -163,7 +138,7 @@ class RingPlan:
     @property
     def blocks(self) -> int:
         """Blocks of one ring."""
-        return self.cluster * self.grid
+        return self.grid
 
     @property
     def fits(self) -> bool:
@@ -183,10 +158,10 @@ class RingPlan:
 
     @property
     def tier(self) -> str:
-        """``block``, ``cluster``, ``grid`` or ``stream``."""
+        """``block``, ``grid`` or ``stream``."""
         if self.grid > 1:
             return "stream" if self.offchip_seg else "grid"
-        return "cluster" if self.cluster > 1 else "block"
+        return "block"
 
     def offchip_pes(self, L: int) -> int:
         """PEs of a ring of ``L`` that its blocks keep in device memory:
@@ -198,16 +173,16 @@ class RingPlan:
         return (self.blocks - 1) * self.offchip_seg + max(0, last - self.keep)
 
 
-def _ring_seg(L: int, cluster: int) -> int:
-    """PEs of each segment but the last: ``ceil(L / cluster)`` rounded up
-    to whole rows of 32."""
-    return 32 * -(-L // (32 * cluster))
+def _ring_seg(L: int, n: int) -> int:
+    """PEs of each segment but the last: ``ceil(L / n)`` rounded up to
+    whole rows of 32."""
+    return 32 * -(-L // (32 * n))
 
 
 def ring_blocks(L: int) -> int:
     """Blocks of a ring of ``L`` PEs: 1 up to :data:`MAX_RING_L`; above it
     the least number, at least 2 and at most :data:`RING_MAX_GRID_BLOCKS`,
-    whose segments fit one block of :data:`RING_CLUSTER_WARPS` warps."""
+    whose segments fit one block of :data:`RING_SPLIT_WARPS` warps."""
     if L <= MAX_RING_L:
         return 1
     n = 2
@@ -216,30 +191,14 @@ def ring_blocks(L: int) -> int:
     return n
 
 
-def cluster_plan(L: int) -> RingPlan:
-    """The cluster tier's layout of a ring of ``L`` PEs, whatever tier
-    :func:`ring_plan` routes it to: :func:`ring_blocks` blocks of one
-    thread-block cluster, the segments the grid tier would cut.  Only for
-    rings of 2 to :data:`RING_MAX_CLUSTER` blocks."""
-    n = ring_blocks(L)
-    if not 2 <= n <= RING_MAX_CLUSTER:
-        raise ValueError(f"a ring of L={L} PEs takes {n} blocks; a cluster "
-                         f"holds 2 to {RING_MAX_CLUSTER}")
-    seg = _ring_seg(L, n)
-    return RingPlan(n, seg, RING_CLUSTER_WARPS, 4 * seg, SMEM_STATIC_CLUSTER)
-
-
 @functools.lru_cache(maxsize=1024)
 def ring_plan(L: int, *, stream: bool = True) -> RingPlan:
     """The layout of a ring of ``L`` PEs, for any batch.
 
     One block up to :data:`MAX_RING_L` (as :func:`ring_warps` and
-    :func:`ring_smem_bytes` say); above it the least number of blocks, of
-    :data:`RING_CLUSTER_WARPS` warps each, whose segments fit one block
-    (:func:`ring_blocks`): a cluster where that is fewer than
-    :data:`RING_MIN_GRID_BLOCKS` (:func:`cluster_plan`), else
-    ``ceil(L / MAX_RING_SEG)`` blocks of a cooperative grid, with the
-    cluster's static shared memory and the same segments.  Above
+    :func:`ring_smem_bytes` say); above it the least number of blocks of
+    a cooperative grid, of :data:`RING_SPLIT_WARPS` warps each, whose
+    segments fit one block (:func:`ring_blocks`).  Above
     :data:`MAX_GRID_RING_L`, B1's plan (``stream``) is the stream tier:
     :data:`RING_MAX_GRID_BLOCKS` blocks whose segments pass
     :data:`MAX_RING_SEG`, each keeping that many PEs in shared memory, up
@@ -252,14 +211,11 @@ def ring_plan(L: int, *, stream: bool = True) -> RingPlan:
     if L <= MAX_RING_L:
         return RingPlan(1, L, ring_warps(L), ring_smem_bytes(L), SMEM_STATIC)
     n = ring_blocks(L)
-    if n < RING_MIN_GRID_BLOCKS:
-        return cluster_plan(L)
     seg = _ring_seg(L, n)
     keep = seg
     if stream and MAX_RING_SEG < seg <= MAX_STREAM_SEG:
         keep = MAX_RING_SEG
-    return RingPlan(1, seg, RING_CLUSTER_WARPS, 4 * keep, SMEM_STATIC_CLUSTER,
-                    grid=n)
+    return RingPlan(n, seg, RING_SPLIT_WARPS, 4 * keep, SMEM_STATIC_SPLIT)
 
 
 def check_ring_fits(L: int, *, stream: bool = True) -> None:
@@ -268,8 +224,7 @@ def check_ring_fits(L: int, *, stream: bool = True) -> None:
     if not ring_plan(L, stream=stream).fits:
         raise ValueError(
             f"ring of L={L} PEs needs {ring_smem_bytes(L)} bytes of shared "
-            f"memory; one block holds rings up to L={MAX_RING_L}, a cluster "
-            f"of {RING_MAX_CLUSTER} blocks up to L={MAX_CLUSTER_RING_L}, "
+            f"memory; one block holds rings up to L={MAX_RING_L}, "
             f"{RING_MAX_GRID_BLOCKS} blocks of a cooperative grid up to "
             f"L={MAX_GRID_RING_L}"
             + (f", and {RING_MAX_GRID_BLOCKS} blocks that keep all but "

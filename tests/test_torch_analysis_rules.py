@@ -143,9 +143,10 @@ class _FakeLib:
 @pytest.mark.parametrize("L", [16, 300, 10_000, 131_072, 1 << 20])
 def test_launch_plan_is_what_the_wrappers_launch(L, monkeypatch):
     """Each wrapper's raw launcher passes its plan's grid and block; the
-    sources' launch constants are the plan's.  A ring over a cooperative
-    grid goes to the grid launchers with the plan's blocks a ring and a
-    workspace of the wrapper's size."""
+    sources' launch constants are the plan's.  A ring kernel has one
+    launcher, which takes the plan's blocks a ring, segment and kept PEs,
+    and over a cooperative grid a workspace of the wrapper's size (none on
+    one block)."""
     fake = _FakeLib()
     monkeypatch.setattr(torch.cuda, "device",
                         lambda dev: contextlib.nullcontext())
@@ -164,28 +165,29 @@ def test_launch_plan_is_what_the_wrappers_launch(L, monkeypatch):
                                                 dtype=torch.int32),
                                tau.clone(), stats, **kw)
     (n1, a1), (n3, a3) = fake.calls
-    grid = plan["ring_grid"] > 1
-    assert (n1, n3) == (("pdes_multistep_counter_grid_launch",
-                         "pdes_multistep_grid_launch") if grid else
-                        ("pdes_multistep_counter_launch",
-                         "pdes_multistep_launch"))
-    blocks = plan["cluster"] * plan["ring_grid"]
-    shape = (B, L, K, plan["threads"] // 32, blocks, plan["seg"])
-    assert a1[5:11] == shape and a3[4:10] == shape
-    assert plan["grid"] == (blocks * B,)
-    assert plan["cluster"] == 1 or plan["ring_grid"] == 1
-    if grid:                # the workspace the launcher's layout needs
+    assert (n1, n3) == ("pdes_multistep_counter_launch",
+                        "pdes_multistep_launch")
+    shape = (B, L, K, plan["threads"] // 32, plan["ring_grid"], plan["seg"],
+             plan["seg"])
+    assert a1[5:12] == shape and a3[4:11] == shape
+    assert plan["grid"] == (plan["ring_grid"] * B,)
+    if plan["ring_grid"] > 1:  # the workspace the launcher's layout needs
         need = B * (128 + 2 * plan["ring_grid"] * 8 * 4)
         assert a1[-2] == a3[-2] == need
+    else:
+        assert a1[-3:-1] == a3[-3:-1] == (None, 0)
     assert plan["dynamic_smem"] == 4 * plan["seg"] and plan["static_smem"] \
         <= SMEM_PER_BLOCK
     ring = (CSRC / "pdes_ring.cuh").read_text()
     assert "const int smem = seg * (int)sizeof(float);" in ring
-    assert "cluster * B, cluster, 32 * warps, smem," in ring
+    assert "kernel<<<B, 32 * warps, smem, (cudaStream_t)stream>>>(args...);" \
+        in ring
     assert "attr.id = cudaLaunchAttributeCooperative;" in ring
     assert "cfg.gridDim = dim3((unsigned)(rings * grid), 1, 1);" in ring
-    assert "kernel<<<B, 32 * warps, smem" in \
-        (CSRC / "pdes_multistep_counter.cu").read_text()
+    for src in ("pdes_multistep_counter.cu", "pdes_multistep.cu"):
+        text = (CSRC / src).read_text()
+        assert "if (grid == 1)\n    return ring_block_launch(" in text
+        assert text.count("ring_grid_launch(") >= 1
 
     fake.calls.clear()
     plan = pdes_step.launch_plan(B, L)
@@ -219,11 +221,12 @@ def test_launch_plan_is_what_the_wrappers_launch(L, monkeypatch):
 
 @pytest.mark.parametrize("L", [tiling.MAX_GRID_RING_L + 32, 1 << 23])
 def test_stream_launch_is_the_plans(L, monkeypatch):
-    """B1's raw launcher sends a ring of the stream tier to the stream
-    launcher with the plan's blocks, segment and the PEs it keeps in
-    shared memory, and the grid's workspace; the source sizes the blocks'
-    shared memory from those kept PEs; the wrapper counts the launch's
-    bytes in device memory from the plan."""
+    """B1's raw launcher passes a ring of the stream tier the plan's
+    blocks, segment and the PEs it keeps in shared memory, and the grid's
+    workspace, and the C entry takes the stream instantiation for it
+    (fewer kept PEs than the segment); the source sizes the blocks' shared
+    memory from those kept PEs; the wrapper counts the launch's bytes in
+    device memory from the plan."""
     fake = _FakeLib()
     monkeypatch.setattr(torch.cuda, "device",
                         lambda dev: contextlib.nullcontext())
@@ -237,24 +240,27 @@ def test_stream_launch_is_the_plans(L, monkeypatch):
                                   None, None, (0, 0, 0, 0), n_v=4, delta=1.0,
                                   rd_mode=False, border_both=False)
     ((name, args),) = fake.calls
-    assert name == "pdes_multistep_counter_stream_launch"
+    assert name == "pdes_multistep_counter_launch"
     assert args[5:12] == (B, L, K, plan["threads"] // 32, plan["ring_grid"],
                           plan["seg"], plan["dynamic_smem"] // 4)
     assert plan["seg"] - plan["dynamic_smem"] // 4 == plan["offchip_seg"] > 0
     assert args[-2] == B * (128 + 2 * plan["ring_grid"] * 8 * 4)
     ring = (CSRC / "pdes_ring.cuh").read_text()
     assert "const int smem = keep * (int)sizeof(float);" in ring
-    assert "grid, seg, keep, work," in \
-        (CSRC / "pdes_multistep_counter.cu").read_text()
+    b1 = (CSRC / "pdes_multistep_counter.cu").read_text()
+    assert "if (keep == seg)\n    return ring_grid_launch(" in b1
+    assert "multistep_counter_stream_kernel<false, false>),\n" \
+        "      B, L, K, warps, grid, seg, keep, work," in b1
     assert pdes_multistep.offchip_bytes_of(B, L, K) == \
         8 * B * K * p.offchip_pes(L)
 
 
 @pytest.mark.parametrize("case", ["ring", "step", "cluster"])
 def test_vmem_budget_holds_each_block_of_a_cluster(case):
-    """Each block of a launch is held to one block's budget, a cluster to
-    the portable size; only the ring kernels' findings point at a
-    cluster split (B2's blocks hold a segment each already)."""
+    """Each block of a launch is held to one block's budget, B2's cluster
+    to the portable size; only the ring kernels' findings point at a
+    split over a cooperative grid (B2's blocks hold a segment each
+    already)."""
     from repro_torch.analysis.probes import KernelCall, Probe
     from repro_torch.analysis.rules import vmem
     L = {"ring": tiling.MAX_STREAM_RING_L + 1, "step": 65_536,
@@ -278,18 +284,17 @@ def test_vmem_budget_holds_each_block_of_a_cluster(case):
                   delta_input=None,
                   kernels=[KernelCall(kernel=kernel, plan=plan, src="x:1")])
     (f,) = vmem.check(probe, vmem_budget=budget)
-    assert ("need a thread-block cluster" in f.message) == (case == "ring")
+    assert ("need a cooperative grid" in f.message) == (case == "ring")
 
 
 @pytest.mark.parametrize("L", [65_536, 131_072, 1 << 20,
                                tiling.MAX_GRID_RING_L + 1,
                                tiling.MAX_STREAM_RING_L + 1])
 def test_vmem_budget_of_a_ring_split_over_a_cluster(L, monkeypatch):
-    """A ring over a cluster or a cooperative grid is held block by block,
-    against the ptxas figures of the instantiation its plan launches:
-    quiet at 65,536 PEs (a cluster of 2 blocks, up to 16 allowed), at
-    131,072 (3 blocks, which the plan sends to the grid) and at the
-    paper's 2^20 (19 blocks of a grid); past the grid's cap
+    """A ring over a cooperative grid is held block by block, against the
+    ptxas figures of the instantiation its plan launches: quiet at 65,536
+    PEs (2 blocks), at 131,072 (3 blocks) and at the paper's 2^20 (19
+    blocks); past the grid's cap
     B1 is quiet on its stream tier and B3 fires, and past the stream
     tier's both fire; each finding names every limit of its kernel."""
     from repro_torch.analysis.probes import KernelCall, Probe
@@ -297,9 +302,9 @@ def test_vmem_budget_of_a_ring_split_over_a_cluster(L, monkeypatch):
     plans = {k: pdes_multistep.launch_plan(4, L, bits=k == "pdes_multistep")
              for k in vmem.RING_KERNELS}
     for plan in plans.values():
-        assert (plan["cluster"], plan["ring_grid"]) == {
-            65_536: (2, 1), 131_072: (1, 3), 1 << 20: (1, 19)}.get(
-                L, (1, tiling.RING_MAX_GRID_BLOCKS))
+        assert "cluster" not in plan
+        assert plan["ring_grid"] == {65_536: 2, 131_072: 3, 1 << 20: 19}.get(
+            L, tiling.RING_MAX_GRID_BLOCKS)
     probe = Probe("p", backend="fixture", graph=None, tau_in=0, tau_out=0,
                   ring_widths=frozenset(), L_ring=L, delta=1.0,
                   delta_input=None,
@@ -307,11 +312,6 @@ def test_vmem_budget_of_a_ring_split_over_a_cluster(L, monkeypatch):
                            for k in vmem.RING_KERNELS])
     findings = vmem.check(probe)
     plan = plans["pdes_multistep_counter"]
-    if L == 65_536:
-        assert findings == []
-        assert vmem.budget_of("pdes_multistep",
-                              dict(plan, cluster=17))["over"] == [
-            "cluster of 17 blocks > the ring kernels' 16"]
     if L <= 1 << 20:          # read against the launched instantiations
         assert findings == []
         asked = []
@@ -319,10 +319,9 @@ def test_vmem_budget_of_a_ring_split_over_a_cluster(L, monkeypatch):
                             lambda lib, fn: asked.append((lib, fn)))
         for k in vmem.RING_KERNELS:
             vmem.budget_of(k, plan)
-        tier = "cluster" if L == 65_536 else "grid"
         assert asked == [("pdes_multistep_counter",
-                          f"multistep_counter_{tier}_kernel"),
-                         ("pdes_multistep", f"multistep_{tier}_kernel")]
+                          "multistep_counter_grid_kernel"),
+                         ("pdes_multistep", "multistep_grid_kernel")]
     else:
         fire = (["pdes_multistep"] if L == tiling.MAX_GRID_RING_L + 1
                 else list(vmem.RING_KERNELS))
@@ -330,7 +329,7 @@ def test_vmem_budget_of_a_ring_split_over_a_cluster(L, monkeypatch):
         for f in findings:
             assert "shared memory" in f.message
             assert f"L={tiling.MAX_RING_L}" in f.message
-            assert f"L={tiling.MAX_CLUSTER_RING_L}" in f.message
+            assert "cluster" not in f.message
             assert f"L={tiling.MAX_GRID_RING_L}" in f.message
             assert (f"L={tiling.MAX_STREAM_RING_L}" in f.message) == (
                 f.op == "pdes_multistep_counter")

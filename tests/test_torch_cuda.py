@@ -48,7 +48,7 @@ def _inputs(dev, B, L, seed=0):
     (10, True, False, True), (3, False, True, True), (2, False, False, False)])
 @pytest.mark.parametrize("B,L", [(16, 1000), (3, 37),
                                  (2, tiling.MAX_RING_L), (2, 131_072),
-                                 (1, tiling.MAX_CLUSTER_RING_L),
+                                 (1, 16 * tiling.MAX_RING_SEG),
                                  (8, 1 << 20), (1, tiling.MAX_GRID_RING_L),
                                  (1, tiling.MAX_GRID_RING_L + 32),
                                  (1, 1 << 23), (2, 1 << 23)])
@@ -87,7 +87,7 @@ def test_library_decode_matches_plain_rule_on_all_inputs(dev):
 
 #: The ring lengths at the new loop's edges: one PE, a partial row, one
 #: warp's row, a row and one PE, the paper's L, the service's L, the longest
-#: one-block ring; then the shortest ring over a cluster (2 blocks, the last
+#: one-block ring; then the shortest ring over the grid (2 blocks, the last
 #: segment shorter), 2 blocks of whole rows, and the longest ring of 2
 #: blocks and the shortest of 3.
 EDGE_LS = (1, 31, 32, 33, 1000, 10_000, tiling.MAX_RING_L,
@@ -437,79 +437,61 @@ def test_grid_ring_result_does_not_depend_on_its_wave(dev):
                     full, rows.start + r)
 
 
-#: One ring length for each block count that the cooperative grid took
-#: over from the cluster tier, 3 to 16 (``ring_bench.py grid``'s lengths).
-REROUTED_LS = tuple(524_288 if n == 10 else n * tiling.MAX_RING_SEG
-                    for n in range(tiling.RING_MIN_GRID_BLOCKS,
-                                   tiling.RING_MAX_CLUSTER + 1))
+#: One ring length for each block count from 2 to 16: n full segments, at
+#: n = 10 the cell exact_mix.ring512k's 2^19.
+SPLIT_LS = tuple(524_288 if n == 10 else n * tiling.MAX_RING_SEG
+                 for n in range(2, 17))
 
 
-@pytest.mark.parametrize("L", REROUTED_LS)
-def test_rerouted_rings_match_plain_and_the_cluster_launch(dev, L,
-                                                          monkeypatch):
-    """A ring of 3 to 16 blocks runs over the cooperative grid: B1 and B3
+@pytest.mark.parametrize("L", SPLIT_LS)
+def test_split_rings_match_plain_over_two_waves(dev, L):
+    """A ring of 2 to 16 blocks runs over the cooperative grid: B1 and B3
     against their plain versions over two waves (one ring more than the
-    card holds at once), and bit for bit what the cluster launch of the
-    same segments gives (the plan those lengths took before)."""
+    card holds at once)."""
     n = tiling.ring_blocks(L)
     assert tiling.ring_plan(L).tier == "grid" and tiling.ring_plan(L).grid \
         == n == tiling.ring_plan(L, stream=False).grid
     B = 1 + max(pm.rings_at_once(L), pm.rings_at_once(L, bits=True))
-    assert B > pm.resident_clusters(L)
     K = 3
     tau, dcol, tcol = _inputs(dev, B, L, seed=n)
     args = (tau, torch.tensor([[5, 2**32 - 2, 0, 0]]), dcol, tcol)
     kw1 = dict(k_steps=K, n_v=100, delta=math.inf)
     bits = threefry.threefry_bits(prng.key(n, dev), 0, K, (B, L))
     kw3 = dict(n_v=100, delta=100.0)
-    grid1 = pm.pdes_multistep_counter(*args, **kw1)
-    grid3 = pm.pdes_multistep(tau, bits, **kw3)
-    _assert_step_equal(grid1, ref.pdes_multistep_counter_ref(*args, **kw1))
-    _assert_step_equal(grid3, ref.pdes_multistep_ref(tau, bits, **kw3))
-    monkeypatch.setattr(pm, "ring_plan",
-                        lambda L, **kw: tiling.cluster_plan(L))
-    for grid, cluster in ((grid1, pm.pdes_multistep_counter(*args, **kw1)),
-                          (grid3, pm.pdes_multistep(tau, bits, **kw3))):
-        assert torch.equal(grid[0], cluster[0])
-        for key in horizon.MOMENT_KEYS:
-            assert torch.equal(grid[1][key], cluster[1][key]), key
+    _assert_step_equal(pm.pdes_multistep_counter(*args, **kw1),
+                       ref.pdes_multistep_counter_ref(*args, **kw1))
+    _assert_step_equal(pm.pdes_multistep(tau, bits, **kw3),
+                       ref.pdes_multistep_ref(tau, bits, **kw3))
 
 
-def test_service_at_2_19_answers_as_on_the_cluster_tier(dev, monkeypatch):
-    """The sweep service at L = 2^19 (10 blocks a ring, now over the
-    cooperative grid) answers bit for bit as it did on the cluster tier,
-    and its pass span counts the launches' blocks and the card's SM-steps
+def test_service_at_2_19_answers_as_a_direct_sweep(dev):
+    """The sweep service at L = 2^19 (10 blocks a ring over the
+    cooperative grid) answers bit for bit as a direct run of its spec, and
+    its pass span counts the launches' blocks and the card's SM-steps
     they held: 3 launches of K = 16 on 4 rings of 10 blocks, one wave of
     the rings the card holds at once."""
     import json
     from repro_torch import obs as tobs
-    from repro_torch.experiments.sweep import WindowSweep
+    from repro_torch.experiments.sweep import WindowSweep, run_window_sweep
     from repro_torch.service.api import SweepService
     L = 1 << 19
     spec = WindowSweep(Ls=(L,), n_vs=(100,), deltas=(100.0, math.inf),
                        replicas=2, n_steps=32, burn_in=16,
                        backend="pallas_multistep", k_fuse=16, seed=5)
-
-    def answer():
-        svc = SweepService(device=dev)
-        tel = tobs.Telemetry(tracer=tobs.TraceRecorder())
-        svc.attach_telemetry(tel)
-        svc.submit(spec, requester="a")
-        (resp,) = svc.drain()
-        assert resp.error is None
-        (args,) = [e["args"] for e in tel.tracer.events
-                   if e["name"] == "pass"]
-        return json.dumps(resp.result.as_dict()), args
-
-    got, args = answer()
+    svc = SweepService(device=dev)
+    tel = tobs.Telemetry(tracer=tobs.TraceRecorder())
+    svc.attach_telemetry(tel)
+    svc.submit(spec, requester="a")
+    (resp,) = svc.drain()
+    assert resp.error is None
+    (args,) = [e["args"] for e in tel.tracer.events if e["name"] == "pass"]
     assert args["b1_tier"] == "grid"
     assert 4 <= pm.rings_at_once(L)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     assert (args["b1_block_chunks"], args["b1_sm_chunks"]) == (
         3 * 16 * 4 * 10, 3 * 16 * 1 * sms)
-    monkeypatch.setattr(pm, "ring_plan",
-                        lambda L, **kw: tiling.cluster_plan(L))
-    assert answer()[0] == got
+    assert json.dumps(resp.result.as_dict()) == \
+        json.dumps(run_window_sweep(spec, device=dev).as_dict())
 
 
 def test_grid_launch_the_card_cannot_place_raises(dev, monkeypatch):
@@ -518,8 +500,8 @@ def test_grid_launch_the_card_cannot_place_raises(dev, monkeypatch):
     nothing hangs and nothing falls back."""
     seg, g = 50_016, 140          # 196 KB a block: one an SM
     L = (g - 1) * seg + 40_000
-    plan = tiling.RingPlan(1, seg, tiling.RING_CLUSTER_WARPS, 4 * seg,
-                           tiling.SMEM_STATIC_CLUSTER, grid=g)
+    plan = tiling.RingPlan(g, seg, tiling.RING_SPLIT_WARPS, 4 * seg,
+                           tiling.SMEM_STATIC_SPLIT)
     monkeypatch.setattr(pm, "ring_plan", lambda L, **kw: plan)
     monkeypatch.setattr(pm, "check_ring_fits", lambda L, **kw: None)
     assert pm.resident_rings(L) == 0

@@ -84,12 +84,12 @@ def test_counter_kernel_columns_match_jax(border_both):
 
 
 def test_counter_kernel_on_a_ring_past_one_block_matches_jax():
-    """A ring that the card splits over a thread-block cluster (2 blocks at
-    L = 65,600; the JAX kernel takes it as one (bb, L) block): the plain
+    """A ring that the card splits over 2 blocks of a cooperative grid
+    (L = 65,600; the JAX kernel takes it as one (bb, L) block): the plain
     version the kernel is held to on the card against JAX's, with per-row
     Δ and trial columns."""
     B, L = 2, 65_600
-    assert tiling.ring_plan(L).cluster == 2
+    assert tiling.ring_plan(L).grid == 2
     tau = _tau(B, L, seed=5)
     ctr = np.array([[11, 0xFFFFFFFF, 0, 7]], np.uint32)   # step wraps
     dcol = np.array([[4.0], [np.inf]], np.float32)
@@ -159,8 +159,8 @@ def test_tiling_rules():
         <= tiling.SMEM_PER_BLOCK
     tiling.check_ring_fits(10_000)
     tiling.check_ring_fits(tiling.MAX_RING_L + 1)
-    tiling.check_ring_fits(tiling.MAX_CLUSTER_RING_L)
-    tiling.check_ring_fits(tiling.MAX_CLUSTER_RING_L + 1)
+    tiling.check_ring_fits(16 * tiling.MAX_RING_SEG)
+    tiling.check_ring_fits(16 * tiling.MAX_RING_SEG + 1)
     tiling.check_ring_fits(1 << 20)
     tiling.check_ring_fits(tiling.MAX_GRID_RING_L)
     tiling.check_ring_fits(tiling.MAX_GRID_RING_L + 1)      # B1's stream tier

@@ -7,7 +7,6 @@ the division-free site pick and the table-driven η decode, each repeated
 in Python the way the kernels compute them and held against ``%`` and
 the plain decode rule.
 """
-import dataclasses
 import re
 
 import numpy as np
@@ -64,14 +63,15 @@ def test_ring_warps_rejects_an_empty_ring():
         tiling.ring_warps(0)
 
 
+#: The longest ring of 16 blocks (911,360 PEs), chip_smoke.py phase 17's.
+L16 = 16 * tiling.MAX_RING_SEG
 #: Ring lengths of the ring plan's rules: short rings, the main path, the
 #: longest one-block ring and one past it, the long-ring shapes of
 #: chip_smoke.py phase 17, the JAX package's one-row VMEM budget edge, the
-#: longest ring of the cluster kernels (16 blocks) and one past it, the
-#: paper's production ring (phase 18), 2^22, the cap.
+#: longest ring of 16 blocks and one past it, the paper's production ring
+#: (phase 18), 2^22, the cap.
 RING_LS = (1, 31, 32, 10_000, tiling.MAX_RING_L, tiling.MAX_RING_L + 1,
-           65_536, 131_072, 524_285, 524_288, tiling.MAX_CLUSTER_RING_L,
-           tiling.MAX_CLUSTER_RING_L + 1, 1 << 20, 1 << 22,
+           65_536, 131_072, 524_285, 524_288, L16, L16 + 1, 1 << 20, 1 << 22,
            tiling.MAX_GRID_RING_L)
 
 
@@ -80,18 +80,17 @@ def test_ring_plan(L):
     """B1's and B3's layout, from L alone: one block as before up to
     MAX_RING_L; above it the least number of blocks whose segments, whole
     rows but the last, tile the ring and each fit one block with a row a
-    warp: a cluster of 2, then a cooperative grid from 3 blocks."""
+    warp, the blocks of a cooperative grid."""
     p = tiling.ring_plan(L)
     lp = pdes_multistep.launch_plan(7, L)
-    assert lp == {"grid": (7 * p.cluster * p.grid,), "cluster": p.cluster,
-                  "ring_grid": p.grid, "threads": 32 * p.warps,
+    assert lp == {"grid": (7 * p.grid,), "ring_grid": p.grid,
+                  "threads": 32 * p.warps,
                   "seg": p.seg, "dynamic_smem": p.dynamic_smem,
                   "static_smem": p.static_smem, "tier": p.tier,
                   "offchip_seg": 0}
     assert lp == pdes_multistep.launch_plan(7, L, bits=True)   # B3's too
     assert p == tiling.ring_plan(L, stream=False)
-    assert p.tier == ("block" if L <= tiling.MAX_RING_L else "cluster"
-                      if L <= 2 * tiling.MAX_RING_SEG else "grid")
+    assert p.tier == ("block" if L <= tiling.MAX_RING_L else "grid")
     assert p.fits and p.dynamic_smem == 4 * p.seg and p.keep == p.seg
     assert p.offchip_pes(L) == 0
     assert p.dynamic_smem + p.static_smem <= tiling.SMEM_PER_BLOCK
@@ -100,15 +99,9 @@ def test_ring_plan(L):
                                     tiling.ring_smem_bytes(L),
                                     tiling.SMEM_STATIC)
         return
-    if L <= 2 * tiling.MAX_RING_SEG:
-        assert (p.cluster, p.grid) == (2, 1)
-    else:
-        assert p.cluster == 1
-        assert tiling.RING_MIN_GRID_BLOCKS <= p.grid <= \
-            tiling.RING_MAX_GRID_BLOCKS
-    assert p.blocks == p.cluster * p.grid
-    assert p.warps == tiling.RING_CLUSTER_WARPS
-    assert p.static_smem == tiling.SMEM_STATIC_CLUSTER
+    assert 2 <= p.grid == p.blocks <= tiling.RING_MAX_GRID_BLOCKS
+    assert p.warps == tiling.RING_SPLIT_WARPS
+    assert p.static_smem == tiling.SMEM_STATIC_SPLIT
     starts = [j * p.seg for j in range(p.blocks)]
     ends = [min(s + p.seg, L) for s in starts]
     assert starts[0] == 0 and ends[-1] == L
@@ -123,38 +116,28 @@ def test_ring_plan(L):
             > tiling.SMEM_PER_BLOCK)
 
 
-#: One ring length for each block count n of the cluster kernels' range,
-#: 2 to 16 (``ring_bench.py grid``'s: n full segments, at n = 10 the cell
-#: exact_mix.ring512k's 2^19), and the edges of the cluster tier's range.
+#: One ring length for each block count n from 2 to 16 (n full segments,
+#: at n = 10 the cell exact_mix.ring512k's 2^19), and the edges of the
+#: 2-block range.
 ROUTE_LS = tuple(524_288 if n == 10 else n * tiling.MAX_RING_SEG
-                 for n in range(2, tiling.RING_MAX_CLUSTER + 1)) + (
+                 for n in range(2, 17)) + (
     tiling.MAX_RING_L + 1, 2 * tiling.MAX_RING_SEG + 1)
 
 
 @pytest.mark.parametrize("L", ROUTE_LS)
 def test_ring_plan_routes_by_block_count(L):
-    """A ring of 2 blocks stays a cluster; from 3 blocks it takes the
-    cooperative grid (ring_bench.py grid on an H100: the grid holds more
-    rings at once and runs B1 and B3 1.46 to 2.77 times as fast).  Either
-    way the blocks and segments are the ones the cluster tier cuts
-    (tiling.cluster_plan), so a ring's bits do not change; B1's plan is
-    B3's."""
+    """Every ring of 2 blocks or more takes the cooperative grid, in the
+    least number of blocks whose segments (whole rows, ceil(L / n) rounded
+    up to 32) fit one block of 32 warps; B1's plan is B3's."""
     n = tiling.ring_blocks(L)
-    old = tiling.cluster_plan(L)
-    assert old == tiling.RingPlan(n, tiling._ring_seg(L, n),
-                                  tiling.RING_CLUSTER_WARPS, 4 * old.seg,
-                                  tiling.SMEM_STATIC_CLUSTER)
-    assert 2 <= n <= tiling.RING_MAX_CLUSTER and old.fits
     assert (n - 1) * tiling.MAX_RING_SEG < L <= n * tiling.MAX_RING_SEG
+    assert n >= 2
     p = tiling.ring_plan(L)
     assert p == tiling.ring_plan(L, stream=False)
-    if n < tiling.RING_MIN_GRID_BLOCKS:
-        assert p.tier == "cluster" and p == old
-    else:
-        assert p.tier == "grid"
-        assert p == dataclasses.replace(old, cluster=1, grid=n)
-    assert (p.blocks, p.seg, p.warps, p.dynamic_smem, p.static_smem) == (
-        n, old.seg, old.warps, old.dynamic_smem, old.static_smem)
+    seg = tiling._ring_seg(L, n)
+    assert p.tier == "grid" and p.fits
+    assert p == tiling.RingPlan(n, seg, tiling.RING_SPLIT_WARPS, 4 * seg,
+                                tiling.SMEM_STATIC_SPLIT)
     for bits in (False, True):
         lp = pdes_multistep.launch_plan(28, L, bits=bits)
         assert lp["grid"] == (28 * n,) and lp["tier"] == p.tier
@@ -162,22 +145,26 @@ def test_ring_plan_routes_by_block_count(L):
         assert (p.tier, p.grid, p.seg) == ("grid", 10, 52_448)
 
 
-def test_cluster_plan_takes_the_cluster_kernels_range_alone():
-    with pytest.raises(ValueError, match="takes 1 blocks"):
-        tiling.cluster_plan(tiling.MAX_RING_L)
-    with pytest.raises(ValueError, match="takes 17 blocks"):
-        tiling.cluster_plan(tiling.MAX_CLUSTER_RING_L + 1)
-    assert tiling.cluster_plan(tiling.MAX_CLUSTER_RING_L).cluster == 16
+@pytest.mark.parametrize("L,seg", [(tiling.MAX_RING_L + 1, 28_704),
+                                   (65_600, 32_800),
+                                   (2 * tiling.MAX_RING_SEG, 56_960)])
+def test_two_block_rings_keep_their_segments(L, seg):
+    """A ring of 2 blocks (57,345 to 113,920 PEs) keeps the segments it
+    had before it took the grid, so the same sums in the same rank order
+    and the same bits."""
+    p = tiling.ring_plan(L)
+    assert (p.grid, p.seg) == (2, seg)
+    assert (p.warps, p.dynamic_smem, p.static_smem) == (32, 4 * seg, 4608)
 
 
-@pytest.mark.parametrize("L", [tiling.MAX_CLUSTER_RING_L + 1, 1 << 20,
-                               1 << 22, tiling.MAX_GRID_RING_L])
+@pytest.mark.parametrize("L", [L16 + 1, 1 << 20, 1 << 22,
+                               tiling.MAX_GRID_RING_L])
 def test_ring_plan_over_the_grid(L):
     """The grid tier: ceil(L / MAX_RING_SEG) blocks, a function of L alone
     (the same for every batch), segments of whole rows and a non-empty
     last one; the paper's production ring takes 19 blocks."""
     p = tiling.ring_plan(L)
-    assert p.grid == -(-L // tiling.MAX_RING_SEG) and p.cluster == 1
+    assert p.grid == -(-L // tiling.MAX_RING_SEG)
     assert p.seg % 32 == 0 and p.seg <= tiling.MAX_RING_SEG
     assert 0 < L - (p.grid - 1) * p.seg <= p.seg
     for B in (1, 6, 8, 448):
@@ -193,37 +180,31 @@ def test_ring_plan_over_the_grid(L):
 
 def test_ring_plan_raises_above_the_cap():
     """B1's cap is the stream tier's: past the grid's, B1 lays a ring out
-    up to MAX_STREAM_RING_L and raises only past it, naming all four
+    up to MAX_STREAM_RING_L and raises only past it, naming all three
     limits (B3 keeps the grid's cap: the next test)."""
     cap = tiling.MAX_STREAM_RING_L
     assert tiling.MAX_GRID_RING_L >= 1 << 22
-    assert tiling.MAX_CLUSTER_RING_L == \
-        tiling.RING_MAX_CLUSTER * tiling.MAX_RING_SEG
     assert tiling.MAX_GRID_RING_L == \
         tiling.RING_MAX_GRID_BLOCKS * tiling.MAX_RING_SEG
     assert cap == tiling.RING_MAX_GRID_BLOCKS * tiling.MAX_STREAM_SEG
     assert cap < 2**31 <= cap + tiling.RING_MAX_GRID_BLOCKS * 32
     tiling.check_ring_fits(cap)
     tiling.check_ring_fits(tiling.MAX_GRID_RING_L + 1)
-    tiling.check_ring_fits(tiling.MAX_CLUSTER_RING_L + 1)
+    tiling.check_ring_fits(L16 + 1)
     assert not tiling.ring_plan(cap + 1).fits
-    with pytest.raises(ValueError, match=f"L={tiling.MAX_RING_L}, a cluster "
-                       f"of 16 blocks up to L={tiling.MAX_CLUSTER_RING_L}, "
+    with pytest.raises(ValueError, match=f"L={tiling.MAX_RING_L}, "
                        f"132 blocks of a cooperative grid up to "
                        f"L={tiling.MAX_GRID_RING_L}, and 132 blocks that "
                        f"keep all but {tiling.MAX_RING_SEG} PEs of each "
                        f"segment in device memory up to L={cap}"):
         tiling.check_ring_fits(cap + 1)
-    # the cluster block's static shared memory holds two parity slots of 8
-    # per-warp words for its most warps, and the 2 KB log table; the grid
-    # block's is the same
+    # a split block's static shared memory holds two parity slots of 8
+    # per-warp words for its most warps, and the 2 KB log table
     src = (_build.CSRC / "pdes_ring.cuh").read_text()
-    assert (f"constexpr int kRingClusterWarps = "
-            f"{tiling.RING_CLUSTER_WARPS};") in src
-    assert f"constexpr int kRingMaxCluster = {tiling.RING_MAX_CLUSTER};" \
-        in src
-    assert 2 * 8 * 4 * tiling.RING_CLUSTER_WARPS + 2048 <= \
-        tiling.SMEM_STATIC_CLUSTER
+    assert (f"constexpr int kRingSplitWarps = "
+            f"{tiling.RING_SPLIT_WARPS};") in src
+    assert 2 * 8 * 4 * tiling.RING_SPLIT_WARPS + 2048 <= \
+        tiling.SMEM_STATIC_SPLIT
     # the workspace the wrapper makes is the launcher's: a 128-byte counter
     # line a ring slot and two parities of a 32-byte part a block
     assert "(size_t)rings * 128 + (size_t)rings * 2 * g * sizeof(GridPart)" \
@@ -265,12 +246,12 @@ def test_ring_plan_on_the_stream_tier(L):
     launch_plan reports for every batch."""
     p = tiling.ring_plan(L)
     assert p.tier == "stream" and p.fits
-    assert (p.cluster, p.grid) == (1, tiling.RING_MAX_GRID_BLOCKS)
+    assert p.grid == tiling.RING_MAX_GRID_BLOCKS
     assert p.seg == 32 * -(-L // (32 * tiling.RING_MAX_GRID_BLOCKS))
     assert tiling.MAX_RING_SEG < p.seg <= tiling.MAX_STREAM_SEG
     assert p.keep == tiling.MAX_RING_SEG and p.dynamic_smem == 4 * p.keep
-    assert p.warps == tiling.RING_CLUSTER_WARPS
-    assert p.static_smem == tiling.SMEM_STATIC_CLUSTER
+    assert p.warps == tiling.RING_SPLIT_WARPS
+    assert p.static_smem == tiling.SMEM_STATIC_SPLIT
     assert p.offchip_seg == p.seg - p.keep
     last = L - (p.grid - 1) * p.seg
     assert 0 < last <= p.seg
@@ -283,8 +264,8 @@ def test_ring_plan_on_the_stream_tier(L):
     assert tiling.ring_plan(L) == p
     for B in (1, 3, 14):
         lp = pdes_multistep.launch_plan(B, L)
-        assert lp == {"grid": (B * p.grid,), "cluster": 1,
-                      "ring_grid": p.grid, "threads": 32 * p.warps,
+        assert lp == {"grid": (B * p.grid,), "ring_grid": p.grid,
+                      "threads": 32 * p.warps,
                       "seg": p.seg, "dynamic_smem": p.dynamic_smem,
                       "static_smem": p.static_smem, "tier": "stream",
                       "offchip_seg": p.offchip_seg}
@@ -304,8 +285,7 @@ def test_ring_plan_on_the_stream_tier(L):
 def test_ring_plan_below_the_stream_tier_is_unchanged():
     """Up to the grid's cap B1's plan is the one B3 keeps, for every class
     of L (the stream tier adds rings and changes none)."""
-    for L in (1, 10_000, tiling.MAX_RING_L + 1, tiling.MAX_CLUSTER_RING_L,
-              tiling.MAX_CLUSTER_RING_L + 1, 1 << 20, 1 << 22,
+    for L in (1, 10_000, tiling.MAX_RING_L + 1, L16, L16 + 1, 1 << 20, 1 << 22,
               tiling.MAX_GRID_RING_L - 1, tiling.MAX_GRID_RING_L):
         assert tiling.ring_plan(L) == tiling.ring_plan(L, stream=False)
         assert tiling.ring_plan(L).offchip_seg == 0
