@@ -191,18 +191,20 @@ def _make(csrc: pathlib.Path, name: str, edits: dict,
     return name, libs
 
 
-def _launchers(libs, extra_ints: int):
+def _launchers(libs, extra_ints: int, rebase: bool = False):
     """B1's and B3's C launchers of ``libs``, taking ``extra_ints`` ints
     after K: none (the oldest loops), the warps, or the warps, grid,
     segment and kept PEs (one launcher a kernel, which also takes the
-    workspace and its bytes before the stream)."""
+    workspace and its bytes before the stream); B1's with ``rebase`` an
+    int more after the rule flags."""
     i32, u32, ptr = ctypes.c_int, ctypes.c_uint32, ctypes.c_void_p
     extra = [i32] * extra_ints
     work = [ptr, ctypes.c_longlong] if extra_ints == 4 else []
     b1 = ctypes.CDLL(str(libs["pdes_multistep_counter"])) \
         .pdes_multistep_counter_launch
     b1.argtypes = ([ptr] * 5 + [i32] * 3 + extra + [u32] * 5
-                   + [ctypes.c_float, i32, i32] + work + [ptr])
+                   + [ctypes.c_float, i32, i32] + [i32] * rebase + work
+                   + [ptr])
     b3 = ctypes.CDLL(str(libs["pdes_multistep"])).pdes_multistep_launch
     b3.argtypes = ([ptr] * 4 + [i32] * 3 + extra + [u32, ctypes.c_float]
                    + [i32, i32] + work + [ptr])
@@ -217,6 +219,7 @@ def ablate(csrc: pathlib.Path) -> dict:
     extra_ints = (4 if "ring_block_launch" in ring
                   else 1 if "ring_launch_check" in ring else 0)
     work = (None, 0) if extra_ints == 4 else ()  # one block reads none
+    rebase = "bool rebase" in ring      # B1 takes the flag, here off
     with concurrent.futures.ThreadPoolExecutor(len(VARIANTS)) as pool:
         built = dict(pool.map(lambda kv: _make(csrc, *kv), VARIANTS.items()))
     dev = torch.device("cuda")
@@ -238,13 +241,14 @@ def ablate(csrc: pathlib.Path) -> dict:
             if libs is None:
                 print(f"[ablate] {name}: the sources lack its text; skipped")
                 continue
-            b1, b3 = _launchers(libs, extra_ints)
+            b1, b3 = _launchers(libs, extra_ints, rebase)
             shape = (plan.warps, plan.grid, plan.seg, plan.keep)[:extra_ints]
 
             def run_b1(k=K):
                 err = b1(tau.data_ptr(), tau_out.data_ptr(), stats.data_ptr(),
                          dcol.data_ptr(), tcol.data_ptr(), B, L, k, *shape,
-                         0, 0, 0, 0, N_V, math.inf, 0, 0, *work, stream)
+                         0, 0, 0, 0, N_V, math.inf, 0, 0,
+                         *(0,) * rebase, *work, stream)
                 assert err == 0, err
 
             def run_b3(k=K):

@@ -4,6 +4,9 @@ The engine owns the init / chunk / rebase / Kahan / stats logic once and
 dispatches each K-step chunk to a backend.  Every backend consumes the same
 counter event stream keyed on ``(seed, step, trial, pe)`` and rebases on the
 same per-chunk schedule, so trajectories agree bit for bit across backends.
+On ``pallas_multistep`` B1 takes the rebase in its last store of τ: its
+shift is the chunk's last ``min`` moment, the ring minimum the loop would
+take, so the same subtraction on the same values.
 
 Backends of the port::
 
@@ -88,13 +91,16 @@ class EngineConfig:
                 "window='stale'")
 
 
-def _make_advance(cfg: PDESConfig, ecfg: EngineConfig, B: int, L: int):
+def _make_advance(cfg: PDESConfig, ecfg: EngineConfig, B: int, L: int,
+                  rebase: bool = False):
     """Backend chunk advance ``(tau, step0, seed, k, delta_col, b0)``.
 
     Returns ``(tau_k, moments)`` with each moment ``(k, B)``.  ``delta_col``
     is None (static ``cfg.delta``) or a ``(B, 1)`` column; ``b0`` is a Python
     int (row ``r`` uses trial ``b0 + r``) or a ``(B,)`` tensor of per-row
-    trial indices.  No rebasing inside: the chunk loop owns it.
+    trial indices.  No rebasing inside, but where ``rebase`` asks the fused
+    advance for it: tau_k less ``moments["min"][-1]`` (other backends ignore
+    it; the chunk loop rebases for them).
     """
     stale = ecfg.window == "stale"
 
@@ -143,7 +149,8 @@ def _make_advance(cfg: PDESConfig, ecfg: EngineConfig, B: int, L: int):
             return pdes_multistep_counter(
                 tau, ctr, delta_col, b0[:, None] if vec else None,
                 k_steps=k, n_v=cfg.n_v, delta=cfg.delta,
-                rd_mode=cfg.rd_mode, border_both=cfg.border_both)
+                rd_mode=cfg.rd_mode, border_both=cfg.border_both,
+                rebase=rebase)
 
         return advance
 
@@ -157,7 +164,8 @@ def _run_single(state: SimState, seed: int, cfg: PDESConfig,
     B, L = state.tau.shape
     K = max(1, min(ecfg.k_fuse, n_steps))
     n_chunks, rem = divmod(n_steps, K)
-    advance = _make_advance(cfg, ecfg, B, L)
+    fused = ecfg.backend == "pallas_multistep"   # B1 rebases in its store
+    advance = _make_advance(cfg, ecfg, B, L, rebase=fused)
     dtype = state.tau.dtype
     delta_col = None if deltas is None else deltas.to(dtype)[:, None]
     tau, off, comp, step = state
@@ -177,8 +185,11 @@ def _run_single(state: SimState, seed: int, cfg: PDESConfig,
                                                     zip(acc, sums)]
             # rebase once per chunk: identical schedule on every backend,
             # so trajectories stay bitwise comparable
-            shift = torch.amin(tau, dim=-1)
-            tau = tau - shift[:, None]
+            if fused:   # tau came rebased by the ring's last minimum
+                shift = moments["min"][-1]
+            else:
+                shift = torch.amin(tau, dim=-1)
+                tau = tau - shift[:, None]
             off, comp = horizon._kahan_add(off, comp, shift)
         step += k
     out_state = SimState(tau, off, comp, step)

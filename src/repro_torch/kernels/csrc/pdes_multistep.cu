@@ -77,7 +77,8 @@ multistep_kernel(const float* __restrict__ tau_in,
   const int row = blockIdx.x;
   ring_steps<kRd, kBoth, RingTier::kBlock>(tau_in, tau_out, stats, row, B,
                                            L, K, n_v, delta,
-                                           MemoryEvents{bits, B, L, row});
+                                           MemoryEvents{bits, B, L, row},
+                                           false);
 }
 
 // The same on rings split over `grid` blocks of one cooperative launch,
@@ -94,7 +95,7 @@ multistep_grid_kernel(const float* __restrict__ tau_in,
   for (int row = blockIdx.x / grid; row < B; row += gridDim.x / grid)
     ring_steps<kRd, kBoth, RingTier::kGrid>(
         tau_in, tau_out, stats, row, B, L, K, n_v, delta,
-        MemoryEvents{bits, B, L, row}, grid, seg, work);
+        MemoryEvents{bits, B, L, row}, false, grid, seg, work);
 }
 
 }  // namespace

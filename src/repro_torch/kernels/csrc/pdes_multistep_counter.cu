@@ -110,13 +110,14 @@ multistep_counter_kernel(const float* __restrict__ tau_in,
                          const uint32_t* __restrict__ trial_col,
                          int B, int L, int K,
                          uint32_t seed, uint32_t step0, uint32_t b0,
-                         uint32_t l0, uint32_t n_v, float delta) {
+                         uint32_t l0, uint32_t n_v, float delta,
+                         int rebase) {
   const int row = blockIdx.x;
   const uint32_t trial = trial_col ? trial_col[row] : b0 + (uint32_t)row;
   const float dlt = delta_col ? delta_col[row] : delta;
   ring_steps<kRd, kBoth, RingTier::kBlock>(
       tau_in, tau_out, stats, row, B, L, K, n_v, dlt,
-      CounterEvents{seed, step0, trial, l0});
+      CounterEvents{seed, step0, trial, l0}, rebase);
 }
 
 // The same on rings split over `grid` blocks of one cooperative launch,
@@ -132,13 +133,14 @@ multistep_counter_grid_kernel(const float* __restrict__ tau_in,
                               int B, int L, int K,
                               uint32_t seed, uint32_t step0, uint32_t b0,
                               uint32_t l0, uint32_t n_v, float delta,
-                              int grid, int seg, unsigned* work) {
+                              int rebase, int grid, int seg,
+                              unsigned* work) {
   for (int row = blockIdx.x / grid; row < B; row += gridDim.x / grid) {
     const uint32_t trial = trial_col ? trial_col[row] : b0 + (uint32_t)row;
     const float dlt = delta_col ? delta_col[row] : delta;
     ring_steps<kRd, kBoth, RingTier::kGrid>(
         tau_in, tau_out, stats, row, B, L, K, n_v, dlt,
-        CounterEvents{seed, step0, trial, l0}, grid, seg, work);
+        CounterEvents{seed, step0, trial, l0}, rebase, grid, seg, work);
   }
 }
 
@@ -155,13 +157,15 @@ multistep_counter_stream_kernel(const float* __restrict__ tau_in,
                                 int B, int L, int K,
                                 uint32_t seed, uint32_t step0, uint32_t b0,
                                 uint32_t l0, uint32_t n_v, float delta,
-                                int grid, int seg, int keep, unsigned* work) {
+                                int rebase, int grid, int seg, int keep,
+                                unsigned* work) {
   for (int row = blockIdx.x / grid; row < B; row += gridDim.x / grid) {
     const uint32_t trial = trial_col ? trial_col[row] : b0 + (uint32_t)row;
     const float dlt = delta_col ? delta_col[row] : delta;
     ring_steps<kRd, kBoth, RingTier::kStream>(
         tau_in, tau_out, stats, row, B, L, K, n_v, dlt,
-        CounterEvents{seed, step0, trial, l0}, grid, seg, work, keep);
+        CounterEvents{seed, step0, trial, l0}, rebase, grid, seg, work,
+        keep);
   }
 }
 
@@ -199,15 +203,17 @@ __global__ void site_pick_kernel(const uint32_t* __restrict__ w0,
 // block instantiation; more take one cooperative launch of the rings the
 // card holds at once, `work` the workspace (pdes_ring.cuh ring_grid_bytes
 // of them; unread on one block): the grid instantiation where keep == seg,
-// else the stream one.  Returns a CUDA error code: a plan this kernel
-// cannot run returns cudaErrorInvalidValue, and a launch the card refuses
-// its error (pdes_ring.cuh ring_block_launch, ring_grid_launch).
+// else the stream one.  `rebase` writes tau out less each ring's minimum
+// after the last step (the last `min` plane).  Returns a CUDA error code: a
+// plan this kernel cannot run returns cudaErrorInvalidValue, and a launch
+// the card refuses its error (pdes_ring.cuh ring_block_launch,
+// ring_grid_launch).
 extern "C" int pdes_multistep_counter_launch(
     const float* tau_in, float* tau_out, float* stats, const float* delta_col,
     const uint32_t* trial_col, int B, int L, int K, int warps, int grid,
     int seg, int keep, unsigned seed, unsigned step0, unsigned b0,
     unsigned l0, unsigned n_v, float delta, int rd_mode, int border_both,
-    void* work, long long work_bytes, void* stream) {
+    int rebase, void* work, long long work_bytes, void* stream) {
   if (grid == 1)
     return ring_block_launch(
         ring_kernel(rd_mode, border_both,
@@ -216,7 +222,7 @@ extern "C" int pdes_multistep_counter_launch(
                     multistep_counter_kernel<false, false>),
         B, L, K, warps, seg, keep, stream, tau_in, tau_out, stats, delta_col,
         trial_col, B, L, K, (uint32_t)seed, (uint32_t)step0, (uint32_t)b0,
-        (uint32_t)l0, (uint32_t)n_v, delta);
+        (uint32_t)l0, (uint32_t)n_v, delta, rebase);
   if (keep == seg)
     return ring_grid_launch(
         ring_kernel(rd_mode, border_both,
@@ -226,7 +232,7 @@ extern "C" int pdes_multistep_counter_launch(
         B, L, K, warps, grid, seg, seg, work, work_bytes, stream, tau_in,
         tau_out, stats, delta_col, trial_col, B, L, K, (uint32_t)seed,
         (uint32_t)step0, (uint32_t)b0, (uint32_t)l0, (uint32_t)n_v, delta,
-        grid, seg);
+        rebase, grid, seg);
   return ring_grid_launch(
       ring_kernel(rd_mode, border_both,
                   multistep_counter_stream_kernel<true, false>,
@@ -234,8 +240,8 @@ extern "C" int pdes_multistep_counter_launch(
                   multistep_counter_stream_kernel<false, false>),
       B, L, K, warps, grid, seg, keep, work, work_bytes, stream, tau_in,
       tau_out, stats, delta_col, trial_col, B, L, K, (uint32_t)seed,
-      (uint32_t)step0, (uint32_t)b0, (uint32_t)l0, (uint32_t)n_v, delta, grid,
-      seg, keep);
+      (uint32_t)step0, (uint32_t)b0, (uint32_t)l0, (uint32_t)n_v, delta,
+      rebase, grid, seg, keep);
 }
 
 // The rings of B1's plan (`grid` blocks of `warps` warps, `seg` PEs each,

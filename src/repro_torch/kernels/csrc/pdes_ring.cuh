@@ -100,7 +100,11 @@
 // later, after the barrier that every reader of it has passed.  The sumabs
 // of step k is summed in step k + 1's pass, whose first read of a PE is its
 // tau after step k; one trailing pass after step K - 1, which also writes
-// tau out, gives the last.  Sums are
+// tau out, gives the last.  With `rebase` (B1 for the engine's chunk loop)
+// that pass writes tau - GVT, GVT the ring's minimum after step K - 1 (the
+// last `min` plane, which every block holds), one fp32 subtraction a PE:
+// the chunk's rebase, which the engine would otherwise take in two more
+// passes over tau; the sumabs is still taken on the unshifted tau.  Sums are
 // taken in row order per lane, then by a fixed xor tree over the lanes and
 // over the W warps (and over the g blocks in rank order): the order depends
 // on L alone (through the plan), never on B, the ring's row or its
@@ -356,14 +360,16 @@ __device__ __forceinline__ int stream_warps(int rows, int kr, int W) {
 // `seg` PEs from PE rank * seg and meets the others through the workspace
 // `work`; in one block, the whole ring.
 // On the stream tier the block keeps the first `keep` PEs of its segment in
-// shared memory and the rest in tau_out.
+// shared memory and the rest in tau_out.  `rebase` writes tau out less the
+// ring's last minimum (B3 passes a literal false).
 template <bool kRd, bool kBoth, RingTier kTier, class Events>
 __device__ __forceinline__ void ring_steps(const float* __restrict__ tau_in,
                                            float* __restrict__ tau_out,
                                            float* __restrict__ stats,
                                            int row, int B, int L, int K,
                                            uint32_t n_v, float dlt,
-                                           const Events& events, int g = 1,
+                                           const Events& events, bool rebase,
+                                           int g = 1,
                                            int seg = 0,
                                            unsigned* work = nullptr,
                                            int keep = 0) {
@@ -588,13 +594,23 @@ __device__ __forceinline__ void ring_steps(const float* __restrict__ tau_in,
     }
   }
 
-  // the last step's sumabs, and tau out
+  // the last step's sumabs, and tau out.  Rebased, less gvt (the ring's
+  // minimum after step K - 1), device rows rewritten in place.  Two loops,
+  // not a test a PE: with one, the stream kernels spill.
   float* dst = tau_out + (size_t)row * L + base;
   float sa = 0.f;
-  for (int i = first + lane; i <= last; i += 32) {
-    const float t = ring[i];
-    if (!dev_rows) dst[i] = t;   // device rows are in tau_out already
-    sa = __fadd_rn(sa, fabsf(__fsub_rn(t, mean)));
+  if (rebase) {
+    for (int i = first + lane; i <= last; i += 32) {
+      const float t = ring[i];
+      dst[i] = __fsub_rn(t, gvt);
+      sa = __fadd_rn(sa, fabsf(__fsub_rn(t, mean)));
+    }
+  } else {
+    for (int i = first + lane; i <= last; i += 32) {
+      const float t = ring[i];
+      if (!dev_rows) dst[i] = t;   // device rows are in tau_out already
+      sa = __fadd_rn(sa, fabsf(__fsub_rn(t, mean)));
+    }
   }
   sa = warp_sum(sa);
   Slot& out = slot[K & 1];

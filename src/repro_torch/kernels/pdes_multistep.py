@@ -26,7 +26,8 @@ the card refuses raises too); on a CPU tensor it runs the plain PyTorch
 version in ``ref``, which takes any L.  There is no other path.
 
 ``launches`` (B1) and ``bits_launches`` (B3) count kernel launches, so a
-run can show that its main path went through the kernel;
+run can show that its main path went through the kernel, and
+``rebased_launches`` the B1 launches that wrote tau rebased (``rebase=``);
 ``offchip_bytes`` counts the bytes of tau that B1's stream-tier launches
 read and write in device memory (:func:`offchip_bytes_of`);
 ``block_chunks`` and ``sm_chunks`` count how much of the card B1's
@@ -50,6 +51,9 @@ from .tiling import check_ring_fits, ring_plan
 launches = 0
 #: Kernel launches made by :func:`pdes_multistep` in this process.
 bits_launches = 0
+#: Launches of :func:`pdes_multistep_counter` in this process that wrote
+#: tau less each ring's last minimum (``rebase=True``).
+rebased_launches = 0
 #: Bytes of tau that :func:`pdes_multistep_counter`'s launches in this
 #: process read and wrote in device memory on the stream tier.
 offchip_bytes = 0
@@ -74,7 +78,7 @@ def _lib() -> ctypes.CDLL:
     if f.argtypes is None:
         f.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
                       + [ctypes.c_uint32] * 5 + [ctypes.c_float]
-                      + [ctypes.c_int] * 2 + _WORK_STREAM)
+                      + [ctypes.c_int] * 3 + _WORK_STREAM)
         f.restype = ctypes.c_int
         m = lib.pdes_multistep_counter_max_rings
         m.argtypes = [ctypes.c_int] * 4
@@ -235,14 +239,16 @@ def bits_launch(tau_in, words, tau_out, stats, *, n_v: int, delta: float,
 
 
 def counter_launch(tau_in, tau_out, stats, dcol, tcol, ctr, *, n_v: int,
-                   delta: float, rd_mode: bool, border_both: bool) -> None:
+                   delta: float, rd_mode: bool, border_both: bool,
+                   rebase: bool = False) -> None:
     """Launch B1 on buffers :func:`pdes_multistep_counter` has checked and
     made: ``dcol`` (B, 1) float32 or None, ``tcol`` (B, 1) int32 uint32
     bits or None, ``ctr`` the four uint32 ``(seed, step0, b0, l0)``, and
     ``stats`` (6, K, B).  Launches with ``tiling.ring_plan(L)`` and raises
     on a launch the card refuses.  Counts nothing: timing scripts call it
     to see the kernel alone.  On the stream tier ``tau_out`` holds the
-    device rows while the kernel runs.
+    device rows while the kernel runs.  ``rebase`` writes ``tau_out`` less
+    each ring's minimum after the last step.
     """
     K, (B, L) = stats.shape[1], tau_in.shape
     p = ring_plan(L)
@@ -254,7 +260,8 @@ def counter_launch(tau_in, tau_out, stats, dcol, tcol, ctr, *, n_v: int,
             None if dcol is None else dcol.data_ptr(),
             None if tcol is None else tcol.data_ptr(), B, L, K, p.warps,
             p.grid, p.seg, p.keep, *ctr, n_v, float(delta), int(rd_mode),
-            int(border_both), *_work_args(work), _build.stream(dev))
+            int(border_both), int(rebase), *_work_args(work),
+            _build.stream(dev))
     _build.check(err, "pdes_multistep_counter launch")
 
 
@@ -311,7 +318,8 @@ def pdes_multistep(tau, bits, *, n_v: int, delta: float,
 
 def pdes_multistep_counter(tau, ctr, delta_col=None, trial_col=None, *,
                            k_steps: int, n_v: int, delta: float,
-                           rd_mode: bool = False, border_both: bool = False):
+                           rd_mode: bool = False, border_both: bool = False,
+                           rebase: bool = False):
     """K fused exact-GVT steps with the event stream generated in-kernel.
 
     Args:
@@ -324,12 +332,15 @@ def pdes_multistep_counter(tau, ctr, delta_col=None, trial_col=None, *,
       trial_col: optional (B, 1) integer per-row trial indices (wrapped mod
         ``2**32``), used instead of ``b0 + r``.
       k_steps: number of fused steps.
+      rebase: return tau less each ring's minimum after the last step,
+        which is ``moments["min"][-1]`` bit for bit (the engine's rebase,
+        taken in the kernel's last store); the moments are unchanged.
 
     Returns:
       (tau (B, L), dict of six (K, B) moment planes in ``MOMENT_KEYS``
       order), each step's moments measured after its update.
     """
-    global launches, offchip_bytes
+    global launches, offchip_bytes, rebased_launches
     _check_tau(tau)
     B, L = tau.shape
     if k_steps < 1:
@@ -343,7 +354,8 @@ def pdes_multistep_counter(tau, ctr, delta_col=None, trial_col=None, *,
     if tau.device.type == "cpu":
         return pdes_multistep_counter_ref(
             tau, ctr, delta_col, trial_col, k_steps=k_steps, n_v=n_v,
-            delta=delta, rd_mode=rd_mode, border_both=border_both)
+            delta=delta, rd_mode=rd_mode, border_both=border_both,
+            rebase=rebase)
     if tau.device.type != "cuda":
         raise ValueError(f"unsupported device {tau.device}")
     _refuse_eta_override()
@@ -360,8 +372,9 @@ def pdes_multistep_counter(tau, ctr, delta_col=None, trial_col=None, *,
                         device=dev)
     counter_launch(tau_in, tau_out, stats, dcol, tcol, (seed, step0, b0, l0),
                    n_v=n_v, delta=delta, rd_mode=rd_mode,
-                   border_both=border_both)
+                   border_both=border_both, rebase=rebase)
     launches += 1
+    rebased_launches += bool(rebase)
     offchip_bytes += offchip_bytes_of(B, L, k_steps)
     with torch.cuda.device(dev):
         count_card_share(B, L, k_steps, dev)

@@ -100,12 +100,14 @@ def pdes_multistep_ref(tau, bits, *, n_v: int, delta, rd_mode: bool = False,
 def pdes_multistep_counter_ref(tau, ctr, delta_col=None, trial_col=None, *,
                                k_steps: int, n_v: int, delta: float,
                                rd_mode: bool = False,
-                               border_both: bool = False):
+                               border_both: bool = False,
+                               rebase: bool = False):
     """K exact-GVT steps with the counter event stream, in plain PyTorch.
 
     Arguments as :func:`repro_torch.kernels.pdes_multistep.
     pdes_multistep_counter`.  Returns ``(tau (B, L), moments)`` with each
-    moment a ``(K, B)`` tensor, in ``MOMENT_KEYS`` order.
+    moment a ``(K, B)`` tensor, in ``MOMENT_KEYS`` order; with ``rebase``,
+    tau less its ring minimum (the engine's rebase).
     """
     B, L = tau.shape
     dev = tau.device
@@ -122,6 +124,8 @@ def pdes_multistep_counter_ref(tau, ctr, delta_col=None, trial_col=None, *,
         w0, w1 = counter_words(seed, (step0 + k) & 0xFFFFFFFF, bi, li)
         tau, m = body(tau, w0, w1)
         planes.append(m)
+    if rebase:
+        tau = tau - torch.amin(tau, dim=-1, keepdim=True)
     return tau, _stack_planes(planes)
 
 

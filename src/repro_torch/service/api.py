@@ -268,7 +268,8 @@ _CACHE_ARGS = {"state_bytes_to_host": "bytes_to_host",
 #: ``pass`` span arguments of the fused path: the pass's growth in each
 #: counter of ``kernels.pdes_multistep``
 _B1_ARGS = {"b1_offchip_bytes": "offchip_bytes",
-            "b1_block_chunks": "block_chunks", "b1_sm_chunks": "sm_chunks"}
+            "b1_block_chunks": "block_chunks", "b1_sm_chunks": "sm_chunks",
+            "b1_rebased_launches": "rebased_launches"}
 
 
 def _cache_budget(device: torch.device) -> int | None:

@@ -255,6 +255,27 @@ def test_stream_launch_is_the_plans(L, monkeypatch):
         8 * B * K * p.offchip_pes(L)
 
 
+@pytest.mark.parametrize("L", [10_000, 1 << 20, 1 << 23])
+def test_counter_launch_passes_its_rebase_flag(L, monkeypatch):
+    """B1's raw launcher passes ``rebase`` to the C entry after the rule
+    flags, off unless asked for, on every tier."""
+    fake = _FakeLib()
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(_build, "stream", lambda dev: None)
+    monkeypatch.setattr(pdes_multistep, "_lib", lambda: fake)
+    B, K = 2, 3
+    tau = torch.zeros((B, L))
+    kw = dict(n_v=4, delta=1.0, rd_mode=True, border_both=True)
+    for rebase in (None, False, True):
+        more = {} if rebase is None else {"rebase": rebase}
+        pdes_multistep.counter_launch(tau, tau.clone(),
+                                      torch.zeros((6, K, B)), None, None,
+                                      (0, 0, 0, 0), **kw, **more)
+    flags = [args[-6:-3] for _, args in fake.calls]
+    assert flags == [(1, 1, 0), (1, 1, 0), (1, 1, 1)]
+
+
 @pytest.mark.parametrize("case", ["ring", "step", "cluster"])
 def test_vmem_budget_holds_each_block_of_a_cluster(case):
     """Each block of a launch is held to one block's budget, B2's cluster

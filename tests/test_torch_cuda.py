@@ -22,6 +22,8 @@ from repro_torch.kernels import ops, ref, threefry, tiling
 from repro_torch.kernels import pdes_multistep as pm
 from repro_torch.kernels import pdes_step as ps
 
+from torch_parity import explicit_rebase_run
+
 pytestmark = pytest.mark.cuda
 
 
@@ -482,10 +484,12 @@ def test_service_at_2_19_answers_as_a_direct_sweep(dev):
     tel = tobs.Telemetry(tracer=tobs.TraceRecorder())
     svc.attach_telemetry(tel)
     svc.submit(spec, requester="a")
+    before = pm.launches
     (resp,) = svc.drain()
     assert resp.error is None
     (args,) = [e["args"] for e in tel.tracer.events if e["name"] == "pass"]
     assert args["b1_tier"] == "grid"
+    assert args["b1_rebased_launches"] == pm.launches - before == 3
     assert 4 <= pm.rings_at_once(L)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     assert (args["b1_block_chunks"], args["b1_sm_chunks"]) == (
@@ -567,6 +571,7 @@ def test_service_takes_an_exact_request_past_shared_memory(dev, monkeypatch):
     (args,) = [e["args"] for e in tel.tracer.events if e["name"] == "pass"]
     assert args["b1_tier"] == "stream"
     assert args["b1_offchip_bytes"] == 3 * pm.offchip_bytes_of(4, L, 16)
+    assert args["b1_rebased_launches"] == 3
     with monkeypatch.context() as mp:
         mp.setattr(pm, "pdes_multistep_counter",
                    ref.pdes_multistep_counter_ref)
@@ -574,6 +579,57 @@ def test_service_takes_an_exact_request_past_shared_memory(dev, monkeypatch):
     for got, want in zip(direct["records"], plain["records"]):
         for f in ("u", "u_err", "rate", "rate_err"):
             assert got[f] == want[f], f
+
+
+#: (B, L) of each of B1's tiers: one block; a cooperative grid of 2 and of
+#: 19 blocks a ring; the stream tier's shortest ring.
+REBASE_SHAPES = ((448, 10_000), (2, 65_600), (8, 1 << 20),
+                 (1, tiling.MAX_GRID_RING_L + 32))
+
+
+@pytest.mark.parametrize("B,L", REBASE_SHAPES)
+def test_rebased_store_is_the_plain_store_less_the_last_min(dev, B, L):
+    """B1 with ``rebase`` writes, bit for bit, its unrebased tau less the
+    last ``min`` plane, which equals the ring minimum of that tau; the
+    moments do not move; the launch is counted as rebased."""
+    tau, dcol, tcol = _inputs(dev, B, L, seed=33)
+    args = (tau, torch.tensor([[9, 2**32 - 3, 0, 0]]), dcol, tcol)
+    kw = dict(k_steps=16, n_v=10 if L == 10_000 else 100, delta=math.inf)
+    launches, rebased = pm.launches, pm.rebased_launches
+    t0, m0 = pm.pdes_multistep_counter(*args, **kw)
+    assert pm.rebased_launches == rebased
+    t1, m1 = pm.pdes_multistep_counter(*args, rebase=True, **kw)
+    assert (pm.launches, pm.rebased_launches) == (launches + 2, rebased + 1)
+    torch.cuda.synchronize()
+    shift = m0["min"][-1]
+    assert torch.equal(shift, torch.amin(t0, dim=-1))
+    assert torch.equal(t1, t0 - shift[:, None])
+    for key in horizon.MOMENT_KEYS:
+        assert torch.equal(m1[key], m0[key]), key
+
+
+@pytest.mark.parametrize("B,L,n_steps", [(64, 10_000, 37), (2, 1 << 20, 21),
+                                         (1, tiling.MAX_GRID_RING_L + 32,
+                                          20)])
+def test_fused_rebase_equals_the_explicit_loop_on_the_gpu(dev, B, L,
+                                                         n_steps):
+    """The engine's fused path (B1 rebasing in its store) against the chunk
+    loop's own amin and subtraction after an unrebased B1: τ, offset,
+    compensation and every StepStats field bit for bit, from a burned
+    state, over a remainder chunk, on each tier."""
+    cfg = PDESConfig(L=L, n_v=100, delta=100.0)
+    eng = PDESEngine(cfg, backend="pallas_multistep", k_fuse=16, device=dev)
+    deltas = torch.tensor([100.0, math.inf, 10.0, 300.0],
+                          device=dev).repeat(16)[:B]
+    trials = torch.arange(B, device=dev) - 1
+    st = eng.burn_in(eng.init(B), 4, 16, deltas=deltas, trial_base=trials)
+    sa, a = eng.run(st, 4, n_steps, deltas=deltas, trial_base=trials)
+    sb, b = explicit_rebase_run(eng, st, 4, n_steps, deltas=deltas,
+                                trial_base=trials)
+    for f in ("tau", "offset", "offset_comp"):
+        assert torch.equal(getattr(sa, f), getattr(sb, f)), f
+    for f in a._fields:
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
 
 
 def test_engine_service_and_simulate_take_the_production_ring(dev):

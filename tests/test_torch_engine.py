@@ -19,7 +19,8 @@ from repro_torch.core import horizon as th
 from repro_torch.core.engine import BACKENDS, EngineConfig, PDESEngine
 from repro_torch.core.horizon import PDESConfig
 
-from torch_parity import RTOL, assert_stats, jax_eta_table, np_of
+from torch_parity import (RTOL, assert_stats, explicit_rebase_run,
+                          jax_eta_table, np_of)
 
 L, N_V = 48, 3
 DELTAS = np.array([0.5, 2.0, math.inf, 4.0, math.inf, 1.0], np.float32)
@@ -133,6 +134,52 @@ def test_backends_agree_within_the_port():
     assert torch.equal(sa.tau, sb.tau) and torch.equal(sa.offset, sb.offset)
     for x, y in zip(a, b):
         assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("mode", ["run", "run_mean", "burn_in"])
+def test_fused_rebase_agrees_with_the_loops_bitwise(mode):
+    """B1 rebasing in its store (the fused path) against the chunk loop's
+    own amin and subtraction (the reference backend): τ, offset, its
+    compensation and every StepStats field bit for bit, over a remainder
+    chunk, Δ = inf rows and per-row trials, from a resumed state."""
+    cfg = PDESConfig(L=L, n_v=N_V, delta=3.0)
+    deltas = torch.as_tensor(DELTAS)
+    trials = torch.as_tensor(TRIALS)
+    outs = []
+    for backend in ("reference", "pallas_multistep"):
+        eng = PDESEngine(cfg, backend=backend, k_fuse=8, device="cpu")
+        st, _ = eng.run(eng.init(len(DELTAS)), 5, 13, deltas=deltas,
+                        trial_base=trials)           # a chunk and 5
+        out = getattr(eng, mode)(st, 5, 37, deltas=deltas,
+                                 trial_base=trials)
+        outs.append((out, None) if mode == "burn_in" else out)
+    (sa, a), (sb, b) = outs
+    assert sa.step == sb.step == 50
+    for f in ("tau", "offset", "offset_comp"):
+        assert torch.equal(getattr(sa, f), getattr(sb, f)), f
+    assert float(sb.offset.min()) > 0
+    if mode != "burn_in":
+        for f in a._fields:
+            assert torch.equal(getattr(a, f), getattr(b, f)), f
+
+
+def test_fused_rebase_equals_the_explicit_loop():
+    """The fused path's run equals the chunk loop that takes B1's output
+    unrebased and subtracts its own ``amin``, bit for bit, from a resumed
+    state over a remainder chunk."""
+    cfg = PDESConfig(L=L, n_v=N_V, delta=2.0)
+    eng = PDESEngine(cfg, backend="pallas_multistep", k_fuse=8, device="cpu")
+    deltas, trials = torch.as_tensor(DELTAS), torch.as_tensor(TRIALS)
+    st = eng.burn_in(eng.init(len(DELTAS)), 2, 12, deltas=deltas,
+                     trial_base=trials)
+    sa, a = eng.run(st, 2, 29, deltas=deltas, trial_base=trials)
+    sb, b = explicit_rebase_run(eng, st, 2, 29, deltas=deltas,
+                                trial_base=trials)
+    assert sa.step == sb.step == 41
+    for f in ("tau", "offset", "offset_comp"):
+        assert torch.equal(getattr(sa, f), getattr(sb, f)), f
+    for f in a._fields:
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
 
 
 def test_remainder_chunks_and_resume():

@@ -150,6 +150,40 @@ def test_plain_version_is_the_wrapper_on_cpu():
     assert all(torch.equal(a[1][k], b[1][k]) for k in th.MOMENT_KEYS)
 
 
+@pytest.mark.parametrize("case", ["inf_rows", "min_off_pe0"])
+def test_plain_rebase_is_tau_less_its_last_minimum(case):
+    """``rebase=True`` returns tau less its ring minimum bit for bit, with
+    the moments of ``rebase=False``; that minimum is the last ``min``
+    plane (what the engine takes its shift from), on rows of Δ = inf and
+    on rings whose minimum has left PE 0."""
+    B, L, K = 6, 96, 5
+    tau = torch.as_tensor(_tau(B, L, seed=7))
+    if case == "min_off_pe0":
+        tau[:, 0] = 40.0                  # PE 0 stays far above the minimum
+        dcol, delta = None, 3.0
+    else:
+        dcol = torch.tensor([[math.inf], [1.0], [math.inf], [4.0],
+                             [math.inf], [0.0]])
+        delta = math.inf
+    args = (tau, torch.tensor([[4, 2**32 - 2, 9, 0]]), dcol)
+    kw = dict(k_steps=K, n_v=3, delta=delta)
+    before = pm.rebased_launches
+    t0, m0 = pm.pdes_multistep_counter(*args, **kw)
+    t1, m1 = pm.pdes_multistep_counter(*args, rebase=True, **kw)
+    assert pm.rebased_launches == before     # the CPU launches nothing
+    p1 = ref.pdes_multistep_counter_ref(*args, rebase=True, **kw)
+    assert torch.equal(t1, p1[0])
+    shift = torch.amin(t0, dim=-1)
+    assert torch.equal(m0["min"][-1], shift)
+    assert torch.equal(t1, t0 - shift[:, None])
+    assert torch.equal(t1.amin(dim=-1), torch.zeros(B))
+    for k in th.MOMENT_KEYS:
+        assert torch.equal(m1[k], m0[k]), k
+        assert torch.equal(p1[1][k], m0[k]), k
+    if case == "min_off_pe0":
+        assert bool((t0.argmin(dim=-1) != 0).all())
+
+
 def test_tiling_rules():
     for B in (1, 7, 12, 448):
         for bb in (1, 2, 8, 64):

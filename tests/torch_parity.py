@@ -84,6 +84,30 @@ def assert_stats(port, ref, msg="") -> None:
                                        err_msg=f"{msg}{f}")
 
 
+def explicit_rebase_run(eng, state, seed: int, n_steps: int, *,
+                        deltas=None, trial_base=0):
+    """``eng.run`` on the fused path as the chunk loop took it before B1
+    rebased in its store: B1 unrebased, then the loop's own ``amin`` and
+    subtraction.  Returns ``(SimState, StepStats)`` of every step."""
+    from repro_torch.core import horizon
+    from repro_torch.core.engine import _make_advance
+    B, L = state.tau.shape
+    K = max(1, min(eng.ecfg.k_fuse, n_steps))
+    advance = _make_advance(eng.cfg, eng.ecfg, B, L)
+    dcol = None if deltas is None else deltas.to(state.tau.dtype)[:, None]
+    tau, off, comp, step = state
+    pieces = []
+    for k in [K] * (n_steps // K) + ([n_steps % K] if n_steps % K else []):
+        tau, m = advance(tau, step, seed, k, dcol, trial_base)
+        pieces.append(horizon.stats_from_moments(m, off[None, :], L))
+        shift = torch.amin(tau, dim=-1)
+        tau = tau - shift[:, None]
+        off, comp = horizon._kahan_add(off, comp, shift)
+        step += k
+    return (horizon.SimState(tau, off, comp, step),
+            horizon.StepStats(*(torch.cat(xs) for xs in zip(*pieces))))
+
+
 def run_ranks(script: str, world: int, workdir, *, env=None,
               timeout: float = 240.0) -> None:
     """Run ``script`` as ``world`` ranks of one gloo group, and wait.
