@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # every phase
     python3 chip_smoke.py stream     # B1 and phase 19 alone
+    python3 chip_smoke.py stale      # B1, B2 and phase 20 alone
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` with
 ``nvcc`` and drives the port's paths on the card:
@@ -197,7 +198,25 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` with
    ``run_window_sweep``; (c) the (a) shapes of one ring timed beside their
    bound.  ``python3 chip_smoke.py stream`` builds B1 and runs this phase
    alone;
-20. the last lines: one JSON object per kernel (times, bound, launches),
+20. the stale window on B1 (``pallas_multistep``, ``window="stale"``):
+   (a) the ptxas figures of B1's 18 instantiations (the ``kStale`` ones
+   beside the exact ones), none spilling; B1's stale kernel at the main
+   pass of the stale cell (``STALE_B1``, 28 x 2^20, the grid tier)
+   against its plain version, ``rebase`` off and on, a K = 16 chunk and
+   a K = 5 one each with the step counter wrapping: τ, ucount, min and
+   max bitwise, the sums to tolerance, and its ucount not the exact
+   window's; then that shape timed beside its bound in both windows;
+   (b) a stale drain at L = 2^20 through ``SweepService``: alice, bob and
+   carol (alice's duplicate) over a burn-in of chunks and a remainder,
+   then dave (alice at twice the steps, from the burned-state cache),
+   every response bitwise a direct ``run_window_sweep``, every pass
+   naming the stale window and counting all the phase's B1 launches
+   (``b1_rebased_launches``); (c) the same drains on ``pallas`` (B2, a
+   launch a step), equal in ``u`` and the GVT rate bit for bit and the
+   sums to tolerance; both walls.  ``python3 chip_smoke.py stale`` builds
+   B1 and B2 and runs this phase alone;
+21. the last lines: one JSON object per kernel (times, bound, launches;
+   B1's also its stale chunk's, phase 20(a), under ``stale``),
    then ``{"ok": true, "device": {...}}``.
 
 Every phase asserts; any failure exits non-zero with no result line.
@@ -526,6 +545,17 @@ STEPS_PROD = 256
 L_STREAM = 1 << 23
 STREAM_B1 = ((1, None), (1, L_STREAM), (2, L_STREAM))
 STREAM_ROWS = (slice(0, 1), slice(1, 2))
+#: Phase 20: the stale window.  B1's stale kernel at the main pass of the
+#: cell stale_fused_mix.ring1m (28 rows of ``L_PROD``, N_V 100, the
+#: configuration's Δs), held to its plain version and timed; the drain at
+#: ``L_PROD``: its burn-in (two chunks and a remainder), measured steps
+#: and replicas a Δ.
+STALE_B1 = (28, L_PROD)
+N_V_STALE = 100
+DELTAS_STALE = (10.0, 30.0, 100.0, 300.0, math.inf)
+BURN_STALE = 2 * K_MAIN + 8
+STEPS_STALE = 64
+REPLICAS_STALE = 2
 
 
 def fail(msg: str) -> int:
@@ -3475,28 +3505,28 @@ def phase_stream_rings(torch, pm, ref, sweep, api, build, dev,
 
 
 def _time_ring(torch, pm, ref, build, tau, dcol, tcol, timer, bits=None,
-               tag="long d"):
-    """Phases 17(d) and 18(e): one K = 16 chunk of B1 (``bits`` None, with
-    the Δ and trial columns) or B3 (on ``bits``) by CUDA events, plain,
-    kernel, kernel, plain, through the raw launch; the bound from phase
-    2's (B1) or phase 7's (B3) operation and byte counts, at this run's
-    utilization."""
+               tag="long d", n_v=N_V_MAIN, stale=False):
+    """Phases 17(d), 18(e) and 20(a): one K = 16 chunk of B1 (``bits``
+    None, with the Δ and trial columns; ``stale`` its stale window) or B3
+    (on ``bits``) by CUDA events, plain, kernel, kernel, plain, through
+    the raw launch; the bound from phase 2's (B1) or phase 7's (B3)
+    operation and byte counts, at this run's utilization."""
     B, L = tau.shape
     out = torch.empty_like(tau)
     stats = torch.empty((6, K_MAIN, B), device=tau.device)
-    rule = dict(n_v=N_V_MAIN, rd_mode=False, border_both=False)
+    rule = dict(n_v=n_v, rd_mode=False, border_both=False)
     if bits is None:
         ctr = torch.tensor([[0, 0, 0, 0]])
         tbits = build.u32_bits(tcol).reshape(B, 1).contiguous()
 
         def kern():
             pm.counter_launch(tau, out, stats, dcol, tbits, (0, 0, 0, 0),
-                              delta=math.inf, **rule)
+                              delta=math.inf, stale=stale, **rule)
 
         def plain():
             return ref.pdes_multistep_counter_ref(
                 tau, ctr, dcol, tcol, k_steps=K_MAIN, delta=math.inf,
-                n_v=N_V_MAIN)
+                n_v=n_v, stale=stale)
     else:
         def kern():
             pm.bits_launch(tau, bits, out, stats, delta=DELTA_SIM, **rule)
@@ -3519,7 +3549,8 @@ def _time_ring(torch, pm, ref, build, tau, dcol, tcol, timer, bits=None,
         n_bytes = 8 * pe_steps + 8 * B * L + 4 * 6 * K_MAIN * B
         n_ops = B3_OPS_PER_PE_STEP * pe_steps + B3_OPS_PER_UPDATE * ucount
     bytes_ms, ops_ms, bound = _bound(n_bytes, n_ops)
-    print(f"[{tag}] {'B1' if bits is None else 'B3'} K={K_MAIN} chunk at "
+    what = "B3" if bits is not None else "B1 stale" if stale else "B1"
+    print(f"[{tag}] {what} K={K_MAIN} chunk at "
           f"B={B} L={L}: kernel {k1:.5f} / {k2:.5f} ms, plain {p1:.4f} / "
           f"{p2:.4f} ms (order plain, kernel, kernel, plain); "
           f"{pe_steps / (k_ms * 1e-3):.4g} PE-steps/s; bound "
@@ -3528,6 +3559,141 @@ def _time_ring(torch, pm, ref, build, tau, dcol, tcol, timer, bits=None,
           f"utilization {ucount / pe_steps:.4f} -> {ops_ms:.5f} ms), "
           f"kernel at {bound['bound_ms'] / k_ms:.3f} of it")
     return dict(ms=k_ms, plain_ms=p_ms, **bound)
+
+
+def _stale_rounds(torch, sweep, api, trace, dev, backend):
+    """Phase 20's two rounds on ``backend`` in the stale window: alice,
+    bob, carol (= alice), then dave (alice at twice the steps).  Returns
+    the responses, the ``pass`` spans' args and the wall seconds."""
+    from repro_torch import obs as tobs
+    common = dict(Ls=(L_PROD,), n_vs=(100,), replicas=REPLICAS_STALE,
+                  n_steps=STEPS_STALE, burn_in=BURN_STALE, backend=backend,
+                  window="stale", k_fuse=K_MAIN, seed=20)
+    alice = sweep.WindowSweep(deltas=(10.0, 30.0, 100.0, 300.0), **common)
+    rounds = [{"alice": alice,
+               "bob": sweep.WindowSweep(deltas=(30.0, 100.0, math.inf),
+                                        **common),
+               "carol": alice},
+              {"dave": dataclasses.replace(alice, n_steps=2 * STEPS_STALE)}]
+    svc = api.SweepService(device=dev)
+    tel = tobs.Telemetry(tracer=tobs.TraceRecorder())
+    svc.attach_telemetry(tel)
+    responses, wall = [], 0.0
+    for specs in rounds:
+        for who, spec in specs.items():
+            svc.submit(spec, requester=who)
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        responses += svc.drain()
+        sync(torch, dev)
+        wall += time.perf_counter() - t0
+    check(svc.stats.rows_from_state_cache == alice.n_trajectories,
+          f"dave's rows did not come from the state cache: {svc.stats}")
+    args = [e["args"] for e in tel.tracer.events if e["name"] == "pass"]
+    return responses, args, wall
+
+
+def _hold_stale_b1(torch, pm, ref, tau0, dcol, tcol) -> float:
+    """Phase 20(a): B1's stale kernel against its plain version, ``rebase``
+    off and on, a K = 16 chunk and a K = 5 one each, the step counter
+    wrapping mid-chunk; its ucount differs from the exact window's.
+    Returns the sums' max |err|."""
+    B, L = tau0.shape
+    err = 0.0
+    for rebase in (False, True):
+        tau, step0 = tau0, 0xFFFFFFF8
+        for k in (K_MAIN, 5):
+            args = (tau, torch.tensor([[20, step0, 0, 0]]), dcol, tcol)
+            kw = dict(k_steps=k, n_v=N_V_STALE, delta=math.inf,
+                      rebase=rebase, stale=True)
+            got = pm.pdes_multistep_counter(*args, **kw)
+            err = max(err, _hold_kernel(
+                torch, got, ref.pdes_multistep_counter_ref(*args, **kw),
+                f"stale B1 {B} x {L} {kw}"))
+            tau, step0 = got[0], (step0 + k) & 0xFFFFFFFF
+    args = (tau0, torch.tensor([[20, 0, 0, 0]]), dcol, tcol)
+    kw = dict(k_steps=K_MAIN, n_v=N_V_STALE, delta=math.inf)
+    stale = pm.pdes_multistep_counter(*args, stale=True, **kw)[1]["ucount"]
+    exact = pm.pdes_multistep_counter(*args, **kw)[1]["ucount"]
+    check(torch.equal(stale[0], exact[0]) and not torch.equal(stale, exact),
+          "the stale kernel's updates are the exact window's")
+    return err
+
+
+def phase_stale_fused(torch, pm, ref, sweep, api, trace, build, dev,
+                      timer=cuda_ms):
+    """Phase 20: the stale window on B1: its kernel at the stale cell's
+    main pass against its plain version and timed beside the exact one,
+    then through the service at ``L_PROD`` against direct runs and
+    against B2's stale path.  Returns B1's launches and the stale chunk's
+    timing."""
+    import json as _json
+    import numpy as np
+    from repro_torch.kernels.tiling import ring_plan
+    log = build.library_path("pdes_multistep_counter").with_suffix(".log")
+    for fn, info in sorted(build.parse_ptxas(log.read_text()).items()):
+        if "multistep_counter" in fn:
+            print(f"[stale a] ptxas {fn}: {info}")
+            check(info["spill_stores"] == info["spill_loads"] == 0,
+                  f"{fn} spills: {info}")
+
+    # (a) the kernel at the cell's main pass, then timed in both windows
+    B, L = STALE_B1
+    rng = np.random.default_rng(20)
+    tau0, _, tcol = _kernel_inputs(torch, rng, B, L, dev)
+    dcol = torch.tensor(DELTAS_STALE, device=dev)[
+        torch.arange(B, device=dev) % len(DELTAS_STALE)][:, None]
+    before = pm.launches
+    err = _hold_stale_b1(torch, pm, ref, tau0, dcol, tcol)
+    print(f"[stale a] B1 stale at B={B} L={L} (plan {ring_plan(L)}): "
+          f"tau/ucount/min/max bitwise equal to the plain version, rebase "
+          f"off and on, chunks K={K_MAIN} and K=5; max |err| of the sums "
+          f"{err:.3g}; the updates differ from the exact window's")
+    exact = _time_ring(torch, pm, ref, build, tau0, dcol, tcol, timer,
+                       tag="stale a", n_v=N_V_STALE)
+    stale = _time_ring(torch, pm, ref, build, tau0, dcol, tcol, timer,
+                       tag="stale a", n_v=N_V_STALE, stale=True)
+    print(f"[stale a] the stale chunk at {stale['ms'] / exact['ms']:.4f} "
+          f"of the exact one's time")
+
+    # (b) the service's drain, every pass in the stale window
+    mid = pm.launches
+    fused, args, wall = _stale_rounds(torch, sweep, api, trace, dev,
+                                      "pallas_multistep")
+    launches = pm.launches - mid
+    check(launches > 0 and {a["window"] for a in args} == {"stale"} and
+          sum(a["b1_rebased_launches"] for a in args) == launches, args)
+    for resp in fused:
+        check(resp.error is None, (resp.requester, resp.error))
+        direct = sweep.run_window_sweep(resp.spec, device=dev).as_dict()
+        check(_json.dumps(resp.result.as_dict()) == _json.dumps(direct),
+              f"{resp.requester}: the stale answer differs from a direct run")
+        for rec in resp.result.records:
+            print(f"[stale b] {resp.requester:5s} delta={rec.delta:<5g} "
+                  f"u={rec.u:.6f}+-{rec.u_err:.2g} w2={rec.w2:.5g} "
+                  f"spread={rec.spread:.5g} rate={rec.rate:.6f}")
+    pe_steps = sum(len(r.spec.deltas) * r.spec.replicas
+                   * (r.spec.burn_in + r.spec.n_steps) * L_PROD
+                   for r in fused)
+    print(f"[stale b] SweepService, stale window on B1 at L={L_PROD}: "
+          f"{len(fused)} responses, {launches} B1 launches (passes "
+          f"{[(a['window'], a['b1_rebased_launches']) for a in args]}), "
+          f"{wall:.3f} s wall, {pe_steps / wall:.4g} PE-steps/s served; "
+          f"every response bitwise a direct run")
+    b2, _, wall2 = _stale_rounds(torch, sweep, api, trace, dev, "pallas")
+    for got, want in zip(fused, b2):
+        for g, w in zip(got.result.records, want.result.records):
+            check((g.u, g.u_err, g.rate, g.rate_err) ==
+                  (w.u, w.u_err, w.rate, w.rate_err),
+                  f"{got.requester} delta={g.delta}: B1 {g} B2 {w}")
+            for f in ("w2", "w", "wa", "spread"):
+                a, b = getattr(g, f), getattr(w, f)
+                check(abs(a - b) <= 1e-5 * abs(b) + 1e-6,
+                      f"{got.requester} delta={g.delta} {f}: {a} {b}")
+    print(f"[stale c] the same rounds on pallas (B2): {wall2:.3f} s wall, "
+          f"{pe_steps / wall2:.4g} PE-steps/s; u and rate bitwise B1's, "
+          f"the sums to 1e-5")
+    return mid - before + launches, stale
 
 
 def main() -> int:
@@ -3570,6 +3736,14 @@ def main() -> int:
                                          "cuda")
         print(card)
         print(json.dumps({"ok": True, "phase": 19, "b1_launches": launches}))
+        return 0
+    if sys.argv[1:] == ["stale"]:       # the stale window on B1 alone
+        _build.build("pdes_multistep_counter")
+        _build.build("pdes_step")
+        launches, _ = phase_stale_fused(torch, pm, ref, sweep, api, trace,
+                                        _build, "cuda")
+        print(card)
+        print(json.dumps({"ok": True, "phase": 20, "b1_launches": launches}))
         return 0
     print(f"[setup] python {sys.version.split()[0]}, torch {torch.__version__},"
           f" CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)} x "
@@ -3644,6 +3818,9 @@ def main() -> int:
     b1_stream, _ = phase_stream_rings(torch, pm, ref, sweep, api, _build,
                                       "cuda")
     t["19 stream rings"] = time.perf_counter() - t0 - sum(t.values())
+    b1_stale, stale_stats = phase_stale_fused(torch, pm, ref, sweep, api,
+                                              trace, _build, "cuda")
+    t["20 stale window"] = time.perf_counter() - t0 - sum(t.values())
     print("[setup] phase wall: "
           + ", ".join(f"{k} {v:.2f} s" for k, v in t.items()))
 
@@ -3652,8 +3829,8 @@ def main() -> int:
              source="src/repro_torch/kernels/csrc/pdes_multistep_counter.cu",
              replaces="src/repro/kernels/pdes_multistep.py:169",
              launches=(b1_launches + b1_serve + ex_launches["B1"] + b1_long
-                       + b1_grid + b1_stream),
-             library_ms=None, **kstats),
+                       + b1_grid + b1_stream + b1_stale),
+             library_ms=None, **kstats, stale=stale_stats),
         dict(name="pdes_step", route="cuda",
              source="src/repro_torch/kernels/csrc/pdes_step.cu",
              replaces="src/repro/kernels/pdes_step.py:69",
@@ -3671,7 +3848,8 @@ def main() -> int:
              library_ms=None, **gstats)]
     print(f"[launches] B1: phase 3 {b1_launches}, phase 10(a) {b1_serve}, "
           f"phase 13 {ex_launches['B1']}, phase 17(c) {b1_long}, phase 18(c, "
-          f"d) {b1_grid}, phase 19(b) {b1_stream}; B2: phase 5 {b2_launches}, "
+          f"d) {b1_grid}, phase 19(b) {b1_stream}, phase 20(a, b) {b1_stale}; "
+          f"B2: phase 5 {b2_launches}, "
           f"phase 9(c) {b2_sharded}, "
           f"phase 10(d) {b2_serve}, phase 15(d) {b2_core}; B3: phase 8(a) "
           f"{b3_launches}, phase 17(b) {b3_long}, phase 18(b) {b3_grid}; "

@@ -41,7 +41,9 @@ a --pdes-core shard's shapes.
 machine code of their one-block, grid and stream ring kernels
 (``cuobjdump -sass``, each instantiation's instructions with addresses and
 encodings dropped): what shows that a change to the shared loop left those
-paths as they were.
+paths as they were.  An old instantiation is held to the new one of the
+same name, or, where the kernel gained a last template flag (B1's
+``kStale``), to the new one with that flag false.
 """
 from __future__ import annotations
 
@@ -191,19 +193,21 @@ def _make(csrc: pathlib.Path, name: str, edits: dict,
     return name, libs
 
 
-def _launchers(libs, extra_ints: int, rebase: bool = False):
+def _launchers(libs, extra_ints: int, rebase: bool = False,
+               stale: bool = False):
     """B1's and B3's C launchers of ``libs``, taking ``extra_ints`` ints
     after K: none (the oldest loops), the warps, or the warps, grid,
     segment and kept PEs (one launcher a kernel, which also takes the
     workspace and its bytes before the stream); B1's with ``rebase`` an
-    int more after the rule flags."""
+    int more after the rule flags, and with ``stale`` one more after it."""
     i32, u32, ptr = ctypes.c_int, ctypes.c_uint32, ctypes.c_void_p
     extra = [i32] * extra_ints
     work = [ptr, ctypes.c_longlong] if extra_ints == 4 else []
     b1 = ctypes.CDLL(str(libs["pdes_multistep_counter"])) \
         .pdes_multistep_counter_launch
     b1.argtypes = ([ptr] * 5 + [i32] * 3 + extra + [u32] * 5
-                   + [ctypes.c_float, i32, i32] + [i32] * rebase + work
+                   + [ctypes.c_float, i32, i32] + [i32] * rebase
+                   + [i32] * stale + work
                    + [ptr])
     b3 = ctypes.CDLL(str(libs["pdes_multistep"])).pdes_multistep_launch
     b3.argtypes = ([ptr] * 4 + [i32] * 3 + extra + [u32, ctypes.c_float]
@@ -220,6 +224,7 @@ def ablate(csrc: pathlib.Path) -> dict:
                   else 1 if "ring_launch_check" in ring else 0)
     work = (None, 0) if extra_ints == 4 else ()  # one block reads none
     rebase = "bool rebase" in ring      # B1 takes the flag, here off
+    stale = "kStale" in ring            # B1 takes the window, here exact
     with concurrent.futures.ThreadPoolExecutor(len(VARIANTS)) as pool:
         built = dict(pool.map(lambda kv: _make(csrc, *kv), VARIANTS.items()))
     dev = torch.device("cuda")
@@ -241,14 +246,14 @@ def ablate(csrc: pathlib.Path) -> dict:
             if libs is None:
                 print(f"[ablate] {name}: the sources lack its text; skipped")
                 continue
-            b1, b3 = _launchers(libs, extra_ints, rebase)
+            b1, b3 = _launchers(libs, extra_ints, rebase, stale)
             shape = (plan.warps, plan.grid, plan.seg, plan.keep)[:extra_ints]
 
             def run_b1(k=K):
                 err = b1(tau.data_ptr(), tau_out.data_ptr(), stats.data_ptr(),
                          dcol.data_ptr(), tcol.data_ptr(), B, L, k, *shape,
                          0, 0, 0, 0, N_V, math.inf, 0, 0,
-                         *(0,) * rebase, *work, stream)
+                         *(0,) * (rebase + stale), *work, stream)
                 assert err == 0, err
 
             def run_b3(k=K):
@@ -365,18 +370,33 @@ def _sass(csrc: pathlib.Path, name: str, tag: str) -> dict:
     return funcs
 
 
+def _new_name(f: str, new: dict) -> str:
+    """The new tree's name of the old tree's function ``f``: the same, or,
+    where a kernel gained a last template flag whose default is false, the
+    name with that flag."""
+    if f in new:
+        return f
+    return re.sub(r"I((?:Lb[01]E)+)E", r"I\1Lb0EE", f, count=1)
+
+
 def sass(old: pathlib.Path, new: pathlib.Path) -> dict:
     out, cubins = {}, {}
     for name, fn in RING_KERNELS:
         if name not in cubins:
             cubins[name] = _sass(old, name, "old"), _sass(new, name, "new")
         a, b = cubins[name]
+        seen = set()
         for f in sorted(k for k in a if fn in k):
-            same = a[f] == b.get(f)
+            g = _new_name(f, b)
+            seen.add(g)
+            same = a[f] == b.get(g)
             out[f] = same
             print(f"[sass] {f}: {len(a[f])} instructions in the old tree, "
-                  f"{len(b.get(f, []))} in the new, identical: {same}",
+                  f"{len(b.get(g, []))} in the new ({g}), identical: {same}",
                   flush=True)
+        for f in sorted(k for k in b if fn in k and k not in seen):
+            print(f"[sass] {f}: only in the new tree, {len(b[f])} "
+                  f"instructions", flush=True)
     return out
 
 

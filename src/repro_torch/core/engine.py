@@ -6,7 +6,10 @@ counter event stream keyed on ``(seed, step, trial, pe)`` and rebases on the
 same per-chunk schedule, so trajectories agree bit for bit across backends.
 On ``pallas_multistep`` B1 takes the rebase in its last store of τ: its
 shift is the chunk's last ``min`` moment, the ring minimum the loop would
-take, so the same subtraction on the same values.
+take, so the same subtraction on the same values.  In the stale window
+every backend bases each step's window on the ring minimum of the chunk's
+input τ (B1 takes it in the kernel before its first step), and a
+remainder chunk starts a new base, as every chunk does.
 
 Backends of the port::
 
@@ -16,8 +19,10 @@ Backends of the port::
     pallas             exact, stale   one CUDA kernel per step
                                       (kernels/pdes_step), bits from the
                                       plain counter_bits_block
-    pallas_multistep   exact only     one CUDA kernel per K-step chunk
-                                      (kernels/pdes_multistep)
+    pallas_multistep   exact, stale   one CUDA kernel per K-step chunk
+                                      (kernels/pdes_multistep, B1; the
+                                      stale window in each tier's
+                                      ``kStale`` instantiations)
     sharded            exact, stale   core.distributed on a process mesh
                                       (core/mesh.py): exact -> mode
                                       "exact", stale -> "commavoid"; each
@@ -39,9 +44,10 @@ one-collective-per-chunk layout avoids.  ``gvt`` and ``mean_tau`` come
 back absolute, on the same rebase schedule as the other backends.
 
 Spans (``repro_torch.obs``, inert unless a tracer or the torch profiler
-records): ``engine.run`` around each run (on the fused path its args name
-B1's tier, ``tiling.ring_plan(L).tier``), ``engine.chunk`` around each
-chunk of the single-device loop, and ``engine.advance`` around the
+records): ``engine.run`` around each run (its args name the window; on
+the fused path also B1's tier, ``tiling.ring_plan(L).tier``),
+``engine.chunk`` around each chunk of the single-device loop, and
+``engine.advance`` around the
 backend's advance within it (for the fused path, the kernel wrapper's
 host work up to B1's launch).  None synchronizes the device.
 """
@@ -84,11 +90,6 @@ class EngineConfig:
                              f"got {self.window!r}")
         if self.k_fuse < 1:
             raise ValueError("k_fuse must be >= 1")
-        if self.backend == "pallas_multistep" and self.window == "stale":
-            raise ValueError(
-                "pallas_multistep computes the exact GVT in the kernel each "
-                "step; use backend='pallas' or 'reference' for "
-                "window='stale'")
 
 
 def _make_advance(cfg: PDESConfig, ecfg: EngineConfig, B: int, L: int,
@@ -150,7 +151,7 @@ def _make_advance(cfg: PDESConfig, ecfg: EngineConfig, B: int, L: int,
                 tau, ctr, delta_col, b0[:, None] if vec else None,
                 k_steps=k, n_v=cfg.n_v, delta=cfg.delta,
                 rd_mode=cfg.rd_mode, border_both=cfg.border_both,
-                rebase=rebase)
+                rebase=rebase, stale=stale)
 
         return advance
 
@@ -311,7 +312,8 @@ class PDESEngine:
         K = self.dist.k_chunk if sharded \
             else max(1, min(self.ecfg.k_fuse, n_steps))
         L = state.tau.shape[1]
-        args = {"mode": mode, "B": B, "L": L, "n_steps": n_steps, "K": K}
+        args = {"mode": mode, "B": B, "L": L, "n_steps": n_steps, "K": K,
+                "window": self.ecfg.window}
         if self.ecfg.backend == "pallas_multistep":
             from ..kernels.tiling import ring_plan
             args["tier"] = ring_plan(L).tier

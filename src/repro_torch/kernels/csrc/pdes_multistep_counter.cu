@@ -1,6 +1,7 @@
-// K fused exact-GVT PDES steps on full periodic rings, with the event stream
-// generated in the kernel.  CUDA C++ for Hopper (sm_90a), plain C interface,
-// loaded with ctypes by repro_torch/kernels/pdes_multistep.py.
+// K fused PDES steps on full periodic rings, with the event stream generated
+// in the kernel, in the exact window or the stale one.  CUDA C++ for Hopper
+// (sm_90a), plain C interface, loaded with ctypes by
+// repro_torch/kernels/pdes_multistep.py.
 //
 // Replaces the TPU kernel src/repro/kernels/pdes_multistep.py::
 // pdes_multistep_counter (body _kernel_counter, step _fused_step).  It
@@ -12,13 +13,15 @@
 //   w0, w1 = counter_words(seed, step0 + k, trial_r, l0 + i)
 //   trial_r = trial_col[r] if given, else b0 + r (uint32, wrapping)
 // and its window width delta_col[r] if given, else the static delta (inf =
-// off).  The step itself -- decode, GVT, Eq. (1) and Eq. (3), the moments,
-// the ring held once in shared memory, in one block up to L = 57,344,
-// over up to 132 blocks of a cooperative grid up to L = 7,518,720, and over
-// 132 such blocks that keep the rest of their segments in device memory up
-// to L = 2,147,481,600 (kernels/tiling.py ring_plan; the wrapper raises
-// above it) -- is the loop of pdes_ring.cuh, which B3 shares up to the
-// grid tier.
+// off).  The window's base is each step's GVT (the exact window) or, in the
+// kStale instantiations, the ring's minimum of tau_in, the chunk's first
+// GVT, for all K steps (the stale window).  The step itself -- decode, GVT,
+// Eq. (1) and Eq. (3), the moments, the ring held once in shared memory, in
+// one block up to L = 57,344, over up to 132 blocks of a cooperative grid up
+// to L = 7,518,720, and over 132 such blocks that keep the rest of their
+// segments in device memory up to L = 2,147,481,600 (kernels/tiling.py
+// ring_plan; the wrapper raises above it) -- is the loop of pdes_ring.cuh,
+// which B3 shares up to the grid tier.
 //
 // Bound on the H100 SXM (published peaks; 132 SMs at 1.98 GHz), at the
 // service's shape B = 448 rings of L = 10,000 PEs, K = 16 steps per launch
@@ -101,7 +104,9 @@ struct CounterEvents {
   }
 };
 
-template <bool kRd, bool kBoth>
+// kStale: the stale window, every step bounded by dlt plus the ring's
+// minimum of tau_in (pdes_ring.cuh); the exact window keeps its default.
+template <bool kRd, bool kBoth, bool kStale = false>
 __global__ void __launch_bounds__(32 * kRingMaxWarps, kRingMinBlocks)
 multistep_counter_kernel(const float* __restrict__ tau_in,
                          float* __restrict__ tau_out,
@@ -115,7 +120,7 @@ multistep_counter_kernel(const float* __restrict__ tau_in,
   const int row = blockIdx.x;
   const uint32_t trial = trial_col ? trial_col[row] : b0 + (uint32_t)row;
   const float dlt = delta_col ? delta_col[row] : delta;
-  ring_steps<kRd, kBoth, RingTier::kBlock>(
+  ring_steps<kRd, kBoth, RingTier::kBlock, CounterEvents, kStale>(
       tau_in, tau_out, stats, row, B, L, K, n_v, dlt,
       CounterEvents{seed, step0, trial, l0}, rebase);
 }
@@ -123,7 +128,7 @@ multistep_counter_kernel(const float* __restrict__ tau_in,
 // The same on rings split over `grid` blocks of one cooperative launch,
 // `seg` PEs a block: the gridDim.x / grid ring slots take the rows in
 // waves, the blocks of a slot meeting through `work` (pdes_ring.cuh).
-template <bool kRd, bool kBoth>
+template <bool kRd, bool kBoth, bool kStale = false>
 __global__ void __launch_bounds__(32 * kRingSplitWarps, 1)
 multistep_counter_grid_kernel(const float* __restrict__ tau_in,
                               float* __restrict__ tau_out,
@@ -138,7 +143,7 @@ multistep_counter_grid_kernel(const float* __restrict__ tau_in,
   for (int row = blockIdx.x / grid; row < B; row += gridDim.x / grid) {
     const uint32_t trial = trial_col ? trial_col[row] : b0 + (uint32_t)row;
     const float dlt = delta_col ? delta_col[row] : delta;
-    ring_steps<kRd, kBoth, RingTier::kGrid>(
+    ring_steps<kRd, kBoth, RingTier::kGrid, CounterEvents, kStale>(
         tau_in, tau_out, stats, row, B, L, K, n_v, dlt,
         CounterEvents{seed, step0, trial, l0}, rebase, grid, seg, work);
   }
@@ -147,7 +152,7 @@ multistep_counter_grid_kernel(const float* __restrict__ tau_in,
 // The same on rings of the stream tier: `grid` blocks of one cooperative
 // launch, `seg` PEs a block, the first `keep` in shared memory and the rest
 // in tau_out (pdes_ring.cuh).
-template <bool kRd, bool kBoth>
+template <bool kRd, bool kBoth, bool kStale = false>
 __global__ void __launch_bounds__(32 * kRingSplitWarps, 1)
 multistep_counter_stream_kernel(const float* __restrict__ tau_in,
                                 float* __restrict__ tau_out,
@@ -162,7 +167,7 @@ multistep_counter_stream_kernel(const float* __restrict__ tau_in,
   for (int row = blockIdx.x / grid; row < B; row += gridDim.x / grid) {
     const uint32_t trial = trial_col ? trial_col[row] : b0 + (uint32_t)row;
     const float dlt = delta_col ? delta_col[row] : delta;
-    ring_steps<kRd, kBoth, RingTier::kStream>(
+    ring_steps<kRd, kBoth, RingTier::kStream, CounterEvents, kStale>(
         tau_in, tau_out, stats, row, B, L, K, n_v, dlt,
         CounterEvents{seed, step0, trial, l0}, rebase, grid, seg, work,
         keep);
@@ -204,40 +209,53 @@ __global__ void site_pick_kernel(const uint32_t* __restrict__ w0,
 // card holds at once, `work` the workspace (pdes_ring.cuh ring_grid_bytes
 // of them; unread on one block): the grid instantiation where keep == seg,
 // else the stream one.  `rebase` writes tau out less each ring's minimum
-// after the last step (the last `min` plane).  Returns a CUDA error code: a
-// plan this kernel cannot run returns cudaErrorInvalidValue, and a launch
-// the card refuses its error (pdes_ring.cuh ring_block_launch,
-// ring_grid_launch).
+// after the last step (the last `min` plane); `stale` takes the tier's
+// kStale instantiation (the window's base the minimum of tau_in).  Returns
+// a CUDA error code: a plan this kernel cannot run returns
+// cudaErrorInvalidValue, and a launch the card refuses its error
+// (pdes_ring.cuh ring_block_launch, ring_grid_launch).
 extern "C" int pdes_multistep_counter_launch(
     const float* tau_in, float* tau_out, float* stats, const float* delta_col,
     const uint32_t* trial_col, int B, int L, int K, int warps, int grid,
     int seg, int keep, unsigned seed, unsigned step0, unsigned b0,
     unsigned l0, unsigned n_v, float delta, int rd_mode, int border_both,
-    int rebase, void* work, long long work_bytes, void* stream) {
+    int rebase, int stale, void* work, long long work_bytes, void* stream) {
   if (grid == 1)
     return ring_block_launch(
-        ring_kernel(rd_mode, border_both,
-                    multistep_counter_kernel<true, false>,
-                    multistep_counter_kernel<false, true>,
-                    multistep_counter_kernel<false, false>),
+        stale ? ring_kernel(rd_mode, border_both,
+                            multistep_counter_kernel<true, false, true>,
+                            multistep_counter_kernel<false, true, true>,
+                            multistep_counter_kernel<false, false, true>)
+              : ring_kernel(rd_mode, border_both,
+                            multistep_counter_kernel<true, false>,
+                            multistep_counter_kernel<false, true>,
+                            multistep_counter_kernel<false, false>),
         B, L, K, warps, seg, keep, stream, tau_in, tau_out, stats, delta_col,
         trial_col, B, L, K, (uint32_t)seed, (uint32_t)step0, (uint32_t)b0,
         (uint32_t)l0, (uint32_t)n_v, delta, rebase);
   if (keep == seg)
     return ring_grid_launch(
-        ring_kernel(rd_mode, border_both,
-                    multistep_counter_grid_kernel<true, false>,
-                    multistep_counter_grid_kernel<false, true>,
-                    multistep_counter_grid_kernel<false, false>),
+        stale ? ring_kernel(rd_mode, border_both,
+                            multistep_counter_grid_kernel<true, false, true>,
+                            multistep_counter_grid_kernel<false, true, true>,
+                            multistep_counter_grid_kernel<false, false, true>)
+              : ring_kernel(rd_mode, border_both,
+                            multistep_counter_grid_kernel<true, false>,
+                            multistep_counter_grid_kernel<false, true>,
+                            multistep_counter_grid_kernel<false, false>),
         B, L, K, warps, grid, seg, seg, work, work_bytes, stream, tau_in,
         tau_out, stats, delta_col, trial_col, B, L, K, (uint32_t)seed,
         (uint32_t)step0, (uint32_t)b0, (uint32_t)l0, (uint32_t)n_v, delta,
         rebase, grid, seg);
   return ring_grid_launch(
-      ring_kernel(rd_mode, border_both,
-                  multistep_counter_stream_kernel<true, false>,
-                  multistep_counter_stream_kernel<false, true>,
-                  multistep_counter_stream_kernel<false, false>),
+      stale ? ring_kernel(rd_mode, border_both,
+                          multistep_counter_stream_kernel<true, false, true>,
+                          multistep_counter_stream_kernel<false, true, true>,
+                          multistep_counter_stream_kernel<false, false, true>)
+            : ring_kernel(rd_mode, border_both,
+                          multistep_counter_stream_kernel<true, false>,
+                          multistep_counter_stream_kernel<false, true>,
+                          multistep_counter_stream_kernel<false, false>),
       B, L, K, warps, grid, seg, keep, work, work_bytes, stream, tau_in,
       tau_out, stats, delta_col, trial_col, B, L, K, (uint32_t)seed,
       (uint32_t)step0, (uint32_t)b0, (uint32_t)l0, (uint32_t)n_v, delta,
@@ -247,7 +265,8 @@ extern "C" int pdes_multistep_counter_launch(
 // The rings of B1's plan (`grid` blocks of `warps` warps, `seg` PEs each,
 // the first `keep` in shared memory) that the card holds at once, on the
 // instantiation pdes_multistep_counter_launch takes for it, or minus a CUDA
-// error code.
+// error code.  The kStale instantiations have the same launch bounds and
+// shared memory, so the exact window's count stands for both.
 extern "C" int pdes_multistep_counter_max_rings(int grid, int warps, int seg,
                                                 int keep) {
   const int smem = keep * (int)sizeof(float);

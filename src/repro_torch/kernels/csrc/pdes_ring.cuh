@@ -24,7 +24,9 @@
 //          (pdes_common.cuh takes the log from a table, the same floats)
 //   GVT    = min of the ring before the step (the previous step's `min`)
 //   update Eq. (1) causality against the +-1 neighbours (unless rd_mode)
-//          and Eq. (3) window tau <= (delta + GVT), one fp32 add
+//          and Eq. (3) window tau <= (delta + GVT), one fp32 add; the
+//          stale window (kStale, B1 only) takes the chunk's first GVT, the
+//          minimum of the input ring, for all K steps
 //   moments ucount, min, max, sum, sumsq, and sumabs about sum / L, as
 //          horizon.ring_moments does.
 // Moment m of step k, row r goes to stats[(m * K + k) * B + r].
@@ -66,7 +68,8 @@
 // the g partials in rank order 0 ... g - 1, which gives the next GVT and,
 // on rank 0, the step's six moments; a second block barrier hands GVT and
 // the mean to the other warps.  The exact window needs the ring's minimum
-// every step, so no step skips the meeting.  The parity argument below
+// every step, so no step skips the meeting (nor does the stale one: the
+// moments, the edge PEs and the last minimum).  The parity argument below
 // (one barrier a step) holds across the blocks: a block rewrites slot
 // k & 1 only after meeting k + 1, which every reader of step k's slot
 // reaches only after reading it; a last meeting after the last sums keeps
@@ -361,8 +364,12 @@ __device__ __forceinline__ int stream_warps(int rows, int kr, int W) {
 // `work`; in one block, the whole ring.
 // On the stream tier the block keeps the first `keep` PEs of its segment in
 // shared memory and the rest in tau_out.  `rebase` writes tau out less the
-// ring's last minimum (B3 passes a literal false).
-template <bool kRd, bool kBoth, RingTier kTier, class Events>
+// ring's last minimum (B3 passes a literal false).  kStale bounds every
+// step's window by dlt plus the ring's minimum of tau_in (the stale window,
+// its base taken once a chunk) in place of the step's GVT; the moments, the
+// meetings and the rebase are the exact window's.
+template <bool kRd, bool kBoth, RingTier kTier, class Events,
+          bool kStale = false>
 __device__ __forceinline__ void ring_steps(const float* __restrict__ tau_in,
                                            float* __restrict__ tau_out,
                                            float* __restrict__ stats,
@@ -444,12 +451,15 @@ __device__ __forceinline__ void ring_steps(const float* __restrict__ tau_in,
     gvt = slot_reduce(slot[1].mn, W, lane, Min{});
   }
   float mean = 0.f;  // the ring mean after the previous step
+  // the stale window's bound, from the minimum of tau_in (dead code in the
+  // exact window)
+  const float stale_bound = __fadd_rn(dlt, gvt);
 
   for (int k = 0; k < K; ++k) {
     const int par = (k + 1) & 1;
     Slot& out = slot[k & 1];
     const auto step = events.step(k);
-    const float bound = __fadd_rn(dlt, gvt);
+    const float bound = kStale ? stale_bound : __fadd_rn(dlt, gvt);
     // old tau beside this warp's ends (over the grid the meeting put the
     // neighbour blocks' edge PEs there)
     const float lft_edge = slot[par].last[wl];   // left of `first`

@@ -1,10 +1,12 @@
-"""K-step exact-GVT PDES kernels on full rings (Hopper).
+"""K-step PDES kernels on full rings (Hopper).
 
 Ports of ``repro.kernels.pdes_multistep``:
 
 * :func:`pdes_multistep_counter` (B1), the engine's fast path (backend
   ``"pallas_multistep"``), with the counter stream hashed in the kernel
-  (``csrc/pdes_multistep_counter.cu``);
+  (``csrc/pdes_multistep_counter.cu``), in the exact window or the stale
+  one (``stale=``: the window's base the ring's minimum of the input tau
+  for all K steps);
 * :func:`pdes_multistep` (B3), the path of ``ops.simulate``, with the
   event words read from device memory one step at a time
   (``csrc/pdes_multistep.cu``).
@@ -78,7 +80,7 @@ def _lib() -> ctypes.CDLL:
     if f.argtypes is None:
         f.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
                       + [ctypes.c_uint32] * 5 + [ctypes.c_float]
-                      + [ctypes.c_int] * 3 + _WORK_STREAM)
+                      + [ctypes.c_int] * 4 + _WORK_STREAM)
         f.restype = ctypes.c_int
         m = lib.pdes_multistep_counter_max_rings
         m.argtypes = [ctypes.c_int] * 4
@@ -240,7 +242,7 @@ def bits_launch(tau_in, words, tau_out, stats, *, n_v: int, delta: float,
 
 def counter_launch(tau_in, tau_out, stats, dcol, tcol, ctr, *, n_v: int,
                    delta: float, rd_mode: bool, border_both: bool,
-                   rebase: bool = False) -> None:
+                   rebase: bool = False, stale: bool = False) -> None:
     """Launch B1 on buffers :func:`pdes_multistep_counter` has checked and
     made: ``dcol`` (B, 1) float32 or None, ``tcol`` (B, 1) int32 uint32
     bits or None, ``ctr`` the four uint32 ``(seed, step0, b0, l0)``, and
@@ -248,7 +250,8 @@ def counter_launch(tau_in, tau_out, stats, dcol, tcol, ctr, *, n_v: int,
     on a launch the card refuses.  Counts nothing: timing scripts call it
     to see the kernel alone.  On the stream tier ``tau_out`` holds the
     device rows while the kernel runs.  ``rebase`` writes ``tau_out`` less
-    each ring's minimum after the last step.
+    each ring's minimum after the last step; ``stale`` launches the tier's
+    stale-window kernel.
     """
     K, (B, L) = stats.shape[1], tau_in.shape
     p = ring_plan(L)
@@ -260,7 +263,7 @@ def counter_launch(tau_in, tau_out, stats, dcol, tcol, ctr, *, n_v: int,
             None if dcol is None else dcol.data_ptr(),
             None if tcol is None else tcol.data_ptr(), B, L, K, p.warps,
             p.grid, p.seg, p.keep, *ctr, n_v, float(delta), int(rd_mode),
-            int(border_both), int(rebase), *_work_args(work),
+            int(border_both), int(rebase), int(stale), *_work_args(work),
             _build.stream(dev))
     _build.check(err, "pdes_multistep_counter launch")
 
@@ -319,8 +322,8 @@ def pdes_multistep(tau, bits, *, n_v: int, delta: float,
 def pdes_multistep_counter(tau, ctr, delta_col=None, trial_col=None, *,
                            k_steps: int, n_v: int, delta: float,
                            rd_mode: bool = False, border_both: bool = False,
-                           rebase: bool = False):
-    """K fused exact-GVT steps with the event stream generated in-kernel.
+                           rebase: bool = False, stale: bool = False):
+    """K fused steps with the event stream generated in-kernel.
 
     Args:
       tau: (B, L) float32 full rings (periodic).
@@ -335,6 +338,9 @@ def pdes_multistep_counter(tau, ctr, delta_col=None, trial_col=None, *,
       rebase: return tau less each ring's minimum after the last step,
         which is ``moments["min"][-1]`` bit for bit (the engine's rebase,
         taken in the kernel's last store); the moments are unchanged.
+      stale: the stale window: every step's bound is its Δ plus the ring's
+        minimum of the input ``tau`` (the chunk's first GVT), not the
+        step's own GVT; the moments are still each step's.
 
     Returns:
       (tau (B, L), dict of six (K, B) moment planes in ``MOMENT_KEYS``
@@ -355,7 +361,7 @@ def pdes_multistep_counter(tau, ctr, delta_col=None, trial_col=None, *,
         return pdes_multistep_counter_ref(
             tau, ctr, delta_col, trial_col, k_steps=k_steps, n_v=n_v,
             delta=delta, rd_mode=rd_mode, border_both=border_both,
-            rebase=rebase)
+            rebase=rebase, stale=stale)
     if tau.device.type != "cuda":
         raise ValueError(f"unsupported device {tau.device}")
     _refuse_eta_override()
@@ -372,7 +378,7 @@ def pdes_multistep_counter(tau, ctr, delta_col=None, trial_col=None, *,
                         device=dev)
     counter_launch(tau_in, tau_out, stats, dcol, tcol, (seed, step0, b0, l0),
                    n_v=n_v, delta=delta, rd_mode=rd_mode,
-                   border_both=border_both, rebase=rebase)
+                   border_both=border_both, rebase=rebase, stale=stale)
     launches += 1
     rebased_launches += bool(rebase)
     offchip_bytes += offchip_bytes_of(B, L, k_steps)

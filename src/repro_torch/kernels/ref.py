@@ -2,10 +2,11 @@
 
 ``pdes_step_ref`` (one step on a haloed chunk), ``pdes_multistep_ref`` (K
 exact-GVT steps on bits read from memory) and
-``pdes_multistep_counter_ref`` (K exact-GVT steps with the counter stream)
-repeat the kernels' arithmetic with the shared update core of
-``core.horizon``; the kernel wrappers run them for CPU tensors, and
-``chip_smoke.py`` holds each kernel against its oracle on the GPU.
+``pdes_multistep_counter_ref`` (K steps with the counter stream, in the
+exact or the stale window) repeat the kernels' arithmetic with the shared
+update core of ``core.horizon``; the kernel wrappers run them for CPU
+tensors, and ``chip_smoke.py`` holds each kernel against its oracle on the
+GPU.
 """
 from __future__ import annotations
 
@@ -56,13 +57,14 @@ def ctr_values(ctr) -> list[int]:
 
 
 def _multistep_body(n_v, delta, rd_mode, border_both, dtype):
-    def body(tau, w0, w1):
+    def body(tau, w0, w1, base=None):
         is_left, is_right, eta = decode_words(w0, w1, n_v, dtype)
         left = torch.roll(tau, 1, dims=-1)
         right = torch.roll(tau, -1, dims=-1)
-        gvt = torch.amin(tau, dim=-1, keepdim=True)   # exact: full ring
+        if base is None:   # exact: the full ring's minimum, each step
+            base = torch.amin(tau, dim=-1, keepdim=True)
         tau_next, update = conservative_update(
-            tau, left, right, is_left, is_right, eta, gvt,
+            tau, left, right, is_left, is_right, eta, base,
             delta=delta, rd_mode=rd_mode, border_both=border_both)
         return tau_next, ring_moments(tau_next, update)
 
@@ -101,13 +103,14 @@ def pdes_multistep_counter_ref(tau, ctr, delta_col=None, trial_col=None, *,
                                k_steps: int, n_v: int, delta: float,
                                rd_mode: bool = False,
                                border_both: bool = False,
-                               rebase: bool = False):
-    """K exact-GVT steps with the counter event stream, in plain PyTorch.
+                               rebase: bool = False, stale: bool = False):
+    """K steps with the counter event stream, in plain PyTorch.
 
     Arguments as :func:`repro_torch.kernels.pdes_multistep.
     pdes_multistep_counter`.  Returns ``(tau (B, L), moments)`` with each
     moment a ``(K, B)`` tensor, in ``MOMENT_KEYS`` order; with ``rebase``,
-    tau less its ring minimum (the engine's rebase).
+    tau less its ring minimum (the engine's rebase); with ``stale``, every
+    step's window based on the input tau's ring minimum.
     """
     B, L = tau.shape
     dev = tau.device
@@ -119,10 +122,11 @@ def pdes_multistep_counter_ref(tau, ctr, delta_col=None, trial_col=None, *,
     li = (l0 + torch.arange(L, device=dev))[None, :]
     d = delta if delta_col is None else delta_col.to(tau.dtype)
     body = _multistep_body(n_v, d, rd_mode, border_both, tau.dtype)
+    base = torch.amin(tau, dim=-1, keepdim=True) if stale else None
     planes = []
     for k in range(k_steps):
         w0, w1 = counter_words(seed, (step0 + k) & 0xFFFFFFFF, bi, li)
-        tau, m = body(tau, w0, w1)
+        tau, m = body(tau, w0, w1, base)
         planes.append(m)
     if rebase:
         tau = tau - torch.amin(tau, dim=-1, keepdim=True)

@@ -8,6 +8,7 @@ quiet (``tests/test_analysis.py`` asks the same of the reference).
 """
 import contextlib
 import pathlib
+import re
 
 import pytest
 import torch
@@ -258,7 +259,8 @@ def test_stream_launch_is_the_plans(L, monkeypatch):
 @pytest.mark.parametrize("L", [10_000, 1 << 20, 1 << 23])
 def test_counter_launch_passes_its_rebase_flag(L, monkeypatch):
     """B1's raw launcher passes ``rebase`` to the C entry after the rule
-    flags, off unless asked for, on every tier."""
+    flags (the window's flag, off, after it), off unless asked for, on
+    every tier."""
     fake = _FakeLib()
     monkeypatch.setattr(torch.cuda, "device",
                         lambda dev: contextlib.nullcontext())
@@ -272,8 +274,35 @@ def test_counter_launch_passes_its_rebase_flag(L, monkeypatch):
         pdes_multistep.counter_launch(tau, tau.clone(),
                                       torch.zeros((6, K, B)), None, None,
                                       (0, 0, 0, 0), **kw, **more)
-    flags = [args[-6:-3] for _, args in fake.calls]
-    assert flags == [(1, 1, 0), (1, 1, 0), (1, 1, 1)]
+    flags = [args[-7:-3] for _, args in fake.calls]
+    assert flags == [(1, 1, 0, 0), (1, 1, 0, 0), (1, 1, 1, 0)]
+
+
+@pytest.mark.parametrize("L", [10_000, 1 << 20, 1 << 23])
+def test_counter_launch_passes_its_stale_flag(L, monkeypatch):
+    """B1's raw launcher passes ``stale`` to the C entry after ``rebase``,
+    off unless asked for, on every tier; the C entry takes each tier's
+    ``kStale`` instantiations for it."""
+    fake = _FakeLib()
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(_build, "stream", lambda dev: None)
+    monkeypatch.setattr(pdes_multistep, "_lib", lambda: fake)
+    B, K = 2, 3
+    tau = torch.zeros((B, L))
+    kw = dict(n_v=4, delta=1.0, rd_mode=False, border_both=False)
+    for more in ({}, {"stale": False}, {"stale": True},
+                 {"stale": True, "rebase": True}):
+        pdes_multistep.counter_launch(tau, tau.clone(),
+                                      torch.zeros((6, K, B)), None, None,
+                                      (0, 0, 0, 0), **kw, **more)
+    flags = [args[-5:-3] for _, args in fake.calls]
+    assert flags == [(0, 0), (0, 0), (0, 1), (1, 1)]
+    b1 = (CSRC / "pdes_multistep_counter.cu").read_text()
+    for tier in ("", "_grid", "_stream"):
+        assert re.search(r"stale \? ring_kernel\(rd_mode, border_both,\s+"
+                         rf"multistep_counter{tier}_kernel<true, false, true>",
+                         b1), tier
 
 
 @pytest.mark.parametrize("case", ["ring", "step", "cluster"])

@@ -632,6 +632,97 @@ def test_fused_rebase_equals_the_explicit_loop_on_the_gpu(dev, B, L,
         assert torch.equal(getattr(a, f), getattr(b, f)), f
 
 
+#: (B, L) of each of B1's tiers in the stale window: one block, the grid
+#: at the production ring (19 blocks, 6 rings at once: two waves), the
+#: stream tier's shortest ring.
+STALE_SHAPES = ((64, 10_000), (8, 1 << 20), (1, tiling.MAX_GRID_RING_L + 32))
+
+
+@pytest.mark.parametrize("rebase", [False, True])
+@pytest.mark.parametrize("B,L", STALE_SHAPES)
+def test_stale_kernel_matches_plain_version(dev, B, L, rebase):
+    """B1's stale kernel of each tier against its plain version: τ, rebased
+    or not, and ``ucount``, ``min``, ``max`` bit for bit, the sums to
+    rounding; the launch is counted; and it is not the exact window."""
+    tau, dcol, tcol = _inputs(dev, B, L, seed=34)
+    args = (tau, torch.tensor([[6, 2**32 - 5, 0, 0]]), dcol, tcol)
+    kw = dict(k_steps=16, n_v=10 if L == 10_000 else 100, delta=math.inf,
+              rebase=rebase)
+    launches = pm.launches
+    got = pm.pdes_multistep_counter(*args, stale=True, **kw)
+    assert pm.launches == launches + 1
+    _assert_step_equal(got, ref.pdes_multistep_counter_ref(*args, stale=True,
+                                                           **kw))
+    exact = pm.pdes_multistep_counter(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(exact[1]["ucount"][0], got[1]["ucount"][0])
+    assert not torch.equal(exact[1]["ucount"], got[1]["ucount"])
+
+
+@pytest.mark.parametrize("B,L", STALE_SHAPES)
+def test_stale_fused_engine_equals_the_stale_loops_on_the_gpu(dev, B, L):
+    """The stale window through ``PDESEngine`` on B1 (``pallas_multistep``)
+    against the ``pallas`` (B2, a launch a step) and ``reference`` engines
+    on the card: τ, offset and compensation, utilization and GVT bit for
+    bit, the sums' statistics to rounding; from a state burned over a
+    remainder chunk, two chunks and a remainder of 5."""
+    cfg = PDESConfig(L=L, n_v=100, delta=100.0)
+    deltas = torch.tensor([100.0, math.inf, 10.0, 300.0],
+                          device=dev).repeat(16)[:B]
+    trials = torch.arange(B, device=dev) - 1
+    outs = []
+    for backend in ("pallas_multistep", "pallas", "reference"):
+        eng = PDESEngine(cfg, backend=backend, window="stale", k_fuse=16,
+                         device=dev)
+        st = eng.burn_in(eng.init(B), 4, 24, deltas=deltas,
+                         trial_base=trials)
+        outs.append(eng.run(st, 4, 37, deltas=deltas, trial_base=trials))
+    (sa, a), *others = outs
+    for sb, b in others:
+        for f in ("tau", "offset", "offset_comp"):
+            assert torch.equal(getattr(sa, f), getattr(sb, f)), f
+        assert torch.equal(a.utilization, b.utilization)
+        assert torch.equal(a.gvt, b.gvt)
+        torch.testing.assert_close(a.mean_tau, b.mean_tau, rtol=1e-5,
+                                   atol=1e-3)
+
+
+def test_stale_service_at_the_production_ring(dev):
+    """A stale sweep at L = 2^20 through the service on B1's grid tier: a
+    duplicate, and an extension from the burned state over a burn-in of
+    a chunk and a remainder, each as a direct run, bit for bit; each pass
+    names the stale window and counts its B1 launches."""
+    import json
+    from repro_torch import obs as tobs
+    from repro_torch.experiments.sweep import WindowSweep, run_window_sweep
+    from repro_torch.service.api import SweepService
+    L = 1 << 20
+    spec = WindowSweep(Ls=(L,), n_vs=(100,), deltas=(10.0, 100.0, math.inf),
+                       replicas=2, n_steps=32, burn_in=24,
+                       backend="pallas_multistep", window="stale", k_fuse=16,
+                       seed=9)
+    svc = SweepService(device=dev)
+    tel = tobs.Telemetry(tracer=tobs.TraceRecorder())
+    svc.attach_telemetry(tel)
+    svc.submit(spec, requester="alice")
+    svc.submit(spec, requester="carol")
+    before = pm.launches
+    responses = svc.drain()
+    longer = dataclasses.replace(spec, n_steps=64)
+    svc.submit(longer, requester="dave")
+    responses += svc.drain()
+    assert pm.launches - before == 2 + 2 + 4
+    assert svc.stats.rows_from_state_cache == spec.n_trajectories
+    assert responses[1].cached
+    args = [e["args"] for e in tel.tracer.events if e["name"] == "pass"]
+    assert [(a["b1_tier"], a["window"], a["b1_rebased_launches"])
+            for a in args] == [("grid", "stale", 4), ("grid", "stale", 4)]
+    for resp in responses:
+        assert resp.error is None
+        assert json.dumps(resp.result.as_dict()) == json.dumps(
+            run_window_sweep(resp.spec, device=dev).as_dict())
+
+
 def test_engine_service_and_simulate_take_the_production_ring(dev):
     """The engine's fused path, the sweep service and simulate run a ring
     of the paper's production length through B1 and B3 on the card."""

@@ -182,6 +182,41 @@ def test_fused_rebase_equals_the_explicit_loop():
         assert torch.equal(getattr(a, f), getattr(b, f)), f
 
 
+@pytest.mark.parametrize("mode", ["run", "run_mean", "burn_in"])
+def test_stale_fused_equals_the_stale_loops_bitwise(mode):
+    """The stale window on the fused path (B1's plain version, its base the
+    ring minimum of each chunk's input τ) against the ``reference`` and
+    ``pallas`` engines, whose loops take that base with ``amin``: τ,
+    offset, its compensation and every StepStats field bit for bit, from
+    a state burned over a remainder chunk, over several chunks and a
+    remainder, on per-row Δ with ``inf`` rows and per-row trials."""
+    cfg = PDESConfig(L=L, n_v=N_V, delta=3.0)
+    deltas = torch.as_tensor(DELTAS)
+    trials = torch.as_tensor(TRIALS)
+    outs = []
+    for backend in ("pallas_multistep", "reference", "pallas"):
+        eng = PDESEngine(cfg, backend=backend, window="stale", k_fuse=8,
+                         device="cpu")
+        st = eng.burn_in(eng.init(len(DELTAS)), 6, 13, deltas=deltas,
+                         trial_base=trials)          # a chunk and 5
+        out = getattr(eng, mode)(st, 6, 37, deltas=deltas,
+                                 trial_base=trials)
+        outs.append((out, None) if mode == "burn_in" else out)
+    (sa, a), *others = outs
+    assert sa.step == 50 and float(sa.offset.min()) > 0
+    for sb, b in others:
+        for f in ("tau", "offset", "offset_comp"):
+            assert torch.equal(getattr(sa, f), getattr(sb, f)), f
+        if mode != "burn_in":
+            for f in a._fields:
+                assert torch.equal(getattr(a, f), getattr(b, f)), f
+    ex = PDESEngine(cfg, backend="pallas_multistep", k_fuse=8, device="cpu")
+    st = ex.burn_in(ex.init(len(DELTAS)), 6, 13, deltas=deltas,
+                    trial_base=trials)
+    st = ex.burn_in(st, 6, 37, deltas=deltas, trial_base=trials)
+    assert not torch.equal(st.tau, sa.tau)          # the windows differ
+
+
 def test_remainder_chunks_and_resume():
     cfg = PDESConfig(L=64, n_v=2, delta=8.0)
     eng = PDESEngine(cfg, backend="pallas_multistep", k_fuse=8, device="cpu")
@@ -229,9 +264,11 @@ def test_engine_validation():
     cfg = PDESConfig(L=16, n_v=1)
     with pytest.raises(ValueError):
         PDESEngine(cfg, backend="nope", device="cpu")
-    with pytest.raises(ValueError):
-        PDESEngine(cfg, backend="pallas_multistep", window="stale",
-                   device="cpu")
+    # B1 serves the stale window too
+    eng = PDESEngine(cfg, backend="pallas_multistep", window="stale",
+                     device="cpu")
+    assert (eng.ecfg.backend, eng.ecfg.window) == ("pallas_multistep",
+                                                   "stale")
     with pytest.raises(ValueError, match="requires a mesh"):
         PDESEngine(cfg, backend="sharded", device="cpu")
     from repro_torch.core.distributed import DistConfig
@@ -245,9 +282,10 @@ def test_engine_validation():
     assert (eng.dist.mode, eng.dist.k_chunk) == ("commavoid", 4)
     with pytest.raises(ValueError, match="whole chunks"):
         eng.run(eng.init(2), 0, 6)
-    with pytest.raises(ValueError, match="'pallas'"):
-        PDESEngine(cfg, backend="pallas_multistep", window="stale",
-                   device="cpu")
+    eng = PDESEngine(cfg, backend="pallas_multistep", window="stale",
+                     k_fuse=4, device="cpu")
+    st, _ = eng.run(eng.init(2), 0, 6)     # a chunk and a remainder of 2
+    assert st.step == 6 and float(st.tau.amin()) == 0.0
     PDESEngine(cfg, backend="pallas", window="stale", device="cpu")
     with pytest.raises(ValueError):
         EngineConfig(window="sorta")

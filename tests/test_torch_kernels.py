@@ -150,6 +150,44 @@ def test_plain_version_is_the_wrapper_on_cpu():
     assert all(torch.equal(a[1][k], b[1][k]) for k in th.MOMENT_KEYS)
 
 
+@pytest.mark.parametrize("rebase", [False, True])
+def test_plain_stale_bounds_every_step_by_the_input_minimum(rebase):
+    """``stale=True``: each of the K steps is ``horizon.step_core`` with the
+    window based on the ring minimum of the input tau, bit for bit (the
+    moments too), rebased or not; one step is the exact window's step;
+    and the launch counts nothing on the CPU."""
+    from repro_torch.core.events import as_u32, counter_words
+    B, L, K = 6, 40, 6
+    tau = torch.as_tensor(_tau(B, L, seed=11)) + 0.25   # min off zero
+    dcol = torch.tensor([[0.0], [math.inf], [1.0], [0.5], [math.inf], [3.0]])
+    tcol = torch.tensor([[3], [-1], [0], [7], [2**31], [5]])
+    ctr = torch.tensor([[8, 2**32 - 2, 0, 0]])
+    kw = dict(k_steps=K, n_v=3, delta=math.inf, rebase=rebase)
+    before = pm.launches
+    got = pm.pdes_multistep_counter(tau, ctr, dcol, tcol, stale=True, **kw)
+    assert pm.launches == before
+    cfg = th.PDESConfig(L=L, n_v=3)
+    base = torch.amin(tau, dim=-1, keepdim=True)
+    t, planes = tau, []
+    for k in range(K):
+        w0, w1 = counter_words(as_u32(8, "cpu"),
+                               as_u32((2**32 - 2 + k) & 0xFFFFFFFF, "cpu"),
+                               tcol & 0xFFFFFFFF, torch.arange(L)[None, :])
+        is_l, is_r, eta = th.decode_words(w0, w1, 3, tau.dtype)
+        t, upd, _ = th.step_core(t, is_l, is_r, eta, cfg,
+                                 gvt_for_window=base, delta_override=dcol)
+        planes.append(th.ring_moments(t, upd))
+    if rebase:
+        t = t - torch.amin(t, dim=-1, keepdim=True)
+    assert torch.equal(got[0], t)
+    for key in th.MOMENT_KEYS:
+        assert torch.equal(got[1][key],
+                           torch.stack([m[key] for m in planes])), key
+    exact = pm.pdes_multistep_counter(tau, ctr, dcol, tcol, **kw)
+    assert torch.equal(exact[1]["ucount"][0], got[1]["ucount"][0])
+    assert not torch.equal(exact[1]["ucount"], got[1]["ucount"])
+
+
 @pytest.mark.parametrize("case", ["inf_rows", "min_off_pe0"])
 def test_plain_rebase_is_tau_less_its_last_minimum(case):
     """``rebase=True`` returns tau less its ring minimum bit for bit, with

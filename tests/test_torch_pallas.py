@@ -7,7 +7,9 @@ backend (Pallas in interpret mode) for ``run``, ``run_mean`` and
 sums' statistics to ``RTOL``.  The run is 37 steps at ``k_fuse=8`` (four
 chunks and a remainder of 5) with a per-row Δ column, ``inf`` rows and
 negative trial indices.  Within the port, ``pallas`` equals ``reference``
-in both windows and ``pallas_multistep`` in the exact one, bit for bit.
+in both windows and ``pallas_multistep`` in the exact one, bit for bit;
+``pallas_multistep`` in the stale window reproduces ``repro``'s stale
+``pallas`` engine as ``pallas`` does.
 """
 import math
 
@@ -97,6 +99,26 @@ def test_pallas_equals_multistep_in_the_exact_window():
     assert torch.equal(sa.offset_comp, sb.offset_comp)
     for x, y in zip(a, b):
         assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("mode", ["run", "run_mean", "burn_in"])
+def test_stale_fused_matches_repro(mode):
+    """The stale window on the port's fused path (B1's plain version)
+    against ``repro``'s stale ``pallas`` engine (``repro``'s B1 takes the
+    exact window only): τ, the Kahan offsets, utilization and GVT bit for
+    bit, the sums to ``RTOL``."""
+    got, want = _port("pallas_multistep", "stale", mode), _jax("stale", mode)
+    if mode == "burn_in":
+        _assert_state(got, want)
+        return
+    _assert_state(got[0], want[0])
+    if mode == "run":
+        assert_stats(got[1], want[1])
+        return
+    for f in want[1]._fields:
+        np.testing.assert_allclose(np_of(getattr(got[1], f)),
+                                   np_of(getattr(want[1], f)), rtol=RTOL,
+                                   atol=1e-5, err_msg=f)
 
 
 def test_stale_window_is_stricter_than_exact():

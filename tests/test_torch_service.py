@@ -130,6 +130,35 @@ def test_state_cache_reuse_and_partial_overlap_bit_identical():
     assert svc.stats.rows_burned == first.n_trajectories + 4
 
 
+STALE = dict(COMMON, Ls=(96,), n_vs=(3,), replicas=2, burn_in=20,
+             window="stale")
+
+
+def test_stale_fused_drain_equals_direct_runs():
+    """The stale window on the fused path: a coalesced pass, a duplicate
+    (a result-cache hit), a burned-state extension over a burn-in that is
+    not a whole number of chunks, and the exact window beside it in a pass
+    of its own; every response equals a direct run of its spec."""
+    alice = WindowSweep(deltas=(2.0, 4.0, math.inf), **STALE)
+    svc = SweepService(device="cpu")
+    svc.submit(alice, requester="alice")
+    svc.submit(WindowSweep(deltas=(4.0, 8.0), **STALE), requester="bob")
+    svc.submit(alice, requester="carol")
+    exact = dataclasses.replace(alice, window="exact")
+    svc.submit(exact, requester="erin")
+    responses = svc.drain()
+    assert svc.stats.n_passes == 2 and svc.stats.n_deduped == 1
+    assert responses[2].cached
+    dave = dataclasses.replace(alice, n_steps=64)
+    svc.submit(dave, requester="dave")
+    responses += svc.drain()
+    assert svc.stats.rows_from_state_cache == alice.n_trajectories
+    for resp in responses:
+        direct = run_window_sweep(resp.spec, device="cpu")
+        assert resp.result.records == direct.records, resp.requester
+    assert responses[0].result.records != responses[3].result.records
+
+
 def test_state_cache_saved_by_repro_serves_the_port(tmp_path):
     first = WindowSweep(deltas=(2.0, math.inf), **COMMON)
     longer = dataclasses.replace(first, n_steps=40)

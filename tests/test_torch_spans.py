@@ -267,6 +267,46 @@ def test_spans_name_b1s_tier_and_count_its_device_bytes(monkeypatch):
             if e["name"] == "pass"] == [0, 0, 0]
 
 
+def test_pass_spans_count_b1s_stale_launches(monkeypatch):
+    """A fused pass names its window, and its ``b1_rebased_launches`` are
+    its B1 launches, the burn-in's included, each taking the pass's window
+    (so a stale pass's launches are all stale); the engine's
+    ``engine.run`` spans name the window (the CPU launches nothing, so a
+    stand-in for B1's wrapper counts each launch as the card's does)."""
+    from repro_torch.kernels import pdes_multistep as pm
+    plain = pm.pdes_multistep_counter
+    windows = []
+
+    def counted(*a, rebase=False, stale=False, **kw):
+        pm.launches += 1
+        pm.rebased_launches += rebase
+        windows.append("stale" if stale else "exact")
+        return plain(*a, rebase=rebase, stale=stale, **kw)
+
+    monkeypatch.setattr(pm, "pdes_multistep_counter", counted)
+    tel = tobs.Telemetry(tracer=tobs.TraceRecorder())
+    svc = SweepService(device="cpu")
+    svc.attach_telemetry(tel)
+    prev = ttrace.set_tracer(tel.tracer)     # the engine's spans too
+    try:
+        for window in ("stale", "exact"):    # burn-in 20 at K = 8: three
+            svc.submit(WindowSweep(**dict(   # launches; 32 steps: four
+                COMMON, deltas=(2.0, 4.0), burn_in=20, window=window)),
+                requester=window)
+            svc.drain()
+    finally:
+        ttrace.set_tracer(prev)
+    events = tel.tracer.events
+    args = [e["args"] for e in events if e["name"] == "pass"]
+    assert [(a["window"], a["b1_rebased_launches"]) for a in args] == [
+        ("stale", 7), ("exact", 7)]
+    assert windows == ["stale"] * 7 + ["exact"] * 7
+    runs = [e["args"] for e in events if e["name"] == "engine.run"]
+    assert [(a["mode"], a["window"]) for a in runs] == [
+        ("burn", "stale"), ("record", "stale"), ("burn", "exact"),
+        ("record", "exact")]
+
+
 def test_zero_budget_pass_spans_count_the_crossings():
     """With no room on the device every burned row is demoted (one copy
     down) and every hit crosses up; the burned pass itself takes its rows
