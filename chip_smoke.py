@@ -172,7 +172,7 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` with
    and B1's launches; (d) each (a) and (b) shape timed (CUDA events,
    plain, kernel, kernel, plain) beside its bound;
 18. rings over a cooperative grid (``tiling.ring_plan``'s third tier,
-   the paper's production ring L = 2^20 in 19 blocks): (a) B1 against its
+   the paper's production ring L = 2^20 in 22 blocks): (a) B1 against its
    plain version at B = 8 x 2^20 (6 rings at once, two waves) and 1 x
    ``MAX_GRID_RING_L`` (132 blocks) over phase 2's five cases with the
    step counter wrapping, τ/ucount/min/max bitwise and the sums to
@@ -527,7 +527,7 @@ L_LONG = 131_072
 BURN_LONG = 1024
 LONG_STEPS_SIM = 2 * K_MAIN + 5
 #: Phase 18: rings over a cooperative grid.  The paper's production ring
-#: (``src/repro/launch/dryrun.py:170``, 19 blocks); B1 at 8 of them (6 at
+#: (``src/repro/launch/dryrun.py:170``, 22 blocks); B1 at 8 of them (6 at
 #: once on 132 SMs, so two waves) and at one ring of the cap (132 blocks),
 #: rows 0-5 (one wave), 6 and 7 (the second) and 0 alone held to the batch
 #: of 8; B3 and ``simulate`` at 2; the service drain at ``L_PROD``, its

@@ -9,6 +9,7 @@ checkout::
     python3 ring_bench.py step SRC_DIR [SRC_DIR ...]
     python3 ring_bench.py ablate-step CSRC_DIR
     python3 ring_bench.py sass OLD_CSRC_DIR NEW_CSRC_DIR
+    python3 ring_bench.py fill
 
 ``ablate`` splits a ring loop's time.  It copies ``CSRC_DIR`` (the
 ``src/repro_torch/kernels/csrc`` of some checkout, for example one unpacked
@@ -44,12 +45,23 @@ encodings dropped): what shows that a change to the shared loop left those
 paths as they were.  An old instantiation is held to the new one of the
 same name, or, where the kernel gained a last template flag (B1's
 ``kStale``), to the new one with that flag false.
+
+``fill`` times B1's grid tier at other block counts than
+``tiling.ring_plan``'s, through ``pdes_multistep.counter_launch`` with the
+plan given: at 2^20 the least count (19), the plan's (22) and 26 and 33,
+at B = 28 and 16; at one length of each other range of least counts that
+the plan fills (``FILL_LS``) the least count and the plan's, at two full
+waves.  Each plan's τ, ``ucount``, ``min`` and ``max`` are first held bit
+for bit to the plain version's, and the sums to rounding, in the exact
+and the stale window; then one K = 16 chunk a plan is timed with CUDA events, the
+plans in turn, twice, the faster kept.
 """
 from __future__ import annotations
 
 import concurrent.futures
 import ctypes
 import contextlib
+import functools
 import io
 import json
 import math
@@ -58,6 +70,7 @@ import re
 import shutil
 import subprocess
 import sys
+from unittest import mock
 
 ROOT = pathlib.Path(__file__).resolve().parent
 OUT = ROOT / "build" / "ring_bench"
@@ -400,6 +413,90 @@ def sass(old: pathlib.Path, new: pathlib.Path) -> dict:
     return out
 
 
+#: ``fill``'s rings: the production ring at its block counts and batches,
+#: then (L, least count) of one length of each other range of least
+#: counts that ``tiling.ring_plan`` fills: 15 x ``MAX_RING_SEG``, the
+#: shortest ring of 17 blocks, 2^21, 2^22, 100 x ``MAX_RING_SEG``.
+FILL_PROD = (1 << 20, (19, 22, 26, 33), (28, 16))
+FILL_LS = ((854_400, 15), (911_361, 17), (1 << 21, 37), (1 << 22, 74),
+           (5_696_000, 100))
+FILL_N_V = 100
+FILL_DELTAS = (10.0, 30.0, 100.0, 300.0, math.inf)
+
+
+def _plan_of(pm, plan):
+    """``pm``'s launches and occupancy queries take ``plan`` for every L."""
+    return mock.patch.object(pm, "ring_plan", lambda L, stream=True: plan)
+
+
+def fill(dev="cuda") -> list:
+    import numpy as np
+    import torch
+    import chip_smoke
+    from repro_torch.core.horizon import MOMENT_KEYS
+    from repro_torch.kernels import _build, ref, tiling
+    from repro_torch.kernels import pdes_multistep as pm
+    cases = [(FILL_PROD[0], g, b) for b in FILL_PROD[2] for g in FILL_PROD[1]]
+    for L, n in FILL_LS:
+        assert tiling.ring_blocks(L) == n, (L, tiling.ring_blocks(L))
+        g = tiling.ring_plan(L).grid
+        cases += [(L, n, 2 * (132 // n)), (L, g, 2 * (132 // n))]
+    rows = []
+    for L, B in dict.fromkeys((L, B) for L, _, B in cases):
+        grids = list(dict.fromkeys(g for l, g, b in cases
+                                   if (l, b) == (L, B)))
+        plans = {g: tiling.RingPlan(g, tiling._ring_seg(L, g),
+                                    tiling.RING_SPLIT_WARPS,
+                                    4 * tiling._ring_seg(L, g),
+                                    tiling.SMEM_STATIC_SPLIT) for g in grids}
+        rng = np.random.default_rng(L + B)
+        tau = torch.as_tensor(rng.exponential(4.0, (B, L)).astype(np.float32),
+                              device=dev)
+        dcol = torch.tensor(FILL_DELTAS, device=dev)[
+            torch.arange(B, device=dev) % len(FILL_DELTAS)][:, None]
+        tcol = torch.arange(B, device=dev)[:, None]
+        tbits = _build.u32_bits(tcol).reshape(B, 1).contiguous()
+        out = torch.empty_like(tau)
+        stats = torch.empty((6, K, B), device=dev)
+        for stale in (False, True):
+            kw = dict(k_steps=K, n_v=FILL_N_V, delta=math.inf, stale=stale)
+            want = ref.pdes_multistep_counter_ref(
+                tau, torch.tensor([[0, 0, 0, 0]]), dcol, tcol, **kw)
+            launch = functools.partial(
+                pm.counter_launch, tau, out, stats, dcol, tbits, (0, 0, 0, 0),
+                n_v=FILL_N_V, delta=math.inf, rd_mode=False,
+                border_both=False, stale=stale)
+            ms, at_once = {}, {}
+            for g, plan in plans.items():
+                with _plan_of(pm, plan):
+                    at_once[g] = pm.resident_rings(L)
+                    launch()
+                got = (out, dict(zip(MOMENT_KEYS, stats.unbind(0))))
+                chip_smoke._hold_kernel(torch, got, want,
+                                        f"B1 {B} x {L} at {g} blocks")
+            for _ in range(2):
+                for g, plan in plans.items():
+                    with _plan_of(pm, plan):
+                        t = chip_smoke.cuda_ms(launch, 5)
+                    ms[g] = min(ms.get(g, t), t)
+            base = ms[grids[0]]
+            for g in grids:
+                waves = -(-B // at_once[g])
+                rate = B * L * K / (ms[g] * 1e-3)
+                row = dict(L=L, B=B, window="stale" if stale else "exact",
+                           blocks=g, seg=plans[g].seg,
+                           rings_at_once=at_once[g], waves=waves, ms=ms[g],
+                           vs_least=ms[g] / base, pe_steps_per_s=rate,
+                           per_block=rate / (min(B, at_once[g]) * g))
+                rows.append(row)
+                print(f"[fill] L={L} B={B} {row['window']:5s} {g:3d} blocks "
+                      f"of {row['seg']} PEs, {at_once[g]} rings at once, "
+                      f"{waves} waves: {ms[g]:.5f} ms, x{row['vs_least']:.4f}"
+                      f" of {grids[0]} blocks; {rate:.4g} PE-steps/s, "
+                      f"{row['per_block']:.4g} a block at once", flush=True)
+    return rows
+
+
 def drain_one(src: pathlib.Path) -> list:
     sys.path.insert(0, str(src))
     import torch
@@ -452,7 +549,7 @@ def main(argv) -> int:
     sys.path.insert(0, str(ROOT))
     import chip_smoke
     if argv[:1] in (["ablate"], ["drain"], ["step"], ["ablate-step"],
-                    ["sass"]):
+                    ["sass"], ["fill"]):
         print(chip_smoke.card_line())
     if argv[:1] == ["ablate"] and len(argv) == 2:
         sys.path.insert(0, str(ROOT / "src"))
@@ -484,6 +581,9 @@ def main(argv) -> int:
         print(json.dumps(ablate_step(pathlib.Path(argv[1]).resolve())))
     elif argv[:1] == ["sass"] and len(argv) == 3:
         print(json.dumps(sass(*(pathlib.Path(a).resolve() for a in argv[1:]))))
+    elif argv == ["fill"]:
+        sys.path.insert(0, str(ROOT / "src"))
+        print(json.dumps(fill()))
     elif argv[:1] == ["_step"] and len(argv) == 2:
         print(json.dumps(step_one(pathlib.Path(argv[1]).resolve())))
     else:

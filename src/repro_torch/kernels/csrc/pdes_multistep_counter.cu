@@ -56,11 +56,12 @@
 // does the work of four one-block rings of 8, and one meeting a step over
 // a segment of some 44,000 PEs costs little beside it (PERF.md).
 //
-// The paper's production ring, B = 8 rings of L = 2^20 PEs over 19 blocks
+// The paper's production ring, B = 8 rings of L = 2^20 PEs over 22 blocks
 // of a cooperative grid (6 rings at once on 132 SMs, so two waves; 134.2M
 // PE-steps a K = 16 chunk): bytes 67.1 MB, 0.020 ms; operations about
 // 5.9e9 at u = 0.64, 0.087 ms at 67 T/s.  The operations bound it again;
-// the blocks meet through L2 once a step, and 114 of 132 SMs work.
+// the blocks meet through L2 once a step, and all 132 SMs work (at the
+// least 19 blocks a ring, 114 would).
 //
 // A ring past shared memory, B = 14 rings of L = 2^23 PEs over the stream
 // tier's 132 blocks of 63,552 PEs (one ring at a time, so 14 waves; 1.88e9

@@ -16,10 +16,10 @@ in place, as ``tiling.ring_plan(L)`` lays it out (``csrc/pdes_ring.cuh``;
 see the notes in the sources for their bounds): up to
 ``tiling.MAX_RING_L`` = 57,344 PEs one block a ring with one block barrier
 a step; longer rings, up to ``tiling.MAX_GRID_RING_L`` = 7,518,720 (the
-paper's 2^20 takes 19 blocks), one segment a block over blocks of one
-cooperative launch that meet through a small workspace in global memory
-once a step, as many whole rings at once as the card holds
-(:func:`resident_rings`), the batch in waves.  Above that
+paper's 2^20 takes 22 blocks, 6 rings on the 132 SMs), one segment a
+block over blocks of one cooperative launch that meet through a small
+workspace in global memory once a step, as many whole rings at once as
+the card holds (:func:`resident_rings`), the batch in waves.  Above that
 B3 raises; B1 runs up to ``tiling.MAX_STREAM_RING_L`` on the same 132
 blocks, each keeping ``tiling.MAX_RING_SEG`` PEs of its segment in shared
 memory and the rest in device memory (the stream tier), and raises past

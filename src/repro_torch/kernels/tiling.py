@@ -10,18 +10,22 @@ says how:
   per-warp partials and the decode's log table) one block holds the whole
   ring, with :func:`ring_warps` warps.  At L = 10,000 a ring takes 40 KB,
   so four or five rings share an SM;
-* a longer ring is cut into the least number of segments of ``seg`` PEs
-  (a multiple of 32; the last one shorter) that each fit one block
-  (:func:`ring_blocks`), one block each of :data:`RING_SPLIT_WARPS` warps,
-  which takes most of an SM's shared memory, and the blocks of a ring are
-  ordinary blocks of one cooperative launch (the grid tier): each keeps
+* a longer ring is cut into segments of ``seg`` PEs (a multiple of 32;
+  the last one shorter) that each fit one block (at least
+  :func:`ring_blocks` of them), one block each of
+  :data:`RING_SPLIT_WARPS` warps, which takes most of an SM's shared
+  memory, and the blocks of a ring are ordinary blocks of one
+  cooperative launch (the grid tier): each keeps
   its segment in shared memory for all K steps, and they exchange their
   edge PEs and step partials through global memory (L2) and meet once a
   step at a barrier in global memory.  All blocks of a cooperative launch
   are resident at once, so a ring takes at most the card's resident
-  blocks, one an SM: :data:`MAX_GRID_RING_L` PEs on an H100 (the paper's
-  production ring of 2^20 PEs takes 19 blocks).  As many whole rings as
-  fit run at once, and the kernel walks the batch in waves;
+  blocks, one an SM: :data:`MAX_GRID_RING_L` PEs on an H100.  As many
+  whole rings as fit run at once, and the kernel walks the batch in
+  waves.  A ring takes the most blocks that keep as many rings at once
+  as its least count does, so each wave fills the card with shorter
+  segments (the paper's production ring of 2^20 PEs: at least 19 blocks,
+  so 6 rings at once, and so 22 blocks a ring on all 132 SMs);
 * B1 alone goes further (the stream tier): a ring longer still is cut
   into :data:`RING_MAX_GRID_BLOCKS` segments of one cooperative launch as
   before, each block keeps the first :data:`MAX_RING_SEG` PEs of its
@@ -196,9 +200,10 @@ def ring_plan(L: int, *, stream: bool = True) -> RingPlan:
     """The layout of a ring of ``L`` PEs, for any batch.
 
     One block up to :data:`MAX_RING_L` (as :func:`ring_warps` and
-    :func:`ring_smem_bytes` say); above it the least number of blocks of
-    a cooperative grid, of :data:`RING_SPLIT_WARPS` warps each, whose
-    segments fit one block (:func:`ring_blocks`).  Above
+    :func:`ring_smem_bytes` say); above it blocks of a cooperative grid,
+    of :data:`RING_SPLIT_WARPS` warps each: the least number whose
+    segments fit one block (:func:`ring_blocks`), raised to the most
+    blocks of which the card holds as many rings at once.  Above
     :data:`MAX_GRID_RING_L`, B1's plan (``stream``) is the stream tier:
     :data:`RING_MAX_GRID_BLOCKS` blocks whose segments pass
     :data:`MAX_RING_SEG`, each keeping that many PEs in shared memory, up
@@ -210,7 +215,10 @@ def ring_plan(L: int, *, stream: bool = True) -> RingPlan:
     """
     if L <= MAX_RING_L:
         return RingPlan(1, L, ring_warps(L), ring_smem_bytes(L), SMEM_STATIC)
-    n = ring_blocks(L)
+    # The card holds RING_MAX_GRID_BLOCKS // n rings of the least count n
+    # at once, one block an SM; the most blocks a ring that keep that many
+    # leave the fewest SMs idle in a full wave and add no wave to a batch.
+    n = RING_MAX_GRID_BLOCKS // (RING_MAX_GRID_BLOCKS // ring_blocks(L))
     seg = _ring_seg(L, n)
     keep = seg
     if stream and MAX_RING_SEG < seg <= MAX_STREAM_SEG:

@@ -18,7 +18,7 @@ from repro_torch.core import ensemble, horizon, prng
 from repro_torch.core.engine import PDESEngine
 from repro_torch.core.horizon import PDESConfig
 from repro_torch.core.events import counter_bits_block
-from repro_torch.kernels import ops, ref, threefry, tiling
+from repro_torch.kernels import _build, ops, ref, threefry, tiling
 from repro_torch.kernels import pdes_multistep as pm
 from repro_torch.kernels import pdes_step as ps
 
@@ -415,7 +415,7 @@ def test_bits_kernel_launch_failure_raises(dev, monkeypatch):
 
 def test_grid_ring_result_does_not_depend_on_its_wave(dev):
     """A ring over a cooperative grid gives the same tau and moments, bit
-    for bit, in the second wave of a batch of 8 (6 rings of 19 blocks at
+    for bit, in the second wave of a batch of 8 (6 rings of 22 blocks at
     once on 132 SMs), alone in a wave of 6 and as a batch of 1."""
     L, K = 1 << 20, 5
     assert pm.resident_rings(L) == pm.resident_rings(L, bits=True) >= 1
@@ -447,12 +447,13 @@ SPLIT_LS = tuple(524_288 if n == 10 else n * tiling.MAX_RING_SEG
 
 @pytest.mark.parametrize("L", SPLIT_LS)
 def test_split_rings_match_plain_over_two_waves(dev, L):
-    """A ring of 2 to 16 blocks runs over the cooperative grid: B1 and B3
-    against their plain versions over two waves (one ring more than the
-    card holds at once)."""
+    """A ring of 2 to 16 blocks at the least runs over the cooperative
+    grid, in the most blocks that keep as many rings at once (16 for 15):
+    B1 and B3 against their plain versions over two waves (one ring more
+    than the card holds at once)."""
     n = tiling.ring_blocks(L)
     assert tiling.ring_plan(L).tier == "grid" and tiling.ring_plan(L).grid \
-        == n == tiling.ring_plan(L, stream=False).grid
+        == 132 // (132 // n) == tiling.ring_plan(L, stream=False).grid
     B = 1 + max(pm.rings_at_once(L), pm.rings_at_once(L, bits=True))
     K = 3
     tau, dcol, tcol = _inputs(dev, B, L, seed=n)
@@ -464,6 +465,55 @@ def test_split_rings_match_plain_over_two_waves(dev, L):
                        ref.pdes_multistep_counter_ref(*args, **kw1))
     _assert_step_equal(pm.pdes_multistep(tau, bits, **kw3),
                        ref.pdes_multistep_ref(tau, bits, **kw3))
+
+
+@pytest.mark.parametrize("rebase", [False, True])
+@pytest.mark.parametrize("stale", [False, True])
+def test_filled_grid_plan_matches_plain_and_the_least_plan(dev, stale,
+                                                           rebase,
+                                                           monkeypatch):
+    """B1 at 28 x 2^20 on the plan that fills the card (22 blocks a ring, 6
+    rings at once on 132 SMs) against its plain version, and against a
+    launch of the least count's plan (19 blocks, 6 at once) through
+    ``counter_launch``: τ, ``ucount``, ``min`` and ``max`` bit for bit, the
+    sums, folded from 19 partials instead of 22, to rounding."""
+    L, B, K = 1 << 20, 28, 16
+    p = tiling.ring_plan(L)
+    assert (tiling.ring_blocks(L), p.grid, p.seg) == (19, 22, 47_680)
+    assert pm.resident_rings(L) == 6
+    tau, dcol, tcol = _inputs(dev, B, L, seed=35)
+    ctr = (8, 2**32 - 4, 0, 0)
+    args = (tau, torch.tensor([ctr]), dcol, tcol)
+    kw = dict(k_steps=K, n_v=100, delta=math.inf, rebase=rebase, stale=stale)
+    got = pm.pdes_multistep_counter(*args, **kw)
+    _assert_step_equal(got, ref.pdes_multistep_counter_ref(*args, **kw))
+    seg = tiling._ring_seg(L, 19)
+    least = tiling.RingPlan(19, seg, tiling.RING_SPLIT_WARPS, 4 * seg,
+                            tiling.SMEM_STATIC_SPLIT)
+    monkeypatch.setattr(pm, "ring_plan", lambda L, stream=True: least)
+    assert pm.resident_rings(L) == 6
+    out = torch.empty_like(tau)
+    stats = torch.empty((6, K, B), device=dev)
+    pm.counter_launch(tau, out, stats, dcol.contiguous(),
+                      _build.u32_bits(tcol).contiguous(), ctr, n_v=100,
+                      delta=math.inf, rd_mode=False, border_both=False,
+                      rebase=rebase, stale=stale)
+    _assert_step_equal(got, (out, dict(zip(horizon.MOMENT_KEYS,
+                                           stats.unbind(0)))))
+
+
+def test_filled_grid_plan_b3_matches_plain(dev):
+    """B3 takes B1's plan at 2^20 (22 blocks a ring) and matches its plain
+    version at 2 x 2^20."""
+    L, K = 1 << 20, 16
+    assert tiling.ring_plan(L, stream=False) == tiling.ring_plan(L)
+    assert pm.launch_plan(2, L, bits=True)["ring_grid"] == 22
+    assert pm.resident_rings(L, bits=True) == 6
+    tau, _, _ = _inputs(dev, 2, L, seed=36)
+    bits = threefry.threefry_bits(prng.key(36, dev), 2**32 - 7, K, (2, L))
+    kw = dict(n_v=100, delta=100.0)
+    _assert_step_equal(pm.pdes_multistep(tau, bits, **kw),
+                       ref.pdes_multistep_ref(tau, bits, **kw))
 
 
 def test_service_at_2_19_answers_as_a_direct_sweep(dev):
@@ -582,7 +632,7 @@ def test_service_takes_an_exact_request_past_shared_memory(dev, monkeypatch):
 
 
 #: (B, L) of each of B1's tiers: one block; a cooperative grid of 2 and of
-#: 19 blocks a ring; the stream tier's shortest ring.
+#: 22 blocks a ring; the stream tier's shortest ring.
 REBASE_SHAPES = ((448, 10_000), (2, 65_600), (8, 1 << 20),
                  (1, tiling.MAX_GRID_RING_L + 32))
 
@@ -633,7 +683,7 @@ def test_fused_rebase_equals_the_explicit_loop_on_the_gpu(dev, B, L,
 
 
 #: (B, L) of each of B1's tiers in the stale window: one block, the grid
-#: at the production ring (19 blocks, 6 rings at once: two waves), the
+#: at the production ring (22 blocks, 6 rings at once: two waves), the
 #: stream tier's shortest ring.
 STALE_SHAPES = ((64, 10_000), (8, 1 << 20), (1, tiling.MAX_GRID_RING_L + 32))
 

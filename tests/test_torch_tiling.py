@@ -78,9 +78,10 @@ RING_LS = (1, 31, 32, 10_000, tiling.MAX_RING_L, tiling.MAX_RING_L + 1,
 @pytest.mark.parametrize("L", RING_LS)
 def test_ring_plan(L):
     """B1's and B3's layout, from L alone: one block as before up to
-    MAX_RING_L; above it the least number of blocks whose segments, whole
-    rows but the last, tile the ring and each fit one block with a row a
-    warp, the blocks of a cooperative grid."""
+    MAX_RING_L; above it blocks of a cooperative grid whose segments,
+    whole rows but the last, tile the ring and each fit one block with a
+    row a warp: the least number that fits, raised to the most that keep
+    as many rings on the card at once."""
     p = tiling.ring_plan(L)
     lp = pdes_multistep.launch_plan(7, L)
     assert lp == {"grid": (7 * p.grid,), "ring_grid": p.grid,
@@ -109,11 +110,16 @@ def test_ring_plan(L):
     lens = [e - s for s, e in zip(starts, ends)]
     assert all(n % 32 == 0 for n in lens[:-1]) and 0 < lens[-1] <= p.seg
     assert -(-lens[-1] // 32) >= p.warps          # a row for every warp
-    # the least number of blocks that fits
-    fewer = p.blocks - 1
+    # the least number of blocks that fits, and the most of as many rings
+    # at once
+    n = tiling.ring_blocks(L)
+    fewer = n - 1
     assert (L > tiling.MAX_RING_L if fewer == 1 else
             4 * 32 * -(-L // (32 * fewer)) + p.static_smem
             > tiling.SMEM_PER_BLOCK)
+    assert 4 * 32 * -(-L // (32 * n)) + p.static_smem \
+        <= tiling.SMEM_PER_BLOCK
+    assert 132 // p.blocks == 132 // n and 132 // (p.blocks + 1) < 132 // n
 
 
 #: One ring length for each block count n from 2 to 16 (n full segments,
@@ -126,23 +132,28 @@ ROUTE_LS = tuple(524_288 if n == 10 else n * tiling.MAX_RING_SEG
 
 @pytest.mark.parametrize("L", ROUTE_LS)
 def test_ring_plan_routes_by_block_count(L):
-    """Every ring of 2 blocks or more takes the cooperative grid, in the
-    least number of blocks whose segments (whole rows, ceil(L / n) rounded
-    up to 32) fit one block of 32 warps; B1's plan is B3's."""
+    """Every ring of 2 blocks or more takes the cooperative grid, at least
+    the least number of blocks whose segments (whole rows, ceil(L / n)
+    rounded up to 32) fit one block of 32 warps, and the most that keep
+    as many rings at once: the least count from 2 to 14 and 16, 16 for
+    15; B1's plan is B3's."""
     n = tiling.ring_blocks(L)
     assert (n - 1) * tiling.MAX_RING_SEG < L <= n * tiling.MAX_RING_SEG
     assert n >= 2
+    g = 16 if n == 15 else n
     p = tiling.ring_plan(L)
     assert p == tiling.ring_plan(L, stream=False)
-    seg = tiling._ring_seg(L, n)
+    seg = tiling._ring_seg(L, g)
     assert p.tier == "grid" and p.fits
-    assert p == tiling.RingPlan(n, seg, tiling.RING_SPLIT_WARPS, 4 * seg,
+    assert p == tiling.RingPlan(g, seg, tiling.RING_SPLIT_WARPS, 4 * seg,
                                 tiling.SMEM_STATIC_SPLIT)
     for bits in (False, True):
         lp = pdes_multistep.launch_plan(28, L, bits=bits)
-        assert lp["grid"] == (28 * n,) and lp["tier"] == p.tier
+        assert lp["grid"] == (28 * g,) and lp["tier"] == p.tier
     if L == 524_288:              # the cell exact_mix.ring512k
         assert (p.tier, p.grid, p.seg) == ("grid", 10, 52_448)
+    if L == 15 * tiling.MAX_RING_SEG:   # 8 rings at once either way
+        assert (p.grid, p.seg) == (16, 53_408)
 
 
 @pytest.mark.parametrize("L,seg", [(tiling.MAX_RING_L + 1, 28_704),
@@ -160,11 +171,16 @@ def test_two_block_rings_keep_their_segments(L, seg):
 @pytest.mark.parametrize("L", [L16 + 1, 1 << 20, 1 << 22,
                                tiling.MAX_GRID_RING_L])
 def test_ring_plan_over_the_grid(L):
-    """The grid tier: ceil(L / MAX_RING_SEG) blocks, a function of L alone
-    (the same for every batch), segments of whole rows and a non-empty
-    last one; the paper's production ring takes 19 blocks."""
+    """The grid tier: at least ceil(L / MAX_RING_SEG) blocks, raised to the
+    most that keep as many rings at once, a function of L alone (the same
+    for every batch), segments of whole rows and a non-empty last one; the
+    shortest ring of 17 blocks takes 18, the paper's production ring 22
+    (19 at the least), 2^22 all 132."""
     p = tiling.ring_plan(L)
-    assert p.grid == -(-L // tiling.MAX_RING_SEG)
+    n = -(-L // tiling.MAX_RING_SEG)
+    assert p.grid == 132 // (132 // n)
+    assert p.grid == {L16 + 1: 18, 1 << 20: 22, 1 << 22: 132,
+                      tiling.MAX_GRID_RING_L: 132}[L]
     assert p.seg % 32 == 0 and p.seg <= tiling.MAX_RING_SEG
     assert 0 < L - (p.grid - 1) * p.seg <= p.seg
     for B in (1, 6, 8, 448):
@@ -172,10 +188,71 @@ def test_ring_plan_over_the_grid(L):
         assert lp["ring_grid"] == p.grid and lp["seg"] == p.seg
         assert lp["grid"] == (B * p.grid,)
     if L == 1 << 20:
-        assert (p.grid, p.seg) == (19, 55_200)
+        assert (p.grid, p.seg) == (22, 47_680)
     if L == tiling.MAX_GRID_RING_L:
         assert (p.grid, p.seg) == (tiling.RING_MAX_GRID_BLOCKS,
                                    tiling.MAX_RING_SEG)
+
+
+#: (least count, L, the plan's blocks) of one ring length of each range of
+#: least counts that the plan fills: n whole segments, at 19 the paper's
+#: production ring.
+FILL_CASES = ((15, 15 * tiling.MAX_RING_SEG, 16),
+              (17, 17 * tiling.MAX_RING_SEG, 18), (19, 1 << 20, 22),
+              (23, 23 * tiling.MAX_RING_SEG, 26),
+              (27, 27 * tiling.MAX_RING_SEG, 33),
+              (34, 34 * tiling.MAX_RING_SEG, 44),
+              (45, 45 * tiling.MAX_RING_SEG, 66),
+              (67, 67 * tiling.MAX_RING_SEG, 132),
+              (131, 131 * tiling.MAX_RING_SEG, 132))
+
+
+@pytest.mark.parametrize("n,L,grid", FILL_CASES)
+def test_grid_plan_fills_the_card(n, L, grid):
+    """A grid-tier ring takes the most blocks whose rings the card holds as
+    many of at once (132 // grid) as of the least count's: the waves stay,
+    and each block's segment shortens; segments of whole rows, the last
+    one a row for every warp; B1's plan is B3's."""
+    assert tiling.ring_blocks(L) == n
+    p = tiling.ring_plan(L)
+    assert p.grid == grid == max(g for g in range(n, 133)
+                                 if 132 // g == 132 // n)
+    assert p.tier == "grid" and p.fits
+    assert p.seg % 32 == 0 and p.seg == tiling._ring_seg(L, grid)
+    last = L - (p.grid - 1) * p.seg
+    assert 32 * p.warps <= last <= p.seg
+    assert p == tiling.ring_plan(L, stream=False)
+    assert p == tiling.RingPlan(grid, p.seg, tiling.RING_SPLIT_WARPS,
+                                4 * p.seg, tiling.SMEM_STATIC_SPLIT)
+    if L == 1 << 20:
+        assert (p.grid, p.seg, last) == (22, 47_680, 47_296)
+
+
+#: (L, (grid, seg)) of plans that already filled the card and stay as
+#: they were: the block tier, least counts 2 to 14 (2^19 included), the
+#: stream tier.
+KEPT_PLANS = ((10_000, (1, 10_000)), (tiling.MAX_RING_L, (1, 57_344)),
+              (tiling.MAX_RING_L + 1, (2, 28_704)), (1 << 19, (10, 52_448))
+              ) + tuple((n * tiling.MAX_RING_SEG, (n, 56_960))
+                        for n in range(2, 15)) + (
+    (tiling.MAX_GRID_RING_L, (132, 56_960)),
+    (tiling.MAX_GRID_RING_L + 32, (132, 56_992)), (1 << 23, (132, 63_552)))
+
+
+@pytest.mark.parametrize("L,plan", KEPT_PLANS)
+def test_plans_that_fill_the_card_are_kept(L, plan):
+    """Least counts of 2 to 14 already fill the card in whole rings, so the
+    grid tier keeps their plans, as do the block tier and the stream
+    tier (132 blocks already): pinned by value."""
+    p = tiling.ring_plan(L)
+    assert (p.grid, p.seg) == plan
+    if p.grid == 1:
+        assert (p.warps, p.dynamic_smem, p.static_smem) == (
+            8, 4 * L, tiling.SMEM_STATIC)
+    else:
+        assert (p.warps, p.dynamic_smem, p.static_smem) == (
+            32, 4 * min(p.seg, tiling.MAX_RING_SEG), tiling.SMEM_STATIC_SPLIT)
+        assert p.grid == tiling.ring_blocks(L)
 
 
 def test_ring_plan_raises_above_the_cap():
@@ -415,7 +492,7 @@ def test_table_decode_equals_plain_rule_on_all_inputs():
 
 @pytest.mark.parametrize("L,B,at_once,blocks", [
     (10_000, 448, None, 1), (65_536, 448, 66, 2), (1 << 19, 28, 13, 10),
-    (1 << 19, 16, 13, 10), (1 << 20, 28, 6, 19), (1 << 23, 14, 1, 132)])
+    (1 << 19, 16, 13, 10), (1 << 20, 28, 6, 22), (1 << 23, 14, 1, 132)])
 def test_card_share_counts_split_launches(L, B, at_once, blocks,
                                           monkeypatch):
     """B1's launches on a split ring count K x B x blocks block-steps and
