@@ -32,8 +32,10 @@ def control_numbers(root, name: str, seed: int, device) -> dict:
     gen = traffic.rounds(cell["config"], cell["mix"], cell["cell"], seed)
     log = [[{"request": q} for q in rnd] for rnd in itertools.islice(gen, 2)]
     reqs = [e["request"] for e in check.sample(log, seed)]
-    want = check.reference_records(reqs, device)
-    got = check.reference_records(reqs, device, dtype=torch.bfloat16)
+    keep = check.drawn(cell["config"], seed)
+    want = check.reference_records(reqs, device, keep=keep)
+    got = check.reference_records(reqs, device, dtype=torch.bfloat16,
+                                  keep=keep)
     return check.compare(got, want)
 
 

@@ -5,9 +5,16 @@ responses to that round's new requests (duplicates included) are compared
 with the plain reference (``bench/reference/pdes.py``), with every response
 of the next round that extends one of them (the burned-state cache's
 path).  The reference recomputes each request from its spec and its seed
-alone.  Requests on one counter stream with the same burn-in are computed together
-over the union of their rows, for their longest length: a shorter request
-is a prefix of it whenever every length is a whole number of chunks.
+alone, each (L, N_V) point of its grid in turn, numbered as the service
+numbers them.  A point's rows on one counter stream with the same burn-in
+are computed together with other requests' over the union of their rows,
+for their longest length: a shorter request is a prefix of it whenever
+every length is a whole number of chunks.  On a grid of several N_V
+values one of them is compared at each ring length, drawn from the run's
+seed and the same in every request of the run: every ring length, and so
+every tier of the kernels and every slab of the state cache, is checked
+in each run, every point over runs, and the reference stays shorter than
+the window.
 
 Two numbers are compared, each against the cell's limit:
 
@@ -17,14 +24,19 @@ Two numbers are compared, each against the cell's limit:
 * ``max_rel_gap``: the widest relative gap of any record field, the sums
   (``w2``, ``wa``, ``spread`` and what derives from them) included,
   which the kernels add up in another order than plain PyTorch.
+
+A missing answer, or a record of another point or Δ than the reference's
+in its place, reads ``inf`` in both.
 """
 from __future__ import annotations
 
+import itertools
 import math
 
 import numpy as np
 import torch
 
+from . import traffic
 from .reference import pdes as ref
 
 EXACT_FIELDS = ("u", "u_err", "rate", "rate_err")
@@ -44,42 +56,76 @@ def sample(log: list, seed: int) -> list:
     return picked
 
 
-def _stream_key(q: dict):
+def drawn(config: dict, seed: int):
+    """Indices, in the service's order, of the grid's points a run of
+    ``seed`` compares: one N_V value at each ring length, drawn from the
+    seed; every point (None) where the configuration has one N_V."""
+    Ls, n_vs = traffic.grid(config)
+    if len(n_vs) == 1:
+        return None
+    rng = np.random.default_rng([int(seed) % 2**64, 11])
+    return {i * len(n_vs) + int(rng.choice(len(n_vs), 1)[0])
+            for i in range(len(Ls))}
+
+
+def points(q: dict, keep=None) -> list:
+    """A request's ``(L, n_v, trial base)`` points in the service's order:
+    L outer, N_V inner, each point's trials after the previous point's;
+    only those whose index is in ``keep``, where it is given."""
+    n = len(q["deltas"]) * q["replicas"]
+    return [(L, n_v, i * n) for i, (L, n_v) in
+            enumerate(itertools.product(q["Ls"], q["n_vs"]))
+            if keep is None or i in keep]
+
+
+def kept(records, q: dict, keep=None):
+    """An answer's records at the points in ``keep`` (all where it is
+    None); an answer of another length than its request's grid, as it
+    came, so that it reads ``inf``."""
+    n = len(q["deltas"])
+    if records is None or keep is None or \
+            len(records) != n * len(q["Ls"]) * len(q["n_vs"]):
+        return records
+    return [r for k, r in enumerate(records) if k // n in keep]
+
+
+def _stream_key(q: dict, L: int, n_v: int):
     k = q["k_fuse"]
-    return (tuple(q["Ls"]), tuple(q["n_vs"]), q["window"], k, q["seed"],
-            q["burn_in"], q["rd_mode"], q["border_both"],
-            0 if q["n_steps"] % k == 0 else q["n_steps"])
+    return (L, n_v, q["window"], k, q["seed"], q["burn_in"], q["rd_mode"],
+            q["border_both"], 0 if q["n_steps"] % k == 0 else q["n_steps"])
 
 
-def reference_records(requests: list, device, dtype=torch.float32) -> list:
-    """The reference's records of each request (a list of dicts each)."""
+def reference_records(requests: list, device, dtype=torch.float32,
+                      keep=None) -> list:
+    """The reference's records of each request (a list of dicts each, its
+    points' in turn; only the points in ``keep``, where it is given)."""
     groups: dict = {}
     for i, q in enumerate(requests):
-        groups.setdefault(_stream_key(q), []).append(i)
-    out = [None] * len(requests)
-    for idx in groups.values():
-        qs = [requests[i] for i in idx]
+        for p, (L, n_v, base) in enumerate(points(q, keep)):
+            groups.setdefault(_stream_key(q, L, n_v), []).append((i, p, base))
+    out = [{} for _ in requests]
+    for (L, n_v, *_), members in groups.items():
+        qs = [requests[i] for i, _, _ in members]
         union: dict = {}
         cols = []
-        for q in qs:
+        for q, (_, _, base) in zip(qs, members):
             trials, deltas = ref.request_rows(q["deltas"], q["replicas"])
-            cols.append([union.setdefault((int(t), float(d)), len(union))
+            cols.append([union.setdefault((int(base + t), float(d)),
+                                          len(union))
                          for t, d in zip(trials, deltas)])
         q0 = qs[0]
-        if len(q0["Ls"]) != 1 or len(q0["n_vs"]) != 1:
-            raise ValueError("the reference takes one (L, n_v) a request")
         stats = ref.run_rows(
-            L=q0["Ls"][0], n_v=q0["n_vs"][0], k_fuse=q0["k_fuse"],
+            L=L, n_v=n_v, k_fuse=q0["k_fuse"],
             window=q0["window"], seed=q0["seed"], burn_in=q0["burn_in"],
             n_steps=max(q["n_steps"] for q in qs),
             trials=[t for t, _ in union], deltas=[d for _, d in union],
             device=device, dtype=dtype, rd_mode=q0["rd_mode"],
             border_both=q0["border_both"])
-        for i, q, c in zip(idx, qs, cols):
+        for (i, p, _), q, c in zip(members, qs, cols):
             mine = {f: a[:q["n_steps"], c] for f, a in stats.items()}
-            out[i] = ref.records(mine, q["deltas"], q["replicas"],
-                                 q["steady_frac"])
-    return out
+            out[i][p] = [dict(L=L, n_v=n_v, **r) for r in ref.records(
+                mine, q["deltas"], q["replicas"], q["steady_frac"])]
+    return [[r for p in sorted(recs) for r in recs[p]] for recs in out]
 
 
 def compare(answers: list, refs: list) -> dict:
@@ -90,7 +136,7 @@ def compare(answers: list, refs: list) -> dict:
         if got is None or len(got) != len(want):
             return {"max_rel_gap": math.inf, "exact_fields_differ": math.inf}
         for g, w in zip(got, want):
-            if g["delta"] != w["delta"]:
+            if any(g[k] != w[k] for k in ("L", "n_v", "delta")):
                 return {"max_rel_gap": math.inf,
                         "exact_fields_differ": math.inf}
             for f in ref.RECORD_FIELDS:

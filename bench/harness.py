@@ -28,7 +28,8 @@ import numpy as np
 
 from . import check, devtrace, roofline, traffic
 
-#: Seconds of rounds a traced run profiles.
+#: Seconds of rounds a traced run profiles, unless its cell names
+#: ``trace_rounds``.
 TRACE_SECONDS = 3.0
 #: Modules that no run may load (whole top-level names).
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
@@ -94,9 +95,10 @@ def _spec(q: dict):
 
 
 def _drive(svc, rounds, seconds: float, annotate,
-           clock=time.perf_counter):
-    """Run rounds until ``seconds`` have passed; returns the round log,
-    the window's (start, end) and the requests left unanswered."""
+           clock=time.perf_counter, n_rounds: int = 0):
+    """Run rounds until ``seconds`` have passed, or ``n_rounds`` rounds
+    where it is not 0; returns the round log, the window's (start, end)
+    and the requests left unanswered."""
     log, unanswered = [], 0
     t0 = clock()
     while True:
@@ -120,11 +122,11 @@ def _drive(svc, rounds, seconds: float, annotate,
                 "request": q, "latency_s": t - t_sub,
                 "error": resp.error, "cached": resp.cached,
                 "records": None if resp.result is None else [
-                    {"delta": r.delta, **{f: getattr(r, f) for f in
-                                          check.ref.RECORD_FIELDS}}
+                    {"L": r.L, "n_v": r.n_v, "delta": r.delta,
+                     **{f: getattr(r, f) for f in check.ref.RECORD_FIELDS}}
                     for r in resp.result.records]})
         log.append(entries)
-        if clock() - t0 >= seconds:
+        if (len(log) >= n_rounds if n_rounds else clock() - t0 >= seconds):
             return log, (t0, clock()), unanswered
 
 
@@ -152,9 +154,20 @@ def run(root, name: str, seed: int, seconds: float, trace: bool, *,
         svc.drain()
     sync()
     rounds = traffic.rounds(conf, mix, sizes, seed)
-    window_s = min(seconds, TRACE_SECONDS) if trace else seconds
+    window_s, n_rounds = seconds, 0
     annotate = lambda _name: nullcontext()  # noqa: E731
+    log0, unanswered0 = [], 0
     if trace:
+        # a cell that names ``trace_rounds`` traces that many rounds after
+        # one untraced round, so that every traced round holds the
+        # extensions of the round before it; the others, the first
+        # TRACE_SECONDS of rounds
+        n_rounds = int(sizes.get("trace_rounds", 0))
+        if n_rounds:
+            log0, _, unanswered0 = _drive(svc, rounds, 0.0, annotate,
+                                          n_rounds=1)
+        else:
+            window_s = min(seconds, TRACE_SECONDS)
         from torch.profiler import ProfilerActivity, profile, record_function
 
         from repro_torch.obs import Telemetry, TraceRecorder
@@ -169,8 +182,11 @@ def run(root, name: str, seed: int, seconds: float, trace: bool, *,
     setup_s = (process_age() if t_start is None
                else time.perf_counter() - t_start)
     with annotate(devtrace.WINDOW):
-        log, (t0, t1), unanswered = _drive(svc, rounds, window_s, annotate)
+        log, (t0, t1), unanswered = _drive(svc, rounds, window_s, annotate,
+                                           n_rounds=n_rounds)
     sync()
+    traced, log = log, log0 + log
+    unanswered += unanswered0
     stats = svc.stats.diff(stats0)
     if trace:
         prof.__exit__(None, None, None)
@@ -195,16 +211,20 @@ def run(root, name: str, seed: int, seconds: float, trace: bool, *,
     attempted = len(entries) + unanswered
     errors = sum(e["error"] is not None for e in entries)
     picked = check.sample(log, seed)
+    keep = check.drawn(conf, seed)
     t_ref = time.perf_counter()
-    refs = check.reference_records([e["request"] for e in picked], dev)
+    refs = check.reference_records([e["request"] for e in picked], dev,
+                                   keep=keep)
     t_ref = time.perf_counter() - t_ref
-    numbers = check.compare([e["records"] if e["error"] is None else None
+    numbers = check.compare([check.kept(e["records"], e["request"], keep)
+                             if e["error"] is None else None
                              for e in picked], refs)
     limits = sizes["limits"]
     correct = check.judge(numbers, limits) and errors + unanswered == 0 \
         and bool(picked)
     print(f"[bench] {name} seed {seed}: {len(log)} rounds, {attempted} "
           f"requests in {t1 - t0:.3f} s; compared {len(picked)} responses "
+          f"({'every point' if keep is None else f'{len(keep)} points'}) "
           f"with the reference in {t_ref:.3f} s", file=sys.stderr)
 
     device_info = {"platform": "gpu" if cuda else dev.type,
@@ -214,7 +234,8 @@ def run(root, name: str, seed: int, seconds: float, trace: bool, *,
     units = {m["name"]: m["unit"] for m in
              cell["end_to_end"] + cell["per_layer"]}
     if trace:
-        rec.update(stats=stats.as_dict(), responses=entries, config=conf,
+        rec.update(stats=stats.as_dict(),
+                   responses=[e for rnd in traced for e in rnd], config=conf,
                    cell=sizes, mix=mix)
         for m in cell["per_layer"]:
             v = metric_reader(cell["bench"], m["name"])(rec)

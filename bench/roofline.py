@@ -72,7 +72,8 @@ def ops_seconds(card: dict, n_int: float, n_fp: float) -> float:
 
 
 def utilization(responses) -> float:
-    """Mean u of the responses' records, weighted by the PE-steps asked.
+    """Mean u of the responses' records, weighted by the PE-steps asked
+    (a record's rows times its steps and its own ring length).
 
     It stands for the share of PE-steps that update; the burn-in's share
     is higher than the steady state's, so work counted with it errs low.
@@ -84,14 +85,34 @@ def utilization(responses) -> float:
         q = e["request"]
         w = q["replicas"] * (q["burn_in"] + q["n_steps"])
         for r in e["records"]:
-            num += r["u"] * w
-            den += w
+            num += r["u"] * w * r["L"]
+            den += w * r["L"]
     return num / den if den else 0.0
+
+
+def span_row_steps(args: dict) -> int:
+    """Row-steps of one ``pass`` span: its rows (pads included) times its
+    steps, and the rows it burned times the burn-in: the pass's share of
+    the service's ``engine_row_steps``.  (The service pads rows only on
+    the sharded backend, which no cell runs; the pads of its burn
+    sub-pass are not in the span's args.)"""
+    return ((args["n_rows"] + args["n_pad"]) * args["n_steps"]
+            + args["rows_burned"] * args["burn"])
+
+
+def row_steps(rec) -> dict:
+    """The engine's row-steps in the traced window by ring length: each
+    ``pass`` span's (:func:`span_row_steps`) under its own ``L``."""
+    out: dict = {}
+    for e in rec["spans"]:
+        a = e["args"]
+        out[a["L"]] = out.get(a["L"], 0) + span_row_steps(a)
+    return out
 
 
 def pe_steps(rec) -> int:
     """PE-steps the engine ran in the traced window."""
-    return rec["stats"]["engine_row_steps"] * rec["config"]["L"]
+    return sum(L * n for L, n in row_steps(rec).items())
 
 
 def algorithm_ops(rec) -> tuple:
@@ -110,7 +131,7 @@ def b1_bound_s(rec) -> float:
     """Least seconds for B1's work: its instructions, or the rings read and
     written once a K-step launch and six moment floats a row-step."""
     n_bytes = (8 * pe_steps(rec) / rec["config"]["k_fuse"]
-               + 4 * 6 * rec["stats"]["engine_row_steps"])
+               + 4 * 6 * sum(row_steps(rec).values()))
     return max(algorithm_s(rec), n_bytes / rec["card"]["hbm_bytes_per_s"])
 
 
@@ -119,10 +140,9 @@ def b2_bound_s(rec) -> float:
     a row-step's bytes: the haloed ring read (4 (L + 2)), the words
     (8 L), the ring written (4 L), the window base and six moments
     (4 + 24)."""
-    L = rec["config"]["L"]
     ops = pe_steps(rec) * (STEP_OPS_PER_PE + STEP_OPS_PER_UPDATE
                            * utilization(rec["responses"]))
-    n_bytes = rec["stats"]["engine_row_steps"] * (16 * L + 36)
+    n_bytes = sum(n * (16 * L + 36) for L, n in row_steps(rec).items())
     return max(ops_seconds(rec["card"], 0, ops),
                n_bytes / rec["card"]["hbm_bytes_per_s"])
 

@@ -51,14 +51,22 @@ def shrink(root: pathlib.Path) -> pathlib.Path:
     """Cut, in place, every configuration and cell that
     ``root/BENCHMARK.json`` names to a size the CPU runs in a second:
     rings of ``TINY_L_ONE_BLOCK`` or ``TINY_L_SPLIT`` PEs by the
-    configuration's own ``L``, 2 replicas and 32 steps; returns ``root``."""
+    configuration's own ``L`` (a grid's ``Ls``: the distinct tiny lengths
+    of its own, in order), 2 replicas and 32 steps; returns ``root``."""
     from repro_torch.kernels.tiling import MAX_RING_L
+
+    def tiny(L):
+        return TINY_L_ONE_BLOCK if L <= MAX_RING_L else TINY_L_SPLIT
+
     spec = json.loads((root / "BENCHMARK.json").read_text())
     for c in spec["configs"]:
         path = root / c["file"]
         conf = json.loads(path.read_text())
-        conf.update(L=TINY_L_ONE_BLOCK if conf["L"] <= MAX_RING_L
-                    else TINY_L_SPLIT, state_cache_rows=256)
+        if "Ls" in conf:
+            conf["Ls"] = list(dict.fromkeys(tiny(L) for L in conf["Ls"]))
+        else:
+            conf["L"] = tiny(conf["L"])
+        conf["state_cache_rows"] = 256
         path.write_text(json.dumps(conf))
     for w in spec["workloads"]:
         path = root / "bench" / "cells" / f"{w['name']}.json"

@@ -63,7 +63,8 @@ FAULTS = {"unchanged_state": _unchanged_state,
 
 
 @pytest.mark.parametrize("name", ["exact_mix.ring10k", "stale_mix.ring10k",
-                                  "growth_mix.ring1m", "exact_mix.ring512k"])
+                                  "growth_mix.ring1m", "exact_mix.ring512k",
+                                  "exact_mix.size_grid"])
 @pytest.mark.parametrize("fault", FAULTS)
 def test_a_broken_path_is_not_correct(tiny_root, name, fault, monkeypatch,
                                       tmp_path):
@@ -75,7 +76,7 @@ def test_a_broken_path_is_not_correct(tiny_root, name, fault, monkeypatch,
 
 @pytest.mark.parametrize("name", ["exact_mix.ring10k", "exact_mix.ring1m",
                                   "stale_mix.ring10k", "growth_mix.ring1m",
-                                  "exact_mix.ring512k"])
+                                  "exact_mix.ring512k", "exact_mix.size_grid"])
 def test_the_control_fails_every_cell(tiny_root, name):
     limits = harness.load_cell(tiny_root, name)["cell"]["limits"]
     for seed in (1, 2, 3):

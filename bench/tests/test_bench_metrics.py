@@ -12,6 +12,10 @@ HTOD = "Memcpy HtoD (Pageable -> Device)"
 #: instructions a second; 3e12 bytes a second.
 CARD = {"sms": 132, "clock_hz": 1.98e9, "clock_from": "card",
         "hbm_bytes_per_s": 3e12}
+#: A pass of 500 row-steps at L = 10,000: 10 rows burned 10 steps, then
+#: run 40; two of them make the record's 1,000.
+PASS = {"L": 10_000, "n_rows": 10, "n_pad": 0, "n_steps": 40,
+        "rows_burned": 10, "burn": 10}
 INT_RATE, ISSUE_RATE = 132 * 1.98e9 * 64, 132 * 1.98e9 * 128
 
 
@@ -40,11 +44,13 @@ def _events():
 def _record():
     rec = devtrace.read(_events())
     rec.update(
-        spans=[{"name": "pass", "dur": 2.5e5}, {"name": "pass", "dur": 2.5e5}],
+        spans=[{"name": "pass", "dur": 2.5e5, "args": PASS},
+               {"name": "pass", "dur": 2.5e5, "args": PASS}],
         stats={"engine_row_steps": 1000},
-        config={"L": 10_000, "k_fuse": 16}, card=CARD,
+        config={"L": 10_000, "n_v": 10, "k_fuse": 16}, card=CARD,
         responses=[{"request": {"replicas": 2, "burn_in": 10, "n_steps": 30},
-                    "records": [{"u": 0.25}, {"u": 0.75}]},
+                    "records": [{"L": 10_000, "u": 0.25},
+                                {"L": 10_000, "u": 0.75}]},
                    {"request": {"replicas": 1, "burn_in": 0, "n_steps": 40},
                     "records": None}])
     return rec

@@ -28,8 +28,8 @@ def _served(reqs):
         svc.submit(WindowSweep(**{f: q[f] for f in traffic.SPEC_FIELDS}),
                    requester=f"r{i}")
         out += svc.drain()
-    return [[{"delta": r.delta, **{f: getattr(r, f) for f in
-                                   ref.RECORD_FIELDS}}
+    return [[{"L": r.L, "n_v": r.n_v, "delta": r.delta,
+              **{f: getattr(r, f) for f in ref.RECORD_FIELDS}}
              for r in resp.result.records] for resp in out]
 
 

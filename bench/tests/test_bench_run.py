@@ -25,7 +25,8 @@ def _of(metrics, name):
 
 
 @pytest.mark.parametrize("name", ["exact_mix.ring10k", "stale_mix.ring10k",
-                                  "growth_mix.ring1m", "exact_mix.ring512k"])
+                                  "growth_mix.ring1m", "exact_mix.ring512k",
+                                  "exact_mix.size_grid"])
 def test_untraced_line(tiny_root, spec, name, tmp_path):
     res = json.loads(json.dumps(_run(tiny_root, name, False, tmp_path)))
     assert list(res) == KEYS + ["checks"]
@@ -46,7 +47,7 @@ def test_untraced_line(tiny_root, spec, name, tmp_path):
 
 
 @pytest.mark.parametrize("name", ["exact_mix.ring10k", "growth_mix.ring1m",
-                                  "exact_mix.ring512k"])
+                                  "exact_mix.ring512k", "exact_mix.size_grid"])
 def test_traced_line(tiny_root, spec, name, tmp_path):
     res = _run(tiny_root, name, True, tmp_path)
     assert list(res) == KEYS + ["breakdown", "checks"]

@@ -122,10 +122,13 @@ def test_b1_roofline_reads_the_stale_window_kernels(flags):
     card = {"sms": 132, "clock_hz": 1.98e9, "clock_from": "card",
             "hbm_bytes_per_s": 3e12}
     rec = {"stats": {"engine_row_steps": 1000},
-           "config": {"L": 1 << 20, "k_fuse": 16}, "card": card,
+           "spans": [{"name": "pass", "args": {
+               "L": 1 << 20, "n_rows": 10, "n_pad": 0, "n_steps": 100,
+               "rows_burned": 0, "burn": 0}}],
+           "config": {"L": 1 << 20, "n_v": 100, "k_fuse": 16}, "card": card,
            "responses": [{"request": {"replicas": 1, "burn_in": 0,
                                       "n_steps": 16},
-                          "records": [{"u": 0.5}]}]}
+                          "records": [{"L": 1 << 20, "u": 0.5}]}]}
     got = {}
     for args in ("false, false", flags):
         rec["device_ops"] = {

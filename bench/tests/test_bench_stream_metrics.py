@@ -26,15 +26,17 @@ def _record(device_ops, spans):
     return {"device_ops": device_ops, "spans": spans, "card": CARD,
             "window_s": 3.0, "busy_s": 2.9,
             "stats": {"engine_row_steps": 14 * 512 + 8 * 512},
-            "config": {"L": L, "k_fuse": 16},
+            "config": {"L": L, "n_v": 100, "k_fuse": 16},
             "responses": [{"request": {"replicas": 2, "burn_in": 256,
                                        "n_steps": 256},
-                           "records": [{"u": 0.5}]}]}
+                           "records": [{"L": L, "u": 0.5}]}]}
 
 
 def test_b1d_roofline_reads_the_stream_kernel_alone():
     read = harness.metric_reader(ROOT / "bench", "b1d_roofline")
-    rec = _record({STREAM: 2.0, GRID: 5.0, "Memcpy DtoD": 1.0}, [])
+    passes = [_pass("stream", 0, 14, 14), _pass("stream", 0, 8, 0, steps=512)]
+    rec = _record({STREAM: 2.0, GRID: 5.0, "Memcpy DtoD": 1.0}, passes)
+    assert roofline.pe_steps(rec) == rec["stats"]["engine_row_steps"] * L
     assert read(rec) == pytest.approx(100 * roofline.b1_bound_s(rec) / 2.0)
     assert read(_record({GRID: 5.0}, [])) is None    # the tier did not run
     assert read(dict(rec, card=None)) is None

@@ -3,8 +3,10 @@
 Three data files define what a cell sends, and this module reads them:
 
 * the configuration, ``bench/configs/<config>.json``: the deployment (ring
-  size ``L``, volume load ``n_v``, fuse depth ``k_fuse``, the physics
-  flags, ``steady_frac``) and its Δ menu, ``deltas``;
+  size ``L`` and volume load ``n_v``, or a grid of them, the lists ``Ls``
+  and ``n_vs``; fuse depth ``k_fuse``, the physics flags, ``steady_frac``)
+  and its Δ menu, ``deltas``.  A request asks for every point of the
+  grid;
 * the mix, ``bench/mixes/<traffic>.json``: the engine path (``backend``,
   ``window``) and one round's requests, one entry a requester, of four
   kinds::
@@ -42,6 +44,20 @@ def as_delta(x) -> float:
     return math.inf if x == "inf" else float(x)
 
 
+def grid(config: dict) -> tuple:
+    """A configuration's ``(Ls, n_vs)``: its grid's lists, or its one
+    point's ``L`` and ``n_v`` as lists of one."""
+    if ("L" in config) == ("Ls" in config):
+        raise ValueError("a configuration names L and n_v, or Ls and n_vs")
+    if "L" in config:
+        return [int(config["L"])], [int(config["n_v"])]
+    Ls, n_vs = ([int(x) for x in config[k]] for k in ("Ls", "n_vs"))
+    if len(set(Ls)) < len(Ls) or len(set(n_vs)) < len(n_vs):
+        raise ValueError(f"a grid's Ls {Ls} and n_vs {n_vs} are lists of "
+                         "distinct values")
+    return Ls, n_vs
+
+
 def _rng(seed: int, r: int, warm: bool) -> np.random.Generator:
     return np.random.default_rng([int(seed) % 2**64, r, int(warm)])
 
@@ -69,9 +85,10 @@ def rounds(config: dict, mix: dict, cell: dict, seed: int, *,
     steps = int(cell["n_steps"])
     if warm:
         burn, steps = (k if burn else 0), k
-    common = dict(Ls=[int(config["L"])], n_vs=[int(config["n_v"])],
-                  replicas=int(cell["replicas"]), burn_in=burn,
-                  backend=mix["backend"], window=mix["window"], k_fuse=k,
+    Ls, n_vs = grid(config)
+    common = dict(Ls=Ls, n_vs=n_vs, replicas=int(cell["replicas"]),
+                  burn_in=burn, backend=mix["backend"],
+                  window=mix["window"], k_fuse=k,
                   rd_mode=bool(config["rd_mode"]),
                   border_both=bool(config["border_both"]),
                   steady_frac=float(config["steady_frac"]))
@@ -115,10 +132,12 @@ def rounds(config: dict, mix: dict, cell: dict, seed: int, *,
 
 
 def rows(q: dict) -> int:
-    """Rows a request asks for: its Δs times its replicas."""
+    """Rows a request asks for: its Δs times its replicas at each point."""
     return len(q["deltas"]) * q["replicas"] * len(q["Ls"]) * len(q["n_vs"])
 
 
 def pe_steps(q: dict) -> int:
-    """PE-steps a request asks for, burn-in included."""
-    return rows(q) * (q["burn_in"] + q["n_steps"]) * q["Ls"][0]
+    """PE-steps a request asks for, burn-in included: each point's rows
+    times its ring length, summed over the grid."""
+    return (sum(q["Ls"]) * len(q["n_vs"]) * len(q["deltas"]) * q["replicas"]
+            * (q["burn_in"] + q["n_steps"]))
