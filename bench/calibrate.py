@@ -5,11 +5,11 @@
 
 In one process: the program's compared numbers on each of ``--seeds``
 (a run of ``--seconds`` each, the window's own load; the lower readings),
-then the control's on each of ``--control-seeds``: the reference computed
-in bfloat16, the nearest precision below the configuration's float32, put
-in the program's place for the requests a run compares, and held to the
-float32 reference (the upper readings).  One JSON line a reading on
-standard output.  The benchmark's own runs never run this.
+then the control's on each of ``--control-seeds``: the cell's reference
+computed in bfloat16, the nearest precision below the configuration's
+float32, put in the program's place for the requests a run compares, and
+held to the float32 reference (the upper readings).  One JSON line a
+reading on standard output.  The benchmark's own runs never run this.
 """
 from __future__ import annotations
 
@@ -33,10 +33,11 @@ def control_numbers(root, name: str, seed: int, device) -> dict:
     log = [[{"request": q} for q in rnd] for rnd in itertools.islice(gen, 2)]
     reqs = [e["request"] for e in check.sample(log, seed)]
     keep = check.drawn(cell["config"], seed)
-    want = check.reference_records(reqs, device, keep=keep)
+    ref = cell["reference"]
+    want = check.reference_records(reqs, device, keep=keep, reference=ref)
     got = check.reference_records(reqs, device, dtype=torch.bfloat16,
-                                  keep=keep)
-    return check.compare(got, want)
+                                  keep=keep, reference=ref)
+    return check.compare(got, want, reference=ref)
 
 
 def main(argv=None) -> int:

@@ -2,14 +2,17 @@
 
 Once the window has closed, a round is drawn from the run's seed, and the
 responses to that round's new requests (duplicates included) are compared
-with the plain reference (``bench/reference/pdes.py``), with every response
-of the next round that extends one of them (the burned-state cache's
-path).  The reference recomputes each request from its spec and its seed
-alone, each (L, N_V) point of its grid in turn, numbered as the service
-numbers them.  A point's rows on one counter stream with the same burn-in
-are computed together with other requests' over the union of their rows,
-for their longest length: a shorter request is a prefix of it whenever
-every length is a whole number of chunks.  On a grid of several N_V
+with the plain reference, with every response of the next round that
+extends one of them (the burned-state cache's path).  The reference is
+the module under ``bench/reference/`` that the cell's configuration names
+(``"reference"``; ``pdes.py`` where it names none), which a configuration
+with physics of its own brings with it (``load_reference``).  It
+recomputes each request from its spec and its seed alone, each (L, N_V)
+point of its grid in turn, numbered as the service numbers them.  A
+point's rows on one counter stream with the same burn-in and physics are
+computed together with other requests' over the union of their rows, for
+their longest length: a shorter request is a prefix of it whenever every
+length is a whole number of chunks.  On a grid of several N_V
 values one of them is compared at each ring length, drawn from the run's
 seed and the same in every request of the run: every ring length, and so
 every tier of the kernels and every slab of the state cache, is checked
@@ -30,16 +33,48 @@ in its place, reads ``inf`` in both.
 """
 from __future__ import annotations
 
+import functools
+import importlib.util
 import itertools
 import math
+import pathlib
 
 import numpy as np
 import torch
 
 from . import traffic
-from .reference import pdes as ref
 
 EXACT_FIELDS = ("u", "u_err", "rate", "rate_err")
+#: The reference of a configuration that names none.
+DEFAULT_REFERENCE = "pdes"
+#: What a reference module exports to the harness.
+REFERENCE_EXPORTS = ("request_rows", "run_rows", "records", "RECORD_FIELDS")
+BENCH = pathlib.Path(__file__).resolve().parent
+
+
+@functools.cache
+def load_reference(bench: pathlib.Path = BENCH,
+                   name: str = DEFAULT_REFERENCE):
+    """The reference module ``<bench>/reference/<name>.py``, loaded once.
+
+    It exports ``REFERENCE_EXPORTS``, as ``pdes.py`` does:
+    ``request_rows(deltas, replicas)``, a request's (trials, Δs);
+    ``run_rows(*, L, n_v, k_fuse, window, seed, burn_in, n_steps, trials,
+    deltas, device, dtype, rd_mode, border_both, **spec)``, their stats;
+    ``records(stats, deltas, replicas, steady_frac)``, one dict a Δ; and
+    ``RECORD_FIELDS``, the fields compared.
+    """
+    path = pathlib.Path(bench) / "reference" / f"{name}.py"
+    if not path.is_file():
+        raise ValueError(f"no reference {name!r}: {path} is not a file")
+    mod_spec = importlib.util.spec_from_file_location(
+        f"bench.reference.{name}", path)
+    mod = importlib.util.module_from_spec(mod_spec)
+    mod_spec.loader.exec_module(mod)
+    missing = [k for k in REFERENCE_EXPORTS if not hasattr(mod, k)]
+    if missing:
+        raise ValueError(f"reference {name!r} lacks {missing}")
+    return mod
 
 
 def sample(log: list, seed: int) -> list:
@@ -89,16 +124,27 @@ def kept(records, q: dict, keep=None):
     return [r for k, r in enumerate(records) if k // n in keep]
 
 
+def _frozen(v):
+    """A JSON value with its lists as tuples, so that it hashes."""
+    return tuple(map(_frozen, v)) if isinstance(v, list) else v
+
+
 def _stream_key(q: dict, L: int, n_v: int):
+    """Requests share a reference run only where every term of their
+    physics (the configuration's ``spec`` too) and their stream match."""
     k = q["k_fuse"]
     return (L, n_v, q["window"], k, q["seed"], q["burn_in"], q["rd_mode"],
-            q["border_both"], 0 if q["n_steps"] % k == 0 else q["n_steps"])
+            q["border_both"], 0 if q["n_steps"] % k == 0 else q["n_steps"]
+            ) + tuple(sorted((f, _frozen(v))
+                             for f, v in traffic.extra(q).items()))
 
 
 def reference_records(requests: list, device, dtype=torch.float32,
-                      keep=None) -> list:
+                      keep=None, reference=None) -> list:
     """The reference's records of each request (a list of dicts each, its
-    points' in turn; only the points in ``keep``, where it is given)."""
+    points' in turn; only the points in ``keep``, where it is given), by
+    the module ``reference`` (``load_reference()`` where it is None)."""
+    ref = load_reference() if reference is None else reference
     groups: dict = {}
     for i, q in enumerate(requests):
         for p, (L, n_v, base) in enumerate(points(q, keep)):
@@ -120,7 +166,7 @@ def reference_records(requests: list, device, dtype=torch.float32,
             n_steps=max(q["n_steps"] for q in qs),
             trials=[t for t, _ in union], deltas=[d for _, d in union],
             device=device, dtype=dtype, rd_mode=q0["rd_mode"],
-            border_both=q0["border_both"])
+            border_both=q0["border_both"], **traffic.extra(q0))
         for (i, p, _), q, c in zip(members, qs, cols):
             mine = {f: a[:q["n_steps"], c] for f, a in stats.items()}
             out[i][p] = [dict(L=L, n_v=n_v, **r) for r in ref.records(
@@ -128,9 +174,12 @@ def reference_records(requests: list, device, dtype=torch.float32,
     return [[r for p in sorted(recs) for r in recs[p]] for recs in out]
 
 
-def compare(answers: list, refs: list) -> dict:
+def compare(answers: list, refs: list, reference=None) -> dict:
     """The compared numbers of answers (lists of record dicts, or None for
-    an answer that never came or is an error) against the reference's."""
+    an answer that never came or is an error) against the reference's
+    (the fields of ``reference``, ``load_reference()`` where it is None)."""
+    fields = (load_reference() if reference is None
+              else reference).RECORD_FIELDS
     gap, differ = 0.0, 0
     for got, want in zip(answers, refs):
         if got is None or len(got) != len(want):
@@ -139,7 +188,7 @@ def compare(answers: list, refs: list) -> dict:
             if any(g[k] != w[k] for k in ("L", "n_v", "delta")):
                 return {"max_rel_gap": math.inf,
                         "exact_fields_differ": math.inf}
-            for f in ref.RECORD_FIELDS:
+            for f in fields:
                 a, b = g[f], w[f]
                 if a == b or (math.isnan(a) and math.isnan(b)):
                     continue

@@ -7,13 +7,15 @@ the next round starts once every response of the round is back.  The
 window closes after the round in flight at ``seconds``.
 
 Everything that belongs to one cell is found by name under ``bench/``:
-its configuration, mix and sizes (``configs/``, ``mixes/``, ``cells/``)
-and, in a traced run, the reader of each per-layer metric that lists the
-cell (``metrics/<name>.py``, a ``read(record)`` that returns a number or
+its configuration, mix and sizes (``configs/``, ``mixes/``, ``cells/``),
+the reference its configuration names (``reference/<name>.py``) and, in a
+traced run, the reader of each per-layer metric that lists the cell
+(``metrics/<name>.py``, a ``read(record)`` that returns a number or
 None).
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
 import importlib.util
 import json
@@ -50,7 +52,9 @@ def _json(path: pathlib.Path) -> dict:
 
 
 def load_cell(root, name: str) -> dict:
-    """A cell's data, found by the workload's name in ``BENCHMARK.json``."""
+    """A cell's data, found by the workload's name in ``BENCHMARK.json``,
+    and its reference module; a configuration with a key no reader knows
+    is refused (``traffic.check_config``)."""
     root = pathlib.Path(root)
     spec = _json(root / "BENCHMARK.json")
     work = {w["name"]: w for w in spec["workloads"]}
@@ -59,9 +63,13 @@ def load_cell(root, name: str) -> dict:
     w = work[name]
     conf = {c["name"]: c for c in spec["configs"]}[w["config"]]
     bench = root / "bench"
+    config = _json(root / conf["file"])
+    traffic.check_config(config)
     return {
         "name": name, "chips": int(w["chips"]),
-        "config": _json(root / conf["file"]),
+        "config": config,
+        "reference": check.load_reference(
+            bench, config.get("reference", check.DEFAULT_REFERENCE)),
         "mix": _json(bench / "mixes" / f"{w['traffic']}.json"),
         "cell": _json(bench / "cells" / f"{name}.json"),
         "end_to_end": spec["end_to_end"],
@@ -89,16 +97,28 @@ def forbidden_modules() -> list:
     return sorted({m.split(".")[0] for m in sys.modules} & set(FORBIDDEN))
 
 
+def check_spec(config: dict) -> None:
+    """Refuse a configuration whose ``spec`` names a field that the port's
+    ``WindowSweep`` lacks, before the service is built."""
+    from repro_torch.experiments.sweep import WindowSweep
+    lacks = sorted(set(traffic.spec_extra(config))
+                   - {f.name for f in dataclasses.fields(WindowSweep)})
+    if lacks:
+        raise ValueError(f"the configuration's spec names {lacks}, which "
+                         "WindowSweep lacks")
+
+
 def _spec(q: dict):
     from repro_torch.experiments.sweep import WindowSweep
-    return WindowSweep(**{f: q[f] for f in traffic.SPEC_FIELDS})
+    return WindowSweep(**{k: v for k, v in q.items()
+                          if k not in traffic.REQUEST_KEYS})
 
 
-def _drive(svc, rounds, seconds: float, annotate,
+def _drive(svc, rounds, seconds: float, annotate, fields,
            clock=time.perf_counter, n_rounds: int = 0):
     """Run rounds until ``seconds`` have passed, or ``n_rounds`` rounds
-    where it is not 0; returns the round log, the window's (start, end)
-    and the requests left unanswered."""
+    where it is not 0, logging each record's ``fields``; returns the round
+    log, the window's (start, end) and the requests left unanswered."""
     log, unanswered = [], 0
     t0 = clock()
     while True:
@@ -123,7 +143,7 @@ def _drive(svc, rounds, seconds: float, annotate,
                 "error": resp.error, "cached": resp.cached,
                 "records": None if resp.result is None else [
                     {"L": r.L, "n_v": r.n_v, "delta": r.delta,
-                     **{f: getattr(r, f) for f in check.ref.RECORD_FIELDS}}
+                     **{f: getattr(r, f) for f in fields}}
                     for r in resp.result.records]})
         log.append(entries)
         if (len(log) >= n_rounds if n_rounds else clock() - t0 >= seconds):
@@ -139,6 +159,8 @@ def run(root, name: str, seed: int, seconds: float, trace: bool, *,
     from repro_torch.service.api import SweepService
     cell = load_cell(root, name)
     conf, mix, sizes = cell["config"], cell["mix"], cell["cell"]
+    check_spec(conf)
+    ref = cell["reference"]
     dev = torch.device(device)
     cuda = dev.type == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
@@ -165,7 +187,7 @@ def run(root, name: str, seed: int, seconds: float, trace: bool, *,
         n_rounds = int(sizes.get("trace_rounds", 0))
         if n_rounds:
             log0, _, unanswered0 = _drive(svc, rounds, 0.0, annotate,
-                                          n_rounds=1)
+                                          ref.RECORD_FIELDS, n_rounds=1)
         else:
             window_s = min(seconds, TRACE_SECONDS)
         from torch.profiler import ProfilerActivity, profile, record_function
@@ -183,6 +205,7 @@ def run(root, name: str, seed: int, seconds: float, trace: bool, *,
                else time.perf_counter() - t_start)
     with annotate(devtrace.WINDOW):
         log, (t0, t1), unanswered = _drive(svc, rounds, window_s, annotate,
+                                           ref.RECORD_FIELDS,
                                            n_rounds=n_rounds)
     sync()
     traced, log = log, log0 + log
@@ -214,11 +237,11 @@ def run(root, name: str, seed: int, seconds: float, trace: bool, *,
     keep = check.drawn(conf, seed)
     t_ref = time.perf_counter()
     refs = check.reference_records([e["request"] for e in picked], dev,
-                                   keep=keep)
+                                   keep=keep, reference=ref)
     t_ref = time.perf_counter() - t_ref
     numbers = check.compare([check.kept(e["records"], e["request"], keep)
                              if e["error"] is None else None
-                             for e in picked], refs)
+                             for e in picked], refs, reference=ref)
     limits = sizes["limits"]
     correct = check.judge(numbers, limits) and errors + unanswered == 0 \
         and bool(picked)

@@ -4,7 +4,7 @@ times rings times blocks a ring, at each launch) summed, over their
 ``b1_sm_chunks`` (K steps times the waves of the rings the card holds at
 once times its SMs).  A count of the program, from the plan and the
 card's occupancy, so the batches alone set it.  None where no pass ran
-on a split tier (cluster, grid or stream), or from a program without the
+on a split tier (grid or stream), or from a program without the
 counters."""
 
 

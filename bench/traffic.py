@@ -22,10 +22,16 @@ Three data files define what a cell sends, and this module reads them:
   Δ, ``burn_in``, ``n_steps``) and the Δ sets the mix names, each drawn
   from the configuration's menu.
 
+A configuration may also carry ``spec``, further ``WindowSweep`` fields as
+JSON values (a deployment's own physics), which every request of it
+carries, and ``reference``, the plain reference its answers are compared
+with (``check.load_reference``).
+
 Every round has a stream seed of its own and draws its Δs from a generator
 seeded by (run seed, round), so one seed always gives the same rounds.  A
-request is a plain dict of ``WindowSweep`` fields plus ``requester`` (and
-``extends``, the requester of the previous round it extends).
+request is a plain dict of ``WindowSweep`` fields (``SPEC_FIELDS``, then
+the configuration's ``spec``) plus ``requester`` (and ``extends``, the
+requester of the previous round it extends).
 """
 from __future__ import annotations
 
@@ -33,10 +39,20 @@ import math
 
 import numpy as np
 
-#: ``WindowSweep`` fields of a request dict, in the spec's order.
+#: ``WindowSweep`` fields of a request dict that the harness sets, in the
+#: spec's order.
 SPEC_FIELDS = ("Ls", "n_vs", "deltas", "replicas", "n_steps", "burn_in",
                "backend", "window", "k_fuse", "rd_mode", "border_both",
                "steady_frac", "seed")
+#: Keys of a request dict that are not ``WindowSweep`` fields.
+REQUEST_KEYS = ("requester", "extends")
+#: Top-level keys a configuration may carry; any other is refused, so that
+#: a misspelt key cannot run the default physics unseen.
+CONFIG_KEYS = frozenset({
+    "name", "about", "source", "guarantees", "reduced", "cuts", "assumed",
+    "L", "n_v", "Ls", "n_vs", "k_fuse", "rd_mode", "border_both",
+    "steady_frac", "deltas", "window", "state_cache_rows", "dtype", "spec",
+    "reference"})
 
 
 def as_delta(x) -> float:
@@ -56,6 +72,37 @@ def grid(config: dict) -> tuple:
         raise ValueError(f"a grid's Ls {Ls} and n_vs {n_vs} are lists of "
                          "distinct values")
     return Ls, n_vs
+
+
+def spec_extra(config: dict) -> dict:
+    """A configuration's further ``WindowSweep`` fields, its ``spec``;
+    refused where one names a field the harness sets itself."""
+    spec = config.get("spec", {})
+    if not isinstance(spec, dict):
+        raise ValueError(f"a configuration's spec is an object of "
+                         f"WindowSweep fields, got {spec!r}")
+    clash = sorted(set(spec) & set(SPEC_FIELDS + REQUEST_KEYS))
+    if clash:
+        raise ValueError(f"a configuration's spec names {clash}, which the "
+                         f"harness sets itself ({', '.join(SPEC_FIELDS)})")
+    return spec
+
+
+def check_config(config: dict) -> None:
+    """Refuse a configuration with a key no reader knows, or a ``spec``
+    that names a field the harness sets."""
+    unknown = sorted(set(config) - CONFIG_KEYS)
+    if unknown:
+        raise ValueError(f"a configuration has unknown keys {unknown}; "
+                         f"known: {sorted(CONFIG_KEYS)}")
+    spec_extra(config)
+
+
+def extra(q: dict) -> dict:
+    """A request's ``WindowSweep`` fields beyond ``SPEC_FIELDS``: its
+    configuration's ``spec``."""
+    return {k: v for k, v in q.items()
+            if k not in SPEC_FIELDS and k not in REQUEST_KEYS}
 
 
 def _rng(seed: int, r: int, warm: bool) -> np.random.Generator:
@@ -86,7 +133,9 @@ def rounds(config: dict, mix: dict, cell: dict, seed: int, *,
     if warm:
         burn, steps = (k if burn else 0), k
     Ls, n_vs = grid(config)
-    common = dict(Ls=Ls, n_vs=n_vs, replicas=int(cell["replicas"]),
+    spec = spec_extra(config)
+    fields = SPEC_FIELDS + tuple(spec)
+    common = dict(spec, Ls=Ls, n_vs=n_vs, replicas=int(cell["replicas"]),
                   burn_in=burn, backend=mix["backend"],
                   window=mix["window"], k_fuse=k,
                   rd_mode=bool(config["rd_mode"]),
@@ -122,7 +171,7 @@ def rounds(config: dict, mix: dict, cell: dict, seed: int, *,
                          extends=entry["extends"])
             else:
                 raise ValueError(f"mix entry {entry} has no known kind")
-            q = {f: q[f] for f in SPEC_FIELDS} | (
+            q = {f: q[f] for f in fields} | (
                 {"extends": q["extends"]} if "extends" in q else {})
             cur[who] = q
             out.append(dict(q, requester=who))
