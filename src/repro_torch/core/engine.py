@@ -6,7 +6,11 @@ counter event stream keyed on ``(seed, step, trial, pe)`` and rebases on the
 same per-chunk schedule, so trajectories agree bit for bit across backends.
 On ``pallas_multistep`` B1 takes the rebase in its last store of τ: its
 shift is the chunk's last ``min`` moment, the ring minimum the loop would
-take, so the same subtraction on the same values.  In the stale window
+take, so the same subtraction on the same values.  That backend has a loop
+of its own (``_run_fused``): B1 prepared once a pass
+(``pdes_multistep.counter_pass``), so a chunk is one launch and the Kahan
+step, and the stats are taken once after the last chunk, elementwise, so
+every value is what a chunk's own stats give.  In the stale window
 every backend bases each step's window on the ring minimum of the chunk's
 input τ (B1 takes it in the kernel before its first step), and a
 remainder chunk starts a new base, as every chunk does.
@@ -46,10 +50,10 @@ back absolute, on the same rebase schedule as the other backends.
 Spans (``repro_torch.obs``, inert unless a tracer or the torch profiler
 records): ``engine.run`` around each run (its args name the window; on
 the fused path also B1's tier, ``tiling.ring_plan(L).tier``),
-``engine.chunk`` around each chunk of the single-device loop, and
+``engine.chunk`` around each chunk of the single-device loops, and
 ``engine.advance`` around the
-backend's advance within it (for the fused path, the kernel wrapper's
-host work up to B1's launch).  None synchronizes the device.
+backend's advance within it (for the fused path, the prepared pass's
+launch of B1).  None synchronizes the device.
 """
 from __future__ import annotations
 
@@ -92,16 +96,15 @@ class EngineConfig:
             raise ValueError("k_fuse must be >= 1")
 
 
-def _make_advance(cfg: PDESConfig, ecfg: EngineConfig, B: int, L: int,
-                  rebase: bool = False):
+def _make_advance(cfg: PDESConfig, ecfg: EngineConfig, B: int, L: int):
     """Backend chunk advance ``(tau, step0, seed, k, delta_col, b0)``.
 
     Returns ``(tau_k, moments)`` with each moment ``(k, B)``.  ``delta_col``
     is None (static ``cfg.delta``) or a ``(B, 1)`` column; ``b0`` is a Python
     int (row ``r`` uses trial ``b0 + r``) or a ``(B,)`` tensor of per-row
-    trial indices.  No rebasing inside, but where ``rebase`` asks the fused
-    advance for it: tau_k less ``moments["min"][-1]`` (other backends ignore
-    it; the chunk loop rebases for them).
+    trial indices.  No rebasing inside.  The engine's own fused path runs
+    ``_run_fused``; the ``pallas_multistep`` advance here, B1's wrapper a
+    chunk, is what the linter's probes trace.
     """
     stale = ecfg.window == "stale"
 
@@ -151,7 +154,7 @@ def _make_advance(cfg: PDESConfig, ecfg: EngineConfig, B: int, L: int,
                 tau, ctr, delta_col, b0[:, None] if vec else None,
                 k_steps=k, n_v=cfg.n_v, delta=cfg.delta,
                 rd_mode=cfg.rd_mode, border_both=cfg.border_both,
-                rebase=rebase, stale=stale)
+                stale=stale)
 
         return advance
 
@@ -165,8 +168,7 @@ def _run_single(state: SimState, seed: int, cfg: PDESConfig,
     B, L = state.tau.shape
     K = max(1, min(ecfg.k_fuse, n_steps))
     n_chunks, rem = divmod(n_steps, K)
-    fused = ecfg.backend == "pallas_multistep"   # B1 rebases in its store
-    advance = _make_advance(cfg, ecfg, B, L, rebase=fused)
+    advance = _make_advance(cfg, ecfg, B, L)
     dtype = state.tau.dtype
     delta_col = None if deltas is None else deltas.to(dtype)[:, None]
     tau, off, comp, step = state
@@ -186,11 +188,8 @@ def _run_single(state: SimState, seed: int, cfg: PDESConfig,
                                                     zip(acc, sums)]
             # rebase once per chunk: identical schedule on every backend,
             # so trajectories stay bitwise comparable
-            if fused:   # tau came rebased by the ring's last minimum
-                shift = moments["min"][-1]
-            else:
-                shift = torch.amin(tau, dim=-1)
-                tau = tau - shift[:, None]
+            shift = torch.amin(tau, dim=-1)
+            tau = tau - shift[:, None]
             off, comp = horizon._kahan_add(off, comp, shift)
         step += k
     out_state = SimState(tau, off, comp, step)
@@ -199,6 +198,50 @@ def _run_single(state: SimState, seed: int, cfg: PDESConfig,
     if mode == "record":
         return out_state, StepStats(*(torch.cat(xs, dim=0)
                                       for xs in zip(*pieces)))
+    return out_state, StepStats(*(a / n_steps for a in acc))
+
+
+def _run_fused(state: SimState, seed: int, cfg: PDESConfig,
+               ecfg: EngineConfig, n_steps: int, mode: str, deltas=None,
+               trial_base=0):
+    """The chunk loop of ``pallas_multistep``: B1 prepared once a pass,
+    then a launch a chunk that writes τ less the ring's last minimum and
+    the Kahan step on that shift, then the stats once: every step's
+    offset is its chunk's before the chunk's rebase, as in ``_run_single``.
+    ``mean`` keeps the loops' sums a chunk, in their order."""
+    from ..kernels.pdes_multistep import counter_pass
+    B, L = state.tau.shape
+    K = max(1, min(ecfg.k_fuse, n_steps))
+    vec = isinstance(trial_base, torch.Tensor)
+    delta_col = None if deltas is None else \
+        deltas.to(state.tau.dtype)[:, None]
+    tau, off, comp, step = state
+    offs = []
+    with counter_pass(tau, seed, step, n_steps, K, delta_col,
+                      trial_base[:, None] if vec else None,
+                      b0=0 if vec else trial_base, n_v=cfg.n_v,
+                      delta=cfg.delta, rd_mode=cfg.rd_mode,
+                      border_both=cfg.border_both,
+                      stale=ecfg.window == "stale",
+                      keep=mode != "burn") as b1:
+        for _ in b1.sizes:
+            with _span("engine.chunk", cat="engine"):
+                with _span("engine.advance", cat="engine"):
+                    tau, shift = b1.advance()
+                offs.append(off)
+                off, comp = horizon._kahan_add(off, comp, shift)
+    out_state = SimState(tau, off, comp, step + n_steps)
+    if mode == "burn":
+        return out_state, None
+    if mode == "record":
+        offset = torch.stack(offs)[:, None].expand(-1, K, -1) \
+            .reshape(-1, B)[:n_steps]
+        return out_state, horizon.stats_from_moments(b1.moments(), offset, L)
+    acc = None
+    for c, o in enumerate(offs):
+        st = horizon.stats_from_moments(b1.chunk_moments(c), o[None, :], L)
+        sums = [x.sum(dim=0) for x in st]
+        acc = sums if acc is None else [a + x for a, x in zip(acc, sums)]
     return out_state, StepStats(*(a / n_steps for a in acc))
 
 
@@ -321,8 +364,10 @@ class PDESEngine:
             if sharded:
                 return self._run_sharded(state, seed, n_steps, mode, deltas,
                                          trial_base)
-            return _run_single(state, seed, self.cfg, self.ecfg, n_steps,
-                               mode, deltas, trial_base)
+            run = _run_fused if self.ecfg.backend == "pallas_multistep" \
+                else _run_single
+            return run(state, seed, self.cfg, self.ecfg, n_steps, mode,
+                       deltas, trial_base)
 
     def _run_sharded(self, state, seed, n_steps, mode, deltas, trial_base):
         from . import distributed as D

@@ -34,10 +34,14 @@ run can show that its main path went through the kernel, and
 read and write in device memory (:func:`offchip_bytes_of`);
 ``block_chunks`` and ``sm_chunks`` count how much of the card B1's
 launches on a split ring (grid or stream tier) hold
-(:func:`count_card_share`).
+(:func:`count_card_share`), and ``prepared_launches`` the B1 launches
+made through a prepared pass (:func:`counter_pass`, the engine's chunk
+loop), which counts each of its launches in the others as the wrapper
+does.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 
@@ -65,6 +69,9 @@ block_chunks = 0
 #: SM-steps the card gave those launches: K steps times the waves of the
 #: rings it holds at once (:func:`rings_at_once`) times its SMs.
 sm_chunks = 0
+#: B1 launches in this process made through a prepared pass
+#: (:func:`counter_pass`); each is counted in ``launches`` too.
+prepared_launches = 0
 
 _LIB = "pdes_multistep_counter"
 _BITS_LIB = "pdes_multistep"
@@ -174,11 +181,18 @@ def count_card_share(B: int, L: int, K: int, dev: torch.device) -> None:
     Asks the card nothing once a length is known, so it never waits for
     the device."""
     global block_chunks, sm_chunks
+    blocks, sms = _card_share(B, L, K, dev)
+    block_chunks += blocks
+    sm_chunks += sms
+
+
+def _card_share(B: int, L: int, K: int, dev) -> tuple[int, int]:
+    """What :func:`count_card_share` adds for that launch: ``(blocks,
+    SM-steps)``, both 0 on one block a ring."""
     blocks = ring_plan(L).blocks
     if blocks == 1:
-        return
-    block_chunks += K * B * blocks
-    sm_chunks += K * -(-B // rings_at_once(L)) * card_sms(dev)
+        return 0, 0
+    return K * B * blocks, K * -(-B // rings_at_once(L)) * card_sms(dev)
 
 
 #: Bytes of the grid workspace of one ring slot: a counter on its own
@@ -266,6 +280,177 @@ def counter_launch(tau_in, tau_out, stats, dcol, tcol, ctr, *, n_v: int,
             int(border_both), int(rebase), int(stale), *_work_args(work),
             _build.stream(dev))
     _build.check(err, "pdes_multistep_counter launch")
+
+
+#: Where the ``min`` plane lies among a launch's six moment planes.
+_MIN = MOMENT_KEYS.index("min")
+_U32 = 0xFFFFFFFF
+
+
+@contextlib.contextmanager
+def counter_pass(tau, seed: int, step0: int, n_steps: int, k_steps: int,
+                 delta_col=None, trial_col=None, *, b0: int = 0, n_v: int,
+                 delta: float, rd_mode: bool = False,
+                 border_both: bool = False, stale: bool = False,
+                 keep: bool = True):
+    """B1 over the chunks of one pass, prepared once: a context yielding a
+    :class:`CounterPass` whose :meth:`~CounterPass.advance` runs the next
+    chunk of ``k_steps`` steps (the last of the ``n_steps`` the remainder)
+    with one launch, which writes τ less each ring's last minimum (the
+    wrapper's ``rebase``: the engine's rebase, taken in B1's last store).
+
+    What :func:`pdes_multistep_counter` does on every call is done here
+    once: the checks, the plan, the Δ and trial columns, two τ buffers
+    that the chunks alternate between (``tau`` itself is only read), one
+    buffer for every chunk's ``(6, k, B)`` moments (one chunk's, reused,
+    where ``keep`` is false), the grid's workspace and the stream; on the
+    card the context holds ``tau``'s device current.  Chunk ``c`` consumes
+    stream steps from ``step0`` plus the steps before it; row ``r`` trial
+    ``b0 + r``, or ``trial_col``'s.  ``seed``, ``step0`` and ``b0`` are
+    taken mod ``2**32``; the rest as :func:`pdes_multistep_counter`.  Each
+    launch is counted as the wrapper counts it, and in
+    :data:`prepared_launches`.  On CPU tensors each chunk calls
+    :func:`pdes_multistep_counter` (its plain version) into the same
+    buffers.
+    """
+    kw = dict(n_v=n_v, delta=delta, rd_mode=rd_mode,
+              border_both=border_both, rebase=True, stale=stale)
+    on_card = tau.device.type == "cuda"
+    with torch.cuda.device(tau.device) if on_card else \
+            contextlib.nullcontext():
+        yield CounterPass(tau, seed, step0, n_steps, k_steps, delta_col,
+                          trial_col, b0, keep, kw)
+
+
+class CounterPass:
+    """A pass of B1 chunks that :func:`counter_pass` has prepared."""
+
+    def __init__(self, tau, seed, step0, n_steps, k_steps, delta_col,
+                 trial_col, b0, keep, kw):
+        _check_tau(tau)
+        B, L = tau.shape
+        if not 1 <= k_steps <= n_steps:
+            raise ValueError(f"need 1 <= k_steps <= n_steps, got k_steps="
+                             f"{k_steps}, n_steps={n_steps}")
+        if kw["n_v"] < 1:
+            raise ValueError(f"n_v must be >= 1, got {kw['n_v']}")
+        for name, col in (("delta_col", delta_col), ("trial_col", trial_col)):
+            if col is not None and tuple(col.shape) != (B, 1):
+                raise ValueError(f"{name} must have shape ({B}, 1), got "
+                                 f"{tuple(col.shape)}")
+        dev = tau.device
+        if dev.type not in ("cpu", "cuda"):
+            raise ValueError(f"unsupported device {dev}")
+        full, rem = divmod(n_steps, k_steps)
+        #: The steps of each chunk, in order.
+        self.sizes = (k_steps,) * full + ((rem,) if rem else ())
+        self._B, self._L, self._n, self._keep = B, L, n_steps, keep
+        self._c, self._step = 0, step0
+        self._seed, self._b0, self._kw = seed & _U32, b0 & _U32, kw
+        self._tau = tau.contiguous()
+        self._out = [torch.empty_like(self._tau) for _ in self.sizes[:2]]
+        # chunk c's (6, k, B) moments start at element _at[c] of _stats
+        self._at = [6 * B * k_steps * c if keep else 0
+                    for c in range(len(self.sizes))]
+        self._stats = torch.empty(6 * B * (n_steps if keep else k_steps),
+                                  dtype=torch.float32, device=dev)
+        self._cols = (delta_col, trial_col)
+        self._on_card = dev.type == "cuda"
+        if not self._on_card:
+            return
+        _refuse_eta_override()
+        check_ring_fits(L)
+        p = ring_plan(L)
+        self._kernel_cols = (
+            None if delta_col is None else
+            delta_col.to(device=dev, dtype=torch.float32).contiguous(),
+            None if trial_col is None else
+            _build.u32_bits(trial_col.to(dev)).contiguous())
+        self._col_ptrs = tuple(None if c is None else c.data_ptr()
+                               for c in self._kernel_cols)
+        self._work = _workspace(dev, B, p.grid) if p.grid > 1 else None
+        self._fn = _lib().pdes_multistep_counter_launch
+        self._plan = (p.warps, p.grid, p.seg, p.keep)
+        self._tail = (kw["n_v"], float(kw["delta"]), int(kw["rd_mode"]),
+                      int(kw["border_both"]), int(kw["rebase"]),
+                      int(kw["stale"]), *_work_args(self._work),
+                      _build.stream(dev))
+        # what each launch adds to the counters, by its steps
+        self._counts = {k: (offchip_bytes_of(B, L, k),
+                            *_card_share(B, L, k, dev))
+                        for k in set(self.sizes)}
+
+    def advance(self):
+        """Run the next chunk: its τ (B, L), one of the pass's buffers, and
+        its last ``min`` moment (B,), a view of the moments' buffer: the
+        shift B1 took from τ."""
+        c = self._c
+        k, at, B = self.sizes[c], self._at[c], self._B
+        tau_in = self._tau if c == 0 else self._out[(c - 1) % 2]
+        tau_out = self._out[c % 2]
+        if self._on_card:
+            self._kernel(tau_in, tau_out, at, k)
+        else:
+            self._plain(tau_in, tau_out, at, k)
+        self._c, self._step = c + 1, self._step + k
+        last = at + (_MIN * k + k - 1) * B
+        return tau_out, self._stats[last:last + B]
+
+    def moments(self) -> dict:
+        """Every step's moments, each a (n_steps, B) plane in step order, in
+        ``MOMENT_KEYS`` order: one reordering copy of the chunks' moments,
+        after the last chunk of a pass that keeps them."""
+        self._check_kept()
+        B, K, n = self._B, self.sizes[0], self._n
+        full = n - n % K
+        out = torch.empty((len(MOMENT_KEYS), n, B), dtype=torch.float32,
+                          device=self._stats.device)
+        out[:, :full].view(-1, full // K, K, B).copy_(
+            self._stats[:6 * B * full].view(full // K, -1, K, B)
+            .transpose(0, 1))
+        if full < n:
+            out[:, full:].copy_(self._slot(6 * B * full, n - full))
+        return dict(zip(MOMENT_KEYS, out.unbind(0)))
+
+    def chunk_moments(self, c: int) -> dict:
+        """Chunk ``c``'s moments as the wrapper returns them: six (k, B)
+        planes of its ``(6, k, B)`` slot."""
+        self._check_kept()
+        return dict(zip(MOMENT_KEYS,
+                        self._slot(self._at[c], self.sizes[c]).unbind(0)))
+
+    def _check_kept(self) -> None:
+        if not self._keep or self._c < len(self.sizes):
+            raise RuntimeError("the moments are read after the last chunk "
+                               "of a pass that keeps them")
+
+    def _slot(self, at: int, k: int) -> torch.Tensor:
+        return self._stats[at:at + 6 * k * self._B].view(6, k, self._B)
+
+    def _plain(self, tau_in, tau_out, at, k) -> None:
+        ctr = torch.tensor([[self._seed, self._step & _U32, self._b0, 0]],
+                           dtype=torch.int64)
+        t, m = pdes_multistep_counter(tau_in, ctr, *self._cols, k_steps=k,
+                                      **self._kw)
+        tau_out.copy_(t)
+        self._slot(at, k).copy_(torch.stack([m[key] for key in MOMENT_KEYS]))
+
+    def _kernel(self, tau_in, tau_out, at, k) -> None:
+        global launches, rebased_launches, offchip_bytes, block_chunks, \
+            sm_chunks, prepared_launches
+        err = self._fn(
+            tau_in.data_ptr(), tau_out.data_ptr(),
+            self._stats.data_ptr() + 4 * at, *self._col_ptrs, self._B,
+            self._L, k, *self._plan, self._seed, self._step & _U32, self._b0,
+            0, *self._tail)
+        _build.check(err, "pdes_multistep_counter launch")
+        offchip, blocks, sms = self._counts[k]
+        launches += 1
+        rebased_launches += 1
+        offchip_bytes += offchip
+        block_chunks += blocks
+        sm_chunks += sms
+        prepared_launches += 1
 
 
 def pdes_multistep(tau, bits, *, n_v: int, delta: float,

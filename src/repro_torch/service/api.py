@@ -269,7 +269,8 @@ _CACHE_ARGS = {"state_bytes_to_host": "bytes_to_host",
 #: counter of ``kernels.pdes_multistep``
 _B1_ARGS = {"b1_offchip_bytes": "offchip_bytes",
             "b1_block_chunks": "block_chunks", "b1_sm_chunks": "sm_chunks",
-            "b1_rebased_launches": "rebased_launches"}
+            "b1_rebased_launches": "rebased_launches",
+            "b1_prepared_launches": "prepared_launches"}
 
 
 def _cache_budget(device: torch.device) -> int | None:
@@ -315,7 +316,8 @@ class SweepService:
     (``b1_offchip_bytes``, counted from the plan), and on a split ring the
     block-steps its launches ran and the SM-steps of the card they held
     (``b1_block_chunks``, ``b1_sm_chunks``: their growth in
-    ``pdes_multistep.block_chunks`` and ``sm_chunks``).
+    ``pdes_multistep.block_chunks`` and ``sm_chunks``), and its launches
+    made through the engine's prepared pass (``b1_prepared_launches``).
     """
 
     def __init__(self, *, device=None, mesh=None, dist=None,

@@ -540,6 +540,7 @@ def test_service_at_2_19_answers_as_a_direct_sweep(dev):
     (args,) = [e["args"] for e in tel.tracer.events if e["name"] == "pass"]
     assert args["b1_tier"] == "grid"
     assert args["b1_rebased_launches"] == pm.launches - before == 3
+    assert args["b1_prepared_launches"] == 3
     assert 4 <= pm.rings_at_once(L)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     assert (args["b1_block_chunks"], args["b1_sm_chunks"]) == (
@@ -621,10 +622,11 @@ def test_service_takes_an_exact_request_past_shared_memory(dev, monkeypatch):
     (args,) = [e["args"] for e in tel.tracer.events if e["name"] == "pass"]
     assert args["b1_tier"] == "stream"
     assert args["b1_offchip_bytes"] == 3 * pm.offchip_bytes_of(4, L, 16)
-    assert args["b1_rebased_launches"] == 3
-    with monkeypatch.context() as mp:
+    assert args["b1_rebased_launches"] == args["b1_prepared_launches"] == 3
+    with monkeypatch.context() as mp:       # each chunk B1's plain version
         mp.setattr(pm, "pdes_multistep_counter",
                    ref.pdes_multistep_counter_ref)
+        mp.setattr(pm.CounterPass, "_kernel", pm.CounterPass._plain)
         plain = run_window_sweep(spec, device=dev).as_dict()
     for got, want in zip(direct["records"], plain["records"]):
         for f in ("u", "u_err", "rate", "rate_err"):
@@ -680,6 +682,54 @@ def test_fused_rebase_equals_the_explicit_loop_on_the_gpu(dev, B, L,
         assert torch.equal(getattr(sa, f), getattr(sb, f)), f
     for f in a._fields:
         assert torch.equal(getattr(a, f), getattr(b, f)), f
+
+
+#: (B, L) of each of B1's tiers for a prepared pass: one block, the grid
+#: at the production ring (22 blocks, two waves of 6 rings), the stream
+#: tier's shortest ring at one row.
+PASS_SHAPES = ((448, 10_000), (8, 1 << 20), (1, tiling.MAX_GRID_RING_L + 32))
+PASS_COUNTERS = ("launches", "rebased_launches", "offchip_bytes",
+                 "block_chunks", "sm_chunks")
+
+
+@pytest.mark.parametrize("stale", [False, True])
+@pytest.mark.parametrize("B,L", PASS_SHAPES)
+def test_prepared_pass_equals_a_chain_of_wrapper_calls(dev, B, L, stale):
+    """B1 prepared once a pass (``counter_pass``) against a chain of public
+    ``pdes_multistep_counter`` calls, each from the last one's τ, over two
+    chunks and a remainder of 5 across the stream's step wrap: each
+    chunk's τ and shift, each chunk's moments and the whole pass's bit for
+    bit; the counters grow by what the chain's grew, the prepared count
+    by its launches; the input τ is never written."""
+    tau, dcol, tcol = _inputs(dev, B, L, seed=39)
+    tau0 = tau.clone()
+    step0 = 2**32 - 20
+    kw = dict(n_v=10 if L == 10_000 else 100, delta=math.inf, stale=stale)
+    before = {c: getattr(pm, c) for c in PASS_COUNTERS}
+    chain, t = [], tau
+    for c, k in enumerate((16, 16, 5)):
+        ctr = torch.tensor([[9, (step0 + 16 * c) & 0xFFFFFFFF, 0, 0]])
+        t, m = pm.pdes_multistep_counter(t, ctr, dcol, tcol, k_steps=k,
+                                         rebase=True, **kw)
+        chain.append((t, m))
+    grew = {c: getattr(pm, c) - before[c] for c in PASS_COUNTERS}
+    assert grew["launches"] == grew["rebased_launches"] == 3
+    before = {c: getattr(pm, c)
+              for c in PASS_COUNTERS + ("prepared_launches",)}
+    with pm.counter_pass(tau, 9, step0, 37, 16, dcol, tcol, **kw) as b1:
+        assert b1.sizes == (16, 16, 5)
+        for t, m in chain:              # a chunk's buffer is the next but
+            got, shift = b1.advance()   # one's: compare it now
+            assert torch.equal(got, t)
+            assert torch.equal(shift, m["min"][-1])
+    assert {c: getattr(pm, c) - before[c] for c in PASS_COUNTERS} == grew
+    assert pm.prepared_launches - before["prepared_launches"] == 3
+    whole = b1.moments()
+    for key in horizon.MOMENT_KEYS:
+        for c, (_, m) in enumerate(chain):
+            assert torch.equal(b1.chunk_moments(c)[key], m[key]), key
+        assert torch.equal(whole[key], torch.cat([m[key] for _, m in chain]))
+    assert torch.equal(tau, tau0)
 
 
 #: (B, L) of each of B1's tiers in the stale window: one block, the grid
@@ -765,8 +815,9 @@ def test_stale_service_at_the_production_ring(dev):
     assert svc.stats.rows_from_state_cache == spec.n_trajectories
     assert responses[1].cached
     args = [e["args"] for e in tel.tracer.events if e["name"] == "pass"]
-    assert [(a["b1_tier"], a["window"], a["b1_rebased_launches"])
-            for a in args] == [("grid", "stale", 4), ("grid", "stale", 4)]
+    assert [(a["b1_tier"], a["window"], a["b1_rebased_launches"],
+             a["b1_prepared_launches"]) for a in args] == [
+        ("grid", "stale", 4, 4), ("grid", "stale", 4, 4)]
     for resp in responses:
         assert resp.error is None
         assert json.dumps(resp.result.as_dict()) == json.dumps(

@@ -136,31 +136,48 @@ def test_backends_agree_within_the_port():
         assert torch.equal(x, y)
 
 
+#: (Δ, trial_base, n_steps) of the fused loop's cases at k_fuse = 8: per-row
+#: Δ with ``inf`` rows or the static Δ, per-row trials or a scalar base,
+#: four chunks and a remainder of 5 or one short chunk (n_steps < k_fuse)
+FUSED_CASES = {"vectors": (DELTAS, TRIALS, 37), "scalars": (None, 7, 37),
+               "short": (DELTAS, -3, 5), "short_static": (None, TRIALS, 5)}
+
+
+def _case(name):
+    d, t, n = FUSED_CASES[name]
+    return (None if d is None else torch.as_tensor(d),
+            torch.as_tensor(t) if isinstance(t, np.ndarray) else t, n)
+
+
+@pytest.mark.parametrize("case", FUSED_CASES)
 @pytest.mark.parametrize("mode", ["run", "run_mean", "burn_in"])
-def test_fused_rebase_agrees_with_the_loops_bitwise(mode):
-    """B1 rebasing in its store (the fused path) against the chunk loop's
-    own amin and subtraction (the reference backend): τ, offset, its
-    compensation and every StepStats field bit for bit, over a remainder
-    chunk, Δ = inf rows and per-row trials, from a resumed state."""
+def test_fused_rebase_agrees_with_the_loops_bitwise(mode, case):
+    """B1 rebasing in its store (the fused path, its pass prepared once)
+    against the chunk loop's own amin and subtraction (the reference
+    backend): τ, offset, its compensation and every StepStats field bit
+    for bit, from a resumed state; the input τ is left as it was."""
     cfg = PDESConfig(L=L, n_v=N_V, delta=3.0)
-    deltas = torch.as_tensor(DELTAS)
-    trials = torch.as_tensor(TRIALS)
+    deltas, trials, n = _case(case)
     outs = []
     for backend in ("reference", "pallas_multistep"):
         eng = PDESEngine(cfg, backend=backend, k_fuse=8, device="cpu")
         st, _ = eng.run(eng.init(len(DELTAS)), 5, 13, deltas=deltas,
                         trial_base=trials)           # a chunk and 5
-        out = getattr(eng, mode)(st, 5, 37, deltas=deltas,
+        tau0 = st.tau.clone()
+        out = getattr(eng, mode)(st, 5, n, deltas=deltas,
                                  trial_base=trials)
+        assert torch.equal(st.tau, tau0)
         outs.append((out, None) if mode == "burn_in" else out)
     (sa, a), (sb, b) = outs
-    assert sa.step == sb.step == 50
+    assert sa.step == sb.step == 13 + n
     for f in ("tau", "offset", "offset_comp"):
         assert torch.equal(getattr(sa, f), getattr(sb, f)), f
     assert float(sb.offset.min()) > 0
     if mode != "burn_in":
         for f in a._fields:
             assert torch.equal(getattr(a, f), getattr(b, f)), f
+        assert a.gvt.shape == ((n, len(DELTAS)) if mode == "run"
+                               else (len(DELTAS),))
 
 
 def test_fused_rebase_equals_the_explicit_loop():
@@ -182,28 +199,30 @@ def test_fused_rebase_equals_the_explicit_loop():
         assert torch.equal(getattr(a, f), getattr(b, f)), f
 
 
+@pytest.mark.parametrize("case", FUSED_CASES)
 @pytest.mark.parametrize("mode", ["run", "run_mean", "burn_in"])
-def test_stale_fused_equals_the_stale_loops_bitwise(mode):
+def test_stale_fused_equals_the_stale_loops_bitwise(mode, case):
     """The stale window on the fused path (B1's plain version, its base the
     ring minimum of each chunk's input τ) against the ``reference`` and
     ``pallas`` engines, whose loops take that base with ``amin``: τ,
     offset, its compensation and every StepStats field bit for bit, from
-    a state burned over a remainder chunk, over several chunks and a
-    remainder, on per-row Δ with ``inf`` rows and per-row trials."""
+    a state burned over a remainder chunk; the input τ is left as it
+    was."""
     cfg = PDESConfig(L=L, n_v=N_V, delta=3.0)
-    deltas = torch.as_tensor(DELTAS)
-    trials = torch.as_tensor(TRIALS)
+    deltas, trials, n = _case(case)
     outs = []
     for backend in ("pallas_multistep", "reference", "pallas"):
         eng = PDESEngine(cfg, backend=backend, window="stale", k_fuse=8,
                          device="cpu")
         st = eng.burn_in(eng.init(len(DELTAS)), 6, 13, deltas=deltas,
                          trial_base=trials)          # a chunk and 5
-        out = getattr(eng, mode)(st, 6, 37, deltas=deltas,
+        tau0 = st.tau.clone()
+        out = getattr(eng, mode)(st, 6, n, deltas=deltas,
                                  trial_base=trials)
+        assert torch.equal(st.tau, tau0)
         outs.append((out, None) if mode == "burn_in" else out)
     (sa, a), *others = outs
-    assert sa.step == 50 and float(sa.offset.min()) > 0
+    assert sa.step == 13 + n and float(sa.offset.min()) > 0
     for sb, b in others:
         for f in ("tau", "offset", "offset_comp"):
             assert torch.equal(getattr(sa, f), getattr(sb, f)), f
@@ -213,7 +232,7 @@ def test_stale_fused_equals_the_stale_loops_bitwise(mode):
     ex = PDESEngine(cfg, backend="pallas_multistep", k_fuse=8, device="cpu")
     st = ex.burn_in(ex.init(len(DELTAS)), 6, 13, deltas=deltas,
                     trial_base=trials)
-    st = ex.burn_in(st, 6, 37, deltas=deltas, trial_base=trials)
+    st = ex.burn_in(st, 6, n, deltas=deltas, trial_base=trials)
     assert not torch.equal(st.tau, sa.tau)          # the windows differ
 
 

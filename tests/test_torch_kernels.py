@@ -150,6 +150,90 @@ def test_plain_version_is_the_wrapper_on_cpu():
     assert all(torch.equal(a[1][k], b[1][k]) for k in th.MOMENT_KEYS)
 
 
+@pytest.mark.parametrize("stale", [False, True])
+@pytest.mark.parametrize("cols", [False, True])
+def test_prepared_pass_equals_a_chain_of_wrapper_calls_on_cpu(cols, stale):
+    """``counter_pass`` on CPU tensors: each chunk's τ and shift, each
+    chunk's moments and the whole pass's in step order equal a chain of
+    wrapper calls bit for bit, over two chunks and a remainder across the
+    stream's step wrap; the input τ is not written; the CPU launches and
+    counts nothing; a pass that keeps no moments (a burn) has none."""
+    B, L = 6, 40
+    tau = torch.as_tensor(_tau(B, L, seed=5))
+    tau0 = tau.clone()
+    dcol = torch.tensor([[0.0], [math.inf], [1.0], [0.5], [math.inf], [3.0]])
+    tcol = torch.tensor([[3], [-1], [0], [7], [2**31], [5]])
+    dcol, tcol, b0 = (dcol, tcol, 0) if cols else (None, None, -2)
+    step0 = 2**32 - 9
+    kw = dict(n_v=3, delta=2.0, stale=stale)
+    chain, t = [], tau
+    for c, k in enumerate((4, 4, 3)):
+        ctr = torch.tensor([[7, (step0 + 4 * c) & 0xFFFFFFFF,
+                             b0 & 0xFFFFFFFF, 0]])
+        t, m = pm.pdes_multistep_counter(t, ctr, dcol, tcol, k_steps=k,
+                                         rebase=True, **kw)
+        chain.append((t, m))
+    counters = ("launches", "rebased_launches", "prepared_launches")
+    before = [getattr(pm, c) for c in counters]
+    with pm.counter_pass(tau, 7, step0, 11, 4, dcol, tcol, b0=b0,
+                         **kw) as b1:
+        assert b1.sizes == (4, 4, 3)
+        with pytest.raises(RuntimeError):
+            b1.moments()                    # before the last chunk
+        for t, m in chain:
+            got, shift = b1.advance()
+            assert torch.equal(got, t)
+            assert torch.equal(shift, m["min"][-1])
+    assert [getattr(pm, c) for c in counters] == before
+    whole = b1.moments()
+    for key in th.MOMENT_KEYS:
+        for c, (_, m) in enumerate(chain):
+            assert torch.equal(b1.chunk_moments(c)[key], m[key]), key
+        assert torch.equal(whole[key], torch.cat([m[key] for _, m in chain]))
+        assert whole[key].shape == (11, B) and whole[key].is_contiguous()
+    assert torch.equal(tau, tau0)
+    with pm.counter_pass(tau, 7, step0, 11, 4, dcol, tcol, b0=b0, keep=False,
+                         **kw) as burn:
+        for t, _ in chain:
+            assert torch.equal(burn.advance()[0], t)
+    with pytest.raises(RuntimeError):
+        burn.moments()
+
+
+def test_a_finished_pass_frees_its_buffers_without_the_collector():
+    """Nothing in a pass refers back to it, so its buffers go when the last
+    reference does, not at the cyclic collector's next run (which, with
+    the host far ahead of the card, would keep many passes' τ buffers)."""
+    import gc
+    import weakref
+    gc.disable()
+    try:
+        with pm.counter_pass(torch.zeros(4, 16), 1, 0, 8, 4, n_v=2,
+                             delta=1.0) as b1:
+            b1.advance()
+            b1.advance()
+        gone = weakref.ref(b1)
+        del b1
+        assert gone() is None
+    finally:
+        gc.enable()
+
+
+def test_prepared_pass_refuses_what_the_wrapper_refuses():
+    B, L = 5, 16
+    kw = dict(n_v=2, delta=1.0)
+    for args, extra in (((torch.zeros(B, L), 0, 0, 4, 5), {}),
+                        ((torch.zeros(B, L), 0, 0, 4, 0), {}),
+                        ((torch.zeros(B, L, dtype=torch.float64), 0, 0, 4,
+                          2), {}),
+                        ((torch.zeros(B, L), 0, 0, 4, 2, torch.zeros(B)),
+                         {}),
+                        ((torch.zeros(B, L), 0, 0, 4, 2), {"n_v": 0})):
+        with pytest.raises(ValueError):
+            with pm.counter_pass(*args, **{**kw, **extra}):
+                pass
+
+
 @pytest.mark.parametrize("rebase", [False, True])
 def test_plain_stale_bounds_every_step_by_the_input_minimum(rebase):
     """``stale=True``: each of the K steps is ``horizon.step_core`` with the

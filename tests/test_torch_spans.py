@@ -263,8 +263,8 @@ def test_spans_name_b1s_tier_and_count_its_device_bytes(monkeypatch):
     tel = tobs.Telemetry(tracer=tobs.TraceRecorder())
     _drain(tel)
     assert pm.offchip_bytes == before        # the CPU's plain version
-    assert [e["args"]["b1_offchip_bytes"] for e in tel.tracer.events
-            if e["name"] == "pass"] == [0, 0, 0]
+    assert [(e["args"]["b1_offchip_bytes"], e["args"]["b1_prepared_launches"])
+            for e in tel.tracer.events if e["name"] == "pass"] == [(0, 0)] * 3
 
 
 def test_pass_spans_count_b1s_stale_launches(monkeypatch):
